@@ -1,0 +1,505 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--n-runs 8] [--reps 5]
+
+Phases, in order, each printing its seconds:
+
+1. card: a CUDA device must be present; prints ``nvidia-smi``'s name and
+   power limit.
+2. build: compiles ``src/repro_torch/csrc/*.cu`` into ``build/kernels`` (one
+   ``nvcc`` per source, all started together) and prints the ``-Xptxas -v``
+   register, shared-memory and spill lines.
+3. kernels: ``coadd_fused`` and ``warp_batch`` against their plain torch
+   versions on the card, at the main path's frame and grid sizes and at
+   edge cases (npix not a multiple of the 32 x 8 block, H != W, rejected
+   slots, a grid partly outside every image, an empty gate, flat offsets
+   past 2**31).  Coadd and tiles are held at atol 2e-2 / rtol 1e-4, the
+   reference's own kernel-vs-oracle tolerance; depth and coverage exactly,
+   except at pixels within 1e-3 px of an image edge, which are counted and
+   printed.
+4. main path: a survey of 2880 frames of 512 x 512 px (the reference
+   survey's geometry), one r-band query at npix 1024, all six methods
+   through ``CoaddEngine.run`` with the fused kernel, exactly one
+   ``coadd_fused`` launch per query; then the map stage alone, the paper's
+   unfused MapReduce: ``mapper.map_batch(use_kernel=True)`` per gated pack
+   of the sql_structured plan, reduced by ``reducer.reduce_local``.  The
+   methods must agree (coadd atol 1e-3, depth equal), as must the fused and
+   unfused results and the engine's plain path (``use_kernel=False``).
+5. measure: each kernel's time on the card (CUDA events, warm), its plain
+   version's, the nearest PyTorch call's (``F.grid_sample`` bilinear, plus a
+   sum for the coadd, which covers only the sampling), and the least time
+   the card could take (bytes over 3.35 TB/s, or fp32 operations over
+   67 TFLOP/s, whichever is larger).
+
+The line before the last is ``{"kernels": [...]}``; the last is the device
+line.  The script exits nonzero, before printing either, on any failure.
+Everything it builds goes to ``build/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+COADD_ATOL, COADD_RTOL = 2e-2, 1e-4     # kernel vs plain (tests/test_kernels.py:30)
+PATH_ATOL = 1e-3                        # across methods and paths (tests/test_coadd_engine.py:26)
+DEVICE = "cuda"                         # the card the script drives
+FLAT_OFFSET_LIMIT = 2**31               # flat element offsets must pass the int32 range
+HBM_BYTES_PER_S = 3.35e12               # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12                  # H100 SXM fp32 outside the tensor cores
+
+# fp32 operations of one sample (one output pixel x one slot), counted from
+# the formula the kernels and their plain versions evaluate, each sin, cos,
+# division, floor and comparison as one: dra (1), sin/cos (2), cosc (4),
+# xi (3), eta (6), sx (5), sy (5), floors and fractions (4), bilinear
+# weights and blend (13), inside test (4), times the accept weight (2).
+# The fused kernel adds both sums (2).  Per output pixel the sky trig is 4;
+# per slot the reference-declination trig and the CD determinant are 7.
+WARP_SAMPLE_OPS = 49
+COADD_SAMPLE_OPS = WARP_SAMPLE_OPS + 2
+PIXEL_OPS = 4
+SLOT_OPS = 7
+
+MAIN_QUERY = dict(band="r", ra_bounds=(37.5, 38.5), dec_bounds=(-0.5, 0.5), npix=1024)
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def require(cond, what):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+@contextlib.contextmanager
+def phase(name):
+    print(f"== phase {name}", flush=True)
+    t0 = time.perf_counter()
+    yield
+    print(f"== phase {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+def cuda_ms(torch, fn, reps):
+    """Mean device time of ``fn`` over ``reps`` warm calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def coadd_bound(n_slots, h, w, q):
+    """Bound of one coadd_fused pass over ``n_slots`` scanned slots."""
+    nbytes = n_slots * (h * w + 8 + 1) * 4 + 4 * q * q * 4  # pixels, wcs, accept; grids + outputs
+    ops = n_slots * q * q * COADD_SAMPLE_OPS + q * q * PIXEL_OPS + n_slots * SLOT_OPS
+    return bound(nbytes, ops)
+
+
+def warp_bound(n, h, w, q):
+    """Bound of one warp_project launch over ``n`` images."""
+    nbytes = n * (h * w + 8 + 1) * 4 + 2 * q * q * 4 + 2 * n * q * q * 4
+    ops = n * q * q * WARP_SAMPLE_OPS + q * q * PIXEL_OPS + n * SLOT_OPS
+    return bound(nbytes, ops)
+
+
+def grid_sample_grid(torch, sky_to_pixel, wcs, grid_ra, grid_dec, h, w):
+    """(N,Q,Q,2) normalized sampling grid of ``F.grid_sample`` (align_corners)."""
+    n = wcs.shape[0]
+    out = torch.empty((n,) + tuple(grid_ra.shape) + (2,), device=wcs.device)
+    for i in range(0, n, 64):
+        wv = wcs[i:i + 64]
+        sx, sy = sky_to_pixel(grid_ra, grid_dec, wv.T.reshape(8, wv.shape[0], 1, 1))
+        out[i:i + 64, ..., 0] = sx / (w - 1) * 2 - 1
+        out[i:i + 64, ..., 1] = sy / (h - 1) * 2 - 1
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n-runs", type=int, default=8,
+                    help="survey epochs of the main path (8 = the reference geometry)")
+    ap.add_argument("--reps", type=int, default=5, help="warm repeats per timing")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    import torch.nn.functional as F
+
+    from repro_torch import CoaddEngine, CoaddQuery, METHODS, SurveyConfig, make_survey
+    from repro_torch.core import mapper, reducer
+    from repro_torch.core.geometry import sky_to_pixel
+    from repro_torch.core.seqfile import pack_structured
+    from repro_torch.kernels import build
+    from repro_torch.kernels.warp import ops as warp_ops
+    from repro_torch.kernels.warp import ref
+
+    dev = torch.device(DEVICE)
+    procs = os.cpu_count() or 1
+
+    # ------------------------------------------------------------ 1 card --
+    with phase("1 card"):
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip()
+        print(smi)
+        print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+              f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+
+    # ----------------------------------------------------------- 2 build --
+    with phase("2 build"):
+        logs = build.build_all()
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
+                    print(f"  [{name}] {line.strip()}")
+        for name in ("warp",):
+            print(f"  loaded {build.library_path(name).relative_to(ROOT)}")
+            build.library(name)
+
+    # --------------------------------------------------------- 3 kernels --
+    edge_flips = []   # (case, kernel, image or -1, row, col)
+
+    def hold(case, kernel, out, cov, out_p, cov_p, h, w, wcs, acc, gra, gdec):
+        """Hold a kernel's (value, coverage) against the plain version's."""
+        near, far = ref.coverage_flips(cov, cov_p, h, w, wcs, acc, gra, gdec)
+        require(not far.any(), f"{case}/{kernel}: {int(far.sum())} coverage pixels "
+                               "differ away from every image edge")
+        keep = ~near
+        err = (out - out_p).abs()
+        ok = err <= COADD_ATOL + COADD_RTOL * out_p.abs()
+        max_err = float(err[keep].max())
+        require(bool(ok[keep].all()), f"{case}/{kernel}: values outside atol {COADD_ATOL} "
+                                      f"rtol {COADD_RTOL}: max {max_err}")
+        require(bool(torch.isfinite(out).all()), f"{case}/{kernel}: non-finite output")
+        for p in near.nonzero().tolist():
+            edge_flips.append((case, kernel) + tuple(p))
+        return max_err, int(near.sum())
+
+    def kernel_case(case, ds, qry, accept, pack_idx, pixels=None):
+        """Run both kernels and both plain versions on one set of operands."""
+        t0 = time.perf_counter()
+        pixels = torch.from_numpy(ds.pixels).to(dev) if pixels is None else pixels
+        wcs = torch.from_numpy(ds.wcs).to(dev)
+        gra, gdec = (torch.from_numpy(a).to(dev) for a in mapper.query_grid_sky(qry))
+        idx = torch.tensor(pack_idx, dtype=torch.int32, device=dev)
+        acc = torch.from_numpy(np.asarray(accept, np.float32)).to(dev)
+        _, cap, h, w = pixels.shape
+        rows = idx.long()
+        flat_wcs = wcs[rows].reshape(-1, 8)
+        flat_acc = acc.reshape(-1)
+        c_k, d_k = warp_ops.coadd_fused(pixels, wcs, idx, acc, gra, gdec)
+        c_p, d_p = ref.coadd_scan_ref(pixels, wcs, idx, acc, gra, gdec)
+        torch.cuda.synchronize()
+        e_c, n_c = hold(case, "coadd_fused", c_k, d_k, c_p, d_p, h, w, flat_wcs, flat_acc,
+                        gra, gdec)
+        # warp_project over the first scanned pack's slots.
+        px0 = pixels[rows[0]]
+        t_k, v_k = warp_ops.warp_batch(px0, wcs[rows[0]], acc[0], gra, gdec)
+        t_p, v_p = ref.warp_batch_ref(px0, wcs[rows[0]], acc[0], gra, gdec)
+        torch.cuda.synchronize()
+        e_t, n_t = 0.0, 0
+        for i in range(cap):
+            e, n = hold(case, f"warp_project[{i}]", t_k[i], v_k[i], t_p[i], v_p[i], h, w,
+                        wcs[rows[0], i:i + 1], acc[0, i:i + 1], gra, gdec)
+            e_t, n_t = max(e_t, e), n_t + n
+        if not float(acc.abs().sum()):
+            require(not c_k.any() and not d_k.any() and not t_k.any() and not v_k.any(),
+                    f"{case}: an empty gate must give exact zeros")
+        print(f"  {case:16s} P,cap,H,W={tuple(pixels.shape)} G={len(pack_idx)} "
+              f"Q={qry.npix} accepted={int((acc != 0).sum())} | coadd_fused "
+              f"max_err={e_c:.3g} edge_flips={n_c} depth_max={float(d_k.max()):.0f} | "
+              f"warp_project max_err={e_t:.3g} edge_flips={n_t} | "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return e_c, e_t, n_c, n_t
+
+    case_err = {"coadd_fused": 0.0, "warp_project": 0.0}
+    case_flips = {"coadd_fused": 0, "warp_project": 0}
+    with phase("3 kernels"):
+        rng = np.random.default_rng(0)
+        # 64 frames of the main path's 512 x 512 size in one structured pack.
+        # Sources are thinned to the main survey's density: rendering holds
+        # one float64 frame per source in a frame.
+        t0 = time.perf_counter()
+        sv = make_survey(SurveyConfig(n_runs=8, n_camcols=1, n_bands=1, n_fields=8,
+                                      height=512, width=512, n_sources=70, seed=82),
+                         processes=procs)
+        ds = pack_structured(sv, 64)
+        ones = ds.valid.astype(np.float32)
+        q_main = CoaddQuery(band="u", ra_bounds=(37.5, 38.5), dec_bounds=(-0.5, 0.5),
+                            npix=1024)
+        cases = [
+            ("main_shapes", ds, q_main, ones, [0]),
+            ("npix_997", ds, CoaddQuery(band="u", ra_bounds=(37.2, 38.7),
+                                        dec_bounds=(-0.3, 0.3), npix=997), ones, [0]),
+            ("rejected_slots", ds, CoaddQuery(band="u", ra_bounds=(37.5, 38.5),
+                                              dec_bounds=(-0.3, 0.3), npix=256),
+             ones * (rng.random(ones.shape) < 0.5), [0]),
+            ("outside_grid", ds, CoaddQuery(band="u", ra_bounds=(36.4, 37.3),
+                                            dec_bounds=(-0.2, 0.7), npix=128), ones, [0]),
+            ("padded_sparse", ds, q_main, np.concatenate([ones, 0 * ones]), [0, 0]),
+            ("empty_gate", ds, q_main, 0 * ones, [0]),
+        ]
+        # H != W, as SDSS frames are (1489 x 2048).
+        sv_wide = make_survey(SurveyConfig(n_runs=2, n_camcols=1, n_bands=1, n_fields=2,
+                                           height=1489, width=2048, n_sources=20, seed=82),
+                              processes=procs)
+        print(f"  rendered the case frames in {time.perf_counter() - t0:.1f} s", flush=True)
+        ds_wide = pack_structured(sv_wide, 4)
+        q_wide = CoaddQuery(band="u", ra_bounds=(37.0, 37.5), dec_bounds=(-0.25, 0.25),
+                            npix=512)
+        wide_ones = ds_wide.valid.astype(np.float32)
+        cases.append(("h1489_w2048", ds_wide, q_wide, wide_ones, [0]))
+        # Flat offsets past the int32 range: the frames sit in the last pack
+        # of a (P, 4, 1489, 2048) layout of 2.2e9 floats.
+        n_big = FLAT_OFFSET_LIMIT // ds_wide.pixels[0].size + 2
+        big = torch.zeros((n_big,) + ds_wide.pixels.shape[1:], dtype=torch.float32,
+                          device=dev)
+        big[-1] = torch.from_numpy(ds_wide.pixels[0]).to(dev)
+        require(big.numel() > FLAT_OFFSET_LIMIT, "offsets_64bit: layout too small")
+        big_ds = type(ds_wide)(**{**ds_wide.__dict__, "wcs": np.repeat(ds_wide.wcs, n_big, 0)})
+        cases.append(("offsets_64bit", big_ds, q_wide, wide_ones, [n_big - 1], big))
+        for case in cases:
+            e_c, e_t, n_c, n_t = kernel_case(*case)
+            case_err["coadd_fused"] = max(case_err["coadd_fused"], e_c)
+            case_err["warp_project"] = max(case_err["warp_project"], e_t)
+            case_flips["coadd_fused"] += n_c
+            case_flips["warp_project"] += n_t
+        del case, cases, big, big_ds, sv, sv_wide, ds, ds_wide
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------- 4 main path --
+    cfg = SurveyConfig(n_runs=args.n_runs, n_camcols=6, n_bands=5, n_fields=12,
+                       height=512, width=512, seed=82)
+    query = CoaddQuery(**MAIN_QUERY)
+    with phase("4 main path"):
+        t0 = time.perf_counter()
+        survey = make_survey(cfg, processes=procs)
+        print(f"  survey: {len(survey)} frames of {cfg.height} x {cfg.width} px "
+              f"(n_runs={cfg.n_runs}{'' if cfg.n_runs == 8 else ', cut from 8'}) "
+              f"rendered in {time.perf_counter() - t0:.1f} s on {procs} processes")
+        eng = CoaddEngine(survey, pack_capacity=64, device=DEVICE)
+        t0 = time.perf_counter()
+        for layout in ("per_file", "unstructured", "structured"):
+            eng.device_dataset(layout)
+        torch.cuda.synchronize()
+        print(f"  packed and uploaded 3 layouts in {time.perf_counter() - t0:.1f} s: "
+              f"resident {eng.resident_bytes / 2**30:.2f} GiB, "
+              f"uploads {eng.pack_upload_count}")
+        torch.cuda.reset_peak_memory_stats()
+
+        # The counted run: every count is 0 just before it and read just after.
+        warp_ops.coadd_fused.launches = 0
+        warp_ops.warp_batch.launches = 0
+        results, query_ms = {}, {}
+        for m in METHODS:
+            times = []
+            for _ in range(args.reps + 1):
+                before = warp_ops.coadd_fused.launches
+                t0 = time.perf_counter()
+                res = eng.run(query, m)
+                times.append((time.perf_counter() - t0) * 1e3)
+                require(warp_ops.coadd_fused.launches - before == 1,
+                        f"{m}: {warp_ops.coadd_fused.launches - before} coadd_fused "
+                        "launches in one query, expected exactly 1")
+            results[m] = res
+            query_ms[m] = statistics.median(times[1:])
+        plan = eng.plan(query, "sql_structured")
+        dsv, idx, accept = eng._scan_operands(plan)
+        gra, gdec = eng._grids(query)
+        unfused_c = torch.zeros_like(gra)
+        unfused_d = torch.zeros_like(gra)
+        gated = [g for g in range(idx.shape[0]) if bool(accept[g].any())]
+        for g in gated:
+            p = int(idx[g])
+            tiles, covs = mapper.map_batch(dsv.pixels[p], dsv.wcs[p], accept[g], gra, gdec,
+                                           use_kernel=True)
+            c, d = reducer.reduce_local(tiles, covs)
+            unfused_c += c
+            unfused_d += d
+        unfused = (unfused_c.cpu().numpy(), unfused_d.cpu().numpy())
+        launches = {"coadd_fused": warp_ops.coadd_fused.launches,
+                    "warp_project": warp_ops.warp_batch.launches}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  main-path launches: {launches}")
+        require(launches["coadd_fused"] == len(METHODS) * (args.reps + 1),
+                "coadd_fused launch count")
+        require(launches["warp_project"] == len(gated) > 0, "warp_project launch count")
+
+        base = results["sql_structured"]
+        require(base.coadd.shape == (query.npix, query.npix), "coadd shape")
+        require(np.isfinite(base.coadd).all() and np.isfinite(base.normalized).all(),
+                "non-finite coadd")
+        require(base.depth.max() > 0, "the query covers nothing")
+        for m, r in results.items():
+            s = r.stats
+            dc = float(np.abs(r.coadd - base.coadd).max())
+            slots = s.packs_scanned * eng.exec_dataset(eng.plan(query, m).layout)[0].capacity
+            print(f"  {m:28s} query_ms={query_ms[m]:.3f} locate_ms={s.t_locate_s * 1e3:.3f} "
+                  f"pass_ms={s.t_map_reduce_s * 1e3:.3f} packs_scanned={s.packs_scanned} "
+                  f"slots_scanned={slots} packs_gated={s.packs_gated} "
+                  f"files_considered={s.files_considered} "
+                  f"files_contributing={s.files_contributing} "
+                  f"us_per_scanned_frame={query_ms[m] * 1e3 / slots:.3f} "
+                  f"max|coadd-sql_structured|={dc:.3g}")
+            require(dc <= PATH_ATOL, f"{m}: coadd differs from sql_structured by {dc}")
+            require(np.array_equal(r.depth, base.depth), f"{m}: depth differs")
+            require(s.files_contributing == base.stats.files_contributing,
+                    f"{m}: files_contributing differs")
+        du = float(np.abs(unfused[0] - base.coadd).max())
+        require(du <= PATH_ATOL, f"unfused map+reduce differs from the fused kernel by {du}")
+        require(np.array_equal(unfused[1], base.depth), "unfused depth differs")
+        print(f"  unfused map_batch(use_kernel=True) + reduce_local over {len(gated)} packs: "
+              f"max|coadd-fused|={du:.3g}, depth equal")
+
+        eng.use_kernel = False
+        t0 = time.perf_counter()
+        plain = eng.run(query, "sql_structured")
+        plain_query_ms = (time.perf_counter() - t0) * 1e3
+        eng.use_kernel = True
+        flat_wcs = dsv.wcs[idx.long()].reshape(-1, 8)
+        flat_acc = accept.reshape(-1).float()
+        near, far = ref.coverage_flips(
+            torch.from_numpy(base.depth).to(dev), torch.from_numpy(plain.depth).to(dev),
+            cfg.height, cfg.width, flat_wcs, flat_acc, gra, gdec)
+        require(not far.any(), f"plain path: {int(far.sum())} depth pixels differ "
+                               "away from every image edge")
+        keep = ~near.cpu().numpy()
+        dp = float(np.abs(plain.coadd - base.coadd)[keep].max())
+        require(dp <= PATH_ATOL, f"plain path coadd differs by {dp}")
+        for p in near.nonzero().tolist():
+            edge_flips.append(("main_path", "engine plain vs kernel", -1) + tuple(p))
+        print(f"  sql_structured use_kernel=False: query_ms={plain_query_ms:.1f}, "
+              f"max|coadd-kernel|={dp:.3g}, edge_flips={int(near.sum())}")
+        print(f"  resident_bytes={eng.resident_bytes} max_memory_allocated={peak}")
+        grid_times = []
+        for _ in range(args.reps):
+            t0 = time.perf_counter()
+            mapper.query_grid_sky(query)
+            grid_times.append((time.perf_counter() - t0) * 1e3)
+        print(f"  host query grid (query_grid_sky, npix {query.npix}, float64 numpy): "
+              f"{statistics.median(grid_times):.1f} ms per query")
+
+    # --------------------------------------------------------- 5 measure --
+    kernels = []
+    with phase("5 measure"):
+        h, w = cfg.height, cfg.width
+        q = query.npix
+        n_slots = idx.shape[0] * dsv.capacity
+        acc_f = accept.float()
+        k_ms = cuda_ms(torch, lambda: warp_ops.coadd_fused(dsv.pixels, dsv.wcs, idx, acc_f,
+                                                           gra, gdec), args.reps)
+        p_ms = cuda_ms(torch, lambda: ref.coadd_scan_ref(dsv.pixels, dsv.wcs, idx, acc_f,
+                                                         gra, gdec), 2)
+        c_k, d_k = warp_ops.coadd_fused(dsv.pixels, dsv.wcs, idx, acc_f, gra, gdec)
+        c_p, d_p = ref.coadd_scan_ref(dsv.pixels, dsv.wcs, idx, acc_f, gra, gdec)
+        near, _ = ref.coverage_flips(d_k, d_p, h, w, flat_wcs, flat_acc, gra, gdec)
+        err = float((c_k - c_p).abs()[~near].max())
+        imgs = dsv.pixels[idx.long()].reshape(-1, 1, h, w)
+        grid = grid_sample_grid(torch, sky_to_pixel, flat_wcs, gra, gdec, h, w)
+        acc_col = flat_acc.reshape(-1, 1, 1, 1)
+
+        def library_coadd():
+            s = F.grid_sample(imgs, grid, mode="bilinear", padding_mode="border",
+                              align_corners=True)
+            return (s * acc_col).sum(0)
+
+        l_ms = cuda_ms(torch, library_coadd, 2)
+        del grid, imgs
+        b_ms, b_by = coadd_bound(n_slots, h, w, q)
+        kernels.append(dict(
+            name="coadd_fused", route="cuda", source="src/repro_torch/csrc/warp.cu",
+            replaces="src/repro/kernels/warp/warp.py:371", launches=launches["coadd_fused"],
+            max_abs_err=max(err, case_err["coadd_fused"]), ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+            library="F.grid_sample bilinear + sum (sampling only)", kernel_ms=k_ms,
+            edge_flips=case_flips["coadd_fused"] + int(near.sum()),
+            shape=f"sql_structured pass: G={idx.shape[0]} packs x 64 slots of {h}x{w}, Q={q}",
+        ))
+
+        g0 = gated[0]
+        p0 = int(idx[g0])
+        px, wv, a0 = dsv.pixels[p0], dsv.wcs[p0], accept[g0].float()
+        k_ms = cuda_ms(torch, lambda: warp_ops.warp_batch(px, wv, a0, gra, gdec), args.reps)
+        p_ms = cuda_ms(torch, lambda: ref.warp_batch_ref(px, wv, a0, gra, gdec), 2)
+        t_k, v_k = warp_ops.warp_batch(px, wv, a0, gra, gdec)
+        t_p, v_p = ref.warp_batch_ref(px, wv, a0, gra, gdec)
+        err, flips = 0.0, 0
+        for i in range(px.shape[0]):
+            near, far = ref.coverage_flips(v_k[i], v_p[i], h, w, wv[i:i + 1], a0[i:i + 1],
+                                           gra, gdec)
+            require(not far.any(), f"warp_project slot {i}: coverage differs off the edges")
+            err = max(err, float((t_k[i] - t_p[i]).abs()[~near].max()))
+            flips += int(near.sum())
+        grid = grid_sample_grid(torch, sky_to_pixel, wv, gra, gdec, h, w)
+        img1 = px.reshape(-1, 1, h, w)
+        l_ms = cuda_ms(torch, lambda: F.grid_sample(img1, grid, mode="bilinear",
+                                                    padding_mode="border",
+                                                    align_corners=True), args.reps)
+        del grid
+        b_ms, b_by = warp_bound(px.shape[0], h, w, q)
+        kernels.append(dict(
+            name="warp_project", route="cuda", source="src/repro_torch/csrc/warp.cu",
+            replaces="src/repro/kernels/warp/warp.py:240", launches=launches["warp_project"],
+            max_abs_err=max(err, case_err["warp_project"]), ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+            library="F.grid_sample bilinear (sampling only)", kernel_ms=k_ms,
+            edge_flips=case_flips["warp_project"] + flips,
+            shape=f"one pack: N={px.shape[0]} frames of {h}x{w}, Q={q}",
+        ))
+        for m in METHODS:
+            m_dev, m_idx, m_acc = eng._scan_operands(eng.plan(query, m))
+            m_acc = m_acc.float()
+            m_ms = cuda_ms(torch, lambda: warp_ops.coadd_fused(
+                m_dev.pixels, m_dev.wcs, m_idx, m_acc, gra, gdec), args.reps)
+            print(f"  coadd_fused pass of {m}: {m_ms:.3f} ms over {m_acc.numel()} slots, "
+                  f"{m_ms / query_ms[m]:.3f} of the query's {query_ms[m]:.1f} ms")
+        for k in kernels:
+            print(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, library "
+                  f"{k['library_ms']:.3f}, bound {k['bound_ms']:.3f} by {k['bound_by']})")
+
+    print(f"edge flips: {len(edge_flips)}; (case, kernel, [image,] row, col) of the first "
+          f"100: {edge_flips[:100]}")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

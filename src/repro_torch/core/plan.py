@@ -1,0 +1,101 @@
+"""Query planning: the host-side half of the plan/execute engine split.
+
+Counterpart of ``repro.core.plan`` (the single-query part).  The paper's
+six methods differ only in how the set of candidate images is located.  A
+`CoaddPlan` captures that job-init product — which layout to scan, the
+static-shape (P, cap) slot gate selecting its candidate slots, and the query
+vector the device-side acceptance test needs — plus the host time spent
+locating (the paper's "construct file splits" phase, Fig. 8).
+
+Sparse execution: a gate also *plans the scan extent*.  `sparse_pack_index`
+derives from a gate the list of pack indices it actually opens, padded up to
+a power-of-two *budget bucket* (capped at P), and the executor scans just
+those packs of the resident layout — map work scales with the packs the
+gate opens instead of P.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.core.query import CoaddQuery
+
+
+@dataclasses.dataclass
+class CoaddPlan:
+    """One planned query: layout + slot gate + query vector + locate stats."""
+
+    method: str
+    layout: str            # "per_file" | "unstructured" | "structured"
+    gate: np.ndarray       # (P, cap) bool — static shape, dynamic values
+    qvec: np.ndarray       # (7,) float32 device-side acceptance vector
+    query: CoaddQuery
+    t_locate_s: float      # host job-init cost (prefilter/index, Fig. 8)
+
+    @property
+    def npix(self) -> int:
+        return self.query.npix
+
+    @property
+    def packs_touched(self) -> int:
+        """Distinct containers the gate opens (§4.1.4 locality statistic)."""
+        return int(self.gate.any(axis=1).sum())
+
+
+def scan_budget(n_gated: int, n_packs: int) -> int:
+    """Scan extent for a gate opening ``n_gated`` of ``n_packs`` packs.
+
+    Buckets to the next power of two (minimum 1, capped at ``n_packs``), as
+    the reference does.  An empty gate still budgets one pack: the executor
+    scans a single all-False slot row, which yields an exact-zero coadd.
+    """
+    if n_packs <= 0:
+        raise ValueError(f"n_packs must be positive, got {n_packs}")
+    n = max(int(n_gated), 1)
+    bucket = 1
+    while bucket < n:
+        bucket <<= 1
+    return min(bucket, n_packs)
+
+
+@dataclasses.dataclass
+class SparseScanIndex:
+    """A gate's padded pack-index vector: which packs to scan, and how many.
+
+    ``pack_idx`` has length ``budget`` (= `scan_budget` bucket); entries past
+    ``n_gated`` are padding (index 0) that the compacted gate masks to
+    all-False, so duplicates contribute exact zeros.
+    """
+
+    pack_idx: np.ndarray   # (budget,) int32 indices into the pack axis
+    n_gated: int           # packs the gate actually opens
+    budget: int            # bucket == len(pack_idx)
+    n_packs: int           # pack count of the layout the gate addresses
+
+    @property
+    def worthwhile(self) -> bool:
+        """Gathering pays only when the bucket is smaller than the layout."""
+        return self.budget < self.n_packs
+
+
+def sparse_pack_index(gate: np.ndarray) -> SparseScanIndex:
+    """Derive the padded pack-index vector a (P, cap) gate opens."""
+    packs = np.nonzero(gate.any(axis=1))[0]
+    n_packs = gate.shape[0]
+    budget = scan_budget(len(packs), n_packs)
+    idx = np.zeros((budget,), np.int32)
+    idx[: len(packs)] = packs[:budget]
+    return SparseScanIndex(idx, len(packs), budget, n_packs)
+
+
+def compact_gate(gate: np.ndarray, sp: SparseScanIndex) -> np.ndarray:
+    """(P, cap) gate -> (budget, cap) gate over the gathered packs.
+
+    Padding rows are forced False so the duplicate pack-0 entries are
+    rejected by the acceptance test.
+    """
+    g = gate[sp.pack_idx].copy()
+    g[sp.n_gated :] = False
+    return g

@@ -1,0 +1,253 @@
+// Hopper (sm_90a) kernels of the warp stage: warp_project and coadd_fused.
+//
+// Replaces the Pallas TPU kernels in src/repro/kernels/warp/warp.py:
+//   warp_project (_warp_kernel)        -> warp_project_kernel
+//   coadd_fused  (_coadd_fused_kernel) -> coadd_fused_kernel
+// Both are built on one __device__ routine, warp_sample, which is what
+// _sky_to_pixel + _bilinear_via_matmul compute: gnomonic sky->pixel per
+// output pixel, an edge-clamped bilinear sample, and the inside mask over
+// [0, W-1] x [0, H-1].  The TPU kernel gathers rows with one-hot matmuls and
+// selects columns with a masked reduction because the TPU has no gather
+// unit; here each thread loads its four neighbours directly through the
+// read-only data path.
+//
+// What bounds them on an H100.  One sample (output pixel x image) is about
+// 50 fp32 operations counted as the formula reads (two accurate trig calls
+// on the RA offset, three divisions, the bilinear blend), against 67 TFLOP/s
+// of fp32 outside the tensor cores; each is one instruction sequence of its
+// own here (sinf alone is tens of instructions), so the kernels sit well
+// above that bound.  coadd_fused reads each scanned frame once (4 bytes per
+// source pixel) and writes two (Q, Q) maps, so it is bounded by operations;
+// warp_project writes 8 bytes per sample (tile and coverage) against ~49
+// operations, under the card's ~20 operations per byte of 3.35 TB/s, so it
+// is bounded by bytes.  The four neighbour loads mostly hit L1/L2:
+// neighbouring output pixels read neighbouring source pixels, and a sample
+// off the image clamps to its edge, one address for a whole warp.  The
+// design cuts what it can without changing the result: sin/cos of the
+// output pixel's declination once per thread, and the per-image terms
+// (sin/cos of the WCS reference declination, the CD determinant) once per
+// image per block, staged in shared memory.
+//
+// coadd_fused is the whole query in ONE launch: one thread owns one output
+// pixel, loops over the G gated packs x cap slots inside the kernel, and
+// keeps both sums in registers — no atomics, a fixed order, and no (N, Q, Q)
+// stack ever written.  As in the reference scan, each pack's partial sum is
+// added to the carry after the pack.  Rejected slots (accept 0) are computed
+// and contribute val * m * 0, exactly as in the reference.
+//
+// Numerics: built WITHOUT --use_fast_math and with -fmad=false, so every
+// product and sum rounds on its own, as in the plain torch version (one
+// elementwise op per torch kernel), and sinf/cosf are the accurate library
+// routines torch.sin/torch.cos also use.  Coordinates are clamped into
+// [-1, W] x [-1, H] (a NaN to -1, by fmaxf) before the float->int conversion
+// (undefined for huge |sx|); the inside test uses the unclamped values.  Flat offsets are 64-bit:
+// P*cap*H*W exceeds 2^31 at survey scale.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr float kDeg2Rad = static_cast<float>(3.14159265358979323846 / 180.0);
+constexpr float kRad2Deg = static_cast<float>(180.0 / 3.14159265358979323846);
+constexpr int kTileX = 32;
+constexpr int kTileY = 8;
+constexpr int kThreads = kTileX * kTileY;
+
+// Per-image terms of the sky->pixel map, shared by every output pixel.
+struct SlotConst {
+  float ra0_r, sin_dec0, cos_dec0, x0, y0, cd11, cd12, cd21, cd22, det, a;
+};
+
+__device__ __forceinline__ SlotConst make_slot(const float* __restrict__ w, float a) {
+  SlotConst c;
+  c.ra0_r = w[0] * kDeg2Rad;
+  const float dec0_r = w[1] * kDeg2Rad;
+  c.sin_dec0 = sinf(dec0_r);
+  c.cos_dec0 = cosf(dec0_r);
+  c.x0 = w[2];
+  c.y0 = w[3];
+  c.cd11 = w[4];
+  c.cd12 = w[5];
+  c.cd21 = w[6];
+  c.cd22 = w[7];
+  c.det = c.cd11 * c.cd22 - c.cd12 * c.cd21;
+  c.a = a;
+  return c;
+}
+
+// One sample: returns val * m and m for the image `img` (H, W) at the output
+// pixel whose sky position gives (ra_r, sin_dec, cos_dec).  Operation order
+// is the reference's (_sky_to_pixel, _bilinear_via_matmul).
+__device__ __forceinline__ void warp_sample(const float* __restrict__ img, int h, int w,
+                                            const SlotConst& c, float ra_r, float sin_dec,
+                                            float cos_dec, float& vm, float& m) {
+  const float dra = ra_r - c.ra0_r;
+  const float cos_dra = cosf(dra);
+  const float sin_dra = sinf(dra);
+  const float cosc = c.sin_dec0 * sin_dec + c.cos_dec0 * cos_dec * cos_dra;
+  const float xi = cos_dec * sin_dra / cosc * kRad2Deg;
+  const float eta = (c.cos_dec0 * sin_dec - c.sin_dec0 * cos_dec * cos_dra) / cosc * kRad2Deg;
+  const float sx = (c.cd22 * xi - c.cd12 * eta) / c.det + c.x0;
+  const float sy = (-c.cd21 * xi + c.cd11 * eta) / c.det + c.y0;
+
+  const float sxc = fminf(fmaxf(sx, -1.0f), static_cast<float>(w));
+  const float syc = fminf(fmaxf(sy, -1.0f), static_cast<float>(h));
+  const float x0f = floorf(sxc);
+  const float y0f = floorf(syc);
+  const float dx = sxc - x0f;
+  const float dy = syc - y0f;
+  const int x0i = static_cast<int>(x0f);
+  const int y0i = static_cast<int>(y0f);
+  const int xa = min(max(x0i, 0), w - 1);
+  const int xb = min(max(x0i + 1, 0), w - 1);
+  const int ya = min(max(y0i, 0), h - 1);
+  const int yb = min(max(y0i + 1, 0), h - 1);
+  const float* r0 = img + static_cast<int64_t>(ya) * w;
+  const float* r1 = img + static_cast<int64_t>(yb) * w;
+  const float v00 = __ldg(r0 + xa);
+  const float v01 = __ldg(r0 + xb);
+  const float v10 = __ldg(r1 + xa);
+  const float v11 = __ldg(r1 + xb);
+  const float val = v00 * (1.0f - dx) * (1.0f - dy) + v01 * dx * (1.0f - dy) +
+                    v10 * (1.0f - dx) * dy + v11 * dx * dy;
+  const bool inside = (sx >= 0.0f) && (sx <= static_cast<float>(w - 1)) && (sy >= 0.0f) &&
+                      (sy <= static_cast<float>(h - 1));
+  // A select, not val * m: the reference's compiled program turns the
+  // product with its converted mask into one, so an uncovered sample is
+  // exactly 0 even where sx is NaN (an empty slot's all-zero WCS).
+  vm = inside ? val : 0.0f;
+  m = inside ? 1.0f : 0.0f;
+}
+
+// Output-pixel coordinates of this thread and the per-pixel trig.
+struct PixelSky {
+  int64_t o;
+  bool live;
+  float ra_r, sin_dec, cos_dec;
+};
+
+__device__ __forceinline__ PixelSky pixel_sky(const float* __restrict__ gra,
+                                              const float* __restrict__ gdec, int q) {
+  PixelSky s;
+  const int col = blockIdx.x * kTileX + threadIdx.x;
+  const int row = blockIdx.y * kTileY + threadIdx.y;
+  s.live = col < q && row < q;
+  s.o = static_cast<int64_t>(row) * q + col;
+  s.ra_r = 0.0f;
+  s.sin_dec = 0.0f;
+  s.cos_dec = 1.0f;
+  if (s.live) {
+    s.ra_r = gra[s.o] * kDeg2Rad;
+    const float dec_r = gdec[s.o] * kDeg2Rad;
+    s.sin_dec = sinf(dec_r);
+    s.cos_dec = cosf(dec_r);
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    warp_project_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
+                        const float* __restrict__ accept, const float* __restrict__ gra,
+                        const float* __restrict__ gdec, float* __restrict__ tile,
+                        float* __restrict__ cov, int n_img, int h, int w, int q) {
+  __shared__ SlotConst slot;
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const PixelSky px = pixel_sky(gra, gdec, q);
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t qq = static_cast<int64_t>(q) * q;
+  for (int n = blockIdx.z; n < n_img; n += gridDim.z) {
+    __syncthreads();  // the previous image's slot is no longer read
+    if (tid == 0) slot = make_slot(wcs + static_cast<int64_t>(n) * 8, accept[n]);
+    __syncthreads();
+    if (px.live) {
+      float vm, m;
+      warp_sample(pixels + n * plane, h, w, slot, px.ra_r, px.sin_dec, px.cos_dec, vm, m);
+      tile[n * qq + px.o] = vm * slot.a;
+      cov[n * qq + px.o] = m * slot.a;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    coadd_fused_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
+                       const int* __restrict__ pack_idx, const float* __restrict__ accept,
+                       const float* __restrict__ gra, const float* __restrict__ gdec,
+                       float* __restrict__ coadd, float* __restrict__ depth, int n_packs,
+                       int cap, int h, int w, int q) {
+  __shared__ SlotConst slots[kThreads];
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const PixelSky px = pixel_sky(gra, gdec, q);
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  float c = 0.0f;
+  float d = 0.0f;
+  for (int g = 0; g < n_packs; ++g) {
+    const int64_t first_slot = static_cast<int64_t>(pack_idx[g]) * cap;
+    float pc = 0.0f;
+    float pd = 0.0f;
+    for (int s0 = 0; s0 < cap; s0 += kThreads) {
+      const int n = min(kThreads, cap - s0);
+      __syncthreads();  // the previous chunk of slots is no longer read
+      if (tid < n) {
+        slots[tid] = make_slot(wcs + (first_slot + s0 + tid) * 8,
+                               accept[static_cast<int64_t>(g) * cap + s0 + tid]);
+      }
+      __syncthreads();
+      if (px.live) {
+        const float* img = pixels + (first_slot + s0) * plane;
+        for (int j = 0; j < n; ++j) {
+          float vm, m;
+          warp_sample(img + j * plane, h, w, slots[j], px.ra_r, px.sin_dec, px.cos_dec, vm, m);
+          pc += vm * slots[j].a;
+          pd += m * slots[j].a;
+        }
+      }
+    }
+    c += pc;
+    d += pd;
+  }
+  if (px.live) {
+    coadd[px.o] = c;
+    depth[px.o] = d;
+  }
+}
+
+dim3 pixel_grid(int q, int z) {
+  return dim3((q + kTileX - 1) / kTileX, (q + kTileY - 1) / kTileY, z);
+}
+
+}  // namespace
+
+// Plain C entry points, loaded with ctypes.  Each launches on `stream` (a
+// cudaStream_t, e.g. torch.cuda.current_stream().cuda_stream) of `device`,
+// does not synchronise, and returns the cudaError_t of the launch.
+
+extern "C" int warp_project_f32(const float* pixels, const float* wcs, const float* accept,
+                                const float* gra, const float* gdec, float* tile, float* cov,
+                                int n_img, int h, int w, int q, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int z = n_img < 65535 ? n_img : 65535;
+  warp_project_kernel<<<pixel_grid(q, z), dim3(kTileX, kTileY), 0,
+                        static_cast<cudaStream_t>(stream)>>>(pixels, wcs, accept, gra, gdec,
+                                                             tile, cov, n_img, h, w, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int coadd_fused_f32(const float* pixels, const float* wcs, const int* pack_idx,
+                               const float* accept, const float* gra, const float* gdec,
+                               float* coadd, float* depth, int n_packs, int cap, int h, int w,
+                               int q, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  coadd_fused_kernel<<<pixel_grid(q, 1), dim3(kTileX, kTileY), 0,
+                       static_cast<cudaStream_t>(stream)>>>(pixels, wcs, pack_idx, accept, gra,
+                                                            gdec, coadd, depth, n_packs, cap, h,
+                                                            w, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* warp_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

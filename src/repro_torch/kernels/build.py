@@ -1,0 +1,118 @@
+"""Build the CUDA sources in ``repro_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
+into its own shared library under ``build/kernels/`` at the repository root
+(listed in ``.gitignore``), on first use.  The library's file name carries a
+hash of the source and the flags, so an edited source rebuilds and an
+unchanged one loads the existing library.  Nothing here runs at import: the
+CPU tests import every module on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+# No --use_fast_math; -fmad=false keeps every product and sum rounded on its
+# own, as in the plain torch versions (see the note in csrc/warp.cu).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+# (argtypes, restype) of every entry point, by source name.  Every pointer
+# and the stream are c_void_p: a bare Python int would be cut to 32 bits.
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    "warp": {
+        # pixels, wcs, accept, gra, gdec, tile, cov, n, h, w, q, device, stream
+        "warp_project_f32": ((_VP,) * 7 + (_I,) * 5 + (_VP,), _I),
+        # pixels, wcs, pack_idx, accept, gra, gdec, coadd, depth,
+        # n_packs, cap, h, w, q, device, stream
+        "coadd_fused_f32": ((_VP,) * 8 + (_I,) * 6 + (_VP,), _I),
+        "warp_error_string": ((_I,), ctypes.c_char_p),
+    },
+}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: on PATH, else under CUDA_HOME (default /usr/local/cuda)."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives for its current content."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every ``csrc/*.cu`` that has no current library, all at once.
+
+    One ``nvcc`` per source, started together.  Returns each source's
+    compiler output (the ``-Xptxas -v`` register, shared-memory and spill
+    lines); raises if any compile fails.
+    """
+    compiler = nvcc()
+    if not os.path.exists(compiler):
+        raise RuntimeError(f"nvcc not found (looked on PATH and at {compiler})")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs: List[tuple] = []
+    for src in sorted(CSRC.glob("*.cu")):
+        out = library_path(src.stem)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.stem}.tmp{os.getpid()}.so")
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src.stem, out, tmp, proc))
+    logs: Dict[str, str] = {}
+    failed = []
+    for name, out, tmp, proc in jobs:
+        logs[name], _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(failed) + ":\n"
+            + "\n".join(logs[n] for n in failed)
+        )
+    return logs
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    path = library_path(name)
+    if not path.exists():
+        build_all()
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero cudaError_t."""
+    if err != 0:
+        msg = lib.warp_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
