@@ -10,13 +10,18 @@ Phases, in order, each printing its seconds:
 2. build: compiles ``src/repro_torch/csrc/*.cu`` into ``build/kernels`` (one
    ``nvcc`` per source, all started together) and prints the ``-Xptxas -v``
    register, shared-memory and spill lines.
-3. kernels: ``coadd_fused`` and ``warp_batch`` against their plain torch
-   versions on the card, at the main path's frame and grid sizes and at
-   edge cases (npix not a multiple of the 32 x 8 block, H != W, rejected
-   slots, a grid partly outside every image, an empty gate, flat offsets
-   past 2**31).  Coadd and tiles are held at atol 2e-2 / rtol 1e-4, the
-   reference's own kernel-vs-oracle tolerance; depth and coverage exactly,
-   except at pixels within 1e-3 px of an image edge, which are counted and
+3. kernels: ``coadd_fused``, ``warp_batch``, ``coadd_moments``,
+   ``coadd_hist`` and ``coadd_clip`` against their plain torch versions on
+   the card, at the main path's frame and grid sizes and at edge cases
+   (npix not a multiple of the 32 x 8 block, H != W, rejected slots, a grid
+   partly outside every image, an empty gate, flat offsets past 2**31, a
+   sigma = 0 stack, an outlier frame).  The robust kernels take the plain
+   version's fixed operands (clip centre and radius, histogram bounds);
+   ``coadd_hist`` is held at every bin count it is built for (8, 16, 32).
+   Values are held at atol 2e-2 / rtol 1e-4, the reference's own
+   kernel-vs-oracle tolerance; depth, coverage and bins exactly, except at
+   pixels where an accepted sample lies within 1e-3 px of an image edge or
+   within 1e-4 (relative) of a clip or bin boundary, which are counted and
    printed.
 4. main path: a survey of 2880 frames of 512 x 512 px (the reference
    survey's geometry), one r-band query at npix 1024, all six methods
@@ -26,11 +31,15 @@ Phases, in order, each printing its seconds:
    of the sql_structured plan, reduced by ``reducer.reduce_local``.  The
    methods must agree (coadd atol 1e-3, depth equal), as must the fused and
    unfused results and the engine's plain path (``use_kernel=False``).
+   Then the robust path: ``reduce="clipped"`` and ``"median"`` for all six
+   methods, exactly 2 and 3 launches per query (moments, [hist,] clip); the
+   methods and the plain path agree at atol 1e-3 with equal depth, except
+   at counted decision flips.
 5. measure: each kernel's time on the card (CUDA events, warm), its plain
-   version's, the nearest PyTorch call's (``F.grid_sample`` bilinear, plus a
-   sum for the coadd, which covers only the sampling), and the least time
-   the card could take (bytes over 3.35 TB/s, or fp32 operations over
-   67 TFLOP/s, whichever is larger).
+   version's, the nearest PyTorch call's (``F.grid_sample`` bilinear over
+   the same samples, plus a sum for the coadd; it covers only the
+   sampling), and the least time the card could take (bytes over
+   3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever is larger).
 
 The line before the last is ``{"kernels": [...]}``; the last is the device
 line.  The script exits nonzero, before printing either, on any failure.
@@ -53,6 +62,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 COADD_ATOL, COADD_RTOL = 2e-2, 1e-4     # kernel vs plain (tests/test_kernels.py:30)
 PATH_ATOL = 1e-3                        # across methods and paths (tests/test_coadd_engine.py:26)
+ROBUST = ("clipped", "median")
+CLIP_K, NBINS = 3.0, 16                 # the engine's defaults
+ROBUST_REPS = 2                         # warm repeats per robust query (2 or 3 passes)
+OUTLIER = 1e4                           # added to one frame of the outlier case
 DEVICE = "cuda"                         # the card the script drives
 FLAT_OFFSET_LIMIT = 2**31               # flat element offsets must pass the int32 range
 HBM_BYTES_PER_S = 3.35e12               # H100 SXM, NVIDIA data sheet
@@ -65,10 +78,22 @@ FP32_OPS_PER_S = 67e12                  # H100 SXM fp32 outside the tensor cores
 # weights and blend (13), inside test (4), times the accept weight (2).
 # The fused kernel adds both sums (2).  Per output pixel the sky trig is 4;
 # per slot the reference-declination trig and the CD determinant are 7.
+# coadd_moments adds vm*vm/m behind a coverage test (3), its product with
+# a (1) and three sums (3); coadd_clip the keep test (m > 0, m*center, the
+# difference, its magnitude, m*thresh, the comparison, the and: 7) and two
+# sums (2), the keep itself being a select; coadd_hist drops vm*a (-1) and
+# adds the sample x behind a coverage test (2), the bin (subtract, scale,
+# floor, NaN test, two clamps, convert: 7) and one add into that bin (1),
+# at any bin count: the kernel's compare-select over every bin is its own
+# cost, not the histogram's.
 WARP_SAMPLE_OPS = 49
 COADD_SAMPLE_OPS = WARP_SAMPLE_OPS + 2
+MOMENTS_SAMPLE_OPS = WARP_SAMPLE_OPS + 7
+CLIP_SAMPLE_OPS = WARP_SAMPLE_OPS + 9
+HIST_SAMPLE_OPS = WARP_SAMPLE_OPS + 9
 PIXEL_OPS = 4
 SLOT_OPS = 7
+KERNELS = ("coadd_fused", "warp_project", "coadd_moments", "coadd_hist", "coadd_clip")
 
 MAIN_QUERY = dict(band="r", ra_bounds=(37.5, 38.5), dec_bounds=(-0.5, 0.5), npix=1024)
 
@@ -111,10 +136,14 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def coadd_bound(n_slots, h, w, q):
-    """Bound of one coadd_fused pass over ``n_slots`` scanned slots."""
-    nbytes = n_slots * (h * w + 8 + 1) * 4 + 4 * q * q * 4  # pixels, wcs, accept; grids + outputs
-    ops = n_slots * q * q * COADD_SAMPLE_OPS + q * q * PIXEL_OPS + n_slots * SLOT_OPS
+def coadd_bound(n_slots, h, w, q, sample_ops=COADD_SAMPLE_OPS, maps=4):
+    """Bound of one pack-scan pass over ``n_slots`` scanned slots.
+
+    ``maps`` counts the (Q, Q) float32 maps read or written: the two grids,
+    the fixed operands and the outputs (4 for coadd_fused).
+    """
+    nbytes = n_slots * (h * w + 8 + 1) * 4 + maps * q * q * 4  # pixels, wcs, accept; maps
+    ops = n_slots * q * q * sample_ops + q * q * PIXEL_OPS + n_slots * SLOT_OPS
     return bound(nbytes, ops)
 
 
@@ -165,6 +194,9 @@ def main(argv=None) -> int:
 
     dev = torch.device(DEVICE)
     procs = os.cpu_count() or 1
+    counted = {"coadd_fused": warp_ops.coadd_fused, "warp_project": warp_ops.warp_batch,
+               "coadd_moments": warp_ops.coadd_moments, "coadd_hist": warp_ops.coadd_hist,
+               "coadd_clip": warp_ops.coadd_clip}
 
     # ------------------------------------------------------------ 1 card --
     with phase("1 card"):
@@ -188,26 +220,85 @@ def main(argv=None) -> int:
             build.library(name)
 
     # --------------------------------------------------------- 3 kernels --
-    edge_flips = []   # (case, kernel, image or -1, row, col)
+    edge_flips = []       # (case, kernel, image or -1, row, col)
+    decision_flips = []   # (case, kernel, row, col)
 
     def hold(case, kernel, out, cov, out_p, cov_p, h, w, wcs, acc, gra, gdec):
         """Hold a kernel's (value, coverage) against the plain version's."""
         near, far = ref.coverage_flips(cov, cov_p, h, w, wcs, acc, gra, gdec)
         require(not far.any(), f"{case}/{kernel}: {int(far.sum())} coverage pixels "
                                "differ away from every image edge")
-        keep = ~near
-        err = (out - out_p).abs()
-        ok = err <= COADD_ATOL + COADD_RTOL * out_p.abs()
-        max_err = float(err[keep].max())
-        require(bool(ok[keep].all()), f"{case}/{kernel}: values outside atol {COADD_ATOL} "
-                                      f"rtol {COADD_RTOL}: max {max_err}")
-        require(bool(torch.isfinite(out).all()), f"{case}/{kernel}: non-finite output")
+        max_err = hold_values(case, kernel, out, out_p, near)
         for p in near.nonzero().tolist():
             edge_flips.append((case, kernel) + tuple(p))
         return max_err, int(near.sum())
 
+    def hold_values(case, kernel, out, out_p, near):
+        """Values at the kernel tolerance, off the ``near`` pixels."""
+        keep = ~near
+        err = (out - out_p).abs()
+        ok = err <= COADD_ATOL + COADD_RTOL * out_p.abs()
+        max_err = float(err[keep].max()) if keep.any() else 0.0
+        require(bool(ok[keep].all()), f"{case}/{kernel}: values outside atol {COADD_ATOL} "
+                                      f"rtol {COADD_RTOL}: max {max_err}")
+        require(bool(torch.isfinite(out).all()), f"{case}/{kernel}: non-finite output")
+        return max_err
+
+    def hold_decisions(case, kernel, diff, scan, **boundaries):
+        """Differing pixels must sit at an image edge or a decision boundary."""
+        near, far = ref.decision_flips(diff, *scan, **boundaries)
+        require(not far.any(), f"{case}/{kernel}: {int(far.sum())} pixels differ away from "
+                               "every image edge and decision boundary")
+        for p in near.nonzero().tolist():
+            decision_flips.append((case, kernel) + tuple(p))
+        return near
+
+    def robust_kernels(case, scan):
+        """coadd_moments, coadd_hist and coadd_clip (both centres) against their
+        plain versions, on the plain version's fixed operands."""
+        errs, flips = {}, {}
+        s_k = warp_ops.coadd_moments(*scan)
+        s_p = ref.moments_scan_ref(*scan)
+        torch.cuda.synchronize()
+        near = hold_decisions(case, "coadd_moments", s_k[0] != s_p[0], scan)
+        errs["coadd_moments"] = max(hold_values(case, "coadd_moments", a, b, near)
+                                    for a, b in zip(s_k, s_p))
+        flips["coadd_moments"] = int(near.sum())
+        mu, sigma = reducer.clip_stats(*s_p)
+        errs["coadd_hist"], flips["coadd_hist"] = 0.0, 0
+        for nbins in warp_ops.HIST_BINS:   # every bin count the kernel is built for
+            lo, bw, inv_w = reducer.hist_bounds(*s_p, nbins)
+            h_k = warp_ops.coadd_hist(*scan, lo, inv_w, nbins)
+            h_p = ref.hist_scan_ref(*scan, lo, inv_w, nbins)
+            torch.cuda.synchronize()
+            near = hold_decisions(case, f"coadd_hist[{nbins}]", (h_k != h_p).any(0), scan,
+                                  bins=(lo, bw, inv_w, nbins))
+            # With 0/1 accept and coverage every sample lands in exactly one bin.
+            require(torch.equal(h_k.sum(0), s_k[0]),
+                    f"{case}/coadd_hist[{nbins}]: bins do not sum to S0")
+            errs["coadd_hist"] = max(errs["coadd_hist"], float((h_k - h_p).abs().max()))
+            flips["coadd_hist"] += int(near.sum())
+            if nbins == NBINS:
+                median = reducer.hist_median(h_p, s_p[0], lo, bw)
+                h_default = h_k
+        centers = {"clipped": mu, "median": median}
+        clipped = {}
+        errs["coadd_clip"], flips["coadd_clip"] = 0.0, 0
+        for red, center in centers.items():
+            thresh = reducer.clip_threshold(center, sigma, CLIP_K)
+            c_k, d_k = warp_ops.coadd_clip(*scan, center, thresh)
+            c_p, d_p = ref.clip_scan_ref(*scan, center, thresh)
+            torch.cuda.synchronize()
+            diff = (d_k != d_p) | ((c_k - c_p).abs() > COADD_ATOL + COADD_RTOL * c_p.abs())
+            near = hold_decisions(case, f"coadd_clip[{red}]", diff, scan, clip=(center, thresh))
+            errs["coadd_clip"] = max(errs["coadd_clip"],
+                                     hold_values(case, f"coadd_clip[{red}]", c_k, c_p, near))
+            flips["coadd_clip"] += int(near.sum())
+            clipped[red] = (c_k, d_k)
+        return errs, flips, s_k, h_default, clipped
+
     def kernel_case(case, ds, qry, accept, pack_idx, pixels=None):
-        """Run both kernels and both plain versions on one set of operands."""
+        """Run every kernel and its plain version on one set of operands."""
         t0 = time.perf_counter()
         pixels = torch.from_numpy(ds.pixels).to(dev) if pixels is None else pixels
         wcs = torch.from_numpy(ds.wcs).to(dev)
@@ -221,30 +312,44 @@ def main(argv=None) -> int:
         c_k, d_k = warp_ops.coadd_fused(pixels, wcs, idx, acc, gra, gdec)
         c_p, d_p = ref.coadd_scan_ref(pixels, wcs, idx, acc, gra, gdec)
         torch.cuda.synchronize()
-        e_c, n_c = hold(case, "coadd_fused", c_k, d_k, c_p, d_p, h, w, flat_wcs, flat_acc,
-                        gra, gdec)
+        errs, flips = {}, {}
+        errs["coadd_fused"], flips["coadd_fused"] = hold(
+            case, "coadd_fused", c_k, d_k, c_p, d_p, h, w, flat_wcs, flat_acc, gra, gdec)
         # warp_project over the first scanned pack's slots.
         px0 = pixels[rows[0]]
         t_k, v_k = warp_ops.warp_batch(px0, wcs[rows[0]], acc[0], gra, gdec)
         t_p, v_p = ref.warp_batch_ref(px0, wcs[rows[0]], acc[0], gra, gdec)
         torch.cuda.synchronize()
-        e_t, n_t = 0.0, 0
+        errs["warp_project"], flips["warp_project"] = 0.0, 0
         for i in range(cap):
             e, n = hold(case, f"warp_project[{i}]", t_k[i], v_k[i], t_p[i], v_p[i], h, w,
                         wcs[rows[0], i:i + 1], acc[0, i:i + 1], gra, gdec)
-            e_t, n_t = max(e_t, e), n_t + n
+            errs["warp_project"] = max(errs["warp_project"], e)
+            flips["warp_project"] += n
+        scan = (pixels, wcs, idx, acc, gra, gdec)
+        r_errs, r_flips, s_k, h_k, clipped = robust_kernels(case, scan)
+        errs.update(r_errs)
+        flips.update(r_flips)
         if not float(acc.abs().sum()):
-            require(not c_k.any() and not d_k.any() and not t_k.any() and not v_k.any(),
+            outs = [c_k, d_k, t_k, v_k, *s_k, h_k] + [t for pair in clipped.values() for t in pair]
+            require(not any(bool(t.any()) for t in outs),
                     f"{case}: an empty gate must give exact zeros")
         print(f"  {case:16s} P,cap,H,W={tuple(pixels.shape)} G={len(pack_idx)} "
-              f"Q={qry.npix} accepted={int((acc != 0).sum())} | coadd_fused "
-              f"max_err={e_c:.3g} edge_flips={n_c} depth_max={float(d_k.max()):.0f} | "
-              f"warp_project max_err={e_t:.3g} edge_flips={n_t} | "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        return e_c, e_t, n_c, n_t
+              f"Q={qry.npix} accepted={int((acc != 0).sum())} depth_max={float(d_k.max()):.0f} "
+              f"| max_err {', '.join(f'{k}={v:.3g}' for k, v in errs.items())} "
+              f"| flips {flips} | {time.perf_counter() - t0:.1f} s", flush=True)
+        return errs, flips, (pixels, wcs, idx, acc, gra, gdec), s_k, clipped
 
-    case_err = {"coadd_fused": 0.0, "warp_project": 0.0}
-    case_flips = {"coadd_fused": 0, "warp_project": 0}
+    case_err = {k: 0.0 for k in KERNELS}
+    case_flips = {k: 0 for k in KERNELS}
+
+    def run_case(*case):
+        errs, flips, *rest = kernel_case(*case)
+        for k in KERNELS:
+            case_err[k] = max(case_err[k], errs[k])
+            case_flips[k] += flips[k]
+        return rest
+
     with phase("3 kernels"):
         rng = np.random.default_rng(0)
         # 64 frames of the main path's 512 x 512 size in one structured pack.
@@ -290,12 +395,56 @@ def main(argv=None) -> int:
         big_ds = type(ds_wide)(**{**ds_wide.__dict__, "wcs": np.repeat(ds_wide.wcs, n_big, 0)})
         cases.append(("offsets_64bit", big_ds, q_wide, wide_ones, [n_big - 1], big))
         for case in cases:
-            e_c, e_t, n_c, n_t = kernel_case(*case)
-            case_err["coadd_fused"] = max(case_err["coadd_fused"], e_c)
-            case_err["warp_project"] = max(case_err["warp_project"], e_t)
-            case_flips["coadd_fused"] += n_c
-            case_flips["warp_project"] += n_t
-        del case, cases, big, big_ds, sv, sv_wide, ds, ds_wide
+            run_case(*case)
+        del case, cases, big, big_ds, sv_wide, ds_wide
+        torch.cuda.empty_cache()
+
+        # Coverage of the main pack's frames on the main grid, plain.
+        gra, gdec = (torch.from_numpy(a).to(dev) for a in mapper.query_grid_sky(q_main))
+        wcs0 = torch.from_numpy(ds.wcs[0]).to(dev)
+        _, cov0 = ref.warp_batch_ref(torch.from_numpy(ds.pixels[0]).to(dev), wcs0,
+                                     torch.from_numpy(ones[0]).to(dev), gra, gdec)
+        depth0 = cov0.sum(0)
+
+        # sigma = 0: every slot holds the same frame, so every pixel's samples
+        # are equal and sigma is at most float32 cancellation noise; the
+        # radius guard must keep every sample, for both estimators, and the
+        # kept sums must be the moments' own (the same sums, bitwise).
+        slot = int(cov0.sum((1, 2)).argmax())
+        same = type(ds)(**{**ds.__dict__,
+                           "pixels": np.ascontiguousarray(np.broadcast_to(
+                               ds.pixels[:1, slot:slot + 1], ds.pixels[:1].shape)),
+                           "wcs": np.ascontiguousarray(np.broadcast_to(
+                               ds.wcs[:1, slot:slot + 1], ds.wcs[:1].shape))})
+        _, s_k, clipped = run_case("sigma_0", same, q_main, ones[:1], [0])
+        require(float(s_k[0].max()) == ones.shape[1], "sigma_0: the stack is not full depth")
+        for red, (c, d) in clipped.items():
+            require(torch.equal(d, s_k[0]) and torch.equal(c, s_k[1]),
+                    f"sigma_0/{red}: the clip removed {int((s_k[0] - d).sum())} samples")
+        print("  sigma_0: every sample kept by both estimators, sums bitwise the moments'")
+
+        # An outlier: the pack and a copy of it in which one frame is raised
+        # by OUTLIER.  Where that frame covers a pixel whose stack is at least
+        # k^2 + 2 = 11 deep, its sample lies beyond k sigma of the mean (and
+        # of the binapprox median) and must be the one sample clipped.
+        # (At 3 to 10 deep a 3-sigma clip cannot reject one outlier of n:
+        # it sits sigma * sqrt(n - 1) from the mean.)
+        k = int(((cov0 > 0) & (2 * depth0 >= 11)).sum((1, 2)).argmax())
+        raised = ds.pixels[:1].copy()
+        raised[0, k] += np.float32(OUTLIER)
+        doubled = type(ds)(**{**ds.__dict__, "pixels": np.concatenate([ds.pixels[:1], raised]),
+                              "wcs": np.concatenate([ds.wcs[:1], ds.wcs[:1]])})
+        _, s_k, clipped = run_case("outlier", doubled, q_main, np.concatenate([ones[:1]] * 2),
+                                   [0, 1])
+        at = (cov0[k] > 0) & (s_k[0] >= 11)
+        require(bool(at.any()), "outlier: no pixel where the outlier frame is 11 deep")
+        for red, (c, d) in clipped.items():
+            require(torch.equal(d[at], s_k[0][at] - 1),
+                    f"outlier/{red}: the clip did not remove exactly the outlier at "
+                    f"{int((d[at] != s_k[0][at] - 1).sum())} of {int(at.sum())} pixels")
+        print(f"  outlier: slot {k} + {OUTLIER:g} clipped at all {int(at.sum())} pixels "
+              f"11 or more deep, by both estimators")
+        del sv, ds, same, doubled, raised, cov0, depth0, s_k, clipped
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------- 4 main path --
@@ -319,8 +468,8 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
 
         # The counted run: every count is 0 just before it and read just after.
-        warp_ops.coadd_fused.launches = 0
-        warp_ops.warp_batch.launches = 0
+        for fn in counted.values():
+            fn.launches = 0
         results, query_ms = {}, {}
         for m in METHODS:
             times = []
@@ -348,13 +497,14 @@ def main(argv=None) -> int:
             unfused_c += c
             unfused_d += d
         unfused = (unfused_c.cpu().numpy(), unfused_d.cpu().numpy())
-        launches = {"coadd_fused": warp_ops.coadd_fused.launches,
-                    "warp_project": warp_ops.warp_batch.launches}
+        launches = {k: fn.launches for k, fn in counted.items()}
         peak = torch.cuda.max_memory_allocated()
         print(f"  main-path launches: {launches}")
         require(launches["coadd_fused"] == len(METHODS) * (args.reps + 1),
                 "coadd_fused launch count")
         require(launches["warp_project"] == len(gated) > 0, "warp_project launch count")
+        require(not any(launches[k] for k in ("coadd_moments", "coadd_hist", "coadd_clip")),
+                "a mean query launched a robust kernel")
 
         base = results["sql_structured"]
         require(base.coadd.shape == (query.npix, query.npix), "coadd shape")
@@ -410,6 +560,93 @@ def main(argv=None) -> int:
         print(f"  host query grid (query_grid_sky, npix {query.npix}, float64 numpy): "
               f"{statistics.median(grid_times):.1f} ms per query")
 
+        # The robust path, counted on its own: every count 0 just before it.
+        for fn in counted.values():
+            fn.launches = 0
+        per_query = {"clipped": {"coadd_moments": 1, "coadd_clip": 1},
+                     "median": {"coadd_moments": 1, "coadd_hist": 1, "coadd_clip": 1}}
+        robust, robust_ms, robust_pass_ms = {}, {}, {}
+        for red in ROBUST:
+            want = {k: per_query[red].get(k, 0) for k in counted}
+            for m in METHODS:
+                times, pass_times = [], []
+                for _ in range(ROBUST_REPS + 1):
+                    before = {k: fn.launches for k, fn in counted.items()}
+                    t0 = time.perf_counter()
+                    res = eng.run(query, m, reduce=red)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    pass_times.append(res.stats.t_map_reduce_s * 1e3)
+                    got = {k: fn.launches - before[k] for k, fn in counted.items()}
+                    require(got == want, f"{m}/{red}: launches {got}, expected {want}")
+                    require(res.stats.dispatches == sum(want.values()),
+                            f"{m}/{red}: {res.stats.dispatches} dispatches")
+                robust[red, m] = res
+                robust_ms[red, m] = statistics.median(times[1:])
+                robust_pass_ms[red, m] = statistics.median(pass_times[1:])
+        robust_launches = {k: fn.launches for k, fn in counted.items()}
+        print(f"  robust-path launches: {robust_launches}")
+        n_q = len(METHODS) * (ROBUST_REPS + 1)
+        require(robust_launches == {"coadd_fused": 0, "warp_project": 0, "coadd_moments": 2 * n_q,
+                                    "coadd_hist": n_q, "coadd_clip": 2 * n_q},
+                "robust launch counts")
+
+        # Each estimator's fixed operands on the sql_structured pass (after
+        # the counted run): they place the decision boundaries the methods
+        # and paths are held against.
+        scan = (dsv.pixels, dsv.wcs, idx, accept.float(), gra, gdec)
+        s_main = warp_ops.coadd_moments(*scan)
+        mu, sigma = reducer.clip_stats(*s_main)
+        lo, bw, inv_w = reducer.hist_bounds(*s_main, NBINS)
+        hist_main = warp_ops.coadd_hist(*scan, lo, inv_w, NBINS)
+        med = reducer.hist_median(hist_main, s_main[0], lo, bw)
+        bounds = {
+            "clipped": dict(clip=(mu, reducer.clip_threshold(mu, sigma, CLIP_K))),
+            "median": dict(clip=(med, reducer.clip_threshold(med, sigma, CLIP_K)),
+                           bins=(lo, bw, inv_w, NBINS)),
+        }
+
+        def hold_path(red, what, r, base):
+            """Two robust results agree: coadd at PATH_ATOL, depth equal, except
+            at pixels with a sample on an image edge or decision boundary."""
+            c, d = (torch.from_numpy(a).to(dev) for a in (r.coadd, r.depth))
+            c0, d0 = (torch.from_numpy(a).to(dev) for a in (base.coadd, base.depth))
+            diff = (d != d0) | ((c - c0).abs() > PATH_ATOL)
+            near, far = ref.decision_flips(diff, *scan, **bounds[red])
+            require(not far.any(), f"{what}/{red}: {int(far.sum())} pixels differ away from "
+                                   "every image edge and decision boundary")
+            for p in near.nonzero().tolist():
+                decision_flips.append(("main_path", f"{what}/{red}") + tuple(p))
+            dc = float((c - c0).abs()[~near].max())
+            require(np.isfinite(r.coadd).all(), f"{what}/{red}: non-finite coadd")
+            return dc, int(near.sum())
+
+        for red in ROBUST:
+            base = robust[red, "sql_structured"]
+            mean_depth = results["sql_structured"].depth
+            require(base.coadd.shape == (query.npix, query.npix), f"{red}: coadd shape")
+            require(np.isfinite(base.normalized).all(), f"{red}: non-finite normalized coadd")
+            require((base.depth <= mean_depth).all() and (base.depth[mean_depth > 0] > 0).all(),
+                    f"{red}: depth outside (0, mean depth]")
+            for m in METHODS:
+                r = robust[red, m]
+                dc, flips = hold_path(red, m, r, base)
+                require(r.stats.files_contributing == base.stats.files_contributing,
+                        f"{m}/{red}: files_contributing differs")
+                require(r.stats.reduce == red and r.stats.reduce_passes == 2 + (red == "median"),
+                        f"{m}/{red}: stats.reduce / reduce_passes")
+                print(f"  {red:7s} {m:28s} query_ms={robust_ms[red, m]:.3f} "
+                      f"pass_ms={robust_pass_ms[red, m]:.3f} "
+                      f"clipped_samples={int(mean_depth.sum() - r.depth.sum())} "
+                      f"max|coadd-sql_structured|={dc:.3g} decision_flips={flips}")
+            eng.use_kernel = False
+            t0 = time.perf_counter()
+            plain_r = eng.run(query, "sql_structured", reduce=red)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            eng.use_kernel = True
+            dc, flips = hold_path(red, "engine plain vs kernel", plain_r, base)
+            print(f"  {red:7s} sql_structured use_kernel=False: query_ms={plain_ms:.1f}, "
+                  f"max|coadd-kernel|={dc:.3g}, decision_flips={flips}")
+
     # --------------------------------------------------------- 5 measure --
     kernels = []
     with phase("5 measure"):
@@ -435,6 +672,10 @@ def main(argv=None) -> int:
             return (s * acc_col).sum(0)
 
         l_ms = cuda_ms(torch, library_coadd, 2)
+        # The robust passes sample the same (slot, pixel) pairs.
+        sample_ms = cuda_ms(torch, lambda: F.grid_sample(imgs, grid, mode="bilinear",
+                                                         padding_mode="border",
+                                                         align_corners=True), 2)
         del grid, imgs
         b_ms, b_by = coadd_bound(n_slots, h, w, q)
         kernels.append(dict(
@@ -477,6 +718,35 @@ def main(argv=None) -> int:
             edge_flips=case_flips["warp_project"] + flips,
             shape=f"one pack: N={px.shape[0]} frames of {h}x{w}, Q={q}",
         ))
+        # The robust kernels on the sql_structured pass, with its own fixed
+        # operands: held against their plain versions, then timed.
+        m_errs, m_flips, *_ = robust_kernels("sql_structured_pass", scan)
+        center, thresh = bounds["clipped"]["clip"]
+        robust_calls = {
+            "coadd_moments": (lambda: warp_ops.coadd_moments(*scan),
+                              lambda: ref.moments_scan_ref(*scan),
+                              MOMENTS_SAMPLE_OPS, 5, 579),
+            "coadd_hist": (lambda: warp_ops.coadd_hist(*scan, lo, inv_w, NBINS),
+                           lambda: ref.hist_scan_ref(*scan, lo, inv_w, NBINS),
+                           HIST_SAMPLE_OPS, 4 + NBINS, 640),
+            "coadd_clip": (lambda: warp_ops.coadd_clip(*scan, center, thresh),
+                           lambda: ref.clip_scan_ref(*scan, center, thresh),
+                           CLIP_SAMPLE_OPS, 6, 606),
+        }
+        for name, (kern, plain, sample_ops, maps, line) in robust_calls.items():
+            k_ms = cuda_ms(torch, kern, args.reps)
+            p_ms = cuda_ms(torch, plain, 2)
+            b_ms, b_by = coadd_bound(n_slots, h, w, q, sample_ops, maps)
+            kernels.append(dict(
+                name=name, route="cuda", source="src/repro_torch/csrc/warp.cu",
+                replaces=f"src/repro/kernels/warp/warp.py:{line}",
+                launches=robust_launches[name], max_abs_err=max(m_errs[name], case_err[name]),
+                ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=sample_ms,
+                library="F.grid_sample bilinear over the pass's samples (sampling only)",
+                kernel_ms=k_ms, decision_flips=case_flips[name] + m_flips[name],
+                shape=f"sql_structured pass: G={idx.shape[0]} packs x 64 slots of {h}x{w}, "
+                      f"Q={q}" + (f", nbins={NBINS}" if name == "coadd_hist" else ""),
+            ))
         for m in METHODS:
             m_dev, m_idx, m_acc = eng._scan_operands(eng.plan(query, m))
             m_acc = m_acc.float()
@@ -490,6 +760,8 @@ def main(argv=None) -> int:
 
     print(f"edge flips: {len(edge_flips)}; (case, kernel, [image,] row, col) of the first "
           f"100: {edge_flips[:100]}")
+    print(f"decision flips: {len(decision_flips)}; (case, kernel, row, col) of the first "
+          f"100: {decision_flips[:100]}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

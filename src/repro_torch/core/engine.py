@@ -20,8 +20,14 @@ the plain torch counterpart of the reference's XLA path (``map_batch`` then
 packs the gate opens, padded to a power-of-two bucket, and reblocks the
 per-file layout into dense super-packs at residency time.
 
-Later slices of the port (batched queries, PSF matching, robust stacks,
-streaming residency) are not here; their arguments raise NotImplementedError.
+Robust stacks (``reduce="clipped" | "median"``, DESIGN.md §11) run the same
+scan as two or three passes: moments, (for the median) a binapprox
+histogram, and a clip re-scan, with the between-pass arithmetic as plain
+torch on the device.  With ``use_kernel=True`` each pass is one launch of
+``coadd_moments``, ``coadd_hist`` or ``coadd_clip``.
+
+Later slices of the port (batched queries, PSF matching, streaming
+residency) are not here; their arguments raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import mapper
+from repro_torch.core import mapper, reducer
 from repro_torch.core.plan import (
     CoaddPlan,
     SparseScanIndex,
@@ -84,6 +90,8 @@ class JobStats:
     packs_gated: int = 0           # execution-layout packs the gate opens
     packs_scanned: int = 0         # packs the pass actually visits
     scan_budget: int = 0           # bucket the pass covers (n_packs if dense)
+    reduce: str = "mean"           # estimator: "mean" | "clipped" | "median"
+    reduce_passes: int = 1         # passes over the gated packs: 1, 2 or 3
 
 
 @dataclasses.dataclass
@@ -144,13 +152,44 @@ def _scan_coadd(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tenso
     return warp_ref.coadd_scan_ref(dev.pixels, dev.wcs, idx, accept, grid_ra, grid_dec)
 
 
+def _robust_passes(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
+                   grid_ra, grid_dec, reduce: str, clip_k: float, median_bins: int,
+                   use_kernel: bool):
+    """A robust estimator's passes over the packs ``idx`` -> (coadd, depth).
+
+    Moments; then, for the median, the histogram bounds, the histogram pass
+    and its median; then the clip radius and the clip pass.  Centre, radius
+    and bounds are fixed (Q, Q) operands computed between passes in plain
+    torch on the device, as the reference computes them in XLA outside its
+    Pallas kernels.  ``use_kernel`` makes each pass one launch of its CUDA
+    kernel; otherwise each pass is the kernel's plain version, which maps
+    and reduces pack by pack and never holds the query's warped stack.
+    """
+    if use_kernel:
+        moments, hist, clip = warp_ops.coadd_moments, warp_ops.coadd_hist, warp_ops.coadd_clip
+    else:
+        moments, hist, clip = (warp_ref.moments_scan_ref, warp_ref.hist_scan_ref,
+                               warp_ref.clip_scan_ref)
+    scan = (dev.pixels, dev.wcs, idx, accept.to(torch.float32), grid_ra, grid_dec)
+    s0, s1, s2 = moments(*scan)
+    mu, sigma = reducer.clip_stats(s0, s1, s2)
+    if reduce == "median":
+        lo, w, inv_w = reducer.hist_bounds(s0, s1, s2, median_bins)
+        center = reducer.hist_median(hist(*scan, lo, inv_w, median_bins), s0, lo, w)
+    else:
+        center = mu
+    return clip(*scan, center, reducer.clip_threshold(center, sigma, clip_k))
+
+
 class CoaddEngine:
     """Plans queries on the host, executes them against resident layouts.
 
     Pixels cross host->device once per layout (`device_dataset`); every
     query is one pass over the gated packs — one ``coadd_fused`` launch with
-    ``use_kernel=True``.  ``device`` defaults to ``"cuda"``; constructing an
-    engine for a CUDA device on a machine without one raises.
+    ``use_kernel=True`` — or, for a robust estimator, two or three passes.
+    ``clip_k`` is the sigma-clip radius and ``median_bins`` the binapprox
+    histogram's resolution.  ``device`` defaults to ``"cuda"``; constructing
+    an engine for a CUDA device on a machine without one raises.
     """
 
     def __init__(
@@ -162,6 +201,8 @@ class CoaddEngine:
         device="cuda",
         match_psf_sigma: Optional[float] = None,
         device_budget_bytes: Optional[int] = None,
+        clip_k: float = 3.0,
+        median_bins: int = 16,
     ):
         if match_psf_sigma is not None:
             raise NotImplementedError("PSF matching is not ported yet")
@@ -173,7 +214,13 @@ class CoaddEngine:
                 "CoaddEngine needs a CUDA device and none is available; "
                 "pass device='cpu' to run the plain torch path"
             )
+        if use_kernel and int(median_bins) not in warp_ops.HIST_BINS:
+            raise ValueError(f"median_bins must be one of {warp_ops.HIST_BINS} with "
+                             f"use_kernel=True (the coadd_hist kernel's builds), "
+                             f"got {median_bins}")
         self.survey = survey
+        self.clip_k = float(clip_k)
+        self.median_bins = int(median_bins)
         self.use_kernel = use_kernel
         self.sparse = sparse
         self.camcol_dec = camcol_dec_table(survey)
@@ -183,7 +230,7 @@ class CoaddEngine:
         self._device_cache: Dict[str, DevicePackedDataset] = {}
         self._pack_capacity = pack_capacity
         self.pack_upload_count = 0   # host->device uploads of whole layouts
-        self.dispatch_count = 0      # executed query passes
+        self.dispatch_count = 0      # executed passes over the gated packs
 
     # ----- dataset layouts (built lazily, cached) -----
     def dataset(self, layout: str) -> PackedDataset:
@@ -240,9 +287,12 @@ class CoaddEngine:
     def plan(self, query: CoaddQuery, method: str, reduce: str = "mean") -> CoaddPlan:
         if method not in METHODS:
             raise ValueError(f"unknown method {method}; expected one of {METHODS}")
-        if reduce != "mean":
-            raise NotImplementedError(f"reduce={reduce!r} is not ported yet")
-        return getattr(self, f"plan_{method}")(query)
+        if reduce not in reducer.REDUCERS:
+            raise ValueError(f"unknown reduce {reduce!r}; expected one of {reducer.REDUCERS}")
+        plan = getattr(self, f"plan_{method}")(query)
+        # Set after the method planner, so all six stay estimator-agnostic.
+        plan.reduce = reduce
+        return plan
 
     def plan_raw_fits(self, query: CoaddQuery) -> CoaddPlan:
         ds = self.dataset("per_file")
@@ -345,8 +395,14 @@ class CoaddEngine:
         grid_ra, grid_dec = self._grids(plan.query)
         t1 = time.perf_counter()
         dev, idx, accept = self._scan_operands(plan)
-        self.dispatch_count += 1
-        coadd, depth = _scan_coadd(dev, idx, accept, grid_ra, grid_dec, self.use_kernel)
+        if plan.reduce == "mean":
+            passes = 1
+            coadd, depth = _scan_coadd(dev, idx, accept, grid_ra, grid_dec, self.use_kernel)
+        else:
+            passes = 3 if plan.reduce == "median" else 2
+            coadd, depth = _robust_passes(dev, idx, accept, grid_ra, grid_dec, plan.reduce,
+                                          self.clip_k, self.median_bins, self.use_kernel)
+        self.dispatch_count += passes
         contrib = int(accept.sum())
         coadd_h, depth_h = coadd.cpu().numpy(), depth.cpu().numpy()
         t2 = time.perf_counter()
@@ -363,13 +419,17 @@ class CoaddEngine:
                 t_locate_s=plan.t_locate_s,
                 t_map_reduce_s=t2 - t1,
                 t_total_s=plan.t_locate_s + (t2 - t1),
-                dispatches=1 if self.use_kernel else n_scanned,
+                dispatches=passes * (1 if self.use_kernel else n_scanned),
                 packs_gated=int(gate.any(axis=1).sum()),
                 packs_scanned=n_scanned,
                 scan_budget=n_scanned,
+                reduce=plan.reduce,
+                reduce_passes=passes,
             ),
         )
 
     def run(self, query: CoaddQuery, method: str, reduce: str = "mean") -> CoaddResult:
-        """Plan + execute one query."""
+        """Plan + execute one query; ``reduce`` picks the estimator (DESIGN.md §11):
+        "mean", "clipped" (k-sigma-clipped mean) or "median" (binapprox
+        median, then a clip about it)."""
         return self.execute(self.plan(query, method, reduce))

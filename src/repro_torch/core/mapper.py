@@ -110,14 +110,15 @@ def project_batch(
     pixels: torch.Tensor,       # (N, H, W)
     wcs_vecs: torch.Tensor,     # (N, 8)
     accept: torch.Tensor,       # (N,)
-    grid_ra: torch.Tensor,      # (Q, Q)
-    grid_dec: torch.Tensor,     # (Q, Q)
+    grid_ra: torch.Tensor,      # (Q, Q), or any shape of sky points
+    grid_dec: torch.Tensor,     # like grid_ra
 ):
     """`project_one` over a batch, written out along a leading image axis."""
     n = pixels.shape[0]
-    sx, sy = sky_to_pixel(grid_ra, grid_dec, wcs_vecs.T.reshape(8, n, 1, 1))
+    lead = (n,) + (1,) * grid_ra.dim()
+    sx, sy = sky_to_pixel(grid_ra, grid_dec, wcs_vecs.T.reshape(8, *lead))
     val, cov = bilinear_sample(pixels, sx, sy)
-    a = accept.to(pixels.dtype).reshape(n, 1, 1)
+    a = accept.to(pixels.dtype).reshape(lead)
     return val * a, cov * a
 
 

@@ -33,6 +33,7 @@ class CoaddPlan:
     qvec: np.ndarray       # (7,) float32 device-side acceptance vector
     query: CoaddQuery
     t_locate_s: float      # host job-init cost (prefilter/index, Fig. 8)
+    reduce: str = "mean"   # estimator: "mean" | "clipped" | "median"
 
     @property
     def npix(self) -> int:

@@ -1,9 +1,17 @@
 """Reduce stage: accumulate projected tiles into coadd + depth.
 
-Counterpart of ``repro.core.reducer`` (the mean path).  Faithful to
-Algorithm 3: sum projected illumination into `coadd` and coverage into
-`depth`.  The accumulation is a commutative monoid, which is why the paper
-could run one serial reducer per query.
+Counterpart of ``repro.core.reducer``.  Faithful to Algorithm 3: sum
+projected illumination into `coadd` and coverage into `depth`.  The
+accumulation is a commutative monoid, which is why the paper could run one
+serial reducer per query.
+
+Robust stacks (DESIGN.md §11) are not monoids, but they decompose into
+monoidal passes: pass 1 accumulates coverage-weighted moments (S0, S1, S2),
+which fix the clip centre and radius (and, for the median, the bounds of a
+binapprox histogram, one more pass); the last pass re-scans with centre and
+radius as fixed operands and sums only the samples that survive.  Each
+function keeps the reference's operation order, so on the same inputs the
+two packages agree bit for bit where the sums run in the same order.
 """
 
 from __future__ import annotations
@@ -11,6 +19,17 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+#: Reduction variants every executor understands (engine ``reduce=`` values).
+REDUCERS = ("mean", "clipped", "median")
+
+# Clip-radius noise guard.  The streaming moments give variance by the
+# single-pass form S2/S0 - mu^2, whose float32 cancellation error scales as
+# sqrt(eps)*|mu|: on a near-constant stack the computed sigma is noise at
+# that scale, and an unguarded k*sigma radius would clip every sample.
+# Samples within 1e-3 of the centre are never outliers.
+_CLIP_REL = 1e-3
+_CLIP_ABS = 1e-12
 
 
 def reduce_local(tiles: torch.Tensor, covs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -28,3 +47,98 @@ def normalize(coadd: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
     return torch.where(
         covered, coadd / torch.where(covered, depth, torch.ones_like(depth)), 0.0
     )
+
+
+# ----- robust stacks: monoidal passes (DESIGN.md §11) -----------------------
+
+def _samples(tiles: torch.Tensor, covs: torch.Tensor) -> torch.Tensor:
+    """Per-image sample values x_i = t_i / c_i (0 where uncovered)."""
+    covered = covs > 0
+    return torch.where(covered, tiles / torch.where(covered, covs, torch.ones_like(covs)), 0.0)
+
+
+def moments_local(tiles: torch.Tensor, covs: torch.Tensor):
+    """Pass-1 monoid: S0 = Σ c_i, S1 = Σ t_i, S2 = Σ x_i t_i over the image axis."""
+    x = _samples(tiles, covs)
+    return covs.sum(dim=0), tiles.sum(dim=0), (x * tiles).sum(dim=0)
+
+
+def clip_stats(s0: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor):
+    """(mean, sigma) per pixel from moment partials; zeros where S0 == 0."""
+    pos = s0 > 0
+    safe = torch.where(pos, s0, torch.ones_like(s0))
+    mu = torch.where(pos, s1 / safe, 0.0)
+    var = torch.clamp_min(torch.where(pos, s2 / safe, 0.0) - mu * mu, 0.0)
+    return mu, torch.sqrt(var)
+
+
+def clip_threshold(center: torch.Tensor, sigma: torch.Tensor, k: float) -> torch.Tensor:
+    """k-sigma clip radius with the ulp guard (see _CLIP_REL/_CLIP_ABS)."""
+    return k * sigma + _CLIP_REL * torch.abs(center) + _CLIP_ABS
+
+
+def clip_local(tiles: torch.Tensor, covs: torch.Tensor, center: torch.Tensor,
+               thresh: torch.Tensor):
+    """Final-pass monoid: accumulate only samples inside the clip window.
+
+    The test is the division-free form |t - c*center| <= c*thresh, as in the
+    reference and in the ``coadd_clip`` kernel: every path tests the same
+    form, so they round the clip decision alike, which the depth parity
+    rides on.
+    """
+    keep = (covs > 0) & (torch.abs(tiles - covs * center) <= covs * thresh)
+    return torch.where(keep, tiles, 0.0).sum(dim=0), torch.where(keep, covs, 0.0).sum(dim=0)
+
+
+def hist_bounds(s0: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor, nbins: int):
+    """Binapprox bin bounds (lo, w, inv_w) from the moments.
+
+    lo = mu - sigma, w = 2 sigma / nbins (the median lies within sigma of
+    the mean).  Only the reciprocal is clamped, so a sigma = 0 stack keeps a
+    true zero width and reports med = lo = mu exactly.
+    """
+    mu, sigma = clip_stats(s0, s1, s2)
+    w = (2.0 * sigma) / nbins
+    return mu - sigma, w, torch.reciprocal(torch.clamp_min(w, 1e-30))
+
+
+def hist_local(tiles: torch.Tensor, covs: torch.Tensor, lo: torch.Tensor,
+               inv_w: torch.Tensor, nbins: int) -> torch.Tensor:
+    """Median round-1 monoid: (nbins, H, W) coverage-weighted histogram.
+
+    One compare-select-sum per bin, as the reference computes it (its scan
+    over bins only tunes XLA's memory use).  The bin index stays a float, as
+    in the ``coadd_hist`` kernels: every finite index matches the
+    reference's, and a NaN sample lands in no bin.
+    """
+    x = _samples(tiles, covs)
+    b = torch.clamp(torch.floor((x - lo) * inv_w), 0, nbins - 1)
+    cw = torch.where(covs > 0, covs, 0.0)
+    return torch.stack([torch.where(b == j, cw, 0.0).sum(dim=0) for j in range(nbins)])
+
+
+def hist_median(hist: torch.Tensor, s0: torch.Tensor, lo: torch.Tensor,
+                w: torch.Tensor) -> torch.Tensor:
+    """Approximate weighted median: first bin whose cumsum crosses S0/2."""
+    c = torch.cumsum(hist, dim=0)
+    j = (c >= 0.5 * s0[None]).to(torch.uint8).argmax(dim=0).to(hist.dtype)
+    return lo + (j + 0.5) * w
+
+
+def robust_local(tiles: torch.Tensor, covs: torch.Tensor, reduce: str = "clipped",
+                 clip_k: float = 3.0, median_bins: int = 16):
+    """Single-shot robust stack of an in-memory (N, H, W) sample stack.
+
+    The eager composition of the passes: moments -> (binapprox histogram for
+    "median") -> clip re-scan, with the passes' own operand math.
+    """
+    s0, s1, s2 = moments_local(tiles, covs)
+    mu, sigma = clip_stats(s0, s1, s2)
+    if reduce == "median":
+        lo, w, inv_w = hist_bounds(s0, s1, s2, median_bins)
+        center = hist_median(hist_local(tiles, covs, lo, inv_w, median_bins), s0, lo, w)
+    elif reduce == "clipped":
+        center = mu
+    else:
+        raise ValueError(f"robust_local: unknown reduce {reduce!r}")
+    return clip_local(tiles, covs, center, clip_threshold(center, sigma, clip_k))

@@ -1,9 +1,12 @@
-// Hopper (sm_90a) kernels of the warp stage: warp_project and coadd_fused.
+// Hopper (sm_90a) kernels of the warp stage.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/warp/warp.py:
-//   warp_project (_warp_kernel)        -> warp_project_kernel
-//   coadd_fused  (_coadd_fused_kernel) -> coadd_fused_kernel
-// Both are built on one __device__ routine, warp_sample, which is what
+//   warp_project  (_warp_kernel)           -> warp_project_kernel
+//   coadd_fused   (_coadd_fused_kernel)    -> pack_scan_kernel<SumAcc>
+//   coadd_moments (_coadd_moments_kernel)  -> pack_scan_kernel<MomentsAcc>
+//   coadd_clip    (_coadd_clip_kernel)     -> pack_scan_kernel<ClipAcc>
+//   coadd_hist    (_coadd_hist_kernel)     -> pack_scan_kernel<HistAcc<nbins>>
+// All are built on one __device__ routine, warp_sample, which is what
 // _sky_to_pixel + _bilinear_via_matmul compute: gnomonic sky->pixel per
 // output pixel, an edge-clamped bilinear sample, and the inside mask over
 // [0, W-1] x [0, H-1].  The TPU kernel gathers rows with one-hot matmuls and
@@ -16,24 +19,29 @@
 // on the RA offset, three divisions, the bilinear blend), against 67 TFLOP/s
 // of fp32 outside the tensor cores; each is one instruction sequence of its
 // own here (sinf alone is tens of instructions), so the kernels sit well
-// above that bound.  coadd_fused reads each scanned frame once (4 bytes per
-// source pixel) and writes two (Q, Q) maps, so it is bounded by operations;
-// warp_project writes 8 bytes per sample (tile and coverage) against ~49
-// operations, under the card's ~20 operations per byte of 3.35 TB/s, so it
-// is bounded by bytes.  The four neighbour loads mostly hit L1/L2:
-// neighbouring output pixels read neighbouring source pixels, and a sample
-// off the image clamps to its edge, one address for a whole warp.  The
-// design cuts what it can without changing the result: sin/cos of the
-// output pixel's declination once per thread, and the per-image terms
-// (sin/cos of the WCS reference declination, the CD determinant) once per
-// image per block, staged in shared memory.
+// above that bound.  The scans read each scanned frame once (4 bytes per
+// source pixel) and write a few (Q, Q) maps, so they are bounded by
+// operations; the robust accumulators add 7 to 9 operations a sample, the
+// histogram 3 per bin (an unrolled compare-and-select).  warp_project
+// writes 8 bytes per sample (tile and coverage) against ~49 operations,
+// under the card's ~20 operations per byte of 3.35 TB/s, so it is bounded
+// by bytes.  The four neighbour loads mostly hit L1/L2: neighbouring output
+// pixels read neighbouring source pixels, and a sample off the image clamps
+// to its edge, one address for a whole warp.  The design cuts what it can
+// without changing the result: sin/cos of the output pixel's declination
+// once per thread, and the per-image terms (sin/cos of the WCS reference
+// declination, the CD determinant) once per image per block, staged in
+// shared memory.
 //
-// coadd_fused is the whole query in ONE launch: one thread owns one output
-// pixel, loops over the G gated packs x cap slots inside the kernel, and
-// keeps both sums in registers — no atomics, a fixed order, and no (N, Q, Q)
-// stack ever written.  As in the reference scan, each pack's partial sum is
-// added to the carry after the pack.  Rejected slots (accept 0) are computed
-// and contribute val * m * 0, exactly as in the reference.
+// A pack scan is one whole pass of a query in ONE launch: one thread owns
+// one output pixel, loops over the G gated packs x cap slots inside the
+// kernel, and keeps its sums in registers: no atomics, a fixed order, and no
+// (N, Q, Q) stack ever written.  As in the reference scan, each pack's
+// partial sums are added to the carry after the pack.  Rejected slots
+// (accept 0) are computed and contribute x * 0, exactly as in the
+// reference.  The four passes differ only in the per-sample accumulator, a
+// template parameter; the robust ones read their fixed (Q, Q) operands
+// (clip centre and radius, histogram bounds) once per thread into registers.
 //
 // Numerics: built WITHOUT --use_fast_math and with -fmad=false, so every
 // product and sum rounds on its own, as in the plain torch version (one
@@ -170,22 +178,153 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ----- per-sample accumulators of the pack scan ---------------------------
+//
+// Each keeps a per-pack partial and the carry in registers.  load() reads
+// the thread's fixed operands (live threads only), add() takes one sample
+// (vm, m) of a slot with accept weight a, end_pack() adds the partial to
+// the carry, store() writes the outputs.  Each add() repeats its Pallas
+// body's arithmetic in the same order.
+
+struct SumAcc {  // coadd_fused: sum a*vm, sum a*m
+  struct Args {
+    float* coadd;
+    float* depth;
+  };
+  float c = 0.0f, d = 0.0f, pc = 0.0f, pd = 0.0f;
+  __device__ void load(const Args&, int64_t) {}
+  __device__ void begin_pack() { pc = pd = 0.0f; }
+  __device__ void add(float vm, float m, float a) {
+    pc += vm * a;
+    pd += m * a;
+  }
+  __device__ void end_pack() {
+    c += pc;
+    d += pd;
+  }
+  __device__ void store(const Args& p, int64_t o) const {
+    p.coadd[o] = c;
+    p.depth[o] = d;
+  }
+};
+
+struct MomentsAcc {  // robust pass 1: S0 = sum a*m, S1 = sum a*vm, S2 = sum a*vm^2/m
+  struct Args {
+    float* s0;
+    float* s1;
+    float* s2;
+  };
+  float s[3] = {0.0f, 0.0f, 0.0f}, p[3] = {0.0f, 0.0f, 0.0f};
+  __device__ void load(const Args&, int64_t) {}
+  __device__ void begin_pack() { p[0] = p[1] = p[2] = 0.0f; }
+  __device__ void add(float vm, float m, float a) {
+    // vm is already mask-scaled, so t^2/c with 0/1 coverage is vm*vm/m.
+    const float s2c = m > 0.0f ? vm * vm / m : 0.0f;
+    p[0] += m * a;
+    p[1] += vm * a;
+    p[2] += s2c * a;
+  }
+  __device__ void end_pack() {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) s[k] += p[k];
+  }
+  __device__ void store(const Args& q, int64_t o) const {
+    q.s0[o] = s[0];
+    q.s1[o] = s[1];
+    q.s2[o] = s[2];
+  }
+};
+
+struct ClipAcc {  // final pass: sums of the samples inside the clip window
+  struct Args {
+    const float* center;
+    const float* thresh;
+    float* coadd;
+    float* depth;
+  };
+  float center = 0.0f, thresh = 0.0f;
+  float c = 0.0f, d = 0.0f, pc = 0.0f, pd = 0.0f;
+  __device__ void load(const Args& p, int64_t o) {
+    center = p.center[o];
+    thresh = p.thresh[o];
+  }
+  __device__ void begin_pack() { pc = pd = 0.0f; }
+  __device__ void add(float vm, float m, float a) {
+    // Division-free: |vm - m*center| <= m*thresh == |vm/m - center| <= thresh
+    // for m > 0, the form every path of the reference tests.
+    const float keep =
+        (m > 0.0f && fabsf(vm - m * center) <= m * thresh) ? 1.0f : 0.0f;
+    pc += vm * keep * a;
+    pd += m * keep * a;
+  }
+  __device__ void end_pack() {
+    c += pc;
+    d += pd;
+  }
+  __device__ void store(const Args& p, int64_t o) const {
+    p.coadd[o] = c;
+    p.depth[o] = d;
+  }
+};
+
+template <int NB>
+struct HistAcc {  // median round 1: hist[b] += a*m at b = clip(floor((x-lo)*inv_w))
+  struct Args {
+    const float* lo;
+    const float* inv_w;
+    float* hist;  // (NB, Q, Q)
+    int64_t qq;
+  };
+  float lo = 0.0f, inv_w = 0.0f;
+  float h[NB] = {}, ph[NB] = {};
+  __device__ void load(const Args& p, int64_t o) {
+    lo = p.lo[o];
+    inv_w = p.inv_w[o];
+  }
+  __device__ void begin_pack() {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) ph[j] = 0.0f;
+  }
+  __device__ void add(float vm, float m, float a) {
+    const float x = m > 0.0f ? vm / m : 0.0f;
+    const float t = floorf((x - lo) * inv_w);
+    const float wgt = m * a;
+    // Clamp in float, as jnp.clip does, then convert: converting an inf is
+    // undefined.  A NaN lands in no bin (b == j is false for every j in the
+    // reference), and fminf/fmaxf would map it to a bin, so it is skipped.
+    if (t != t) return;
+    const int b = static_cast<int>(fminf(fmaxf(t, 0.0f), static_cast<float>(NB - 1)));
+    // Unrolled compare-and-select over the bins, the reference's static bin
+    // loop: h[] stays in registers (a runtime index would put it in local
+    // memory).  wgt * (b == j) adds +0 to every other bin, a no-op.
+#pragma unroll
+    for (int j = 0; j < NB; ++j) ph[j] += (b == j) ? wgt : 0.0f;
+  }
+  __device__ void end_pack() {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) h[j] += ph[j];
+  }
+  __device__ void store(const Args& p, int64_t o) const {
+#pragma unroll
+    for (int j = 0; j < NB; ++j) p.hist[j * p.qq + o] = h[j];
+  }
+};
+
+template <class Acc>
 __global__ void __launch_bounds__(kThreads)
-    coadd_fused_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
-                       const int* __restrict__ pack_idx, const float* __restrict__ accept,
-                       const float* __restrict__ gra, const float* __restrict__ gdec,
-                       float* __restrict__ coadd, float* __restrict__ depth, int n_packs,
-                       int cap, int h, int w, int q) {
+    pack_scan_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
+                     const int* __restrict__ pack_idx, const float* __restrict__ accept,
+                     const float* __restrict__ gra, const float* __restrict__ gdec,
+                     const typename Acc::Args args, int n_packs, int cap, int h, int w, int q) {
   __shared__ SlotConst slots[kThreads];
   const int tid = threadIdx.y * kTileX + threadIdx.x;
   const PixelSky px = pixel_sky(gra, gdec, q);
   const int64_t plane = static_cast<int64_t>(h) * w;
-  float c = 0.0f;
-  float d = 0.0f;
+  Acc acc;
+  if (px.live) acc.load(args, px.o);
   for (int g = 0; g < n_packs; ++g) {
     const int64_t first_slot = static_cast<int64_t>(pack_idx[g]) * cap;
-    float pc = 0.0f;
-    float pd = 0.0f;
+    acc.begin_pack();
     for (int s0 = 0; s0 < cap; s0 += kThreads) {
       const int n = min(kThreads, cap - s0);
       __syncthreads();  // the previous chunk of slots is no longer read
@@ -199,22 +338,29 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < n; ++j) {
           float vm, m;
           warp_sample(img + j * plane, h, w, slots[j], px.ra_r, px.sin_dec, px.cos_dec, vm, m);
-          pc += vm * slots[j].a;
-          pd += m * slots[j].a;
+          acc.add(vm, m, slots[j].a);
         }
       }
     }
-    c += pc;
-    d += pd;
+    acc.end_pack();
   }
-  if (px.live) {
-    coadd[px.o] = c;
-    depth[px.o] = d;
-  }
+  if (px.live) acc.store(args, px.o);
 }
 
 dim3 pixel_grid(int q, int z) {
   return dim3((q + kTileX - 1) / kTileX, (q + kTileY - 1) / kTileY, z);
+}
+
+template <class Acc>
+int launch_scan(const float* pixels, const float* wcs, const int* pack_idx, const float* accept,
+                const float* gra, const float* gdec, const typename Acc::Args& args,
+                int n_packs, int cap, int h, int w, int q, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pack_scan_kernel<Acc><<<pixel_grid(q, 1), dim3(kTileX, kTileY), 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      pixels, wcs, pack_idx, accept, gra, gdec, args, n_packs, cap, h, w, q);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -239,13 +385,49 @@ extern "C" int coadd_fused_f32(const float* pixels, const float* wcs, const int*
                                const float* accept, const float* gra, const float* gdec,
                                float* coadd, float* depth, int n_packs, int cap, int h, int w,
                                int q, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  coadd_fused_kernel<<<pixel_grid(q, 1), dim3(kTileX, kTileY), 0,
-                       static_cast<cudaStream_t>(stream)>>>(pixels, wcs, pack_idx, accept, gra,
-                                                            gdec, coadd, depth, n_packs, cap, h,
-                                                            w, q);
-  return static_cast<int>(cudaGetLastError());
+  return launch_scan<SumAcc>(pixels, wcs, pack_idx, accept, gra, gdec, {coadd, depth}, n_packs,
+                             cap, h, w, q, device, stream);
+}
+
+extern "C" int coadd_moments_f32(const float* pixels, const float* wcs, const int* pack_idx,
+                                 const float* accept, const float* gra, const float* gdec,
+                                 float* s0, float* s1, float* s2, int n_packs, int cap, int h,
+                                 int w, int q, int device, void* stream) {
+  return launch_scan<MomentsAcc>(pixels, wcs, pack_idx, accept, gra, gdec, {s0, s1, s2},
+                                 n_packs, cap, h, w, q, device, stream);
+}
+
+extern "C" int coadd_clip_f32(const float* pixels, const float* wcs, const int* pack_idx,
+                              const float* accept, const float* gra, const float* gdec,
+                              const float* center, const float* thresh, float* coadd,
+                              float* depth, int n_packs, int cap, int h, int w, int q,
+                              int device, void* stream) {
+  return launch_scan<ClipAcc>(pixels, wcs, pack_idx, accept, gra, gdec,
+                              {center, thresh, coadd, depth}, n_packs, cap, h, w, q, device,
+                              stream);
+}
+
+// nbins must be one of 8, 16, 32 (the wrapper checks); any other value
+// returns cudaErrorInvalidValue and launches nothing.
+extern "C" int coadd_hist_f32(const float* pixels, const float* wcs, const int* pack_idx,
+                              const float* accept, const float* gra, const float* gdec,
+                              const float* lo, const float* inv_w, float* hist, int nbins,
+                              int n_packs, int cap, int h, int w, int q, int device,
+                              void* stream) {
+  const int64_t qq = static_cast<int64_t>(q) * q;
+#define HIST_CASE(NB)                                                                      \
+  case NB:                                                                                 \
+    return launch_scan<HistAcc<NB>>(pixels, wcs, pack_idx, accept, gra, gdec,              \
+                                    {lo, inv_w, hist, qq}, n_packs, cap, h, w, q, device,  \
+                                    stream);
+  switch (nbins) {
+    HIST_CASE(8)
+    HIST_CASE(16)
+    HIST_CASE(32)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef HIST_CASE
 }
 
 extern "C" const char* warp_error_string(int code) {

@@ -42,6 +42,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # pixels, wcs, pack_idx, accept, gra, gdec, coadd, depth,
         # n_packs, cap, h, w, q, device, stream
         "coadd_fused_f32": ((_VP,) * 8 + (_I,) * 6 + (_VP,), _I),
+        # ... gra, gdec, s0, s1, s2, n_packs, ...
+        "coadd_moments_f32": ((_VP,) * 9 + (_I,) * 6 + (_VP,), _I),
+        # ... gra, gdec, center, thresh, coadd, depth, n_packs, ...
+        "coadd_clip_f32": ((_VP,) * 10 + (_I,) * 6 + (_VP,), _I),
+        # ... gra, gdec, lo, inv_w, hist, nbins, n_packs, ...
+        "coadd_hist_f32": ((_VP,) * 9 + (_I,) * 7 + (_VP,), _I),
         "warp_error_string": ((_I,), ctypes.c_char_p),
     },
 }

@@ -93,15 +93,8 @@ def warp_batch(pixels, wcs_vecs, accepts, grid_ra, grid_dec):
 warp_batch.launches = 0
 
 
-def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
-    """The whole query's map+reduce in ONE launch -> (Q,Q) coadd and depth.
-
-    ``pixels`` (P,cap,H,W) and ``wcs_vecs`` (P,cap,8) are the resident
-    layout, ``pack_idx`` (G,) int32 the packs to scan (``arange(P)`` when
-    dense), ``accept`` (G,cap) float32 the per-slot weights (acceptance AND
-    gate).  Each pack's partial sum is added to the carry in ``pack_idx``
-    order, as the reference scan does.
-    """
+def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
+    """Check a pack scan's operands -> (g, cap, h, w, q)."""
     dev = pixels.device
     _require(pixels, "pixels", torch.float32, 4, dev)
     n_packs, cap, h, w = pixels.shape
@@ -123,21 +116,118 @@ def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
     lo, hi = (int(v) for v in torch.aminmax(pack_idx))
     if lo < 0 or hi >= n_packs:
         raise IndexError(f"pack_idx spans [{lo}, {hi}], layout has {n_packs} packs")
-    if dev.type == "cpu":
-        return ref.coadd_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec)
-    index, stream = _launch_args(dev)
+    return g, cap, h, w, q
+
+
+def _check_fixed(q, device, **operands):
+    """The robust passes' fixed per-pixel operands: (Q,Q) float32 each."""
+    for name, t in operands.items():
+        _require(t, name, torch.float32, 2, device)
+        if t.shape != (q, q):
+            raise ValueError(f"{name} must be ({q}, {q}), got {tuple(t.shape)}")
+
+
+def _launch_scan(entry, scan, dims, outputs, *extra_ints):
+    """Launch the pack-scan entry point ``entry`` of csrc/warp.cu.
+
+    ``scan`` is the operands (pixels, wcs_vecs, pack_idx, accept, grid_ra,
+    grid_dec) followed by the fixed (Q,Q) operands, ``dims`` (g, cap, h, w, q).
+    """
+    index, stream = _launch_args(scan[0].device)
     lib = build.library("warp")
-    coadd = torch.empty((q, q), dtype=torch.float32, device=dev)
-    depth = torch.empty((q, q), dtype=torch.float32, device=dev)
-    err = lib.coadd_fused_f32(
-        pixels.data_ptr(), wcs_vecs.data_ptr(), pack_idx.data_ptr(),
-        accept.data_ptr(), grid_ra.data_ptr(), grid_dec.data_ptr(),
-        coadd.data_ptr(), depth.data_ptr(),
-        g, cap, h, w, q, index, stream,
+    err = getattr(lib, entry)(
+        *(t.data_ptr() for t in scan), *(t.data_ptr() for t in outputs),
+        *extra_ints, *dims, index, stream,
     )
-    build.check(lib, err, "coadd_fused launch")
+    build.check(lib, err, f"{entry} launch")
+
+
+def _empty(shape, like):
+    return torch.empty(shape, dtype=torch.float32, device=like.device)
+
+
+def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
+    """The whole query's map+reduce in ONE launch -> (Q,Q) coadd and depth.
+
+    ``pixels`` (P,cap,H,W) and ``wcs_vecs`` (P,cap,8) are the resident
+    layout, ``pack_idx`` (G,) int32 the packs to scan (``arange(P)`` when
+    dense), ``accept`` (G,cap) float32 the per-slot weights (acceptance AND
+    gate).  Each pack's partial sum is added to the carry in ``pack_idx``
+    order, as the reference scan does.
+    """
+    scan = (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec)
+    dims = _check_scan(*scan)
+    if pixels.device.type == "cpu":
+        return ref.coadd_scan_ref(*scan)
+    out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
+    _launch_scan("coadd_fused_f32", scan, dims, out)
     coadd_fused.launches += 1
-    return coadd, depth
+    return out
 
 
 coadd_fused.launches = 0
+
+
+def coadd_moments(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
+    """Robust pass 1 in ONE launch -> (S0, S1, S2), each (Q,Q).
+
+    S0 = Σ a·m, S1 = Σ a·vm, S2 = Σ a·vm²/m (m > 0) over every scanned slot;
+    operands as `coadd_fused`.
+    """
+    scan = (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec)
+    dims = _check_scan(*scan)
+    if pixels.device.type == "cpu":
+        return ref.moments_scan_ref(*scan)
+    out = tuple(_empty(grid_ra.shape, pixels) for _ in range(3))
+    _launch_scan("coadd_moments_f32", scan, dims, out)
+    coadd_moments.launches += 1
+    return out
+
+
+coadd_moments.launches = 0
+
+
+def coadd_clip(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, thresh):
+    """Robust final pass in ONE launch -> (coadd, depth) of the kept samples.
+
+    A sample is kept where m > 0 and |vm - m·center| <= m·thresh; ``center``
+    and ``thresh`` are (Q,Q) float32, the other operands as `coadd_fused`.
+    """
+    scan = (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec)
+    dims = _check_scan(*scan)
+    _check_fixed(dims[-1], pixels.device, center=center, thresh=thresh)
+    if pixels.device.type == "cpu":
+        return ref.clip_scan_ref(*scan, center, thresh)
+    out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
+    _launch_scan("coadd_clip_f32", scan + (center, thresh), dims, out)
+    coadd_clip.launches += 1
+    return out
+
+
+coadd_clip.launches = 0
+
+#: Bin counts the ``coadd_hist`` kernel is built for (a template parameter).
+HIST_BINS = (8, 16, 32)
+
+
+def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w, nbins=16):
+    """Median round 1 in ONE launch -> (nbins,Q,Q) coverage-weighted histogram.
+
+    Each sample adds a·m to bin clip(floor((vm/m - lo)·inv_w), 0, nbins-1);
+    ``lo`` and ``inv_w`` are (Q,Q) float32, ``nbins`` one of `HIST_BINS`,
+    the other operands as `coadd_fused`.
+    """
+    if nbins not in HIST_BINS:
+        raise ValueError(f"nbins must be one of {HIST_BINS}, got {nbins}")
+    scan = (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec)
+    dims = _check_scan(*scan)
+    _check_fixed(dims[-1], pixels.device, lo=lo, inv_w=inv_w)
+    if pixels.device.type == "cpu":
+        return ref.hist_scan_ref(*scan, lo, inv_w, nbins)
+    out = _empty((nbins,) + tuple(grid_ra.shape), pixels)
+    _launch_scan("coadd_hist_f32", scan + (lo, inv_w), dims, (out,), nbins)
+    coadd_hist.launches += 1
+    return out
+
+
+coadd_hist.launches = 0

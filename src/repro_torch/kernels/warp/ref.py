@@ -11,11 +11,16 @@ import torch
 
 from repro_torch.core import reducer
 from repro_torch.core.geometry import sky_to_pixel
-from repro_torch.core.mapper import map_batch, project_one
+from repro_torch.core.mapper import map_batch, project_batch, project_one
 
 #: Distance (px) from an image edge within which a one-ulp difference in
 #: sx or sy may flip the inside test; depth is held exactly everywhere else.
 EDGE_TOL = 1e-3
+#: Relative distance from a clip or bin boundary within which a sample's
+#: decision may flip between two correct versions: their samples differ by
+#: a few ulps, and across pack layouts the sums S1, S2 (and so the centre,
+#: radius and bins) differ by rounding.
+DECISION_TOL = 1e-4
 
 
 def warp_project_ref(image, wcs_vec, accept, grid_ra, grid_dec):
@@ -33,23 +38,73 @@ def coadd_fused_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec):
     return reducer.reduce_local(*warp_batch_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec))
 
 
-def coadd_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
-    """The whole query scan, plain, on the `coadd_fused` kernel's operands.
+def coadd_moments_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec):
+    """Robust pass 1 over (N,H,W) images -> (S0, S1, S2).
+
+    With accept and coverage both 0 or 1, as on this path, the reducer's
+    S2 term x*t = (t/c)*t and the kernel's per-sample vm*vm/m (times a)
+    are the same float operations, so the two forms give the same bits.
+    """
+    return reducer.moments_local(*warp_batch_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec))
+
+
+def coadd_hist_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec, lo, inv_w, nbins):
+    """Median round 1 over (N,H,W) images -> (nbins,Q,Q) histogram."""
+    tiles, covs = warp_batch_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec)
+    return reducer.hist_local(tiles, covs, lo, inv_w, nbins)
+
+
+def coadd_clip_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec, center, thresh):
+    """Robust final pass over (N,H,W) images -> (coadd, depth) of kept samples."""
+    tiles, covs = warp_batch_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec)
+    return reducer.clip_local(tiles, covs, center, thresh)
+
+
+def _scan(local, pixels, wcs_vecs, pack_idx, accept):
+    """Sum ``local(pack pixels, pack wcs, pack accept)`` over the packs.
 
     ``pixels`` (P,cap,H,W) and ``wcs_vecs`` (P,cap,8) are the resident
     layout, ``pack_idx`` (G,) the packs to scan and ``accept`` (G,cap) the
-    per-slot weights.  As in the reference scan, each pack's partial sum is
-    added to the carry in ``pack_idx`` order.  This is also the engine's
-    ``use_kernel=False`` pass: map stage then local reduce, per pack.
+    per-slot weights.  As in the reference scan, each pack's partial sums
+    are added to the zero-initialised carry in ``pack_idx`` order.
     """
-    q = grid_ra.shape[0]
-    coadd = torch.zeros((q, q), dtype=torch.float32, device=pixels.device)
-    depth = torch.zeros_like(coadd)
+    out = None
     for g, p in enumerate(pack_idx.tolist()):
-        c, d = coadd_fused_ref(pixels[p], wcs_vecs[p], accept[g], grid_ra, grid_dec)
-        coadd = coadd + c
-        depth = depth + d
-    return coadd, depth
+        part = local(pixels[p], wcs_vecs[p], accept[g])
+        if out is None:
+            out = [torch.zeros_like(t) for t in part]
+        out = [o + t for o, t in zip(out, part)]
+    return tuple(out)
+
+
+def coadd_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
+    """The whole query scan, plain, on the `coadd_fused` kernel's operands.
+
+    This is also the engine's ``use_kernel=False`` mean pass: map stage then
+    local reduce, per pack.
+    """
+    return _scan(lambda px, wv, a: coadd_fused_ref(px, wv, a, grid_ra, grid_dec),
+                 pixels, wcs_vecs, pack_idx, accept)
+
+
+def moments_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
+    """The moments pass, plain, on the `coadd_moments` kernel's operands."""
+    return _scan(lambda px, wv, a: coadd_moments_ref(px, wv, a, grid_ra, grid_dec),
+                 pixels, wcs_vecs, pack_idx, accept)
+
+
+def hist_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w, nbins):
+    """The histogram pass, plain, on the `coadd_hist` kernel's operands."""
+    (hist,) = _scan(
+        lambda px, wv, a: (coadd_hist_ref(px, wv, a, grid_ra, grid_dec, lo, inv_w, nbins),),
+        pixels, wcs_vecs, pack_idx, accept)
+    return hist
+
+
+def clip_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, thresh):
+    """The clip pass, plain, on the `coadd_clip` kernel's operands."""
+    return _scan(lambda px, wv, a: coadd_clip_ref(px, wv, a, grid_ra, grid_dec, center, thresh),
+                 pixels, wcs_vecs, pack_idx, accept)
 
 
 def near_edge(height, width, wcs_vecs, accepts, ra, dec, tol=EDGE_TOL):
@@ -85,4 +140,44 @@ def coverage_flips(cov, cov_plain, height, width, wcs_vecs, accepts, grid_ra, gr
     if len(pts[0]):
         near[pts] = near_edge(height, width, wcs_vecs, accepts,
                               grid_ra[pts], grid_dec[pts], tol)
+    return near, diff & ~near
+
+
+def decision_flips(diff, pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, *,
+                   clip=None, bins=None, tol=DECISION_TOL):
+    """Split the differing (Q,Q) pixels ``diff`` of two robust passes into (near, far).
+
+    Takes the kernels' scan operands.  A differing pixel is ``near`` when some
+    accepted sample there lies within ``EDGE_TOL`` px of its image's edge
+    (`near_edge`), or, given ``clip=(center, thresh)``, within ``tol`` of the
+    clip boundary: ||t - c*center| - c*thresh| <= tol*(|t| + c*|center| +
+    c*thresh); or, given ``bins=(lo, w, inv_w, nbins)``, within ``tol`` of an
+    inner bin edge: |u - k|*w <= tol*(|x| + |lo| + w) for u = (x - lo)*inv_w
+    and the integer k in [1, nbins-1] nearest u (every sample is near when
+    w == 0).  Only there may two correct versions decide differently;
+    ``far`` holds every other difference, which is a fault.
+    """
+    near = torch.zeros_like(diff)
+    pts = diff.nonzero(as_tuple=True)
+    if not len(pts[0]):
+        return near, diff
+    h, w = pixels.shape[-2:]
+    ra, dec = grid_ra[pts], grid_dec[pts]
+    close = torch.zeros_like(ra, dtype=torch.bool)
+    for g, p in enumerate(pack_idx.tolist()):
+        close |= near_edge(h, w, wcs_vecs[p], accept[g], ra, dec)
+        t, c = project_batch(pixels[p], wcs_vecs[p], accept[g], ra, dec)
+        if clip is not None:
+            center, thresh = (v[pts] for v in clip)
+            gap = (t - c * center).abs() - c * thresh
+            scale = t.abs() + c * center.abs() + c * thresh
+            close |= ((c > 0) & (gap.abs() <= tol * scale)).any(dim=0)
+        if bins is not None:
+            lo, bw, inv_w = (v[pts] for v in bins[:3])
+            x = reducer._samples(t, c)
+            u = (x - lo) * inv_w
+            k = u.round().clamp(1, bins[3] - 1)
+            edge = ((u - k).abs() * bw <= tol * (x.abs() + lo.abs() + bw)) | (bw == 0)
+            close |= ((c > 0) & edge).any(dim=0)
+    near[pts] = close
     return near, diff & ~near

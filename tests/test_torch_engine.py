@@ -26,6 +26,16 @@ QUERY_T = dict(QUERY, npix=40, time_bounds=(100.0, 299.0))
 QUERY2 = dict(band="r", ra_bounds=(37.4, 37.8), dec_bounds=(-0.4, 0.2), npix=32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in parallel worker processes; torch's intra-op threads
+    on these small tensors only oversubscribe the cores (2.5x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def surveys():
     return rc.make_survey(rc.SurveyConfig(**CFG)), rt.make_survey(rt.SurveyConfig(**CFG))

@@ -273,9 +273,11 @@ def test_later_slice_arguments_rejected(surveys, engines):
         rt.CoaddEngine(surveys[1], device="cpu", match_psf_sigma=2.0)
     with pytest.raises(NotImplementedError):
         rt.CoaddEngine(surveys[1], device="cpu", device_budget_bytes=1 << 20)
-    for reduce in ("clipped", "median"):
-        with pytest.raises(NotImplementedError):
-            port_eng.run(rt.CoaddQuery(**QUERIES[0]), "sql_structured", reduce=reduce)
+    for reduce in ("clipped", "median"):   # ported: robust queries plan and run
+        assert port_eng.plan(rt.CoaddQuery(**QUERIES[0]), "sql_structured",
+                             reduce=reduce).reduce == reduce
+    with pytest.raises(ValueError):
+        port_eng.plan(rt.CoaddQuery(**QUERIES[0]), "sql_structured", reduce="trimmed")
     with pytest.raises(ValueError):
         port_eng.plan(rt.CoaddQuery(**QUERIES[0]), "no_such_method")
 
