@@ -22,7 +22,12 @@ Phases, in order, each printing its seconds:
    kernel-vs-oracle tolerance; depth, coverage and bins exactly, except at
    pixels where an accepted sample lies within 1e-3 px of an image edge or
    within 1e-4 (relative) of a clip or bin boundary, which are counted and
-   printed.
+   printed.  Then PSF matching: ``psf_match_sep`` and ``psf_match_2d``
+   against their plain version on a K = 1 bank, the 15-tap Gaussian bank
+   at target 2.5, the 13 x 13 homogenization bank, random asymmetric taps,
+   H != W, frames smaller than the kernel, delta rows and a padded pack
+   index; and ``coadd_fused`` and the three robust passes composed with
+   each bank (``psf_kernels=``) against the plain scans, depth exactly.
 4. main path: a survey of 2880 frames of 512 x 512 px (the reference
    survey's geometry), one r-band query at npix 1024, all six methods
    through ``CoaddEngine.run`` with the fused kernel, exactly one
@@ -34,12 +39,21 @@ Phases, in order, each printing its seconds:
    Then the robust path: ``reduce="clipped"`` and ``"median"`` for all six
    methods, exactly 2 and 3 launches per query (moments, [hist,] clip); the
    methods and the plain path agree at atol 1e-3 with equal depth, except
-   at counted decision flips.
+   at counted decision flips.  Then PSF matching at ``match_psf_sigma=2.5``
+   with the survey's measured stamps: all six methods x three estimators,
+   exactly one ``psf_match_2d`` launch per query before its 1, 2 or 3
+   passes, no slot clamped, the mean's depth equal to the unmatched run's,
+   the methods agreeing at 1e-3; then ``sql_structured`` with the Gaussian
+   fallback (``measured_psf=False``: one ``psf_match_sep`` a query) and on
+   the plain path (``use_kernel=False``, the cached matched layout).
 5. measure: each kernel's time on the card (CUDA events, warm), its plain
    version's, the nearest PyTorch call's (``F.grid_sample`` bilinear over
    the same samples, plus a sum for the coadd; it covers only the
    sampling), and the least time the card could take (bytes over
    3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever is larger).
+   The PSF kernels' library call is ``F.conv2d`` depthwise on a
+   replicate-padded batch, TF32 off (a yardstick only: the port never
+   calls it).
 
 The line before the last is ``{"kernels": [...]}``; the last is the device
 line.  The script exits nonzero, before printing either, on any failure.
@@ -56,6 +70,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -65,6 +80,7 @@ PATH_ATOL = 1e-3                        # across methods and paths (tests/test_c
 ROBUST = ("clipped", "median")
 CLIP_K, NBINS = 3.0, 16                 # the engine's defaults
 ROBUST_REPS = 2                         # warm repeats per robust query (2 or 3 passes)
+PSF_REPS = 2                            # warm repeats per PSF-matched query
 OUTLIER = 1e4                           # added to one frame of the outlier case
 DEVICE = "cuda"                         # the card the script drives
 FLAT_OFFSET_LIMIT = 2**31               # flat element offsets must pass the int32 range
@@ -93,7 +109,15 @@ CLIP_SAMPLE_OPS = WARP_SAMPLE_OPS + 9
 HIST_SAMPLE_OPS = WARP_SAMPLE_OPS + 9
 PIXEL_OPS = 4
 SLOT_OPS = 7
-KERNELS = ("coadd_fused", "warp_project", "coadd_moments", "coadd_hist", "coadd_clip")
+# PSF matching: an fp32 multiply and add per tap and pass, 2 * Kh * Kw a
+# matched pixel for a 2-D kernel, 2 * 2K for a separable one (K = 1: one
+# multiply).
+KERNELS = ("coadd_fused", "warp_project", "coadd_moments", "coadd_hist", "coadd_clip",
+           "psf_match_sep", "psf_match_2d")
+PSF_TARGET = 2.5                        # the main path's match_psf_sigma: no slot clamps
+REDUCES = ("mean",) + ROBUST
+PASSES = {"mean": ("coadd_fused",), "clipped": ("coadd_moments", "coadd_clip"),
+          "median": ("coadd_moments", "coadd_hist", "coadd_clip")}
 
 MAIN_QUERY = dict(band="r", ra_bounds=(37.5, 38.5), dec_bounds=(-0.5, 0.5), npix=1024)
 
@@ -154,6 +178,23 @@ def warp_bound(n, h, w, q):
     return bound(nbytes, ops)
 
 
+def psf_ops(taps):
+    """fp32 operations a matched pixel costs for a bank of ``taps`` widths."""
+    if all(k == 1 for k in taps):
+        return 1
+    return 2 * taps[0] * taps[1] if len(taps) == 2 else 4 * taps[0]
+
+
+def psf_bound(n_img, h, w, taps):
+    """Bound of one psf_match launch over ``n_img`` frames: each frame read
+    once, each matched frame written once, each slot's taps read once."""
+    ntaps = 1
+    for k in taps:
+        ntaps *= k
+    nbytes = n_img * (2 * h * w + ntaps) * 4
+    return bound(nbytes, n_img * h * w * psf_ops(taps))
+
+
 def grid_sample_grid(torch, sky_to_pixel, wcs, grid_ra, grid_dec, h, w):
     """(N,Q,Q,2) normalized sampling grid of ``F.grid_sample`` (align_corners)."""
     n = wcs.shape[0]
@@ -185,7 +226,7 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     from repro_torch import CoaddEngine, CoaddQuery, METHODS, SurveyConfig, make_survey
-    from repro_torch.core import mapper, reducer
+    from repro_torch.core import mapper, psf, reducer
     from repro_torch.core.geometry import sky_to_pixel
     from repro_torch.core.seqfile import pack_structured
     from repro_torch.kernels import build
@@ -196,7 +237,8 @@ def main(argv=None) -> int:
     procs = os.cpu_count() or 1
     counted = {"coadd_fused": warp_ops.coadd_fused, "warp_project": warp_ops.warp_batch,
                "coadd_moments": warp_ops.coadd_moments, "coadd_hist": warp_ops.coadd_hist,
-               "coadd_clip": warp_ops.coadd_clip}
+               "coadd_clip": warp_ops.coadd_clip, "psf_match_sep": warp_ops.psf_match_sep,
+               "psf_match_2d": warp_ops.psf_match_2d}
 
     # ------------------------------------------------------------ 1 card --
     with phase("1 card"):
@@ -215,7 +257,7 @@ def main(argv=None) -> int:
             for line in log.splitlines():
                 if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
                     print(f"  [{name}] {line.strip()}")
-        for name in ("warp",):
+        for name in ("warp", "psf"):
             print(f"  loaded {build.library_path(name).relative_to(ROOT)}")
             build.library(name)
 
@@ -253,14 +295,21 @@ def main(argv=None) -> int:
             decision_flips.append((case, kernel) + tuple(p))
         return near
 
-    def robust_kernels(case, scan):
+    def robust_kernels(case, scan, bank=None, dscan=None):
         """coadd_moments, coadd_hist and coadd_clip (both centres) against their
-        plain versions, on the plain version's fixed operands."""
+        plain versions, on the plain version's fixed operands.
+
+        With a PSF ``bank`` both sides match the frames first
+        (``psf_kernels=``); ``dscan`` is then the matched scan, whose samples
+        place the decision boundaries.
+        """
+        kw = {} if bank is None else {"psf_kernels": bank}
+        dscan = scan if dscan is None else dscan
         errs, flips = {}, {}
-        s_k = warp_ops.coadd_moments(*scan)
-        s_p = ref.moments_scan_ref(*scan)
+        s_k = warp_ops.coadd_moments(*scan, **kw)
+        s_p = ref.moments_scan_ref(*scan, **kw)
         torch.cuda.synchronize()
-        near = hold_decisions(case, "coadd_moments", s_k[0] != s_p[0], scan)
+        near = hold_decisions(case, "coadd_moments", s_k[0] != s_p[0], dscan)
         errs["coadd_moments"] = max(hold_values(case, "coadd_moments", a, b, near)
                                     for a, b in zip(s_k, s_p))
         flips["coadd_moments"] = int(near.sum())
@@ -268,10 +317,10 @@ def main(argv=None) -> int:
         errs["coadd_hist"], flips["coadd_hist"] = 0.0, 0
         for nbins in warp_ops.HIST_BINS:   # every bin count the kernel is built for
             lo, bw, inv_w = reducer.hist_bounds(*s_p, nbins)
-            h_k = warp_ops.coadd_hist(*scan, lo, inv_w, nbins)
-            h_p = ref.hist_scan_ref(*scan, lo, inv_w, nbins)
+            h_k = warp_ops.coadd_hist(*scan, lo, inv_w, nbins, **kw)
+            h_p = ref.hist_scan_ref(*scan, lo, inv_w, nbins, **kw)
             torch.cuda.synchronize()
-            near = hold_decisions(case, f"coadd_hist[{nbins}]", (h_k != h_p).any(0), scan,
+            near = hold_decisions(case, f"coadd_hist[{nbins}]", (h_k != h_p).any(0), dscan,
                                   bins=(lo, bw, inv_w, nbins))
             # With 0/1 accept and coverage every sample lands in exactly one bin.
             require(torch.equal(h_k.sum(0), s_k[0]),
@@ -286,11 +335,11 @@ def main(argv=None) -> int:
         errs["coadd_clip"], flips["coadd_clip"] = 0.0, 0
         for red, center in centers.items():
             thresh = reducer.clip_threshold(center, sigma, CLIP_K)
-            c_k, d_k = warp_ops.coadd_clip(*scan, center, thresh)
-            c_p, d_p = ref.clip_scan_ref(*scan, center, thresh)
+            c_k, d_k = warp_ops.coadd_clip(*scan, center, thresh, **kw)
+            c_p, d_p = ref.clip_scan_ref(*scan, center, thresh, **kw)
             torch.cuda.synchronize()
             diff = (d_k != d_p) | ((c_k - c_p).abs() > COADD_ATOL + COADD_RTOL * c_p.abs())
-            near = hold_decisions(case, f"coadd_clip[{red}]", diff, scan, clip=(center, thresh))
+            near = hold_decisions(case, f"coadd_clip[{red}]", diff, dscan, clip=(center, thresh))
             errs["coadd_clip"] = max(errs["coadd_clip"],
                                      hold_values(case, f"coadd_clip[{red}]", c_k, c_p, near))
             flips["coadd_clip"] += int(near.sum())
@@ -343,12 +392,56 @@ def main(argv=None) -> int:
     case_err = {k: 0.0 for k in KERNELS}
     case_flips = {k: 0 for k in KERNELS}
 
-    def run_case(*case):
+    def run_case(*case, kernel_case=kernel_case):
         errs, flips, *rest = kernel_case(*case)
-        for k in KERNELS:
+        for k in errs:
             case_err[k] = max(case_err[k], errs[k])
-            case_flips[k] += flips[k]
+            case_flips[k] += flips.get(k, 0)
         return rest
+
+    def psf_match_case(case, pixels, pack_idx, bank):
+        """psf_match (either rank) against its plain version
+        -> (counted kernel's name, max error, the plain output)."""
+        idx = torch.tensor(pack_idx, dtype=torch.int32, device=dev)
+        name = "psf_match_2d" if bank.dim() == 4 else "psf_match_sep"
+        m_k = warp_ops.psf_match(pixels, idx, bank)
+        m_p = ref.psf_match_ref(pixels, idx, bank)
+        torch.cuda.synchronize()
+        err = hold_values(case, name, m_k, m_p, torch.zeros_like(m_k, dtype=torch.bool))
+        return name, err, m_p
+
+    def psf_case(case, ds, qry, accept, pack_idx, bank):
+        """The PSF-matching kernel, then coadd_fused and the robust passes
+        composed with it (``psf_kernels=``), against their plain versions."""
+        t0 = time.perf_counter()
+        pixels = torch.from_numpy(ds.pixels).to(dev)
+        wcs = torch.from_numpy(ds.wcs).to(dev)
+        gra, gdec = (torch.from_numpy(a).to(dev) for a in mapper.query_grid_sky(qry))
+        idx = torch.tensor(pack_idx, dtype=torch.int32, device=dev)
+        acc = torch.from_numpy(np.asarray(accept, np.float32)).to(dev)
+        h, w = pixels.shape[-2:]
+        rows = idx.long()
+        name, m_err, matched = psf_match_case(case, pixels, pack_idx, bank)
+        errs, flips = {name: m_err}, {}
+        scan = (pixels, wcs, idx, acc, gra, gdec)
+        c_k, d_k = warp_ops.coadd_fused(*scan, psf_kernels=bank)
+        c_p, d_p = ref.coadd_scan_ref(*scan, psf_kernels=bank)
+        _, d_u = warp_ops.coadd_fused(*scan)
+        torch.cuda.synchronize()
+        require(torch.equal(d_k, d_u), f"{case}: PSF-matched depth differs from unmatched")
+        errs["coadd_fused"], flips["coadd_fused"] = hold(
+            case, "coadd_fused+psf", c_k, d_k, c_p, d_p, h, w, wcs[rows].reshape(-1, 8),
+            acc.reshape(-1), gra, gdec)
+        dscan = (matched, wcs[rows], torch.arange(len(pack_idx), dtype=torch.int32, device=dev),
+                 acc, gra, gdec)
+        r_errs, r_flips, *_ = robust_kernels(case, scan, bank, dscan)
+        errs.update(r_errs)
+        flips.update(r_flips)
+        print(f"  {case:16s} P,cap,H,W={tuple(pixels.shape)} bank={tuple(bank.shape[2:])} "
+              f"G={len(pack_idx)} Q={qry.npix} | max_err "
+              f"{', '.join(f'{k}={v:.3g}' for k, v in errs.items())} | flips {flips} "
+              f"| {time.perf_counter() - t0:.1f} s", flush=True)
+        return errs, flips
 
     with phase("3 kernels"):
         rng = np.random.default_rng(0)
@@ -396,7 +489,48 @@ def main(argv=None) -> int:
         cases.append(("offsets_64bit", big_ds, q_wide, wide_ones, [n_big - 1], big))
         for case in cases:
             run_case(*case)
-        del case, cases, big, big_ds, sv_wide, ds_wide
+
+        # PSF matching: the main path's two banks at its sizes, then edge cases.
+        def to_dev(bank):
+            return torch.from_numpy(np.ascontiguousarray(bank, np.float32)).to(dev)
+
+        def main_banks(pk):
+            sig = pk.floats["psf_sigma"]
+            return {"gauss_k15": psf.matching_kernel_bank(sig, PSF_TARGET),
+                    "homog_13": psf.homogenization_bank(pk.psf_stamps, sig, PSF_TARGET)}
+
+        banks = main_banks(ds)
+        require(banks["gauss_k15"].shape[-1] == 15 and banks["homog_13"].shape[-2:] == (13, 13),
+                "psf banks: expected 15 taps and 13 x 13 at target 2.5")
+        lead = ds.floats["psf_sigma"].shape
+        banks["k1"] = rng.uniform(0.5, 1.5, lead + (1,))
+        banks["asym_sep"] = rng.uniform(0.0, 0.25, lead + (9,))
+        banks["asym_2d"] = rng.uniform(-0.02, 0.05, lead + (7, 11))
+        q_psf = CoaddQuery(band="u", ra_bounds=(37.5, 38.5), dec_bounds=(-0.5, 0.5), npix=256)
+        for name, bank in banks.items():
+            qry = q_main if name in ("gauss_k15", "homog_13") else q_psf
+            run_case(f"psf_{name}", ds, qry, ones, [0], to_dev(bank), kernel_case=psf_case)
+        run_case("psf_padded_idx", ds, q_psf, np.concatenate([ones, 0 * ones]), [0, 0],
+                 to_dev(banks["homog_13"]), kernel_case=psf_case)
+        for name, bank in main_banks(ds_wide).items():
+            run_case(f"psf_wide_{name}", ds_wide, q_wide, wide_ones, [0], to_dev(bank),
+                     kernel_case=psf_case)
+        # Frames smaller than the kernel clamp on both sides at once; delta
+        # rows (empty slots) must return the frames bitwise.
+        tiny = torch.from_numpy(rng.normal(size=(2, 8, 5, 6)).astype(np.float32)).to(dev)
+        for taps in ((15,), (15, 15), (13, 1)):
+            bank = to_dev(rng.uniform(0.0, 0.2, (2, 8) + taps))
+            name, err, _ = psf_match_case(f"psf_tiny_5x6_{taps}", tiny, [1, 0], bank)
+            case_err[name] = max(case_err[name], err)
+        for taps in ((15,), (13, 13)):
+            delta = np.zeros(taps, np.float32)
+            delta[tuple(k // 2 for k in taps)] = 1.0
+            out = warp_ops.psf_match(tiny, torch.tensor([1, 0], dtype=torch.int32, device=dev),
+                                     to_dev(np.broadcast_to(delta, (2, 8) + taps)))
+            require(torch.equal(out, tiny[[1, 0]]), f"psf delta rows {taps}: not the frames")
+        print(f"  psf tiny 5 x 6 frames and delta rows: max_err "
+              f"sep={case_err['psf_match_sep']:.3g}, 2d={case_err['psf_match_2d']:.3g}")
+        del case, cases, big, big_ds, sv_wide, ds_wide, tiny
         torch.cuda.empty_cache()
 
         # Coverage of the main pack's frames on the main grid, plain.
@@ -587,7 +721,8 @@ def main(argv=None) -> int:
         print(f"  robust-path launches: {robust_launches}")
         n_q = len(METHODS) * (ROBUST_REPS + 1)
         require(robust_launches == {"coadd_fused": 0, "warp_project": 0, "coadd_moments": 2 * n_q,
-                                    "coadd_hist": n_q, "coadd_clip": 2 * n_q},
+                                    "coadd_hist": n_q, "coadd_clip": 2 * n_q,
+                                    "psf_match_sep": 0, "psf_match_2d": 0},
                 "robust launch counts")
 
         # Each estimator's fixed operands on the sql_structured pass (after
@@ -605,13 +740,16 @@ def main(argv=None) -> int:
                            bins=(lo, bw, inv_w, NBINS)),
         }
 
-        def hold_path(red, what, r, base):
+        def hold_path(red, what, r, base, hscan=None, hbounds=None):
             """Two robust results agree: coadd at PATH_ATOL, depth equal, except
-            at pixels with a sample on an image edge or decision boundary."""
+            at pixels with a sample on an image edge or decision boundary
+            (placed by the pass ``hscan`` and its fixed operands ``hbounds``;
+            the unmatched sql_structured pass by default)."""
+            hscan, hbounds = hscan or scan, hbounds or bounds
             c, d = (torch.from_numpy(a).to(dev) for a in (r.coadd, r.depth))
             c0, d0 = (torch.from_numpy(a).to(dev) for a in (base.coadd, base.depth))
             diff = (d != d0) | ((c - c0).abs() > PATH_ATOL)
-            near, far = ref.decision_flips(diff, *scan, **bounds[red])
+            near, far = ref.decision_flips(diff, *hscan, **hbounds[red])
             require(not far.any(), f"{what}/{red}: {int(far.sum())} pixels differ away from "
                                    "every image edge and decision boundary")
             for p in near.nonzero().tolist():
@@ -646,6 +784,133 @@ def main(argv=None) -> int:
             dc, flips = hold_path(red, "engine plain vs kernel", plain_r, base)
             print(f"  {red:7s} sql_structured use_kernel=False: query_ms={plain_ms:.1f}, "
                   f"max|coadd-kernel|={dc:.3g}, decision_flips={flips}")
+
+        # PSF matching at PSF_TARGET with the survey's measured stamps (the
+        # engine retuned: every bank is keyed by its PSF state).  The banks
+        # are solved and uploaded first, outside the counted run.
+        eng.match_psf_sigma = PSF_TARGET
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            bank_slots = sum(eng.psf_kernel_bank(layout)[..., 0, 0].size
+                             for layout in ("per_file", "unstructured", "structured"))
+        clamps = [str(c.message) for c in caught if issubclass(c.category, RuntimeWarning)]
+        require(not clamps, f"psf banks clamp slots at target {PSF_TARGET}: {clamps}")
+        print(f"  measured-PSF banks at target {PSF_TARGET}: 3 layouts, {bank_slots} slots, "
+              f"0 clamped, solved in {time.perf_counter() - t0:.1f} s")
+
+        def psf_query(red, m, kernel):
+            """One PSF-matched query, repeated: exactly one ``kernel`` launch
+            (psf_match_2d or psf_match_sep) and the estimator's passes."""
+            want = {k: int(k == kernel) + PASSES[red].count(k) for k in counted}
+            times, pass_times = [], []
+            for _ in range(PSF_REPS + 1):
+                before = {k: fn.launches for k, fn in counted.items()}
+                t0 = time.perf_counter()
+                res = eng.run(query, m, reduce=red)
+                times.append((time.perf_counter() - t0) * 1e3)
+                pass_times.append(res.stats.t_map_reduce_s * 1e3)
+                got = {k: fn.launches - before[k] for k, fn in counted.items()}
+                require(got == want, f"psf {m}/{red}: launches {got}, expected {want}")
+                require(res.stats.dispatches == sum(want.values()),
+                        f"psf {m}/{red}: {res.stats.dispatches} dispatches")
+            return res, statistics.median(times[1:]), statistics.median(pass_times[1:])
+
+        # The PSF-matched run, counted on its own: every count 0 just before it.
+        for fn in counted.values():
+            fn.launches = 0
+        psf_res, psf_ms, psf_pass_ms = {}, {}, {}
+        for red in REDUCES:
+            for m in METHODS:
+                psf_res[red, m], psf_ms[red, m], psf_pass_ms[red, m] = psf_query(
+                    red, m, "psf_match_2d")
+        eng.measured_psf = False            # the separable Gaussian fallback
+        for red in REDUCES:
+            psf_res[red, "fallback"], psf_ms[red, "fallback"], psf_pass_ms[red, "fallback"] = \
+                psf_query(red, "sql_structured", "psf_match_sep")
+        psf_launches = {k: fn.launches for k, fn in counted.items()}
+        print(f"  psf-path launches: {psf_launches}")
+        n_rep = PSF_REPS + 1
+        require(psf_launches["psf_match_2d"] == len(REDUCES) * len(METHODS) * n_rep
+                and psf_launches["psf_match_sep"] == len(REDUCES) * n_rep
+                and psf_launches["warp_project"] == 0, "psf launch counts")
+        bank_sep = eng._device_psf_kernels("structured")
+        eng.measured_psf = None
+        bank_2d = eng._device_psf_kernels("structured")
+        require(bank_sep.shape[2:] == (15,) and bank_2d.shape[2:] == (13, 13),
+                f"psf banks {tuple(bank_sep.shape)} / {tuple(bank_2d.shape)}")
+
+        # The matched sql_structured pass places the boundaries; its S0 is
+        # the coverage, which matching must not change.
+        pscan = warp_ops.matched_packs(dsv.pixels, dsv.wcs, idx, bank_2d) + scan[3:]
+        s_psf = warp_ops.coadd_moments(*pscan)
+        require(torch.equal(s_psf[0], s_main[0]), "PSF-matched S0 differs from the unmatched")
+        mu_p, sigma_p = reducer.clip_stats(*s_psf)
+        lo_p, bw_p, inv_w_p = reducer.hist_bounds(*s_psf, NBINS)
+        med_p = reducer.hist_median(warp_ops.coadd_hist(*pscan, lo_p, inv_w_p, NBINS),
+                                    s_psf[0], lo_p, bw_p)
+        psf_bounds = {
+            "clipped": dict(clip=(mu_p, reducer.clip_threshold(mu_p, sigma_p, CLIP_K))),
+            "median": dict(clip=(med_p, reducer.clip_threshold(med_p, sigma_p, CLIP_K)),
+                           bins=(lo_p, bw_p, inv_w_p, NBINS)),
+        }
+        unmatched = results["sql_structured"]
+        for red in REDUCES:
+            base = psf_res[red, "sql_structured"]
+            require(np.isfinite(base.coadd).all() and np.isfinite(base.normalized).all(),
+                    f"psf/{red}: non-finite coadd")
+            require(np.abs(base.coadd - (robust[red, "sql_structured"] if red in ROBUST
+                                         else unmatched).coadd).max() > 1e-3,
+                    f"psf/{red}: matching changed nothing")
+            for m in METHODS + ("fallback",):
+                r = psf_res[red, m]
+                if red == "mean":
+                    dc = float(np.abs(r.coadd - base.coadd).max())
+                    flips = 0
+                    require(np.array_equal(r.depth, unmatched.depth),
+                            f"psf {m}/mean: depth differs from the unmatched run")
+                    if m != "fallback":
+                        require(dc <= PATH_ATOL, f"psf {m}/mean: coadd differs by {dc}")
+                elif m == "fallback":   # another bank: its own clip decisions
+                    dc, flips = float(np.abs(r.coadd - base.coadd).max()), 0
+                else:
+                    dc, flips = hold_path(red, f"psf {m}", r, base, pscan, psf_bounds)
+                require(r.stats.files_contributing == unmatched.stats.files_contributing,
+                        f"psf {m}/{red}: files_contributing differs")
+                print(f"  psf {red:7s} {m:28s} query_ms={psf_ms[red, m]:.3f} "
+                      f"pass_ms={psf_pass_ms[red, m]:.3f} depth_sum={float(r.depth.sum()):.0f} "
+                      f"max|coadd-sql_structured(measured)|={dc:.3g} decision_flips={flips}")
+
+        # The plain path: the structured layout matched once and cached.
+        eng.use_kernel = False
+        for red in REDUCES:
+            t0 = time.perf_counter()
+            plain_p = eng.run(query, "sql_structured", reduce=red)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            base = psf_res[red, "sql_structured"]
+            if red == "mean":
+                near, far = ref.coverage_flips(
+                    torch.from_numpy(base.depth).to(dev), torch.from_numpy(plain_p.depth).to(dev),
+                    cfg.height, cfg.width, flat_wcs, flat_acc, gra, gdec)
+                require(not far.any(), f"psf plain path: {int(far.sum())} depth pixels differ "
+                                       "away from every image edge")
+                keep = ~near.cpu().numpy()
+                dc, flips = float(np.abs(plain_p.coadd - base.coadd)[keep].max()), int(near.sum())
+                require(dc <= PATH_ATOL, f"psf plain path coadd differs by {dc}")
+                for p in near.nonzero().tolist():
+                    edge_flips.append(("main_path", "psf engine plain vs kernel", -1) + tuple(p))
+            else:
+                dc, flips = hold_path(red, "psf engine plain vs kernel", plain_p, base, pscan,
+                                      psf_bounds)
+            s = plain_p.stats
+            require(s.matched_cache_builds + s.matched_cache_hits == 1,
+                    f"psf plain/{red}: matched cache builds {s.matched_cache_builds}, "
+                    f"hits {s.matched_cache_hits}")
+            print(f"  psf {red:7s} sql_structured use_kernel=False: query_ms={plain_ms:.1f} "
+                  f"(matched-layout builds {s.matched_cache_builds}), "
+                  f"max|coadd-kernel|={dc:.3g}, flips={flips}")
+        eng.use_kernel = True
+        eng._matched_cache.clear()
 
     # --------------------------------------------------------- 5 measure --
     kernels = []
@@ -747,6 +1012,55 @@ def main(argv=None) -> int:
                 shape=f"sql_structured pass: G={idx.shape[0]} packs x 64 slots of {h}x{w}, "
                       f"Q={q}" + (f", nbins={NBINS}" if name == "coadd_hist" else ""),
             ))
+        # The PSF kernels on the sql_structured pass's packs with the main
+        # path's banks: held against their plain version, then timed beside
+        # F.conv2d (depthwise, on a replicate-padded batch) as the library call.
+        n_img = idx.shape[0] * dsv.capacity
+        imgs = dsv.pixels[idx.long()].reshape(1, n_img, h, w)
+        for name, bank, line in (("psf_match_sep", bank_sep, 301), ("psf_match_2d", bank_2d, 337)):
+            taps = tuple(bank.shape[2:])
+            weight = bank[idx.long()].reshape(n_img, 1, *taps)
+
+            def kern(bank=bank):
+                return warp_ops.psf_match(dsv.pixels, idx, bank)
+
+            def plain(bank=bank):
+                return ref.psf_match_ref(dsv.pixels, idx, bank)
+
+            if len(taps) == 2:
+                rh, rw = taps[0] // 2, taps[1] // 2
+
+                def library(weight=weight, rh=rh, rw=rw):
+                    padded = F.pad(imgs, (rw, rw, rh, rh), mode="replicate")
+                    return F.conv2d(padded, weight, groups=n_img)
+            else:
+                r = taps[0] // 2
+
+                def library(weight=weight, r=r):
+                    padded = F.pad(imgs, (r, r, r, r), mode="replicate")
+                    rows_done = F.conv2d(padded, weight.reshape(n_img, 1, 1, -1), groups=n_img)
+                    return F.conv2d(rows_done, weight.reshape(n_img, 1, -1, 1), groups=n_img)
+
+            out_k, out_p, out_l = kern(), plain(), library()
+            torch.cuda.synchronize()
+            err = hold_values("sql_structured_pass", name, out_k, out_p,
+                              torch.zeros_like(out_k, dtype=torch.bool))
+            lib_diff = float((out_l.reshape(out_k.shape) - out_k).abs().max())
+            del out_k, out_p, out_l
+            k_ms = cuda_ms(torch, kern, args.reps)
+            p_ms = cuda_ms(torch, plain, 2)
+            l_ms = cuda_ms(torch, library, args.reps)
+            b_ms, b_by = psf_bound(n_img, h, w, taps)
+            kernels.append(dict(
+                name=name, route="cuda", source="src/repro_torch/csrc/psf.cu",
+                replaces=f"src/repro/kernels/warp/warp.py:{line}",
+                launches=psf_launches[name], max_abs_err=max(err, case_err[name]), ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                library="F.conv2d depthwise on an F.pad replicate batch, TF32 off",
+                library_max_abs_diff=lib_diff, kernel_ms=k_ms,
+                shape=f"sql_structured pass: {n_img} frames of {h}x{w}, bank {taps}",
+            ))
+        del imgs
         for m in METHODS:
             m_dev, m_idx, m_acc = eng._scan_operands(eng.plan(query, m))
             m_acc = m_acc.float()

@@ -26,20 +26,33 @@ histogram, and a clip re-scan, with the between-pass arithmetic as plain
 torch on the device.  With ``use_kernel=True`` each pass is one launch of
 ``coadd_moments``, ``coadd_hist`` or ``coadd_clip``.
 
-Later slices of the port (batched queries, PSF matching, streaming
-residency) are not here; their arguments raise NotImplementedError.
+PSF matching (``match_psf_sigma``, DESIGN.md §7) convolves every frame to
+one common PSF width before the warp, with a per-slot kernel bank solved on
+the host: measured-PSF homogenization kernels (`psf.homogenization_bank`)
+when the survey carries stamps, the separable Gaussian bank
+(`psf.matching_kernel_bank`) otherwise; ``measured_psf`` forces either.
+With ``use_kernel=True`` a query first runs ONE ``psf_match`` launch, which
+writes its scanned packs' matched pixels to a scratch that each of its
+passes reads: 2, 3 or 4 launches a query.  The plain path convolves the
+whole resident layout once per (layout, PSF state) and caches the matched
+copy (``matched_pixel_cache``, the default), or convolves pack by pack
+inside every pass; both give the same bytes.
+
+Later slices of the port (batched queries, streaming residency) are not
+here; their arguments raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core import mapper, reducer
+from repro_torch.core import mapper, psf, reducer
 from repro_torch.core.plan import (
     CoaddPlan,
     SparseScanIndex,
@@ -84,14 +97,19 @@ class JobStats:
     t_locate_s: float              # job-init: prefilter/index ("RPC")
     t_map_reduce_s: float          # device pass, to results on the host
     t_total_s: float
-    dispatches: int = 1            # scan launches: 1 fused kernel launch, or
-                                   #   one map+reduce step per scanned pack
-                                   #   on the plain path
+    dispatches: int = 1            # kernel launches: one per pass, plus one
+                                   #   psf_match when matching; on the plain
+                                   #   path one map+reduce step per scanned
+                                   #   pack and pass
     packs_gated: int = 0           # execution-layout packs the gate opens
     packs_scanned: int = 0         # packs the pass actually visits
     scan_budget: int = 0           # bucket the pass covers (n_packs if dense)
     reduce: str = "mean"           # estimator: "mean" | "clipped" | "median"
     reduce_passes: int = 1         # passes over the gated packs: 1, 2 or 3
+    # Matched-pixel cache (DESIGN.md §7), plain path only: whole-layout
+    # PSF-matched copies this call built, and those it found resident.
+    matched_cache_builds: int = 0
+    matched_cache_hits: int = 0
 
 
 @dataclasses.dataclass
@@ -137,24 +155,40 @@ def _accept_from_meta(ints, floats, qvec):
     return band_ok & valid & ra_ok & dec_ok & t_ok
 
 
+def _query_scan(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
+                grid_ra, grid_dec, use_kernel: bool, psf_kernels=None):
+    """The operands every pass of a query scans -> (scan, bank left to apply).
+
+    With a bank on the kernel path, ONE ``psf_match`` launch writes the
+    scanned packs' matched pixels to a (G, cap, H, W) scratch, and every
+    pass reads that (`ops.matched_packs`); on the plain path the bank rides
+    into each plain scan, which matches pack by pack.
+    """
+    pixels, wcs = dev.pixels, dev.wcs
+    if use_kernel and psf_kernels is not None:
+        pixels, wcs, idx = warp_ops.matched_packs(pixels, wcs, idx, psf_kernels)
+        psf_kernels = None
+    return (pixels, wcs, idx, accept.to(torch.float32), grid_ra, grid_dec), psf_kernels
+
+
 def _scan_coadd(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
-                grid_ra, grid_dec, use_kernel: bool):
+                grid_ra, grid_dec, use_kernel: bool, psf_kernels=None):
     """One pass over the packs ``idx`` of the resident layout -> (coadd, depth).
 
-    ``use_kernel`` sends the whole pass through ONE ``coadd_fused`` launch;
-    otherwise each pack goes through the plain map stage and local reduce
-    (the kernel's plain version, the counterpart of the reference's XLA path).
+    ``use_kernel`` sends the whole pass through ONE ``coadd_fused`` launch
+    (after one ``psf_match`` launch when a bank is given); otherwise each
+    pack goes through the plain map stage and local reduce (the kernel's
+    plain version, the counterpart of the reference's XLA path).
     """
+    scan, bank = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel, psf_kernels)
     if use_kernel:
-        return warp_ops.coadd_fused(
-            dev.pixels, dev.wcs, idx, accept.to(torch.float32), grid_ra, grid_dec
-        )
-    return warp_ref.coadd_scan_ref(dev.pixels, dev.wcs, idx, accept, grid_ra, grid_dec)
+        return warp_ops.coadd_fused(*scan)
+    return warp_ref.coadd_scan_ref(*scan, psf_kernels=bank)
 
 
 def _robust_passes(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
                    grid_ra, grid_dec, reduce: str, clip_k: float, median_bins: int,
-                   use_kernel: bool):
+                   use_kernel: bool, psf_kernels=None):
     """A robust estimator's passes over the packs ``idx`` -> (coadd, depth).
 
     Moments; then, for the median, the histogram bounds, the histogram pass
@@ -163,14 +197,15 @@ def _robust_passes(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Te
     torch on the device, as the reference computes them in XLA outside its
     Pallas kernels.  ``use_kernel`` makes each pass one launch of its CUDA
     kernel; otherwise each pass is the kernel's plain version, which maps
-    and reduces pack by pack and never holds the query's warped stack.
+    and reduces pack by pack and never holds the query's warped stack.  A
+    bank is applied once for all passes on the kernel path (`_query_scan`).
     """
+    scan, bank = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel, psf_kernels)
     if use_kernel:
         moments, hist, clip = warp_ops.coadd_moments, warp_ops.coadd_hist, warp_ops.coadd_clip
     else:
-        moments, hist, clip = (warp_ref.moments_scan_ref, warp_ref.hist_scan_ref,
-                               warp_ref.clip_scan_ref)
-    scan = (dev.pixels, dev.wcs, idx, accept.to(torch.float32), grid_ra, grid_dec)
+        moments, hist, clip = (functools.partial(f, psf_kernels=bank) for f in (
+            warp_ref.moments_scan_ref, warp_ref.hist_scan_ref, warp_ref.clip_scan_ref))
     s0, s1, s2 = moments(*scan)
     mu, sigma = reducer.clip_stats(s0, s1, s2)
     if reduce == "median":
@@ -188,8 +223,13 @@ class CoaddEngine:
     query is one pass over the gated packs — one ``coadd_fused`` launch with
     ``use_kernel=True`` — or, for a robust estimator, two or three passes.
     ``clip_k`` is the sigma-clip radius and ``median_bins`` the binapprox
-    histogram's resolution.  ``device`` defaults to ``"cuda"``; constructing
-    an engine for a CUDA device on a machine without one raises.
+    histogram's resolution.  ``match_psf_sigma`` convolves every frame to
+    that PSF width before the warp (one more launch a query on the kernel
+    path); ``measured_psf`` picks the bank (None: measured stamps when the
+    survey has them, True: stamps or raise, False: the Gaussian fallback)
+    and ``matched_pixel_cache`` whether the plain path convolves each layout
+    once and caches it.  ``device`` defaults to ``"cuda"``; constructing an
+    engine for a CUDA device on a machine without one raises.
     """
 
     def __init__(
@@ -200,12 +240,12 @@ class CoaddEngine:
         sparse: bool = True,
         device="cuda",
         match_psf_sigma: Optional[float] = None,
+        measured_psf: Optional[bool] = None,
+        matched_pixel_cache: bool = True,
         device_budget_bytes: Optional[int] = None,
         clip_k: float = 3.0,
         median_bins: int = 16,
     ):
-        if match_psf_sigma is not None:
-            raise NotImplementedError("PSF matching is not ported yet")
         if device_budget_bytes is not None:
             raise NotImplementedError("streaming residency (a device budget) is not ported yet")
         self.device = torch.device(device)
@@ -223,14 +263,23 @@ class CoaddEngine:
         self.median_bins = int(median_bins)
         self.use_kernel = use_kernel
         self.sparse = sparse
+        # PSF state (DESIGN.md §7); both knobs may be retuned on a live
+        # engine: every bank and matched copy is keyed by `_psf_state`.
+        self.match_psf_sigma = match_psf_sigma
+        self.measured_psf = measured_psf
+        self.matched_pixel_cache = matched_pixel_cache
         self.camcol_dec = camcol_dec_table(survey)
         self.sql = SpatialIndex.build(survey)
         self._datasets: Dict[str, PackedDataset] = {}
         self._exec_cache: Dict[str, Tuple[PackedDataset, Optional[SlotRemap]]] = {}
         self._device_cache: Dict[str, DevicePackedDataset] = {}
+        self._psf_banks: Dict[Tuple, np.ndarray] = {}
+        self._psf_device: Dict[Tuple, torch.Tensor] = {}
+        self._matched_cache: Dict[Tuple, DevicePackedDataset] = {}
         self._pack_capacity = pack_capacity
         self.pack_upload_count = 0   # host->device uploads of whole layouts
         self.dispatch_count = 0      # executed passes over the gated packs
+        self.matched_builds = 0      # whole-layout matched copies built
 
     # ----- dataset layouts (built lazily, cached) -----
     def dataset(self, layout: str) -> PackedDataset:
@@ -275,8 +324,100 @@ class CoaddEngine:
 
     @property
     def resident_bytes(self) -> int:
-        """Device bytes of every resident layout."""
-        return sum(d.nbytes for d in self._device_cache.values())
+        """Device bytes of every resident layout, kernel bank and matched copy
+        (only its pixels: it shares the layout's WCS and metadata)."""
+        return (sum(d.nbytes for d in self._device_cache.values())
+                + sum(b.numel() * b.element_size() for b in self._psf_device.values())
+                + sum(d.pixels.numel() * d.pixels.element_size()
+                      for d in self._matched_cache.values()))
+
+    # ----- PSF matching: banks solved on the host, cached per PSF state -----
+    def _psf_state(self) -> Optional[Tuple]:
+        """Hashable id of the PSF configuration every bank and matched copy
+        derives from: (target, measured mode), or None when matching is off.
+        Retuning either knob misses every cache instead of reusing it."""
+        if self.match_psf_sigma is None:
+            return None
+        return (float(self.match_psf_sigma), self.measured_psf)
+
+    def psf_kernel_bank(self, layout: str) -> Optional[np.ndarray]:
+        """Per-slot matching kernels on the host, or None when matching is off.
+
+        (P, cap, S, S) homogenization kernels when the layout carries
+        measured stamps, the separable (P, cap, K) Gaussian bank otherwise
+        (``measured_psf`` forces either).  Built against the *execution*
+        form, so a reblocked per-file layout lines up slot for slot.
+        """
+        if self.match_psf_sigma is None:
+            return None
+        key = (layout, self._psf_state())
+        if key not in self._psf_banks:
+            for k in [k for k in self._psf_banks if k[0] == layout]:
+                del self._psf_banks[k]   # one host bank per layout
+            exec_ds, _ = self.exec_dataset(layout)
+            measured = (self.measured_psf if self.measured_psf is not None
+                        else exec_ds.psf_stamps is not None)
+            if measured:
+                if exec_ds.psf_stamps is None:
+                    raise ValueError("measured_psf=True but the survey carries no PSF "
+                                     "stamps (SurveyConfig.psf_stamps)")
+                self._psf_banks[key] = psf.homogenization_bank(
+                    exec_ds.psf_stamps, exec_ds.floats["psf_sigma"], self.match_psf_sigma)
+            else:
+                self._psf_banks[key] = psf.matching_kernel_bank(
+                    exec_ds.floats["psf_sigma"], self.match_psf_sigma)
+        return self._psf_banks[key]
+
+    def _device_psf_kernels(self, layout: str) -> Optional[torch.Tensor]:
+        """The layout's bank on the device; uploaded once per PSF state."""
+        bank = self.psf_kernel_bank(layout)
+        if bank is None:
+            return None
+        key = (layout, self._psf_state())
+        if key not in self._psf_device:
+            for k in [k for k in self._psf_device if k[0] == layout]:
+                del self._psf_device[k]  # one device bank per layout
+            self._psf_device[key] = torch.from_numpy(bank).to(self.device)
+        return self._psf_device[key]
+
+    def _matched_mode(self) -> bool:
+        """Whether passes read a cached whole-layout matched copy: the plain
+        path only.  The kernel path matches the scanned packs once per query
+        (one ``psf_match`` launch) instead of holding a second layout."""
+        return (self.match_psf_sigma is not None and not self.use_kernel
+                and self.matched_pixel_cache)
+
+    def _matched_device_dataset(self, layout: str,
+                                dev: DevicePackedDataset) -> Tuple[DevicePackedDataset, int]:
+        """The resident layout with its pixels PSF-matched -> (dataset, hits).
+
+        Built once per (layout, PSF state) on the device, pack by pack with
+        `psf.convolve_batch` (the operations a plain pass applies when it
+        matches per query, so cached and uncached results are the same
+        bytes), and kept; the previous state's copy of the layout is
+        dropped.  WCS and metadata are the layout's own tensors.
+        """
+        key = (layout, self._psf_state())
+        for k in [k for k in self._matched_cache if k[0] == layout and k != key]:
+            del self._matched_cache[k]
+        if key in self._matched_cache:
+            return self._matched_cache[key], 1
+        bank = self._device_psf_kernels(layout)
+        pixels = torch.empty_like(dev.pixels)
+        for p in range(dev.n_packs):
+            pixels[p] = psf.convolve_batch(dev.pixels[p], bank[p])
+        self.matched_builds += 1
+        self._matched_cache[key] = DevicePackedDataset(pixels=pixels, wcs=dev.wcs,
+                                                       ints=dev.ints, floats=dev.floats)
+        return self._matched_cache[key], 0
+
+    def _check_plan_psf(self, plan: CoaddPlan) -> None:
+        """A plan built under one PSF target must not run under another."""
+        if plan.psf_target != self.match_psf_sigma:
+            raise ValueError(
+                f"plan was built with psf_target={plan.psf_target} but this engine "
+                f"matches to {self.match_psf_sigma}; re-plan on the engine that will execute"
+            )
 
     def _grids(self, query: CoaddQuery):
         gr, gd = mapper.query_grid_sky(query)
@@ -300,7 +441,8 @@ class CoaddEngine:
         # No prefilter: every file is "located" and becomes a mapper input.
         gate = ds.valid.copy()
         t_locate = time.perf_counter() - t0
-        return CoaddPlan("raw_fits", "per_file", gate, _query_vec(query), query, t_locate)
+        return CoaddPlan("raw_fits", "per_file", gate, _query_vec(query), query, t_locate,
+                         psf_target=self.match_psf_sigma)
 
     def plan_raw_fits_prefiltered(self, query: CoaddQuery) -> CoaddPlan:
         ds = self.dataset("per_file")
@@ -309,7 +451,7 @@ class CoaddEngine:
         gate = ds.valid & mask[:, None]  # per-file layout: pack == file
         t_locate = time.perf_counter() - t0
         return CoaddPlan("raw_fits_prefiltered", "per_file", gate,
-                         _query_vec(query), query, t_locate)
+                         _query_vec(query), query, t_locate, psf_target=self.match_psf_sigma)
 
     def plan_unstructured_seq(self, query: CoaddQuery) -> CoaddPlan:
         ds = self.dataset("unstructured")
@@ -317,7 +459,7 @@ class CoaddEngine:
         gate = ds.valid.copy()  # unprunable by construction: read every pack
         t_locate = time.perf_counter() - t0
         return CoaddPlan("unstructured_seq", "unstructured", gate,
-                         _query_vec(query), query, t_locate)
+                         _query_vec(query), query, t_locate, psf_target=self.match_psf_sigma)
 
     def plan_structured_seq_prefiltered(self, query: CoaddQuery) -> CoaddPlan:
         ds = self.dataset("structured")
@@ -326,7 +468,7 @@ class CoaddEngine:
         gate = ds.valid & mask[:, None]
         t_locate = time.perf_counter() - t0
         return CoaddPlan("structured_seq_prefiltered", "structured", gate,
-                         _query_vec(query), query, t_locate)
+                         _query_vec(query), query, t_locate, psf_target=self.match_psf_sigma)
 
     def _plan_sql(self, layout: str, query: CoaddQuery, method: str) -> CoaddPlan:
         ds = self.dataset(layout)
@@ -336,7 +478,8 @@ class CoaddEngine:
         # metadata-only slot gate over the resident containers.
         gate = ds.slot_mask(ids)
         t_locate = time.perf_counter() - t0
-        return CoaddPlan(method, layout, gate, _query_vec(query), query, t_locate)
+        return CoaddPlan(method, layout, gate, _query_vec(query), query, t_locate,
+                         psf_target=self.match_psf_sigma)
 
     def plan_sql_unstructured(self, query: CoaddQuery) -> CoaddPlan:
         return self._plan_sql("unstructured", query, "sql_unstructured")
@@ -391,17 +534,25 @@ class CoaddEngine:
 
     def execute(self, plan: CoaddPlan) -> CoaddResult:
         """Run a plan: device-resident packs + (P, cap) slot gate."""
-        self.device_dataset(plan.layout)  # the one upload stays out of the timing
+        self._check_plan_psf(plan)
+        # The one upload, the bank and a matched copy stay out of the timing.
+        dev = self.device_dataset(plan.layout)
+        bank = self._device_psf_kernels(plan.layout)
+        m_builds0, m_hits = self.matched_builds, 0
+        if self._matched_mode():
+            dev, m_hits = self._matched_device_dataset(plan.layout, dev)
+            bank = None
         grid_ra, grid_dec = self._grids(plan.query)
         t1 = time.perf_counter()
-        dev, idx, accept = self._scan_operands(plan)
+        _, idx, accept = self._scan_operands(plan)
         if plan.reduce == "mean":
             passes = 1
-            coadd, depth = _scan_coadd(dev, idx, accept, grid_ra, grid_dec, self.use_kernel)
+            coadd, depth = _scan_coadd(dev, idx, accept, grid_ra, grid_dec, self.use_kernel,
+                                       bank)
         else:
             passes = 3 if plan.reduce == "median" else 2
             coadd, depth = _robust_passes(dev, idx, accept, grid_ra, grid_dec, plan.reduce,
-                                          self.clip_k, self.median_bins, self.use_kernel)
+                                          self.clip_k, self.median_bins, self.use_kernel, bank)
         self.dispatch_count += passes
         contrib = int(accept.sum())
         coadd_h, depth_h = coadd.cpu().numpy(), depth.cpu().numpy()
@@ -419,12 +570,15 @@ class CoaddEngine:
                 t_locate_s=plan.t_locate_s,
                 t_map_reduce_s=t2 - t1,
                 t_total_s=plan.t_locate_s + (t2 - t1),
-                dispatches=passes * (1 if self.use_kernel else n_scanned),
+                dispatches=(passes + (bank is not None) if self.use_kernel
+                            else passes * n_scanned),
                 packs_gated=int(gate.any(axis=1).sum()),
                 packs_scanned=n_scanned,
                 scan_budget=n_scanned,
                 reduce=plan.reduce,
                 reduce_passes=passes,
+                matched_cache_builds=self.matched_builds - m_builds0,
+                matched_cache_hits=m_hits,
             ),
         )
 

@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import psf
 from repro_torch.core.geometry import pixel_to_sky, sky_to_pixel
 from repro_torch.core.query import CoaddQuery
 
@@ -141,12 +142,14 @@ def acceptance_mask(
     )
 
 
-def gather_packs(pack_idx, pixels, wcs_vecs, ints: dict, floats: dict):
+def gather_packs(pack_idx, pixels, wcs_vecs, ints: dict, floats: dict, psf_kernels=None):
     """Take pack(s) ``pack_idx`` out of the resident (P, cap, ...) tensors.
 
     An int gives views of one pack; an index tensor gives (G, cap, ...)
     copies.  Padding entries of a sparse index duplicate pack 0; the
     compacted gate rejects their slots, so they contribute exact zeros.
+    Returns (pixels, wcs, ints, floats, psf_kernels), the last None when no
+    (P, cap, K) or (P, cap, K, K) bank is given.
     """
     if isinstance(pack_idx, torch.Tensor):
         pack_idx = pack_idx.to(torch.int64)
@@ -156,6 +159,7 @@ def gather_packs(pack_idx, pixels, wcs_vecs, ints: dict, floats: dict):
         take(wcs_vecs),
         {k: take(v) for k, v in ints.items()},
         {k: take(v) for k, v in floats.items()},
+        None if psf_kernels is None else take(psf_kernels),
     )
 
 
@@ -166,16 +170,27 @@ def map_batch(
     grid_ra: torch.Tensor,
     grid_dec: torch.Tensor,
     use_kernel: bool = False,
+    psf_kernels=None,         # (N, K) separable rows or (N, K, K) taps
 ):
     """Map stage over a batch of images -> (tiles, coverages), each (N, Q, Q).
 
-    ``use_kernel=True`` goes through the ``warp_batch`` wrapper: one launch
-    of the hand-written ``warp_project`` kernel for a CUDA batch.
+    With ``psf_kernels`` each image is first PSF-matched to the common
+    target (`psf.convolve_batch`; the bank's rank picks separable or 2-D).
+    ``use_kernel=True`` goes through the wrappers instead: one
+    ``psf_match`` launch for the bank, then one launch of the hand-written
+    ``warp_project`` kernel, for a CUDA batch.
     """
     if use_kernel:
         from repro_torch.kernels.warp import ops as warp_ops
 
+        if psf_kernels is not None:
+            pixels = warp_ops.psf_match(
+                pixels[None], torch.zeros(1, dtype=torch.int32, device=pixels.device),
+                psf_kernels[None],
+            )[0]
         return warp_ops.warp_batch(
             pixels, wcs_vecs, accept.to(torch.float32), grid_ra, grid_dec
         )
+    if psf_kernels is not None:
+        pixels = psf.convolve_batch(pixels, psf_kernels)
     return project_batch(pixels, wcs_vecs, accept, grid_ra, grid_dec)

@@ -17,6 +17,7 @@ gate opens instead of P.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 
@@ -33,6 +34,10 @@ class CoaddPlan:
     qvec: np.ndarray       # (7,) float32 device-side acceptance vector
     query: CoaddQuery
     t_locate_s: float      # host job-init cost (prefilter/index, Fig. 8)
+    # PSF target the plan was built under (None = matching off).  The
+    # engine refuses to execute a plan under another target: its banks and
+    # matched pixels are keyed per target.
+    psf_target: Optional[float] = None
     reduce: str = "mean"   # estimator: "mean" | "clipped" | "median"
 
     @property

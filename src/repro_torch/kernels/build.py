@@ -50,6 +50,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "coadd_hist_f32": ((_VP,) * 9 + (_I,) * 7 + (_VP,), _I),
         "warp_error_string": ((_I,), ctypes.c_char_p),
     },
+    "psf": {
+        # pixels, pack_idx, bank, out, n_img, cap, h, w, k, device, stream
+        "psf_match_sep_f32": ((_VP,) * 4 + (_I,) * 6 + (_VP,), _I),
+        # ..., n_img, cap, h, w, kh, kw, device, stream
+        "psf_match_2d_f32": ((_VP,) * 4 + (_I,) * 7 + (_VP,), _I),
+        "psf_error_string": ((_I,), ctypes.c_char_p),
+    },
 }
 
 
@@ -114,11 +121,12 @@ def library(name: str) -> ctypes.CDLL:
     for fn, (argtypes, restype) in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = restype
+    lib.error_string = getattr(lib, f"{name}_error_string")
     return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     """Raise if a C entry point returned a nonzero cudaError_t."""
     if err != 0:
-        msg = lib.warp_error_string(err).decode()
+        msg = lib.error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

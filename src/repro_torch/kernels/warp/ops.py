@@ -1,4 +1,5 @@
-"""Wrappers of the hand-written Hopper warp kernels (``csrc/warp.cu``).
+"""Wrappers of the hand-written Hopper warp and PSF-matching kernels
+(``csrc/warp.cu``, ``csrc/psf.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 
@@ -9,6 +10,12 @@ Each wrapper checks device, dtype, shape and contiguity, then:
 There is no fallback from the kernel to the plain version.  Each wrapper
 counts its kernel launches in a plain integer attribute, ``launches``,
 which only a successful launch increments.
+
+PSF matching is a pre-pass: `psf_match` writes the query's scanned packs,
+each frame correlated with its slot's kernel, to a (G, cap, H, W) scratch,
+and the pack scans read that scratch (`matched_packs`).  The scans'
+``psf_kernels`` argument composes the two: one ``psf_match`` call, then the
+pass (on the CPU both are plain versions).
 """
 
 from __future__ import annotations
@@ -20,6 +27,9 @@ from repro_torch.kernels.warp import ref
 
 # The kernels tile output pixels 32 x 8; the grid's y extent caps at 65535.
 MAX_NPIX = 65535 * 8
+#: Most taps a PSF-matching kernel takes along each axis: its staged window
+#: and taps must fit the 48 KB of static shared memory (csrc/psf.cu).
+MAX_TAPS = 49
 
 
 def _require(t, name: str, dtype: torch.dtype, ndim: int, device: torch.device):
@@ -93,6 +103,108 @@ def warp_batch(pixels, wcs_vecs, accepts, grid_ra, grid_dec):
 warp_batch.launches = 0
 
 
+def _check_pack_idx(pack_idx, n_packs):
+    lo, hi = (int(v) for v in torch.aminmax(pack_idx))
+    if lo < 0 or hi >= n_packs:
+        raise IndexError(f"pack_idx spans [{lo}, {hi}], layout has {n_packs} packs")
+
+
+def _check_bank(pixels, pack_idx, bank, ndim):
+    """Check a PSF-matching pre-pass's operands -> (g, cap, h, w).
+
+    ``bank`` is (P, cap, K) separable rows (``ndim`` 3) or (P, cap, Kh, Kw)
+    taps (``ndim`` 4), odd widths of at most `MAX_TAPS`.
+    """
+    dev = pixels.device
+    _require(pixels, "pixels", torch.float32, 4, dev)
+    n_packs, cap, h, w = pixels.shape
+    _require(pack_idx, "pack_idx", torch.int32, 1, dev)
+    _require(bank, "psf_kernels", torch.float32, ndim, dev)
+    taps = tuple(bank.shape[2:])
+    if tuple(bank.shape[:2]) != (n_packs, cap):
+        raise ValueError(f"psf_kernels {tuple(bank.shape)} do not match {n_packs} packs of "
+                         f"{cap} slots")
+    if any(k % 2 == 0 or not 1 <= k <= MAX_TAPS for k in taps):
+        raise ValueError(f"psf_kernels widths must be odd and in [1, {MAX_TAPS}], got {taps}")
+    g = pack_idx.shape[0]
+    if min(n_packs, cap, h, w, g) < 1 or g * cap >= 2**31:
+        raise ValueError(f"need a non-empty layout and pack_idx, got pixels "
+                         f"{tuple(pixels.shape)} and {g} packs")
+    _check_pack_idx(pack_idx, n_packs)
+    return g, cap, h, w
+
+
+def _launch_psf(entry, pixels, pack_idx, bank, dims, taps):
+    g, cap, h, w = dims
+    index, stream = _launch_args(pixels.device)
+    lib = build.library("psf")
+    out = torch.empty((g, cap, h, w), dtype=torch.float32, device=pixels.device)
+    err = getattr(lib, entry)(pixels.data_ptr(), pack_idx.data_ptr(), bank.data_ptr(),
+                              out.data_ptr(), g * cap, cap, h, w, *taps, index, stream)
+    build.check(lib, err, f"{entry} launch")
+    return out
+
+
+def psf_match_sep(pixels, pack_idx, psf_kernels):
+    """(G, cap, H, W) frames of the packs ``pack_idx``, each correlated with its
+    slot's (K,) row of the (P, cap, K) bank along W, then along H.
+
+    ONE launch of ``psf_match_sep_kernel``; edge-clamped, as
+    ``psf.convolve_batch`` (its plain version, via `ref.psf_match_ref`).
+    """
+    dims = _check_bank(pixels, pack_idx, psf_kernels, 3)
+    if pixels.device.type == "cpu":
+        return ref.psf_match_ref(pixels, pack_idx, psf_kernels)
+    out = _launch_psf("psf_match_sep_f32", pixels, pack_idx, psf_kernels, dims,
+                      psf_kernels.shape[2:])
+    psf_match_sep.launches += 1
+    return out
+
+
+psf_match_sep.launches = 0
+
+
+def psf_match_2d(pixels, pack_idx, psf_kernels):
+    """(G, cap, H, W) frames of the packs ``pack_idx``, each correlated with its
+    slot's (Kh, Kw) taps of the (P, cap, Kh, Kw) bank.
+
+    ONE launch of ``psf_match_2d_kernel``; edge-clamped, as
+    ``psf.convolve_batch`` (its plain version, via `ref.psf_match_ref`).
+    """
+    dims = _check_bank(pixels, pack_idx, psf_kernels, 4)
+    if pixels.device.type == "cpu":
+        return ref.psf_match_ref(pixels, pack_idx, psf_kernels)
+    out = _launch_psf("psf_match_2d_f32", pixels, pack_idx, psf_kernels, dims,
+                      psf_kernels.shape[2:])
+    psf_match_2d.launches += 1
+    return out
+
+
+psf_match_2d.launches = 0
+
+
+def psf_match(pixels, pack_idx, psf_kernels):
+    """The PSF-matching pre-pass for either bank rank: `psf_match_sep` for a
+    (P, cap, K) bank, `psf_match_2d` for a (P, cap, Kh, Kw) one."""
+    if isinstance(psf_kernels, torch.Tensor) and psf_kernels.dim() == 4:
+        return psf_match_2d(pixels, pack_idx, psf_kernels)
+    return psf_match_sep(pixels, pack_idx, psf_kernels)
+
+
+def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels):
+    """The scan operands over a query's PSF-matched packs -> (pixels, wcs_vecs,
+    pack_idx) for the pack scans.
+
+    One `psf_match` launch writes the (G, cap, H, W) scratch; the scan then
+    reads it with its own (G, cap, 8) WCS rows and pack index ``arange(G)``
+    (a pack scan takes one base, pack_idx[g] * cap, for both pixels and WCS).
+    """
+    matched = psf_match(pixels, pack_idx, psf_kernels)
+    wcs = wcs_vecs[pack_idx.to(torch.int64)]
+    idx = torch.arange(pack_idx.shape[0], dtype=torch.int32, device=pack_idx.device)
+    return matched, wcs, idx
+
+
 def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
     """Check a pack scan's operands -> (g, cap, h, w, q)."""
     dev = pixels.device
@@ -113,10 +225,19 @@ def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
             f"{tuple(pixels.shape)} and {g} packs"
         )
     q = _check_grids(grid_ra, grid_dec, dev)
-    lo, hi = (int(v) for v in torch.aminmax(pack_idx))
-    if lo < 0 or hi >= n_packs:
-        raise IndexError(f"pack_idx spans [{lo}, {hi}], layout has {n_packs} packs")
+    _check_pack_idx(pack_idx, n_packs)
     return g, cap, h, w, q
+
+
+def _prepare_scan(scan, psf_kernels, **fixed):
+    """Check a pass's operands -> (scan, dims); with a bank, the scan over the
+    PSF-matched packs (`matched_packs`).  ``fixed`` are the pass's (Q,Q)
+    operands."""
+    dims = _check_scan(*scan)
+    _check_fixed(dims[-1], scan[0].device, **fixed)
+    if psf_kernels is not None:
+        scan = matched_packs(*scan[:3], psf_kernels) + scan[3:]
+    return scan, dims
 
 
 def _check_fixed(q, device, **operands):
@@ -146,17 +267,19 @@ def _empty(shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
-def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
+def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None):
     """The whole query's map+reduce in ONE launch -> (Q,Q) coadd and depth.
 
     ``pixels`` (P,cap,H,W) and ``wcs_vecs`` (P,cap,8) are the resident
     layout, ``pack_idx`` (G,) int32 the packs to scan (``arange(P)`` when
     dense), ``accept`` (G,cap) float32 the per-slot weights (acceptance AND
     gate).  Each pack's partial sum is added to the carry in ``pack_idx``
-    order, as the reference scan does.
+    order, as the reference scan does.  With a ``psf_kernels`` bank
+    ((P,cap,K) or (P,cap,Kh,Kw)) the frames are PSF-matched first: one
+    `psf_match` launch, then the scan.
     """
-    scan = (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec)
-    dims = _check_scan(*scan)
+    scan, dims = _prepare_scan((pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec),
+                               psf_kernels)
     if pixels.device.type == "cpu":
         return ref.coadd_scan_ref(*scan)
     out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
@@ -168,14 +291,14 @@ def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
 coadd_fused.launches = 0
 
 
-def coadd_moments(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
+def coadd_moments(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None):
     """Robust pass 1 in ONE launch -> (S0, S1, S2), each (Q,Q).
 
     S0 = Σ a·m, S1 = Σ a·vm, S2 = Σ a·vm²/m (m > 0) over every scanned slot;
     operands as `coadd_fused`.
     """
-    scan = (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec)
-    dims = _check_scan(*scan)
+    scan, dims = _prepare_scan((pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec),
+                               psf_kernels)
     if pixels.device.type == "cpu":
         return ref.moments_scan_ref(*scan)
     out = tuple(_empty(grid_ra.shape, pixels) for _ in range(3))
@@ -187,15 +310,15 @@ def coadd_moments(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
 coadd_moments.launches = 0
 
 
-def coadd_clip(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, thresh):
+def coadd_clip(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, thresh,
+               psf_kernels=None):
     """Robust final pass in ONE launch -> (coadd, depth) of the kept samples.
 
     A sample is kept where m > 0 and |vm - m·center| <= m·thresh; ``center``
     and ``thresh`` are (Q,Q) float32, the other operands as `coadd_fused`.
     """
-    scan = (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec)
-    dims = _check_scan(*scan)
-    _check_fixed(dims[-1], pixels.device, center=center, thresh=thresh)
+    scan, dims = _prepare_scan((pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec),
+                               psf_kernels, center=center, thresh=thresh)
     if pixels.device.type == "cpu":
         return ref.clip_scan_ref(*scan, center, thresh)
     out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
@@ -210,7 +333,8 @@ coadd_clip.launches = 0
 HIST_BINS = (8, 16, 32)
 
 
-def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w, nbins=16):
+def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w, nbins=16,
+               psf_kernels=None):
     """Median round 1 in ONE launch -> (nbins,Q,Q) coverage-weighted histogram.
 
     Each sample adds a·m to bin clip(floor((vm/m - lo)·inv_w), 0, nbins-1);
@@ -219,9 +343,8 @@ def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w,
     """
     if nbins not in HIST_BINS:
         raise ValueError(f"nbins must be one of {HIST_BINS}, got {nbins}")
-    scan = (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec)
-    dims = _check_scan(*scan)
-    _check_fixed(dims[-1], pixels.device, lo=lo, inv_w=inv_w)
+    scan, dims = _prepare_scan((pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec),
+                               psf_kernels, lo=lo, inv_w=inv_w)
     if pixels.device.type == "cpu":
         return ref.hist_scan_ref(*scan, lo, inv_w, nbins)
     out = _empty((nbins,) + tuple(grid_ra.shape), pixels)

@@ -1,4 +1,5 @@
-"""Plain torch versions of the warp kernels: exactly the mapper's projection.
+"""Plain torch versions of the warp and PSF-matching kernels: exactly the
+mapper's projection, after `psf.convolve_batch` where a bank is given.
 
 The CPU tests run these, and ``chip_smoke.py`` holds each CUDA kernel
 against them on the card.  They repeat the kernels' arithmetic, in the
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import reducer
+from repro_torch.core import psf, reducer
 from repro_torch.core.geometry import sky_to_pixel
 from repro_torch.core.mapper import map_batch, project_batch, project_one
 
@@ -60,51 +61,71 @@ def coadd_clip_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec, center, thresh)
     return reducer.clip_local(tiles, covs, center, thresh)
 
 
-def _scan(local, pixels, wcs_vecs, pack_idx, accept):
+def psf_match_ref(pixels, pack_idx, bank):
+    """The ``psf_match`` kernels' plain version -> (G,cap,H,W) matched frames.
+
+    The packs ``pack_idx`` of the resident (P,cap,H,W) ``pixels``, each
+    frame correlated with its slot's kernel of the (P,cap,K) or
+    (P,cap,Kh,Kw) ``bank`` (`psf.convolve_batch`).
+    """
+    rows = pack_idx.to(torch.int64)
+    g = rows.shape[0]
+    cap, h, w = pixels.shape[1:]
+    images = pixels[rows].reshape(g * cap, h, w)
+    kernels = bank[rows].reshape((g * cap,) + tuple(bank.shape[2:]))
+    return psf.convolve_batch(images, kernels).reshape(g, cap, h, w)
+
+
+def _scan(local, pixels, wcs_vecs, pack_idx, accept, psf_kernels=None):
     """Sum ``local(pack pixels, pack wcs, pack accept)`` over the packs.
 
     ``pixels`` (P,cap,H,W) and ``wcs_vecs`` (P,cap,8) are the resident
     layout, ``pack_idx`` (G,) the packs to scan and ``accept`` (G,cap) the
     per-slot weights.  As in the reference scan, each pack's partial sums
-    are added to the zero-initialised carry in ``pack_idx`` order.
+    are added to the zero-initialised carry in ``pack_idx`` order.  With a
+    ``psf_kernels`` bank each pack's frames are PSF-matched first
+    (`psf.convolve_batch`, the same operations as `psf_match_ref`).
     """
     out = None
     for g, p in enumerate(pack_idx.tolist()):
-        part = local(pixels[p], wcs_vecs[p], accept[g])
+        px = pixels[p] if psf_kernels is None else psf.convolve_batch(pixels[p], psf_kernels[p])
+        part = local(px, wcs_vecs[p], accept[g])
         if out is None:
             out = [torch.zeros_like(t) for t in part]
         out = [o + t for o, t in zip(out, part)]
     return tuple(out)
 
 
-def coadd_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
+def coadd_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None):
     """The whole query scan, plain, on the `coadd_fused` kernel's operands.
 
     This is also the engine's ``use_kernel=False`` mean pass: map stage then
     local reduce, per pack.
     """
     return _scan(lambda px, wv, a: coadd_fused_ref(px, wv, a, grid_ra, grid_dec),
-                 pixels, wcs_vecs, pack_idx, accept)
+                 pixels, wcs_vecs, pack_idx, accept, psf_kernels)
 
 
-def moments_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
+def moments_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None):
     """The moments pass, plain, on the `coadd_moments` kernel's operands."""
     return _scan(lambda px, wv, a: coadd_moments_ref(px, wv, a, grid_ra, grid_dec),
-                 pixels, wcs_vecs, pack_idx, accept)
+                 pixels, wcs_vecs, pack_idx, accept, psf_kernels)
 
 
-def hist_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w, nbins):
+def hist_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w, nbins,
+                  psf_kernels=None):
     """The histogram pass, plain, on the `coadd_hist` kernel's operands."""
     (hist,) = _scan(
         lambda px, wv, a: (coadd_hist_ref(px, wv, a, grid_ra, grid_dec, lo, inv_w, nbins),),
-        pixels, wcs_vecs, pack_idx, accept)
+        pixels, wcs_vecs, pack_idx, accept, psf_kernels)
     return hist
 
 
-def clip_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, thresh):
+def clip_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, thresh,
+                  psf_kernels=None):
     """The clip pass, plain, on the `coadd_clip` kernel's operands."""
     return _scan(lambda px, wv, a: coadd_clip_ref(px, wv, a, grid_ra, grid_dec, center, thresh),
-                 pixels, wcs_vecs, pack_idx, accept)
+                 pixels, wcs_vecs, pack_idx, accept, psf_kernels)
 
 
 def near_edge(height, width, wcs_vecs, accepts, ra, dec, tol=EDGE_TOL):

@@ -269,8 +269,9 @@ def test_default_device_engine_raises_without_a_card(surveys):
 
 def test_later_slice_arguments_rejected(surveys, engines):
     _, port_eng = engines
-    with pytest.raises(NotImplementedError):
-        rt.CoaddEngine(surveys[1], device="cpu", match_psf_sigma=2.0)
+    # Ported: PSF matching is accepted and plans carry its target.
+    psf_eng = rt.CoaddEngine(surveys[1], device="cpu", match_psf_sigma=2.0)
+    assert psf_eng.plan(rt.CoaddQuery(**QUERIES[0]), "sql_structured").psf_target == 2.0
     with pytest.raises(NotImplementedError):
         rt.CoaddEngine(surveys[1], device="cpu", device_budget_bytes=1 << 20)
     for reduce in ("clipped", "median"):   # ported: robust queries plan and run

@@ -150,13 +150,18 @@ def test_gather_packs(survey):
     eng = rt.CoaddEngine(survey, pack_capacity=8, device="cpu")
     dev = eng.device_dataset("structured")
     idx = torch.tensor([3, 0, 3], dtype=torch.int32)
-    px, wv, ints, floats = mapper.gather_packs(idx, dev.pixels, dev.wcs, dev.ints, dev.floats)
+    px, wv, ints, floats, kern = mapper.gather_packs(idx, dev.pixels, dev.wcs, dev.ints,
+                                                     dev.floats)
     assert px.shape == (3,) + tuple(dev.pixels.shape[1:])
     assert torch.equal(px[0], dev.pixels[3]) and torch.equal(px[1], dev.pixels[0])
     assert torch.equal(wv[2], dev.wcs[3])
     assert torch.equal(ints["image_id"][1], dev.ints["image_id"][0])
-    px1, wv1, _, _ = mapper.gather_packs(2, dev.pixels, dev.wcs, {}, {})
+    assert kern is None
+    bank = torch.arange(dev.pixels.shape[0] * dev.pixels.shape[1] * 3,
+                        dtype=torch.float32).reshape(dev.pixels.shape[:2] + (3,))
+    px1, wv1, _, _, kern1 = mapper.gather_packs(2, dev.pixels, dev.wcs, {}, {}, bank)
     assert torch.equal(px1, dev.pixels[2]) and torch.equal(wv1, dev.wcs[2])
+    assert torch.equal(kern1, bank[2])
 
 
 @pytest.mark.parametrize("seed", range(3))
