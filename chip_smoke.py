@@ -28,6 +28,11 @@ Phases, in order, each printing its seconds:
    H != W, frames smaller than the kernel, delta rows and a padded pack
    index; and ``coadd_fused`` and the three robust passes composed with
    each bank (``psf_kernels=``) against the plain scans, depth exactly.
+   Then ``mosaic_bricks`` against its plain version, bitwise: the lattice
+   cover (4 x 4 bricks of 256 x 256 into 1024 x 1024), one tile, bh != bw,
+   overlapping tiles, offsets past the edges and negative (clamped as the
+   reference places them), uncovered pixels, npix 997 (not a multiple of
+   the 32 x 8 block), 700 tiles (more than one 256-tile chunk) and B = 0.
 4. main path: a survey of 2880 frames of 512 x 512 px (the reference
    survey's geometry), one r-band query at npix 1024, all six methods
    through ``CoaddEngine.run`` with the fused kernel, exactly one
@@ -46,6 +51,23 @@ Phases, in order, each printing its seconds:
    the methods agreeing at 1e-3; then ``sql_structured`` with the Gaussian
    fallback (``measured_psf=False``: one ``psf_match_sep`` a query) and on
    the plain path (``use_kernel=False``, the cached matched layout).
+   Then the brick path (DESIGN.md §9) on the same survey: a lattice of
+   256-pixel bricks 0.25 deg on a side (10 x 12 bricks at the main query's
+   1024 px/deg) and the 4 x 4 window ``window_query(3, 7, 2, 6, "r")``,
+   npix 1024.  For the six methods' means, and ``sql_structured`` and
+   ``raw_fits`` clipped, median and PSF-matched (mean at 2.5): the fresh
+   ``run_window``, then ``run(use_bricks=True)`` cold (16 bricks
+   materialized, then exactly 1 ``mosaic_bricks`` launch), warm (16 hits, 1
+   launch, no scan) and after ``brick_store.drop_device()`` (16 spilled, 1
+   launch, no scan), each bitwise ``run_window``; then
+   ``materialize_bricks`` over the window and its rerun (all skipped).
+   Then detection: the reference drill's own configuration on the card
+   (8 of 8 recovered, 0 spurious, 0 on the static sky), and at main scale
+   a static-sky control, 8 transients injected into the newest epoch
+   inside the window, and a fresh engine's ``difference_image``
+   (brick-served clipped template, PSF-matched at 2.5) with
+   ``detect_sources`` on the kernel path and on the plain path: the two
+   catalogs must agree (x, y, npix exactly; flux and snr at rtol 1e-4).
 5. measure: each kernel's time on the card (CUDA events, warm), its plain
    version's, the nearest PyTorch call's (``F.grid_sample`` bilinear over
    the same samples, plus a sum for the coadd; it covers only the
@@ -53,7 +75,8 @@ Phases, in order, each printing its seconds:
    3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever is larger).
    The PSF kernels' library call is ``F.conv2d`` depthwise on a
    replicate-padded batch, TF32 off (a yardstick only: the port never
-   calls it).
+   calls it).  ``mosaic_bricks``'s library call is ``F.fold`` (col2im,
+   kernel and stride 256) of the 16 window tiles, coadd and depth.
 
 The line before the last is ``{"kernels": [...]}``; the last is the device
 line.  The script exits nonzero, before printing either, on any failure.
@@ -113,13 +136,25 @@ SLOT_OPS = 7
 # matched pixel for a 2-D kernel, 2 * 2K for a separable one (K = 1: one
 # multiply).
 KERNELS = ("coadd_fused", "warp_project", "coadd_moments", "coadd_hist", "coadd_clip",
-           "psf_match_sep", "psf_match_2d")
+           "psf_match_sep", "psf_match_2d", "mosaic_bricks")
 PSF_TARGET = 2.5                        # the main path's match_psf_sigma: no slot clamps
 REDUCES = ("mean",) + ROBUST
 PASSES = {"mean": ("coadd_fused",), "clipped": ("coadd_moments", "coadd_clip"),
           "median": ("coadd_moments", "coadd_hist", "coadd_clip")}
 
 MAIN_QUERY = dict(band="r", ra_bounds=(37.5, 38.5), dec_bounds=(-0.5, 0.5), npix=1024)
+# The brick path: 256-pixel bricks 0.25 deg on a side (the main query's
+# 1024 px/deg) and a 4 x 4 window of them; the dense method it also runs
+# robust and PSF-matched; warm repeats per brick-served query.
+BRICK_DEG, BRICK_NPIX = 0.25, 256
+BRICK_WINDOW = (3, 7, 2, 6)
+BRICK_DENSE = "raw_fits"
+WARM_REPS = 3
+# The reference's detection drill (examples/coadd_stripe82.py:28-31).
+DRILL_CFG = dict(n_runs=3, n_fields=5, n_sources=100, height=20, width=20)
+DRILL_QUERY = dict(band="r", ra_bounds=(37.3, 37.9), dec_bounds=(-0.5, 0.3), npix=48)
+DRILL_PSF, NSIGMA, N_TRANSIENTS, TRANSIENT_FLUX, TRANSIENT_SEED = 2.0, 5.0, 8, 400.0, 7
+CATALOG_RTOL, FLUX_ATOL = 1e-4, 1e-3   # kernel vs plain catalog: flux and snr
 
 
 class SmokeFailure(Exception):
@@ -225,8 +260,11 @@ def main(argv=None) -> int:
 
     import torch.nn.functional as F
 
-    from repro_torch import CoaddEngine, CoaddQuery, METHODS, SurveyConfig, make_survey
+    from repro_torch import (CoaddEngine, CoaddQuery, METHODS, SurveyConfig, detect_sources,
+                             difference_image, inject_transients, make_survey,
+                             match_detections)
     from repro_torch.core import mapper, psf, reducer
+    from repro_torch.core.detect import sky_to_grid
     from repro_torch.core.geometry import sky_to_pixel
     from repro_torch.core.seqfile import pack_structured
     from repro_torch.kernels import build
@@ -238,7 +276,7 @@ def main(argv=None) -> int:
     counted = {"coadd_fused": warp_ops.coadd_fused, "warp_project": warp_ops.warp_batch,
                "coadd_moments": warp_ops.coadd_moments, "coadd_hist": warp_ops.coadd_hist,
                "coadd_clip": warp_ops.coadd_clip, "psf_match_sep": warp_ops.psf_match_sep,
-               "psf_match_2d": warp_ops.psf_match_2d}
+               "psf_match_2d": warp_ops.psf_match_2d, "mosaic_bricks": warp_ops.mosaic_bricks}
 
     # ------------------------------------------------------------ 1 card --
     with phase("1 card"):
@@ -257,7 +295,7 @@ def main(argv=None) -> int:
             for line in log.splitlines():
                 if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
                     print(f"  [{name}] {line.strip()}")
-        for name in ("warp", "psf"):
+        for name in ("warp", "psf", "mosaic"):
             print(f"  loaded {build.library_path(name).relative_to(ROOT)}")
             build.library(name)
 
@@ -581,6 +619,40 @@ def main(argv=None) -> int:
         del sv, ds, same, doubled, raised, cov0, depth0, s_k, clipped
         torch.cuda.empty_cache()
 
+        # The brick mosaic: bitwise its plain version at every case.
+        def mosaic_case(case, n, bh, bw, npix, offsets):
+            tiles = rng.normal(size=(n, bh, bw)).astype(np.float32)
+            covs = rng.integers(0, 9, size=(n, bh, bw)).astype(np.float32)
+            ops_in = [torch.from_numpy(a).to(dev)
+                      for a in (tiles, covs, np.asarray(offsets, np.int32).reshape(n, 2))]
+            c_k, d_k = warp_ops.mosaic_bricks(*ops_in, npix)
+            c_p, d_p = ref.mosaic_bricks_ref(*ops_in, npix)
+            torch.cuda.synchronize()
+            require(torch.equal(c_k, c_p) and torch.equal(d_k, d_p),
+                    f"{case}/mosaic_bricks: not bitwise its plain version")
+            err = float(torch.maximum((c_k - c_p).abs().max(), (d_k - d_p).abs().max()))
+            case_err["mosaic_bricks"] = max(case_err["mosaic_bricks"], err)
+            print(f"  {case:16s} B={n} tile={bh}x{bw} npix={npix} "
+                  f"uncovered={int((d_p == 0).sum())} | mosaic_bricks bitwise", flush=True)
+            return c_k, d_k
+
+        lattice = [(r * 256, c * 256) for r in range(4) for c in range(4)]
+        mosaic_case("mosaic_lattice", 16, 256, 256, 1024, lattice)
+        mosaic_case("mosaic_one_tile", 1, 256, 256, 1024, [(100, 300)])
+        mosaic_case("mosaic_bh_ne_bw", 6, 96, 160, 512, rng.integers(0, 352, (6, 2)))
+        mosaic_case("mosaic_overlap", 40, 64, 64, 256, rng.integers(0, 200, (40, 2)))
+        mosaic_case("mosaic_clamped", 5, 128, 128, 600,
+                    [(-3, 0), (0, 900), (5000, -7), (-2000, 3), (700, 700)])
+        _, d_u = mosaic_case("mosaic_uncovered", 3, 100, 100, 997,
+                             [(0, 0), (400, 500), (896, 896)])
+        require(int((d_u == 0).sum()) >= 997 * 997 - 3 * 100 * 100,
+                "mosaic_uncovered: uncovered pixels are not 0")
+        mosaic_case("mosaic_npix_997", 16, 249, 249, 997,
+                    [(r * 249, c * 249) for r in range(4) for c in range(4)])
+        mosaic_case("mosaic_700_tiles", 700, 16, 16, 100, rng.integers(-120, 120, (700, 2)))
+        c_e, d_e = mosaic_case("mosaic_empty", 0, 16, 16, 64, np.zeros((0, 2)))
+        require(not c_e.any() and not d_e.any(), "mosaic_empty: B = 0 must give zero canvases")
+
     # ------------------------------------------------------- 4 main path --
     cfg = SurveyConfig(n_runs=args.n_runs, n_camcols=6, n_bands=5, n_fields=12,
                        height=512, width=512, seed=82)
@@ -591,7 +663,8 @@ def main(argv=None) -> int:
         print(f"  survey: {len(survey)} frames of {cfg.height} x {cfg.width} px "
               f"(n_runs={cfg.n_runs}{'' if cfg.n_runs == 8 else ', cut from 8'}) "
               f"rendered in {time.perf_counter() - t0:.1f} s on {procs} processes")
-        eng = CoaddEngine(survey, pack_capacity=64, device=DEVICE)
+        eng = CoaddEngine(survey, pack_capacity=64, device=DEVICE, brick_deg=BRICK_DEG,
+                          brick_npix=BRICK_NPIX)
         t0 = time.perf_counter()
         for layout in ("per_file", "unstructured", "structured"):
             eng.device_dataset(layout)
@@ -722,7 +795,7 @@ def main(argv=None) -> int:
         n_q = len(METHODS) * (ROBUST_REPS + 1)
         require(robust_launches == {"coadd_fused": 0, "warp_project": 0, "coadd_moments": 2 * n_q,
                                     "coadd_hist": n_q, "coadd_clip": 2 * n_q,
-                                    "psf_match_sep": 0, "psf_match_2d": 0},
+                                    "psf_match_sep": 0, "psf_match_2d": 0, "mosaic_bricks": 0},
                 "robust launch counts")
 
         # Each estimator's fixed operands on the sql_structured pass (after
@@ -912,6 +985,195 @@ def main(argv=None) -> int:
         eng.use_kernel = True
         eng._matched_cache.clear()
 
+        # The brick path (DESIGN.md §9), counted on its own: every count 0
+        # just before it.  Each case starts from an empty brick store.
+        eng.match_psf_sigma = None
+        grid = eng.brick_grid
+        wq = grid.window_query(*BRICK_WINDOW, "r")
+        cover = grid.decompose(wq)
+        require((grid.n_rows, grid.n_cols) == (10, 12) and cover is not None
+                and cover.k == 4 and wq.npix == query.npix,
+                f"brick lattice {grid.n_rows}x{grid.n_cols}, window {wq}")
+        n_b = len(cover.bricks)
+        print(f"  brick lattice {grid.n_rows} x {grid.n_cols} bricks of {BRICK_NPIX}^2 px, "
+              f"{BRICK_DEG} deg; window rows {cover.r0}-{cover.r1} cols {cover.c0}-{cover.c1}: "
+              f"ra {wq.ra_bounds}, dec {wq.dec_bounds}, npix {wq.npix}")
+        brick_cases = ([("mean", m, None) for m in METHODS]
+                       + [(red, m, None) for red in ROBUST for m in ("sql_structured", BRICK_DENSE)]
+                       + [("mean", m, PSF_TARGET) for m in ("sql_structured", BRICK_DENSE)])
+        for fn in counted.values():
+            fn.launches = 0
+        mosaics = 0
+
+        def served(red, m, target, fresh, scanned, tiers):
+            """One run(use_bricks=True): ``scanned`` bricks materialized, then
+            exactly one mosaic launch; ``tiers`` = (hit, missed, spilled);
+            bitwise ``fresh``."""
+            nonlocal mosaics
+            before = {k: fn.launches for k, fn in counted.items()}
+            t0 = time.perf_counter()
+            res = eng.run(wq, m, use_bricks=True, reduce=red)
+            ms = (time.perf_counter() - t0) * 1e3
+            got = {k: fn.launches - before[k] for k, fn in counted.items()}
+            want = {k: scanned * (PASSES[red].count(k) + (target is not None
+                                                           and k == "psf_match_2d"))
+                    + (k == "mosaic_bricks") for k in counted}
+            what = f"bricks {m}/{red}/psf={target}"
+            require(got == want, f"{what}: launches {got}, expected {want}")
+            s = res.stats
+            require((s.bricks_hit, s.bricks_missed, s.bricks_spilled) == tiers,
+                    f"{what}: hit/missed/spilled {(s.bricks_hit, s.bricks_missed, s.bricks_spilled)}"
+                    f", expected {tiers}")
+            require((s.residual_packs_scanned > 0) == (scanned > 0)
+                    and s.dispatches == sum(want.values()), f"{what}: residual scan / dispatches")
+            require(np.array_equal(res.coadd, fresh.coadd) and np.array_equal(res.depth, fresh.depth),
+                    f"{what} {tiers}: mosaic differs from run_window "
+                    f"(max {float(np.abs(res.coadd - fresh.coadd).max())})")
+            mosaics += 1
+            return res, ms
+
+        brick_ms = {}
+        for red, m, target in brick_cases:
+            eng.match_psf_sigma = target
+            eng.brick_store.clear()
+            t0 = time.perf_counter()
+            fresh = eng.run_window(wq, m, red)
+            fresh_ms = (time.perf_counter() - t0) * 1e3
+            require(np.isfinite(fresh.coadd).all() and fresh.depth.max() > 0,
+                    f"run_window {m}/{red}: empty or non-finite")
+            _, cold_ms = served(red, m, target, fresh, n_b, (0, n_b, 0))
+            warm_ms = statistics.median(served(red, m, target, fresh, 0, (n_b, 0, 0))[1]
+                                        for _ in range(WARM_REPS))
+            require(eng.brick_store.drop_device() == n_b, "drop_device")
+            _, spill_ms = served(red, m, target, fresh, 0, (0, 0, n_b))
+            brick_ms[red, m, target] = (fresh_ms, cold_ms, warm_ms, spill_ms)
+            print(f"  bricks {red:7s} {m:28s} psf={target} fresh_ms={fresh_ms:.1f} "
+                  f"cold_ms={cold_ms:.1f} warm_ms={warm_ms:.1f} spilled_ms={spill_ms:.1f} "
+                  f"depth_sum={float(fresh.depth.sum()):.0f} bitwise run_window: cold, warm, spilled")
+            if (red, m, target) == ("mean", "sql_structured", None):
+                fresh_mean = fresh
+
+        # Materialize the window's bricks as a job, then rerun: all skipped.
+        eng.match_psf_sigma = None
+        eng.brick_store.clear()
+        eps = 1e-9
+        region = ((grid.ra0 + cover.c0 * BRICK_DEG + eps, grid.ra0 + cover.c1 * BRICK_DEG - eps),
+                  (grid.dec0 + cover.r0 * BRICK_DEG + eps, grid.dec0 + cover.r1 * BRICK_DEG - eps))
+        t0 = time.perf_counter()
+        rep = eng.materialize_bricks(bands=("r",), region=region)
+        mat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rerun = eng.materialize_bricks(bands=("r",), region=region)
+        rerun_ms = (time.perf_counter() - t0) * 1e3
+        require((rep.completed, rep.skipped) == (n_b, 0) and (rerun.completed, rerun.skipped)
+                == (0, n_b), f"materialize_bricks: {rep.completed}/{rep.skipped} then "
+                             f"{rerun.completed}/{rerun.skipped} completed/skipped")
+        require(eng.warm_brick_cover(wq) is not None, "materialized window is not warm")
+        served("mean", "sql_structured", None, fresh_mean, 0, (n_b, 0, 0))
+        mosaic_inputs = [eng.brick_store.host_arrays(eng._brick_key("r", r, c))
+                         for r, c in cover.bricks]
+        mosaic_offsets = [((r - cover.r0) * BRICK_NPIX, (c - cover.c0) * BRICK_NPIX)
+                          for r, c in cover.bricks]
+        brick_launches = {k: fn.launches for k, fn in counted.items()}
+        print(f"  brick-path launches: {brick_launches}")
+        require(brick_launches["mosaic_bricks"] == mosaics == 5 * len(brick_cases) + 1,
+                "mosaic_bricks launch count")
+        decompose_times = []
+        for _ in range(WARM_REPS):
+            t0 = time.perf_counter()
+            grid.decompose(wq)
+            decompose_times.append((time.perf_counter() - t0) * 1e3)
+        decompose_ms = statistics.median(decompose_times)
+        print(f"  materialize_bricks over the window: {rep.completed} bricks in {mat_s:.2f} s; "
+              f"rerun {rerun.skipped} skipped in {rerun_ms:.1f} ms; host decompose of the "
+              f"window (its float64 lattice grid): {decompose_ms:.1f} ms per brick query")
+
+        # Detection (DESIGN.md §11), counted on its own.
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        dq = CoaddQuery(**DRILL_QUERY)
+
+        def drill(injected):
+            sv_d = make_survey(SurveyConfig(**DRILL_CFG))
+            truths = (inject_transients(sv_d, dq, n=N_TRANSIENTS, flux=TRANSIENT_FLUX,
+                                        seed=TRANSIENT_SEED) if injected else np.zeros((0, 2)))
+            e = CoaddEngine(sv_d, pack_capacity=16, match_psf_sigma=DRILL_PSF, device=DEVICE)
+            return truths, detect_sources(*difference_image(e, dq, reduce="clipped"),
+                                          nsigma=NSIGMA, device=DEVICE)
+
+        truths, cat = drill(True)
+        rec, spur = match_detections(cat, dq, truths)
+        _, static_d = drill(False)
+        print(f"  detect drill (reference configuration, npix {dq.npix}): recovered {rec}/"
+              f"{len(truths)}, spurious {spur}, static-sky detections {len(static_d)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        require(rec >= N_TRANSIENTS and spur == 0 and len(static_d) == 0,
+                "detect drill: expected 8/8 recovered, 0 spurious, 0 static")
+
+        # Main scale: the static control on the main engine, then transients
+        # injected into the newest epoch inside the window and a fresh engine.
+        # The template sits on the lattice grid, the epoch (time-bounded, so
+        # never brick-served) on the query's own grid: how far apart, in
+        # output pixels of the query grid (float64 on the host).
+        lat_ra, lat_dec = grid._window_sky64(*BRICK_WINDOW)
+        gx, gy = sky_to_pixel(lat_ra, lat_dec, wq.grid_wcs_vector().astype(np.float64))
+        iy, ix = np.mgrid[0:wq.npix, 0:wq.npix]
+        grid_off = np.hypot(gx - ix, gy - iy)
+        print(f"  lattice vs query grid of the window: offset max {grid_off.max():.4f} px, "
+              f"median {np.median(grid_off):.4f} px")
+        eng.match_psf_sigma = PSF_TARGET
+        t0 = time.perf_counter()
+        static = detect_sources(*difference_image(eng, wq, use_bricks=True, reduce="clipped"),
+                                nsigma=NSIGMA, device=DEVICE)
+        static_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        truths = inject_transients(survey, wq, n=N_TRANSIENTS, flux=TRANSIENT_FLUX,
+                                   seed=TRANSIENT_SEED)
+        eng_d = CoaddEngine(survey, pack_capacity=64, device=DEVICE, match_psf_sigma=PSF_TARGET,
+                            brick_deg=BRICK_DEG, brick_npix=BRICK_NPIX)
+        eng_d.device_dataset("structured")
+        setup_s = time.perf_counter() - t0
+        catalogs, diff_s = {}, {}
+        for path in ("kernel", "plain"):
+            eng_d.use_kernel = path == "kernel"
+            eng_d.brick_store.clear()
+            t0 = time.perf_counter()
+            diff = difference_image(eng_d, wq, use_bricks=True, reduce="clipped")
+            catalogs[path] = detect_sources(*diff, nsigma=NSIGMA, device=DEVICE)
+            diff_s[path] = time.perf_counter() - t0
+            require(np.isfinite(diff[0]).all() and diff[0].shape == (wq.npix, wq.npix),
+                    f"main-scale difference ({path}): non-finite or misshapen")
+        cat_k, cat_p = catalogs["kernel"], catalogs["plain"]
+        require(len(cat_k) == len(cat_p) and all(
+            np.array_equal(getattr(cat_k, f), getattr(cat_p, f)) for f in ("x", "y", "npix")),
+            f"main-scale catalogs differ: kernel {list(zip(cat_k.x, cat_k.y))}, "
+            f"plain {list(zip(cat_p.x, cat_p.y))}")
+        require(np.allclose(cat_k.snr, cat_p.snr, rtol=CATALOG_RTOL, atol=0)
+                and np.allclose(cat_k.flux, cat_p.flux, rtol=CATALOG_RTOL, atol=FLUX_ATOL),
+                "main-scale catalogs: snr or flux beyond tolerance")
+        rec, spur = match_detections(cat_k, wq, truths)
+        tx, ty = sky_to_grid(wq, truths[:, 0], truths[:, 1])
+        unmatched = [(int(x), int(y)) for x, y in zip(cat_k.x, cat_k.y)
+                     if ((x - tx) ** 2 + (y - ty) ** 2).min() > 9.0]
+        print(f"  static-control detections (x, y, snr): "
+              f"{[(int(x), int(y), round(float(v), 1)) for x, y, v in zip(static.x, static.y, static.snr)]}; "
+              f"injected run's unmatched detections: {unmatched}")
+        detect_launches = {k: fn.launches for k, fn in counted.items()}
+        print(f"  main-scale detection (window npix {wq.npix}, clipped template from bricks, "
+              f"psf {PSF_TARGET}): static control {len(static)} detections ({static_s:.1f} s); "
+              f"injected {N_TRANSIENTS} at flux {TRANSIENT_FLUX:g}: {len(cat_k)} detections, "
+              f"recovered {rec}, spurious {spur}; kernel and plain catalogs agree "
+              f"(x, y, npix equal; max |dsnr| "
+              f"{float(np.abs(cat_k.snr - cat_p.snr).max()) if len(cat_k) else 0.0:.3g}); "
+              f"set-up {setup_s:.1f} s, difference+detect {diff_s['kernel']:.1f} s kernel, "
+              f"{diff_s['plain']:.1f} s plain")
+        print(f"  detection launches: {detect_launches}")
+        require(detect_launches["mosaic_bricks"] == 2, "detection: mosaic_bricks launch count")
+        eng.match_psf_sigma = None
+        del eng_d, diff
+        torch.cuda.empty_cache()
+
     # --------------------------------------------------------- 5 measure --
     kernels = []
     with phase("5 measure"):
@@ -1061,6 +1323,40 @@ def main(argv=None) -> int:
                 shape=f"sql_structured pass: {n_img} frames of {h}x{w}, bank {taps}",
             ))
         del imgs
+        # The brick mosaic on the window's 16 materialized tiles, beside
+        # F.fold (col2im) as the library call.
+        tiles = torch.from_numpy(np.stack([a for a, _ in mosaic_inputs])).to(dev)
+        covs = torch.from_numpy(np.stack([b for _, b in mosaic_inputs])).to(dev)
+        offs = torch.tensor(mosaic_offsets, dtype=torch.int32, device=dev)
+        n_t = tiles.shape[0]
+        cols = [t.reshape(n_t, -1).T[None] for t in (tiles, covs)]
+
+        def fold():
+            return tuple(F.fold(c, (q, q), (BRICK_NPIX, BRICK_NPIX), stride=BRICK_NPIX)[0, 0]
+                         for c in cols)
+
+        out_k = warp_ops.mosaic_bricks(tiles, covs, offs, q)
+        out_p = ref.mosaic_bricks_ref(tiles, covs, offs, q)
+        out_l = fold()
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
+                "window mosaic: not bitwise its plain version")
+        lib_diff = max(float((a - b).abs().max()) for a, b in zip(out_k, out_l))
+        k_ms = cuda_ms(torch, lambda: warp_ops.mosaic_bricks(tiles, covs, offs, q), 200)
+        p_ms = cuda_ms(torch, lambda: ref.mosaic_bricks_ref(tiles, covs, offs, q), args.reps)
+        l_ms = cuda_ms(torch, fold, 200)
+        elems = tiles.numel()
+        b_ms, b_by = bound(2 * elems * 4 + offs.numel() * 4 + 2 * q * q * 4, 2 * elems)
+        kernels.append(dict(
+            name="mosaic_bricks", route="cuda", source="src/repro_torch/csrc/mosaic.cu",
+            replaces="src/repro/kernels/warp/warp.py:700",
+            launches=brick_launches["mosaic_bricks"], max_abs_err=case_err["mosaic_bricks"],
+            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+            library=f"F.fold (col2im, kernel and stride {BRICK_NPIX}) of coadd and depth",
+            library_max_abs_diff=lib_diff, kernel_ms=k_ms,
+            shape=f"brick window: {n_t} tiles of {BRICK_NPIX}x{BRICK_NPIX} into {q}x{q}",
+        ))
+        del tiles, covs, cols, out_k, out_p, out_l
         for m in METHODS:
             m_dev, m_idx, m_acc = eng._scan_operands(eng.plan(query, m))
             m_acc = m_acc.float()

@@ -8,27 +8,43 @@ nor anything of ``repro``.
 from repro_torch.core import (
     BANDS,
     METHODS,
+    BrickCover,
+    BrickGrid,
     CoaddEngine,
     CoaddPlan,
     CoaddQuery,
     CoaddResult,
+    DetectionCatalog,
     JobStats,
+    MaterializeReport,
     SpatialIndex,
     Survey,
     SurveyConfig,
+    detect_sources,
+    difference_image,
+    inject_transients,
     make_survey,
+    match_detections,
 )
 
 __all__ = [
     "BANDS",
+    "BrickCover",
+    "BrickGrid",
     "CoaddEngine",
     "CoaddPlan",
     "CoaddQuery",
     "CoaddResult",
+    "DetectionCatalog",
     "JobStats",
     "METHODS",
+    "MaterializeReport",
     "SpatialIndex",
     "Survey",
     "SurveyConfig",
+    "detect_sources",
+    "difference_image",
+    "inject_transients",
     "make_survey",
+    "match_detections",
 ]

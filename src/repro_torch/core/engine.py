@@ -38,8 +38,16 @@ whole resident layout once per (layout, PSF state) and caches the matched
 copy (``matched_pixel_cache``, the default), or convolves pack by pack
 inside every pass; both give the same bytes.
 
-Later slices of the port (batched queries, streaming residency) are not
-here; their arguments raise NotImplementedError.
+Bricks (DESIGN.md §9): the survey is tessellated into a fixed lattice of
+``brick_npix``-pixel bricks (`BrickGrid`), and a per-(brick, band) coadd is
+materialized once into the `BrickStore` (`materialize_bricks`, or inline on
+a miss).  ``run(..., use_bricks=True)`` serves a brick-aligned query by
+mosaicking its cached tiles in ONE ``mosaic_bricks`` launch (with
+``use_kernel=True``), bitwise equal to ``run_window``, the fresh scan of the
+same lattice window; an unaligned query falls back to the ordinary path.
+
+Later slices of the port (batched queries, streaming residency, the fault
+domain) are not here; their arguments raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,12 +55,14 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import mapper, psf, reducer
+from repro_torch.core.bricks import BrickCover, BrickGrid
+from repro_torch.core.jobtracker import BrickTask, MaterializeReport, MaterializeTracker
 from repro_torch.core.plan import (
     CoaddPlan,
     SparseScanIndex,
@@ -67,8 +77,11 @@ from repro_torch.core.prefilter import (
 )
 from repro_torch.core.query import CoaddQuery
 from repro_torch.core.seqfile import (
+    BrickMeta,
+    BrickStore,
     DevicePackedDataset,
     PackedDataset,
+    ResidencyManager,
     SlotRemap,
     pack_per_file,
     pack_structured,
@@ -110,6 +123,17 @@ class JobStats:
     # PSF-matched copies this call built, and those it found resident.
     matched_cache_builds: int = 0
     matched_cache_hits: int = 0
+    # Brick serving (DESIGN.md §9), `run(use_bricks=True)`: tiles served
+    # from the device tier, re-uploaded from the host tier, and materialized
+    # inline, and the scan work those misses paid (0 on the warm path).
+    bricks_hit: int = 0
+    bricks_missed: int = 0
+    bricks_spilled: int = 0
+    residual_packs_scanned: int = 0
+    # Coverage a quarantine removed (DESIGN.md §8).  The port has no
+    # quarantine yet: always False / (), carried through `BrickMeta`.
+    partial: bool = False
+    uncovered_packs: Tuple[int, ...] = ()
 
 
 @dataclasses.dataclass
@@ -143,6 +167,23 @@ def _query_vec(query: CoaddQuery) -> np.ndarray:
         ],
         np.float32,
     )
+
+
+def _brick_meta(stats: JobStats) -> BrickMeta:
+    """The provenance a brick materialized by one query carries."""
+    return BrickMeta(partial=stats.partial, uncovered_packs=stats.uncovered_packs,
+                     files_considered=stats.files_considered,
+                     files_contributing=stats.files_contributing)
+
+
+def _mosaic_bricks(tiles, covs, offsets, npix: int, use_kernel: bool):
+    """Merge (B, b, b) device brick tiles into one (npix, npix) coadd + depth:
+    ONE ``mosaic_bricks`` launch with ``use_kernel``, else its plain version.
+    Both accumulate into a zero canvas in brick order, so both match the
+    fresh lattice-window scan bitwise."""
+    if use_kernel:
+        return warp_ops.mosaic_bricks(tiles, covs, offsets, npix)
+    return reducer.mosaic_tiles(tiles, covs, offsets, npix)
 
 
 def _accept_from_meta(ints, floats, qvec):
@@ -228,8 +269,9 @@ class CoaddEngine:
     path); ``measured_psf`` picks the bank (None: measured stamps when the
     survey has them, True: stamps or raise, False: the Gaussian fallback)
     and ``matched_pixel_cache`` whether the plain path convolves each layout
-    once and caches it.  ``device`` defaults to ``"cuda"``; constructing an
-    engine for a CUDA device on a machine without one raises.
+    once and caches it.  ``brick_deg`` and ``brick_npix`` size the brick
+    lattice (DESIGN.md §9).  ``device`` defaults to ``"cuda"``; constructing
+    an engine for a CUDA device on a machine without one raises.
     """
 
     def __init__(
@@ -245,6 +287,8 @@ class CoaddEngine:
         device_budget_bytes: Optional[int] = None,
         clip_k: float = 3.0,
         median_bins: int = 16,
+        brick_deg: float = 0.25,
+        brick_npix: int = 64,
     ):
         if device_budget_bytes is not None:
             raise NotImplementedError("streaming residency (a device budget) is not ported yet")
@@ -280,6 +324,15 @@ class CoaddEngine:
         self.pack_upload_count = 0   # host->device uploads of whole layouts
         self.dispatch_count = 0      # executed passes over the gated packs
         self.matched_builds = 0      # whole-layout matched copies built
+        # Brick tessellation (DESIGN.md §9): the grid is built lazily from the
+        # survey footprint; the store's device tier lives in the engine's
+        # ResidencyManager, under no budget (streaming residency, which
+        # would share it with pack chunks, is not ported yet).
+        self.brick_deg = brick_deg
+        self.brick_npix = brick_npix
+        self._brick_grid: Optional[BrickGrid] = None
+        self.residency = ResidencyManager(budget_bytes=None)
+        self.brick_store = BrickStore(self.residency, self.device)
 
     # ----- dataset layouts (built lazily, cached) -----
     def dataset(self, layout: str) -> PackedDataset:
@@ -324,9 +377,11 @@ class CoaddEngine:
 
     @property
     def resident_bytes(self) -> int:
-        """Device bytes of every resident layout, kernel bank and matched copy
-        (only its pixels: it shares the layout's WCS and metadata)."""
+        """Device bytes of every resident layout, kernel bank, matched copy
+        (only its pixels: it shares the layout's WCS and metadata) and brick
+        tile (the residency manager's entries)."""
         return (sum(d.nbytes for d in self._device_cache.values())
+                + self.residency.bytes_resident
                 + sum(b.numel() * b.element_size() for b in self._psf_device.values())
                 + sum(d.pixels.numel() * d.pixels.element_size()
                       for d in self._matched_cache.values()))
@@ -423,6 +478,13 @@ class CoaddEngine:
         gr, gd = mapper.query_grid_sky(query)
         return (torch.from_numpy(gr).to(self.device),
                 torch.from_numpy(gd).to(self.device))
+
+    def _plan_grids(self, plan: CoaddPlan):
+        """The plan's output grid: its `grid_sky` override (brick-lattice
+        plans, DESIGN.md §9) when present, the query's own TAN grid otherwise."""
+        if plan.grid_sky is not None:
+            return tuple(torch.from_numpy(a).to(self.device) for a in plan.grid_sky)
+        return self._grids(plan.query)
 
     # ----- planning: the six methods differ ONLY in gate construction -----
     def plan(self, query: CoaddQuery, method: str, reduce: str = "mean") -> CoaddPlan:
@@ -542,7 +604,7 @@ class CoaddEngine:
         if self._matched_mode():
             dev, m_hits = self._matched_device_dataset(plan.layout, dev)
             bank = None
-        grid_ra, grid_dec = self._grids(plan.query)
+        grid_ra, grid_dec = self._plan_grids(plan)
         t1 = time.perf_counter()
         _, idx, accept = self._scan_operands(plan)
         if plan.reduce == "mean":
@@ -582,8 +644,200 @@ class CoaddEngine:
             ),
         )
 
-    def run(self, query: CoaddQuery, method: str, reduce: str = "mean") -> CoaddResult:
+    def run(self, query: CoaddQuery, method: str, use_bricks: bool = False,
+            reduce: str = "mean") -> CoaddResult:
         """Plan + execute one query; ``reduce`` picks the estimator (DESIGN.md §11):
         "mean", "clipped" (k-sigma-clipped mean) or "median" (binapprox
-        median, then a clip about it)."""
+        median, then a clip about it).
+
+        With ``use_bricks=True`` (DESIGN.md §9) a brick-aligned query is
+        served by mosaicking cached brick coadds, materializing any missing
+        brick inline; an unaligned query falls back to the ordinary path
+        (its stats carry zero brick counters).  Bricks are cached per
+        estimator and PSF state.
+        """
+        if use_bricks:
+            res = self._run_bricks(query, method, reduce)
+            if res is not None:
+                return res
         return self.execute(self.plan(query, method, reduce))
+
+    # ----- brick-tessellated materialized coadds (DESIGN.md §9) -----
+    @property
+    def brick_grid(self) -> BrickGrid:
+        """The survey's brick tessellation (built lazily, fixed per engine)."""
+        if self._brick_grid is None:
+            self._brick_grid = BrickGrid.for_survey(self.survey.config, self.brick_deg,
+                                                    self.brick_npix)
+        return self._brick_grid
+
+    def _brick_key(self, band: str, row: int, col: int, reduce: str = "mean") -> Tuple:
+        """BrickStore identity of one materialized (brick, band) cell.
+
+        Carries `_psf_state()`, so a retuned engine misses and re-materializes
+        instead of mosaicking tiles matched to another target; a robust
+        estimator extends the key with its knobs (retuning clip_k or the bin
+        count must miss).  The key shapes are the reference's.
+        """
+        key = ("brick", band, row, col, self._psf_state())
+        if reduce != "mean":
+            key += (reduce, self.clip_k, self.median_bins)
+        return key
+
+    def _brick_plan(self, band: str, row: int, col: int, method: str,
+                    reduce: str = "mean") -> CoaddPlan:
+        """The materialization plan for one brick: a normal planned query
+        whose output grid is overridden onto the global lattice tile."""
+        plan = self.plan(self.brick_grid.brick_query(row, col, band), method, reduce)
+        plan.grid_sky = self.brick_grid.brick_sky(row, col)
+        return plan
+
+    def warm_brick_cover(self, query: CoaddQuery,
+                         reduce: str = "mean") -> Optional[BrickCover]:
+        """This query's brick cover iff *every* covered tile is stored, else
+        None (unaligned, or some tile cold): a caller that routes only such
+        queries to `run(use_bricks=True)` never materializes inline."""
+        cover = self.brick_grid.decompose(query)
+        if cover is None:
+            return None
+        if all(self.brick_store.contains(self._brick_key(query.band, r, c, reduce))
+               for r, c in cover.bricks):
+            return cover
+        return None
+
+    def run_window(self, query: CoaddQuery, method: str,
+                   reduce: str = "mean") -> CoaddResult:
+        """The brick-free baseline for a brick-aligned query: one fresh scan
+        onto the lattice-window grid, no bricks consulted.  This is what
+        `run(use_bricks=True)` must match bitwise.  Raises on queries that do
+        not decompose (use plain `run` for those)."""
+        cover = self.brick_grid.decompose(query)
+        if cover is None:
+            raise ValueError("query is not brick-aligned; run_window only serves "
+                             "lattice-window queries (see BrickGrid.window_query)")
+        plan = self.plan(query, method, reduce)
+        plan.grid_sky = self.brick_grid.window_sky(cover.r0, cover.r1, cover.c0, cover.c1)
+        return self.execute(plan)
+
+    def _run_bricks(self, query: CoaddQuery, method: str,
+                    reduce: str = "mean") -> Optional[CoaddResult]:
+        """Serve a brick-aligned query from the BrickStore, or None.
+
+        Fetches every covered tile (device tier first, a host-tier re-upload
+        otherwise), materializes the misses inline (each a normal `execute`,
+        stored for the next query), and merges the tiles in one mosaic
+        launch.  The stats sum the misses' scan work, as far as the port's
+        `JobStats` carries it.
+        """
+        cover = self.brick_grid.decompose(query)
+        if cover is None:
+            return None
+        t0 = time.perf_counter()
+        store = self.brick_store
+        b = self.brick_npix
+        hits = spills = 0
+        tiles: List[Optional[torch.Tensor]] = []
+        covs: List[Optional[torch.Tensor]] = []
+        metas: List[Optional[BrickMeta]] = []
+        offsets: List[Tuple[int, int]] = []
+        missing: List[int] = []
+        for i, (r, c) in enumerate(cover.bricks):
+            offsets.append(((r - cover.r0) * b, (c - cover.c0) * b))
+            got = store.fetch(self._brick_key(query.band, r, c, reduce))
+            if got is None:
+                missing.append(i)
+                tiles.append(None)
+                covs.append(None)
+                metas.append(None)
+                continue
+            coadd_dev, depth_dev, meta, tier = got
+            hits += tier == "device"
+            spills += tier == "host"
+            tiles.append(coadd_dev)
+            covs.append(depth_dev)
+            metas.append(meta)
+        t_fetch = time.perf_counter() - t0
+        # The residual: bricks nobody materialized yet, each one fresh scan
+        # now, cached for every query after.
+        residual = JobStats("", 0, 0, 0, 0.0, 0.0, 0.0, dispatches=0)
+        for i in missing:
+            r, c = cover.bricks[i]
+            res = self.execute(self._brick_plan(query.band, r, c, method, reduce))
+            metas[i] = _brick_meta(res.stats)
+            tiles[i], covs[i] = store.put(self._brick_key(query.band, r, c, reduce),
+                                          res.coadd, res.depth, metas[i])
+            s = res.stats
+            residual.t_locate_s += s.t_locate_s
+            residual.t_map_reduce_s += s.t_map_reduce_s
+            residual.dispatches += s.dispatches
+            residual.packs_touched += s.packs_touched
+            residual.packs_gated += s.packs_gated
+            residual.packs_scanned += s.packs_scanned
+            residual.scan_budget = max(residual.scan_budget, s.scan_budget)
+            residual.matched_cache_builds += s.matched_cache_builds
+            residual.matched_cache_hits += s.matched_cache_hits
+            residual.reduce_passes = max(residual.reduce_passes, s.reduce_passes)
+        t1 = time.perf_counter()
+        self.dispatch_count += 1
+        offsets_dev = torch.tensor(offsets, dtype=torch.int32).to(self.device)
+        coadd, depth = _mosaic_bricks(torch.stack(tiles), torch.stack(covs), offsets_dev,
+                                      query.npix, self.use_kernel)
+        coadd_h, depth_h = coadd.cpu().numpy(), depth.cpu().numpy()
+        t2 = time.perf_counter()
+        return CoaddResult(
+            coadd_h,
+            depth_h,
+            JobStats(
+                method=method,
+                files_considered=sum(m.files_considered for m in metas),
+                files_contributing=sum(m.files_contributing for m in metas),
+                packs_touched=residual.packs_touched,
+                t_locate_s=t_fetch + residual.t_locate_s,
+                t_map_reduce_s=residual.t_map_reduce_s + (t2 - t1),
+                t_total_s=t2 - t0,
+                dispatches=residual.dispatches + 1,
+                packs_gated=residual.packs_gated,
+                packs_scanned=residual.packs_scanned,
+                scan_budget=residual.scan_budget,
+                reduce=reduce,
+                reduce_passes=residual.reduce_passes if missing else 1,
+                matched_cache_builds=residual.matched_cache_builds,
+                matched_cache_hits=residual.matched_cache_hits,
+                bricks_hit=hits,
+                bricks_missed=len(missing),
+                bricks_spilled=spills,
+                residual_packs_scanned=residual.packs_scanned,
+                partial=any(m.partial for m in metas),
+                uncovered_packs=tuple(sorted({p for m in metas for p in m.uncovered_packs})),
+            ),
+        )
+
+    def materialize_bricks(
+        self,
+        bands: Sequence[str] = ("r",),
+        region: Optional[Tuple[Tuple[float, float], Tuple[float, float]]] = None,
+        method: str = "sql_structured",
+        reduce: str = "mean",
+    ) -> MaterializeReport:
+        """Materialize the (brick, band) lattice into the BrickStore.
+
+        Every cell is one normal planned and executed brick query, journaled
+        by its presence in the store: a job re-issued with the same arguments
+        skips finished bricks.  ``region=(ra_bounds, dec_bounds)`` restricts
+        it to the cells whose nominal box intersects the region.
+        """
+        cells = self.brick_grid.bricks(region)
+        tasks = [BrickTask(band=band, row=r, col=c) for band in bands for (r, c) in cells]
+
+        def is_done(task: BrickTask) -> bool:
+            return self.brick_store.contains(
+                self._brick_key(task.band, task.row, task.col, reduce))
+
+        def run_one(task: BrickTask) -> None:
+            res = self.execute(self._brick_plan(task.band, task.row, task.col, method, reduce))
+            self.brick_store.put(self._brick_key(task.band, task.row, task.col, reduce),
+                                 res.coadd, res.depth, _brick_meta(res.stats))
+            task.status = "partial" if res.stats.partial else "done"
+            task.packs_scanned = res.stats.packs_scanned
+
+        return MaterializeReport(MaterializeTracker().run(tasks, is_done, run_one))

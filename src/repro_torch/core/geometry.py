@@ -162,6 +162,11 @@ def image_bounds(wcs: WCS, height: int, width: int) -> Tuple[float, float, float
     return float(ra.min()), float(ra.max()), float(dec.min()), float(dec.max())
 
 
+def boxes_intersect(a, b) -> bool:
+    """Axis-aligned RA/Dec box intersection. Boxes are (ra0, ra1, dec0, dec1)."""
+    return not (a[1] < b[0] or b[1] < a[0] or a[3] < b[2] or b[3] < a[2])
+
+
 def make_grid_wcs(center_ra: float, center_dec: float, npix: int, fov_deg: float) -> WCS:
     """Query-grid WCS: square TAN grid of ``npix`` pixels spanning ``fov_deg``."""
     scale = fov_deg / npix  # deg / pixel

@@ -17,7 +17,7 @@ gate opens instead of P.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -39,6 +39,12 @@ class CoaddPlan:
     # matched pixels are keyed per target.
     psf_target: Optional[float] = None
     reduce: str = "mean"   # estimator: "mean" | "clipped" | "median"
+    # Output-grid override (DESIGN.md §9): precomputed (ra, dec) float32
+    # sky coords, each (npix, npix), replacing the query's own TAN grid.
+    # Brick plans put every brick (and brick window) on the one global
+    # lattice, which is what makes mosaicked and fresh scans agree bitwise;
+    # None keeps the per-query grid.
+    grid_sky: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
     @property
     def npix(self) -> int:

@@ -142,3 +142,31 @@ def robust_local(tiles: torch.Tensor, covs: torch.Tensor, reduce: str = "clipped
     else:
         raise ValueError(f"robust_local: unknown reduce {reduce!r}")
     return clip_local(tiles, covs, center, clip_threshold(center, sigma, clip_k))
+
+
+# ----- brick mosaic (DESIGN.md §9) ------------------------------------------
+
+def mosaic_tiles(tiles: torch.Tensor, covs: torch.Tensor, offsets: torch.Tensor,
+                 npix: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted-sum merge of brick tiles into an (npix, npix) mosaic.
+
+    ``tiles``/``covs`` are (B, bh, bw) cached brick coadds + weight maps,
+    ``offsets`` (B, 2) int32 (row, col) canvas positions.  A zero canvas
+    accumulates ``canvas[r:r+bh, c:c+bw] += tile`` in brick order, so
+    overlapping tiles sum in that order.  Each offset is placed as the
+    reference's ``dynamic_slice`` (and its Pallas kernel) places it: a
+    negative one counts once from the end (``r + npix``), then it is clamped
+    to ``[0, npix - bh]`` (``[0, npix - bw]`` for the column).  The plain
+    version of the ``mosaic_bricks`` kernel, which gives the same bits.
+    """
+    _, bh, bw = tiles.shape
+    if bh > npix or bw > npix:
+        raise ValueError(f"tiles ({bh}, {bw}) do not fit an ({npix}, {npix}) canvas")
+    coadd = torch.zeros((npix, npix), dtype=tiles.dtype, device=tiles.device)
+    depth = torch.zeros((npix, npix), dtype=covs.dtype, device=covs.device)
+    for b, (r, c) in enumerate(offsets.tolist()):
+        r = min(max(r + npix if r < 0 else r, 0), npix - bh)
+        c = min(max(c + npix if c < 0 else c, 0), npix - bw)
+        coadd[r:r + bh, c:c + bw] += tiles[b]
+        depth[r:r + bh, c:c + bw] += covs[b]
+    return coadd, depth

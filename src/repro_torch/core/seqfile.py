@@ -13,13 +13,16 @@ small files into few large indexed containers.  Two layouts are compared:
 A container is a dense ``(cap, H, W)`` pixel array plus columnar metadata.
 Packing is numpy on the host and bitwise equal to the reference;
 `PackedDataset.to_device` makes one layout resident on a torch device as a
-`DevicePackedDataset`.
+`DevicePackedDataset`.  `ResidencyManager` (an LRU under a byte budget)
+and `BrickStore` (materialized brick coadds, host and device tiers) are the
+residency hierarchy of DESIGN.md §9.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from collections import OrderedDict
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +67,325 @@ class DevicePackedDataset:
         """Device bytes the layout occupies."""
         tensors = [self.pixels, self.wcs, *self.ints.values(), *self.floats.values()]
         return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# Rebuild-cost classes for cost-aware eviction (DESIGN.md §9).  The number
+# is a *class rank*, not a byte or second estimate: raw pixel chunks rebuild
+# with one H2D copy, matched-pixel chunks additionally re-run the PSF
+# convolution, and brick coadds rebuild only via a full streaming scan.
+COST_RAW_CHUNK = 1.0
+COST_MATCHED_CHUNK = 4.0
+COST_BRICK = 16.0
+
+
+@dataclasses.dataclass
+class ResidentEntry:
+    """One LRU-tracked resident payload (a pack chunk or a mesh window)."""
+
+    key: Tuple
+    payload: Any
+    nbytes: int
+    cost: float = COST_RAW_CHUNK  # rebuild-cost class (eviction priority)
+
+
+class ResidencyManager:
+    """Holds device-resident chunks under a byte budget with LRU eviction.
+
+    The residency contract of DESIGN.md §6 and §9: the engine asks this
+    manager for keyed device payloads.  A hit refreshes recency and costs
+    nothing; a miss evicts least-recently-used entries until the new one
+    fits, then calls the supplied builder.  In the port only the brick tier
+    (`BrickStore`) holds entries so far, under no budget; streaming pack
+    chunks come with the streaming executors.
+
+    Eviction drops the LRU reference and lets the runtime free the buffers
+    once in-flight consumers finish — never an explicit ``delete()``, so a
+    chunk evicted while its scan is still enqueued stays valid for exactly
+    as long as that scan needs it.  ``budget_bytes=None`` disables eviction
+    (everything stays resident, the eager contract).
+
+    Two classes of entry share the budget:
+
+    * **uploaded** chunks (``h2d=True``, the default) — pixels crossing
+      host->device; counted in ``uploads``/``bytes_uploaded``.
+    * **derived** entries (``h2d=False``) — arrays *computed on device*
+      from already-resident operands, e.g. the PSF matched-pixel cache.
+      They occupy budget bytes like anything else but add zero H2D
+      traffic, so they get their own ``derived_builds``/``derived_bytes``
+      counters and never inflate the upload accounting tests pin.
+
+    Eviction is **cost-aware** (DESIGN.md §9): every entry carries a
+    rebuild-cost class (``cost``), and pressure evicts the least-recently-
+    used entry of the *cheapest class present* — raw chunks (one H2D copy
+    to rebuild) go before matched-pixel chunks (H2D + convolution), which
+    go before bricks (a full streaming scan).  With uniform costs this
+    degrades exactly to plain LRU.
+
+    ``peak_bytes`` reports *true* peak residency, not the advisory budget:
+    eviction is drop-the-reference, so a chunk evicted while the most
+    recently served entry's scan is still in flight stays alive device-side
+    until that scan retires — the honest high-water mark is the resident
+    bytes after an insert **plus** the in-flight entry the insert displaced
+    (budget + one window's operands, matched-pixel cache included).
+    """
+
+    def __init__(self, budget_bytes: Optional[int] = None):
+        if budget_bytes is not None and budget_bytes <= 0:
+            raise ValueError(f"budget_bytes must be positive, got {budget_bytes}")
+        self.budget_bytes = budget_bytes
+        self._lru: "OrderedDict[Tuple, ResidentEntry]" = OrderedDict()
+        self.uploads = 0        # builder invocations (chunk misses, H2D)
+        self.hits = 0           # entries served without a build
+        self.evictions = 0      # entries dropped to make room
+        self.bytes_uploaded = 0 # cumulative H2D bytes across all misses
+        self.derived_builds = 0 # device-computed entries built (no H2D)
+        self.derived_bytes = 0  # cumulative bytes of derived builds
+        self.peak_bytes = 0     # true peak residency (see class docstring)
+        self.failed_builds = 0  # builds that raised (no entry inserted)
+        # Upload failure seam (DESIGN.md §8): called with the entry key on
+        # every miss, right where a real transfer would be issued — chaos
+        # drills hook `ChaosInjector.on_upload` here.  May raise.
+        self.fault_hook: Optional[Callable[[Tuple], None]] = None
+        # Eviction seam (DESIGN.md §9): called with (key, entry) after an
+        # entry is dropped under pressure — the `BrickStore` counts its
+        # device replicas spilling back to the host tier here.  Must not
+        # raise; exceptions are deliberately not swallowed (a broken hook
+        # is a bug, not weather).
+        self.on_evict: Optional[Callable[[Tuple, ResidentEntry], None]] = None
+        self._last_key: Optional[Tuple] = None  # most recently served entry
+
+
+    @property
+    def bytes_resident(self) -> int:
+        return sum(e.nbytes for e in self._lru.values())
+
+    @property
+    def n_resident(self) -> int:
+        return len(self._lru)
+
+    def acquire(
+        self,
+        key: Tuple,
+        nbytes: int,
+        build: Callable[[], Any],
+        h2d: bool = True,
+        transient_bytes: int = 0,
+        cost: float = COST_RAW_CHUNK,
+    ) -> Any:
+        """Return the resident payload for ``key``, building on miss.
+
+        ``h2d=False`` marks a *derived* entry (computed on device from
+        resident operands): budget-counted, but not upload-counted.
+        ``transient_bytes`` declares device bytes the *build itself* holds
+        alive beyond the entry (e.g. the raw pixel chunk a matched-pixel
+        build convolves from, dropped once the convolution retires) — they
+        join the peak candidate so the high-water mark stays honest.
+        ``cost`` is the entry's rebuild-cost class (see class docstring):
+        eviction pressure takes the LRU entry of the cheapest class first.
+        """
+        entry = self._lru.get(key)
+        if entry is not None:
+            self._lru.move_to_end(key)
+            self.hits += 1
+            self._last_key = key
+            return entry.payload
+        in_flight = 0
+        if self.budget_bytes is not None:
+            # Evict until the newcomer fits: cheapest rebuild-cost class
+            # first, LRU within the class (OrderedDict iteration order IS
+            # recency, oldest first, so the first minimum wins ties).  A
+            # chunk larger than the whole budget still loads (the scan
+            # needs it); the budget is then transiently exceeded by that
+            # one chunk, never by two.
+            while self._lru and self.bytes_resident + nbytes > self.budget_bytes:
+                victim = min(
+                    self._lru, key=lambda k: self._lru[k].cost
+                )
+                evicted = self._lru.pop(victim)
+                self.evictions += 1
+                if self.on_evict is not None:
+                    self.on_evict(victim, evicted)
+                if victim == self._last_key:
+                    # The entry a consumer may still be scanning: its
+                    # buffers outlive the eviction until that scan retires.
+                    in_flight = evicted.nbytes
+        try:
+            if self.fault_hook is not None:
+                self.fault_hook(key)
+            payload = build()
+        except BaseException:
+            # Failed-build contract: no entry is inserted and no upload is
+            # counted, so a retry re-acquires cleanly.  Evictions already
+            # performed stand — the newcomer's room was made, the newcomer
+            # never arrived — which keeps the LRU consistent (budget is an
+            # upper bound, never violated by a failure).
+            self.failed_builds += 1
+            raise
+        self._lru[key] = ResidentEntry(key, payload, nbytes, cost)
+        if h2d:
+            self.uploads += 1
+            self.bytes_uploaded += nbytes
+        else:
+            self.derived_builds += 1
+            self.derived_bytes += nbytes
+        self.peak_bytes = max(
+            self.peak_bytes,
+            self.bytes_resident + in_flight + max(transient_bytes, 0),
+        )
+        self._last_key = key
+        return payload
+
+    def resident(self, key: Tuple) -> bool:
+        """Whether ``key`` is device-resident right now (no recency touch)."""
+        return key in self._lru
+
+    def drop_matching(self, pred: Callable[[Tuple], bool]) -> int:
+        """Drop entries whose key satisfies ``pred`` (a deliberate release
+        — e.g. a retuned engine shedding the old PSF target's matched
+        pixels — not budget pressure, so ``evictions`` is untouched;
+        reference-drop semantics as ever)."""
+        stale = [k for k in self._lru if pred(k)]
+        for k in stale:
+            del self._lru[k]
+            if k == self._last_key:
+                self._last_key = None
+        return len(stale)
+
+    def clear(self) -> None:
+        """Drop every resident entry (a reset, not budget pressure — the
+        ``evictions`` counter tracks only LRU evictions forced by misses)."""
+        self._lru.clear()
+        self._last_key = None
+
+
+@dataclasses.dataclass
+class BrickMeta:
+    """Provenance a materialized brick carries into mosaicked results."""
+
+    partial: bool = False                    # quarantine removed coverage
+    uncovered_packs: Tuple[int, ...] = ()    # exec-layout packs missing
+    files_considered: int = 0
+    files_contributing: int = 0
+
+
+class BrickStore:
+    """The materialized-coadd tier of the residency hierarchy (DESIGN.md §9).
+
+    Two tiers per (brick, band, psf_state[, estimator]) key:
+
+    * a **host tier**, always written at `put` (the brick's result is on the
+      host already), holding the coadd and weight (depth) maps and
+      `BrickMeta`.  It is also the materialization journal:
+      `CoaddEngine.materialize_bricks` skips any brick already present.
+    * a **device tier**: entries of the shared `ResidencyManager` at
+      `COST_BRICK`, the most expensive rebuild class, uploaded with
+      ``torch.from_numpy(...).to(device)``.  Eviction drops only the device
+      replica; the host copy stands, so a later query re-uploads (one H2D
+      copy) instead of re-scanning the archive.  ``spilled`` counts those
+      pressure drops through the manager's eviction seam; ``spill_loads``
+      counts serves that had to re-upload.
+
+    Staleness is carried by the key, never checked here: the engine keys
+    bricks on its PSF state, so a retuned engine misses and re-materializes.
+    The persistent host tier (``spill``, the reference's `durable.BrickSpill`)
+    is not ported yet; only ``spill=None`` is accepted.
+    """
+
+    def __init__(self, residency: ResidencyManager, device="cpu", spill=None):
+        if spill is not None:
+            raise NotImplementedError("a persistent brick spill is not ported yet")
+        self.residency = residency
+        self.device = torch.device(device)
+        self._host: Dict[Tuple, Tuple[np.ndarray, np.ndarray, BrickMeta]] = {}
+        self.hits = 0         # serves straight from the device tier
+        self.spill_loads = 0  # serves that re-uploaded the host copy
+        self.misses = 0       # lookups with no materialized brick at all
+        self.spilled = 0      # device replicas dropped under LRU pressure
+        prev = residency.on_evict
+
+        def _count_spill(key: Tuple, entry: ResidentEntry) -> None:
+            if isinstance(key, tuple) and key and key[0] == "brick":
+                self.spilled += 1
+            if prev is not None:
+                prev(key, entry)
+
+        residency.on_evict = _count_spill
+
+    def __len__(self) -> int:
+        return len(self._host)
+
+    def contains(self, key: Tuple) -> bool:
+        """Whether a materialized brick exists: the journal check."""
+        return key in self._host
+
+    def keys(self):
+        return self._host.keys()
+
+    def meta(self, key: Tuple) -> BrickMeta:
+        return self._host[key][2]
+
+    def host_arrays(self, key: Tuple) -> Tuple[np.ndarray, np.ndarray]:
+        """The host-tier (coadd, depth) copies — test/debug access."""
+        coadd, depth, _ = self._host[key]
+        return coadd, depth
+
+    def _nbytes(self, key: Tuple) -> int:
+        coadd, depth, _ = self._host[key]
+        return int(coadd.nbytes) + int(depth.nbytes)
+
+    def _acquire(self, key: Tuple):
+        coadd, depth, _ = self._host[key]
+        return self.residency.acquire(
+            key,
+            self._nbytes(key),
+            lambda: (torch.from_numpy(coadd).to(self.device),
+                     torch.from_numpy(depth).to(self.device)),
+            h2d=True,
+            cost=COST_BRICK,
+        )
+
+    def put(self, key: Tuple, coadd: np.ndarray, depth: np.ndarray,
+            meta: Optional[BrickMeta] = None):
+        """Store a finished brick (host write-through + device insert).
+
+        Returns the device-tier (coadd, depth) payload so the caller can
+        mosaic immediately without a store lookup (which would miscount a
+        fresh insert as a cache hit).
+        """
+        self._host[key] = (
+            np.ascontiguousarray(coadd, np.float32),
+            np.ascontiguousarray(depth, np.float32),
+            meta or BrickMeta(),
+        )
+        return self._acquire(key)
+
+    def fetch(self, key: Tuple):
+        """``(coadd_dev, depth_dev, meta, tier)`` or None when absent.
+
+        ``tier`` is ``"device"`` (already resident) or ``"host"`` (the
+        spill path: the device replica was evicted; serving re-uploads)."""
+        if key not in self._host:
+            self.misses += 1
+            return None
+        was_resident = self.residency.resident(key)
+        coadd, depth = self._acquire(key)
+        if was_resident:
+            self.hits += 1
+        else:
+            self.spill_loads += 1
+        return coadd, depth, self._host[key][2], ("device" if was_resident else "host")
+
+    def drop_device(self) -> int:
+        """Drop every device replica (host tier stands) — the deliberate
+        spill used by tests/drills; LRU pressure does this organically."""
+        return self.residency.drop_matching(
+            lambda k: isinstance(k, tuple) and bool(k) and k[0] == "brick"
+        )
+
+    def clear(self) -> None:
+        """Forget every materialized brick, both tiers."""
+        self._host.clear()
+        self.drop_device()
 
 
 @dataclasses.dataclass

@@ -57,6 +57,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "psf_match_2d_f32": ((_VP,) * 4 + (_I,) * 7 + (_VP,), _I),
         "psf_error_string": ((_I,), ctypes.c_char_p),
     },
+    "mosaic": {
+        # tiles, covs, offsets, coadd, depth, b, bh, bw, npix, device, stream
+        "mosaic_bricks_f32": ((_VP,) * 5 + (_I,) * 5 + (_VP,), _I),
+        "mosaic_error_string": ((_I,), ctypes.c_char_p),
+    },
 }
 
 

@@ -1,5 +1,5 @@
-"""Wrappers of the hand-written Hopper warp and PSF-matching kernels
-(``csrc/warp.cu``, ``csrc/psf.cu``).
+"""Wrappers of the hand-written Hopper warp, PSF-matching and brick-mosaic
+kernels (``csrc/warp.cu``, ``csrc/psf.cu``, ``csrc/mosaic.cu``).
 
 Each wrapper checks device, dtype, shape and contiguity, then:
 
@@ -354,3 +354,43 @@ def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w,
 
 
 coadd_hist.launches = 0
+
+
+def mosaic_bricks(tiles, covs, offsets, npix: int):
+    """(B,bh,bw) brick tiles and weight maps -> (npix,npix) coadd and depth.
+
+    ONE launch of ``mosaic_bricks_kernel``: each tile added into zero
+    canvases at its (B,2) int32 (row, col) offset, in brick order, so
+    overlapping tiles sum in that order; a negative offset counts once from
+    the end, then each is clamped to ``[0, npix - bh] x [0, npix - bw]``
+    (the reference's placement).  Uncovered pixels are 0 and B = 0 gives
+    zero canvases.  Bitwise its plain version, `ref.mosaic_bricks_ref`.
+    """
+    dev = tiles.device
+    _require(tiles, "tiles", torch.float32, 3, dev)
+    _require(covs, "covs", torch.float32, 3, dev)
+    _require(offsets, "offsets", torch.int32, 2, dev)
+    b, bh, bw = tiles.shape
+    if covs.shape != tiles.shape or offsets.shape != (b, 2):
+        raise ValueError(f"covs {tuple(covs.shape)} / offsets {tuple(offsets.shape)} do not "
+                         f"match tiles {tuple(tiles.shape)}")
+    npix = int(npix)
+    if not 1 <= npix <= MAX_NPIX:
+        raise ValueError(f"npix must be in [1, {MAX_NPIX}], got {npix}")
+    if not (1 <= bh <= npix and 1 <= bw <= npix):
+        raise ValueError(f"tiles ({bh}, {bw}) do not fit an ({npix}, {npix}) canvas")
+    if dev.type == "cpu":
+        return ref.mosaic_bricks_ref(tiles, covs, offsets, npix)
+    index, stream = _launch_args(dev)
+    lib = build.library("mosaic")
+    coadd = torch.empty((npix, npix), dtype=torch.float32, device=dev)
+    depth = torch.empty((npix, npix), dtype=torch.float32, device=dev)
+    err = lib.mosaic_bricks_f32(tiles.data_ptr(), covs.data_ptr(), offsets.data_ptr(),
+                                coadd.data_ptr(), depth.data_ptr(), b, bh, bw, npix,
+                                index, stream)
+    build.check(lib, err, "mosaic_bricks launch")
+    mosaic_bricks.launches += 1
+    return coadd, depth
+
+
+mosaic_bricks.launches = 0

@@ -76,6 +76,16 @@ def psf_match_ref(pixels, pack_idx, bank):
     return psf.convolve_batch(images, kernels).reshape(g, cap, h, w)
 
 
+def mosaic_bricks_ref(tiles, covs, offsets, npix):
+    """The ``mosaic_bricks`` kernel's plain version -> (npix,npix) coadd, depth.
+
+    (B,bh,bw) tiles and weight maps added into zero canvases at their
+    (B,2) int32 offsets, placed as the reference places them, in brick
+    order (`reducer.mosaic_tiles`).
+    """
+    return reducer.mosaic_tiles(tiles, covs, offsets, npix)
+
+
 def _scan(local, pixels, wcs_vecs, pack_idx, accept, psf_kernels=None):
     """Sum ``local(pack pixels, pack wcs, pack accept)`` over the packs.
 

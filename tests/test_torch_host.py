@@ -288,6 +288,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import repro_torch, repro_torch.convert, repro_torch.core.engine\n"
+        "import repro_torch.core.bricks, repro_torch.core.detect, repro_torch.core.faults\n"
+        "import repro_torch.core.jobtracker, repro_torch.core.seqfile\n"
         "import repro_torch.kernels.build, repro_torch.kernels.warp.ops\n"
         "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
