@@ -68,6 +68,38 @@ Phases, in order, each printing its seconds:
    (brick-served clipped template, PSF-matched at 2.5) with
    ``detect_sources`` on the kernel path and on the plain path: the two
    catalogs must agree (x, y, npix exactly; flux and snr at rtol 1e-4).
+   Then the language model's kernels ("3 lm kernels"): ``flash_attention``
+   (csrc/flash.cu) against its plain version ``flash_ref`` at atol = rtol
+   2e-5 (float32) or 2e-2 (bfloat16), the JAX package's own kernel
+   tolerances: causal and not, window 64, GQA 32/8 and 4/1, S = 1, 1000
+   and 2048, D = 64, 128 and 256, the model's strided (B, S, H, D) layout;
+   and ``ssd_log`` (csrc/ssd.cu) against ``ssd_chunked_ref`` at atol
+   2e-4 * max(scale, 1), output and final state: T = 1, 1000 and 2048,
+   chunk 64 and 256, N = 64 and 128, P = 64, log-decay down to -50 a step,
+   the model's strided slices, and the ``a``-form ``ssd`` also against the
+   step-by-step scan.
+4. zamba2 serving ("4 zamba2 serving", after the coadd main path): the full
+   ``zamba2-1.2b`` configuration (38 Mamba-2 layers, d_model 2048, 1.17 B
+   parameters from ``LM.init(0)``) through ``LM.prefill`` and 32 decode
+   steps (``LM.decode_step``) for two request batches, 4 prompts of 2048 tokens
+   and 1 of 1000 (ragged against the chunk and the tile), each on the
+   kernel path and the plain path (``use_kernels=False``), in bfloat16 and
+   in float32 on the same weights; the bf16 kernel path decodes greedily
+   and the other runs are fed its tokens.  Each counted prefill launches
+   exactly 6 ``flash_attention`` and 38 ``ssd_log`` kernels, and decoding
+   none.  The prefill logits, every cache leaf and the decode logits are
+   held: float32 kernel vs plain within 1e-4 of each value's scale.  In
+   bfloat16 every kernel call of a kernel-path prefill is held against its
+   plain version on the same operands at the phase-3 tolerances (a bf16
+   prefill's values spread by a few % between runs whose float32 sums
+   differ in order), and end to end the kernel path lies no farther from
+   the float32 plain run than two bf16 comparators do: the same model with
+   its kernels swapped for their plain versions (``flash_ref``,
+   ``ssd_chunked_ref``, which round where the kernels do) and the plain
+   path (which rounds the attention logits to bf16, as the JAX model
+   does): relative L2 error at most 1.5 times and max error at most 2
+   times the comparator's, each plus one bf16 ulp.  Prints prefill ms,
+   ms a decode step, tokens/s and ``max_memory_allocated`` for every run.
 5. measure: each kernel's time on the card (CUDA events, warm), its plain
    version's, the nearest PyTorch call's (``F.grid_sample`` bilinear over
    the same samples, plus a sum for the coadd; it covers only the
@@ -77,16 +109,25 @@ Phases, in order, each printing its seconds:
    replicate-padded batch, TF32 off (a yardstick only: the port never
    calls it).  ``mosaic_bricks``'s library call is ``F.fold`` (col2im,
    kernel and stride 256) of the 16 window tiles, coadd and depth.
+   ``flash_attention`` and ``ssd_log`` are timed at the Zamba2 prefill's
+   shapes (B 4, H 32, S 2048, D 64 causal bf16; B 4, T 2048, H 64, N 64,
+   P 64, bf16 inputs), bounded by bf16 tensor-core products at 989 TFLOP/s
+   and float32 softmax operations (flash), float32 operations at 67 TFLOP/s
+   (SSD) or bytes; flash's library call is ``F.scaled_dot_product_attention``
+   (``is_causal=True``), and no single PyTorch call computes the SSD scan.
 
-The line before the last is ``{"kernels": [...]}``; the last is the device
-line.  The script exits nonzero, before printing either, on any failure.
-Everything it builds goes to ``build/``.
+The line before the last is ``{"kernels": [...]}``, after the card's name
+and power limit printed again; the last is the device line.  The script
+exits nonzero, before printing either, on any failure.  Everything it
+builds goes to ``build/``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -136,7 +177,8 @@ SLOT_OPS = 7
 # matched pixel for a 2-D kernel, 2 * 2K for a separable one (K = 1: one
 # multiply).
 KERNELS = ("coadd_fused", "warp_project", "coadd_moments", "coadd_hist", "coadd_clip",
-           "psf_match_sep", "psf_match_2d", "mosaic_bricks")
+           "psf_match_sep", "psf_match_2d", "mosaic_bricks", "flash_attention_single",
+           "ssd_chunked")
 PSF_TARGET = 2.5                        # the main path's match_psf_sigma: no slot clamps
 REDUCES = ("mean",) + ROBUST
 PASSES = {"mean": ("coadd_fused",), "clipped": ("coadd_moments", "coadd_clip"),
@@ -155,6 +197,60 @@ DRILL_CFG = dict(n_runs=3, n_fields=5, n_sources=100, height=20, width=20)
 DRILL_QUERY = dict(band="r", ra_bounds=(37.3, 37.9), dec_bounds=(-0.5, 0.3), npix=48)
 DRILL_PSF, NSIGMA, N_TRANSIENTS, TRANSIENT_FLUX, TRANSIENT_SEED = 2.0, 5.0, 8, 400.0, 7
 CATALOG_RTOL, FLUX_ATOL = 1e-4, 1e-3   # kernel vs plain catalog: flux and snr
+# The language model's kernels (flash, SSD) against their plain versions:
+# tests/test_kernels.py's tolerances (:78 for flash, atol 2e-4 * max(scale, 1)
+# for the SSD scan, :121).  (name, B, Hq, Hkv, S, D, causal, window, dtype,
+# the model's strided (B, S, H, D) layout) and (name, B, T, H, N, chunk,
+# dtype, form: log-decay, "a"-form wrapper, or the model's strided slices).
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+SSD_TOL, SSD_P = 2e-4, 64
+BF16_TC_OPS_PER_S = 989e12              # H100 SXM bf16 tensor cores, dense
+FLASH_CASES = (
+    ("zamba2_prefill", 4, 32, 32, 2048, 64, True, None, "bfloat16", True),
+    ("zamba2_ragged", 1, 32, 32, 1000, 64, True, None, "bfloat16", True),
+    ("causal_s2048_f32", 1, 32, 32, 2048, 64, True, None, "float32", False),
+    ("noncausal_s1000_d128", 1, 8, 8, 1000, 128, False, None, "float32", False),
+    ("window64_s2048", 1, 8, 8, 2048, 64, True, 64, "bfloat16", False),
+    ("window64_noncausal_s1000", 1, 8, 8, 1000, 64, False, 64, "float32", False),
+    ("gqa32_8_s2048_d128", 1, 32, 8, 2048, 128, True, None, "bfloat16", False),
+    ("gqa32_8_s1000_f32", 1, 32, 8, 1000, 64, True, None, "float32", False),
+    ("gqa4_1_s1000_d128", 2, 4, 1, 1000, 128, True, None, "float32", False),
+    ("gqa4_1_s2048_window64", 2, 4, 1, 2048, 64, True, 64, "bfloat16", False),
+    ("s1_d64", 2, 4, 4, 1, 64, True, None, "float32", False),
+    ("s1_d128_noncausal", 2, 4, 1, 1, 128, False, None, "bfloat16", False),
+    ("d256_s1000", 1, 8, 4, 1000, 256, True, None, "bfloat16", False),
+)
+SSD_CASES = (
+    ("zamba2_prefill", 4, 2048, 64, 64, 64, "bfloat16", "strided"),
+    ("zamba2_ragged", 1, 1000, 64, 64, 64, "bfloat16", "strided"),
+    ("t2048_chunk256_n128", 2, 2048, 8, 128, 256, "float32", "log"),
+    ("t1000_chunk64_n128", 2, 1000, 8, 128, 64, "float32", "log"),
+    ("t1000_chunk256_n64", 2, 1000, 8, 64, 256, "bfloat16", "log"),
+    ("t2048_chunk64_n64", 2, 2048, 8, 64, 64, "float32", "log"),
+    ("a_form_t1000", 2, 1000, 4, 64, 64, "float32", "a"),
+    ("t1", 2, 1, 4, 64, 64, "float32", "log"),
+)
+# The Zamba2 serving path: the full configuration, random weights from
+# LM.init(LM_SEED), two request batches of (prompts, tokens), greedy decode
+# steps.  Kernel vs plain path: float32 within F32_REL of each value's scale
+# (max |diff| over max |value|).  bfloat16: a bf16 prefill's values spread
+# by a few % of their scale between any two runs whose float32 sums differ
+# in order, since each flipped rounding travels through 38 layers.  So each
+# kernel call of a bf16 kernel-path prefill is held against its plain
+# version on the same operands, at the phase-3 tolerances (FLASH_TOL,
+# SSD_TOL); and end to end the kernel path may lie no farther from the
+# float32 plain run than a bf16 comparator does: the same model with its
+# kernels swapped for their plain versions (``flash_ref``, ``ssd_chunked_ref``,
+# which round where the kernels do), and the JAX-style plain path (which
+# rounds the attention logits to bf16, as the JAX model does).  Its relative
+# L2 error at most BF16_L2 times the comparator's and its max error at most
+# BF16_MAX times, each plus one bf16 ulp (2**-8).  The max of a small leaf is
+# a noisy statistic: on the first full run its kernel/plain ratio reached
+# 1.48 (the decoded SSM states).
+LM_ARCH, LM_SEED, LM_DECODE = "zamba2-1.2b", 0, 32
+LM_BATCHES = ((4, 2048), (1, 1000))
+F32_REL = 1e-4
+BF16_L2, BF16_MAX, BF16_ULP = 1.5, 2.0, 2.0 ** -8
 
 
 class SmokeFailure(Exception):
@@ -242,6 +338,346 @@ def grid_sample_grid(torch, sky_to_pixel, wcs, grid_ra, grid_dec, h, w):
     return out
 
 
+# ------------------------------------------------ the Zamba2 serving path --
+def attention_pairs(s, causal, window):
+    """Unmasked (q, k) pairs of one (batch, head) attention slice."""
+    lo = (lambda q: max(q - window + 1, 0)) if window is not None else (lambda q: 0)
+    return sum((q if causal else s - 1) - lo(q) + 1 for q in range(s))
+
+
+def flash_bound(b, hq, hkv, s, d, causal, window, esize, tc_ops_per_s):
+    """Bound of one flash_attention call: q, k, v read and o written once; per
+    unmasked pair 4 D product flops at ``tc_ops_per_s`` and 5 float32 softmax
+    operations (scale, max, subtract, exp, sum) on the CUDA cores."""
+    pairs = b * hq * attention_pairs(s, causal, window)
+    nbytes = (2 * hq + 2 * hkv) * b * s * d * esize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(4 * d * pairs / tc_ops_per_s, 5 * pairs / FP32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ssd_bound(b, t, h, n, p, chunk, esize):
+    """Bound of one ssd_log call: inputs read and y, the state written once;
+    float32 operations on the CUDA cores.  Per (batch, chunk) the causal half
+    of C B^T; per (head, chunk) the decay mask (3 a pair), the causal half of
+    G X, C S (not for the first chunk, whose state is 0) with its decay and
+    sum (2 P a step), the weights on B (N a step), B^T X and the state's decay
+    and sum; one add a step for the cumulative sum."""
+    lc = min(chunk, t)
+    sizes = [lc] * (t // lc) + ([t % lc] if t % lc else [])
+    pairs = sum(r * (r + 1) // 2 for r in sizes)
+    nc = len(sizes)
+    ops = b * 2 * n * pairs + b * h * (
+        3 * pairs + 2 * p * pairs + 2 * n * p * (t - sizes[0]) + 2 * p * t + n * t
+        + 2 * n * p * t + 2 * n * p * nc + t)
+    nbytes = 4 * b * t * h + (2 * b * t * n + b * t * h * p) * esize + 4 * (b * t * h * p
+                                                                           + b * h * n * p)
+    return bound(nbytes, ops)
+
+
+def flash_cases(torch, flash, flash_ref, dev):
+    """Hold csrc/flash.cu against its plain version in every FLASH_CASES case."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    worst = 0.0
+    for name, b, hq, hkv, s, d, causal, window, dtype, strided in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        if strided:   # the model's (B, S, H, D) activations seen as (B, H, S, D)
+            q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt).transpose(1, 2)
+                       for h in (hq, hkv, hkv))
+        else:
+            q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
+                       for h in (hq, hkv, hkv))
+        out = flash(q, k, v, causal, window)
+        plain = flash_ref(q, k, v, causal, window)
+        torch.cuda.synchronize()
+        require(out.shape == plain.shape and out.dtype == plain.dtype,
+                f"flash {name}: shape or dtype")
+        require(bool(torch.isfinite(out).all()), f"flash {name}: non-finite output")
+        err = float((out.float() - plain.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        bad = (out.float() - plain.float()).abs() > tol + tol * plain.float().abs()
+        require(not bool(bad.any()), f"flash {name}: max |diff| {err:.3g} beyond atol = rtol = "
+                                     f"{tol}")
+        worst = max(worst, err)
+        print(f"  flash {name}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} "
+              f"window={window} {dtype}{' strided' if strided else ''}: max |diff| {err:.3g}")
+    return worst
+
+
+def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, dev):
+    """Hold csrc/ssd.cu against its plain versions in every SSD_CASES case."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    worst = 0.0
+    for name, b, t, h, n, chunk, dtype, form in SSD_CASES:
+        dt = getattr(torch, dtype)
+        # Log-decay spread over [-50, 0] a step (exp underflows float32 below -87).
+        log_a = -torch.rand((b, t, h), generator=g, device=dev) ** 4 * 50.0
+        if form == "a":
+            log_a = torch.log(torch.rand((b, t, h), generator=g, device=dev) * 0.95 + 0.02)
+        if form == "strided":   # B, C and x as the model slices its conv output
+            xbc = torch.randn((b, t, h * SSD_P + 2 * n), generator=g, device=dev).to(dt)
+            x = xbc[..., :h * SSD_P].reshape(b, t, h, SSD_P)
+            Bm, Cm = xbc[..., h * SSD_P:h * SSD_P + n], xbc[..., h * SSD_P + n:]
+        else:
+            Bm, Cm = (torch.randn((b, t, n), generator=g, device=dev).to(dt) for _ in range(2))
+            x = torch.randn((b, t, h, SSD_P), generator=g, device=dev).to(dt)
+        y_p, s_p = chunked_ref(log_a, Bm, Cm, x, chunk)
+        if form == "a":
+            a = torch.exp(log_a)
+            y = ssd(a, Bm, Cm, x, chunk)
+            s = None
+            y_step = batched_ref(a, Bm, Cm, x)
+        else:
+            y, s = ssd_log(log_a, Bm, Cm, x, chunk)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(y).all()), f"ssd {name}: non-finite output")
+        holds = [("y", y, y_p)] + ([("state", s, s_p)] if s is not None else [])
+        if form == "a":
+            holds.append(("y vs step scan", y, y_step))
+        for what, got, want in holds:
+            err = float((got.float() - want.float()).abs().max())
+            atol = SSD_TOL * max(float(want.abs().max()), 1.0)
+            require(err <= atol, f"ssd {name} {what}: max |diff| {err:.3g} > {atol:.3g}")
+            worst = max(worst, err)
+        print(f"  ssd {name}: B={b} T={t} H={h} N={n} P={SSD_P} chunk={chunk} {dtype} {form}: "
+              + ", ".join(f"{what} max |diff| "
+                          f"{float((got.float() - want.float()).abs().max()):.3g}"
+                          for what, got, want in holds))
+    return worst
+
+
+def tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def max_rel(got, want):
+    """max |got - want| over max |want|."""
+    scale = max(float(want.float().abs().max()), 1e-30)
+    return float((got.float() - want.float()).abs().max()) / scale
+
+
+def l2_rel(got, want):
+    """||got - want|| over ||want|| (Frobenius norms, in float64)."""
+    want = want.double()
+    return float((got.double() - want).norm() / want.norm().clamp_min(1e-300))
+
+
+def lm_run(torch, model, params, tokens, max_len, fed, counted, want_prefill):
+    """One serving run: a counted prefill, then LM_DECODE counted decode steps.
+
+    The steps are greedy when ``fed`` is empty (the tokens are appended to
+    it), else they take the tokens of ``fed``.  Returns the prefill logits,
+    a copy of the prefill's cache, the decode logits, the final cache, the
+    timings and the prefill's launch counts.
+    """
+    b, s = tokens.shape
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = {k: fn.launches for k, fn in counted.items()}
+    require(prefill_launches == want_prefill,
+            f"prefill launches {prefill_launches}, expected {want_prefill}")
+    prefill_cache = {path: leaf.clone() for path, leaf in tree_leaves(cache)}
+    greedy = not fed
+    for fn in counted.values():
+        fn.launches = 0
+    tok = logits.argmax(-1, keepdim=True)
+    dec = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE):
+        if greedy:
+            fed.append(tok)
+        lg, cache = model.decode_step(params, cache, fed[i], s + i)
+        dec.append(lg)
+        tok = lg.argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: fn.launches for k, fn in counted.items()}
+    require(not any(got.values()), f"decode launched kernels: {got}")
+    out = {"prefill logits": logits,
+           **{f"prefill cache {p}": x for p, x in prefill_cache.items()},
+           "decode logits": torch.stack(dec),
+           **{f"decoded cache {p}": x for p, x in tree_leaves(cache)}}
+    for what, x in out.items():
+        require(bool(torch.isfinite(x.float()).all()), f"{what}: non-finite values")
+    return out, dict(prefill_ms=prefill_ms, prefill_tokens_per_s=b * s / prefill_ms * 1e3,
+                     decode_ms_per_token=decode_ms / LM_DECODE,
+                     decode_tokens_per_s=b * LM_DECODE / decode_ms * 1e3,
+                     max_memory_allocated=torch.cuda.max_memory_allocated()), prefill_launches
+
+
+@contextlib.contextmanager
+def lm_kernels_replaced(flash, ssd_log):
+    """The model's kernel wrappers replaced by ``flash`` and ``ssd_log``,
+    each of which receives the wrapper it replaces first."""
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    saved = flash_ops.flash_attention, ssd_ops.ssd_log
+    flash_ops.flash_attention = functools.partial(flash, saved[0])
+    ssd_ops.ssd_log = functools.partial(ssd_log, saved[1])
+    # A wrapper counts its launches on its module's name: here on the
+    # replacement, so launches made to compare stay out of the counts.
+    flash_ops.flash_attention.launches = ssd_ops.ssd_log.launches = 0
+    try:
+        yield
+    finally:
+        flash_ops.flash_attention, ssd_ops.ssd_log = saved
+
+
+def kernels_swapped_for_plain():
+    """The model with its kernels swapped for their plain versions, which
+    round where the kernels do (a bf16 comparator for the kernel path)."""
+    from repro_torch.kernels.attention.ref import flash_ref
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    return lm_kernels_replaced(lambda _, *a: flash_ref(*a), lambda _, *a: ssd_chunked_ref(*a))
+
+
+def kernels_held_per_call(held):
+    """The model with each kernel call also run through the kernel's plain
+    version on the same operands.  ``held[name]`` gathers the calls, the
+    largest |diff| and the largest |diff| over its allowance (the phase-3
+    tolerances: FLASH_TOL as atol = rtol, SSD_TOL * max(scale, 1))."""
+    from repro_torch.kernels.attention.ref import flash_ref
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    def note(name, *holds):
+        calls, err, over = held[name]
+        for got, want, allowed in holds:
+            diff = (got.float() - want.float()).abs()
+            err, over = max(err, float(diff.max())), max(over, float((diff / allowed).max()))
+        held[name] = (calls + 1, err, over)
+
+    def flash(kernel, q, k, v, causal=True, window=None, scale=None):
+        out = kernel(q, k, v, causal, window, scale)
+        plain = flash_ref(q, k, v, causal, window, scale).float()
+        tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
+        note("flash_attention_single", (out, plain, tol + tol * plain.abs()))
+        return out
+
+    def ssd_log(kernel, log_a, Bm, Cm, x, chunk=64, intra_dtype="float32"):
+        y, s = kernel(log_a, Bm, Cm, x, chunk, intra_dtype)
+        y_p, s_p = ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
+        note("ssd_chunked", *((got, want, SSD_TOL * max(float(want.abs().max()), 1.0))
+                              for got, want in ((y, y_p), (s, s_p))))
+        return y, s
+
+    return lm_kernels_replaced(flash, ssd_log)
+
+
+def zamba2_serving(torch, np, dev, counted):
+    """The Zamba2 serving path at full width and depth: for each request
+    batch, the kernel path and the plain path in bfloat16 and in float32 on
+    the same weights and tokens (the bf16 kernel path decodes greedily; the
+    other runs are fed its tokens), the bf16 kernel path's model with its
+    kernels swapped for their plain versions, and a bf16 kernel-path prefill
+    with each kernel call held against its plain version."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+
+    base = get_config(LM_ARCH)
+    models = {(dtype, kern): build_model(dataclasses.replace(base, dtype=dtype), device=dev,
+                                         use_kernels=kern)
+              for dtype in ("bfloat16", "float32") for kern in (True, False)}
+    t0 = time.perf_counter()
+    params = models["bfloat16", True].init(LM_SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in tree_leaves(params))
+    groups = base.n_layers // base.shared_attn_period
+    print(f"  {LM_ARCH}: {base.n_layers} Mamba-2 layers, {groups} shared-block applications, "
+          f"d_model {base.d_model}, {n_params} float32 parameters from LM.init({LM_SEED}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # Warm each model up (cuBLAS handles, allocator) on a short prompt, uncounted.
+    for model in models.values():
+        model.prefill(params, {"tokens": torch.zeros((1, 128), dtype=torch.long, device=dev)},
+                      128)
+    none = {k: 0 for k in counted}
+    want = dict(none, flash_attention_single=groups, ssd_chunked=base.n_layers)
+    runs, launches = [], {k: 0 for k in counted}
+    for b, s in LM_BATCHES:
+        rng = np.random.default_rng(LM_SEED + s)
+        tokens = torch.from_numpy(rng.integers(0, base.vocab_size, (b, s))).to(dev)
+        fed = []
+        res, stats = {}, {}
+        for key in (("bfloat16", True), ("bfloat16", False), ("float32", True),
+                    ("float32", False)):
+            res[key], stats[key], got = lm_run(torch, models[key], params, tokens,
+                                               s + LM_DECODE, fed, counted,
+                                               want if key[1] else none)
+            for k in counted:
+                launches[k] += got[k]
+        with kernels_swapped_for_plain():
+            res["bfloat16", "swapped"], _, _ = lm_run(torch, models["bfloat16", True], params,
+                                                      tokens, s + LM_DECODE, fed, counted, none)
+        # Each kernel call of a bf16 kernel-path prefill against its plain
+        # version on the same operands (uncounted: launches made to compare).
+        held = dict.fromkeys(("flash_attention_single", "ssd_chunked"), (0, 0.0, 0.0))
+        with kernels_held_per_call(held):
+            models["bfloat16", True].prefill(params, {"tokens": tokens}, s + LM_DECODE)
+        torch.cuda.synchronize()
+        print(f"  {b} x {s} bfloat16 prefill, each kernel call vs its plain version on the "
+              f"same operands (calls, max |diff|, max |diff| over its allowance): "
+              + ", ".join(f"{k} ({n}, {e:.3g}, {o:.3g})" for k, (n, e, o) in held.items()),
+              flush=True)
+        for k, (n, _, over) in held.items():
+            require(n == want[k] and over <= 1.0,
+                    f"{b}x{s} bfloat16 {k}: {n} calls held, expected {want[k]}; largest "
+                    f"|diff| {over:.3g} of its allowance")
+        # float32: the kernel path within F32_REL of the plain path's scale.
+        f32 = {w: max_rel(res["float32", True][w], res["float32", False][w])
+               for w in res["float32", False]}
+        print(f"  {b} x {s} float32 kernel vs plain, of the scale (limit {F32_REL}): "
+              + ", ".join(f"{w} {v:.3g}" for w, v in f32.items()), flush=True)
+        worst32 = max(f32, key=f32.get)
+        require(f32[worst32] <= F32_REL, f"{b}x{s} float32 {worst32}: kernel vs plain "
+                                         f"{f32[worst32]:.3g} of the scale > {F32_REL}")
+        # bfloat16: the kernel path no farther from the float32 plain run than
+        # either comparator is (relative L2 and max error, see BF16_L2).
+        spread = {}
+        for w, ref32 in res["float32", False].items():
+            spread[w] = {path: (l2_rel(res["bfloat16", path][w], ref32),
+                                max_rel(res["bfloat16", path][w], ref32))
+                         for path in (True, "swapped", False)}
+        for path, name in (("swapped", "swapped"), (False, "plain")):
+            print(f"  {b} x {s} bfloat16 from the float32 plain run (kernel L2, {name} L2, "
+                  f"kernel max, {name} max; kernel from {name}, max): "
+                  + ", ".join(f"{w} ({sp[True][0]:.3g}, {sp[path][0]:.3g}, {sp[True][1]:.3g}, "
+                              f"{sp[path][1]:.3g}; "
+                              f"{max_rel(res['bfloat16', True][w], res['bfloat16', path][w]):.3g})"
+                              for w, sp in spread.items()), flush=True)
+            for w, sp in spread.items():
+                (l2_k, mx_k), (l2_c, mx_c) = sp[True], sp[path]
+                require(l2_k <= BF16_L2 * l2_c + BF16_ULP and mx_k <= BF16_MAX * mx_c + BF16_ULP,
+                        f"{b}x{s} bfloat16 {w}: from the float32 run, kernel path L2 "
+                        f"{l2_k:.3g} max {mx_k:.3g}, {name} path L2 {l2_c:.3g} max {mx_c:.3g}")
+        for key, st in stats.items():
+            run = dict(dtype=key[0], path="kernel" if key[1] else "plain", batch=b, prompt=s,
+                       decode_steps=LM_DECODE, **st)
+            runs.append(run)
+            print(f"  {key[0]} {'kernel' if key[1] else 'plain '} {b} x {s}: prefill "
+                  f"{st['prefill_ms']:.1f} ms ({st['prefill_tokens_per_s']:.0f} tokens/s), "
+                  f"decode {st['decode_ms_per_token']:.2f} ms a step "
+                  f"({st['decode_tokens_per_s']:.1f} tokens/s), max_memory_allocated "
+                  f"{st['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        print(f"  {b} x {s} greedy tokens (first 8 of each sequence): "
+              f"{torch.cat(fed, 1)[:, :8].tolist()}", flush=True)
+        del res
+    del params, models
+    torch.cuda.empty_cache()
+    return runs, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-runs", type=int, default=8,
@@ -268,6 +704,10 @@ def main(argv=None) -> int:
     from repro_torch.core.geometry import sky_to_pixel
     from repro_torch.core.seqfile import pack_structured
     from repro_torch.kernels import build
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.attention.ref import flash_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.kernels.warp import ops as warp_ops
     from repro_torch.kernels.warp import ref
 
@@ -276,7 +716,9 @@ def main(argv=None) -> int:
     counted = {"coadd_fused": warp_ops.coadd_fused, "warp_project": warp_ops.warp_batch,
                "coadd_moments": warp_ops.coadd_moments, "coadd_hist": warp_ops.coadd_hist,
                "coadd_clip": warp_ops.coadd_clip, "psf_match_sep": warp_ops.psf_match_sep,
-               "psf_match_2d": warp_ops.psf_match_2d, "mosaic_bricks": warp_ops.mosaic_bricks}
+               "psf_match_2d": warp_ops.psf_match_2d, "mosaic_bricks": warp_ops.mosaic_bricks,
+               "flash_attention_single": flash_ops.flash_attention,
+               "ssd_chunked": ssd_ops.ssd_log}
 
     # ------------------------------------------------------------ 1 card --
     with phase("1 card"):
@@ -295,7 +737,7 @@ def main(argv=None) -> int:
             for line in log.splitlines():
                 if any(k in line for k in ("registers", "spill", "smem", "Compiling entry")):
                     print(f"  [{name}] {line.strip()}")
-        for name in ("warp", "psf", "mosaic"):
+        for name in ("warp", "psf", "mosaic", "flash", "ssd"):
             print(f"  loaded {build.library_path(name).relative_to(ROOT)}")
             build.library(name)
 
@@ -653,6 +1095,13 @@ def main(argv=None) -> int:
         c_e, d_e = mosaic_case("mosaic_empty", 0, 16, 16, 64, np.zeros((0, 2)))
         require(not c_e.any() and not d_e.any(), "mosaic_empty: B = 0 must give zero canvases")
 
+    with phase("3 lm kernels"):
+        case_err["flash_attention_single"] = flash_cases(torch, flash_ops.flash_attention,
+                                                         flash_ref, dev)
+        case_err["ssd_chunked"] = ssd_cases(torch, ssd_ops.ssd_log, ssd_ops.ssd,
+                                            ssd_ref.ssd_chunked_ref, ssd_ref.ssd_batched_ref,
+                                            dev)
+
     # ------------------------------------------------------- 4 main path --
     cfg = SurveyConfig(n_runs=args.n_runs, n_camcols=6, n_bands=5, n_fields=12,
                        height=512, width=512, seed=82)
@@ -795,7 +1244,8 @@ def main(argv=None) -> int:
         n_q = len(METHODS) * (ROBUST_REPS + 1)
         require(robust_launches == {"coadd_fused": 0, "warp_project": 0, "coadd_moments": 2 * n_q,
                                     "coadd_hist": n_q, "coadd_clip": 2 * n_q,
-                                    "psf_match_sep": 0, "psf_match_2d": 0, "mosaic_bricks": 0},
+                                    "psf_match_sep": 0, "psf_match_2d": 0, "mosaic_bricks": 0,
+                                    "flash_attention_single": 0, "ssd_chunked": 0},
                 "robust launch counts")
 
         # Each estimator's fixed operands on the sql_structured pass (after
@@ -1174,6 +1624,10 @@ def main(argv=None) -> int:
         del eng_d, diff
         torch.cuda.empty_cache()
 
+    # ---------------------------------------------- 4 zamba2 serving path --
+    with phase("4 zamba2 serving"):
+        lm_runs, lm_launches = zamba2_serving(torch, np, dev, counted)
+
     # --------------------------------------------------------- 5 measure --
     kernels = []
     with phase("5 measure"):
@@ -1357,6 +1811,65 @@ def main(argv=None) -> int:
             shape=f"brick window: {n_t} tiles of {BRICK_NPIX}x{BRICK_NPIX} into {q}x{q}",
         ))
         del tiles, covs, cols, out_k, out_p, out_l
+        # The LM kernels at the Zamba2 prefill's shapes (the 4 x 2048 batch):
+        # flash beside F.scaled_dot_product_attention; no single PyTorch call
+        # computes the SSD scan.
+        g = torch.Generator(device=dev).manual_seed(17)
+        fb, fh, fs, fd = 4, 32, 2048, 64
+        qkv = [torch.randn((fb, fs, fh, fd), generator=g, device=dev).bfloat16().transpose(1, 2)
+               for _ in range(3)]
+        out_k = flash_ops.flash_attention(*qkv, True, None)
+        out_p = flash_ref(*qkv, True, None)
+        out_l = F.scaled_dot_product_attention(*qkv, is_causal=True)
+        torch.cuda.synchronize()
+        err = float((out_k.float() - out_p.float()).abs().max())
+        require(err <= FLASH_TOL["bfloat16"] * (1 + float(out_p.float().abs().max())),
+                f"flash at the prefill's shapes: max |diff| {err:.3g}")
+        lib_diff = float((out_k.float() - out_l.float()).abs().max())
+        del out_k, out_p, out_l
+        k_ms = cuda_ms(torch, lambda: flash_ops.flash_attention(*qkv, True, None), args.reps)
+        p_ms = cuda_ms(torch, lambda: flash_ref(*qkv, True, None), 2)
+        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(*qkv, is_causal=True),
+                       args.reps)
+        b_ms, b_by = flash_bound(fb, fh, fh, fs, fd, True, None, 2, BF16_TC_OPS_PER_S)
+        kernels.append(dict(
+            name="flash_attention_single", route="cuda", source="src/repro_torch/csrc/flash.cu",
+            replaces="src/repro/kernels/attention/flash.py:80",
+            launches=lm_launches["flash_attention_single"],
+            max_abs_err=max(err, case_err["flash_attention_single"]), ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+            library="F.scaled_dot_product_attention(is_causal=True)",
+            library_max_abs_diff=lib_diff, kernel_ms=k_ms,
+            launches_per_prefill=lm_launches["flash_attention_single"] // (2 * len(LM_BATCHES)),
+            shape=f"Zamba2 prefill: B={fb} H={fh} S={fs} D={fd} causal bf16, strided (B,S,H,D)",
+        ))
+        del qkv
+        sb, st, sh, sn = 4, 2048, 64, 64
+        la = -torch.rand((sb, st, sh), generator=g, device=dev) ** 4 * 50.0
+        xbc = torch.randn((sb, st, sh * SSD_P + 2 * sn), generator=g, device=dev).bfloat16()
+        ssd_in = (la, xbc[..., sh * SSD_P:sh * SSD_P + sn], xbc[..., sh * SSD_P + sn:],
+                  xbc[..., :sh * SSD_P].reshape(sb, st, sh, SSD_P))
+        y_k, s_k = ssd_ops.ssd_log(*ssd_in, 64)
+        y_p, s_p = ssd_ref.ssd_chunked_ref(*ssd_in, 64)
+        torch.cuda.synchronize()
+        err = max(float((y_k - y_p).abs().max()), float((s_k - s_p).abs().max()))
+        require(err <= SSD_TOL * max(float(y_p.abs().max()), float(s_p.abs().max()), 1.0),
+                f"ssd at the prefill's shapes: max |diff| {err:.3g}")
+        del y_k, s_k, y_p, s_p
+        k_ms = cuda_ms(torch, lambda: ssd_ops.ssd_log(*ssd_in, 64), args.reps)
+        p_ms = cuda_ms(torch, lambda: ssd_ref.ssd_chunked_ref(*ssd_in, 64), 2)
+        b_ms, b_by = ssd_bound(sb, st, sh, sn, SSD_P, 64, 2)
+        kernels.append(dict(
+            name="ssd_chunked", route="cuda", source="src/repro_torch/csrc/ssd.cu",
+            replaces="src/repro/kernels/ssd/ssd.py:68", launches=lm_launches["ssd_chunked"],
+            max_abs_err=max(err, case_err["ssd_chunked"]), ms=k_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None,
+            library="none: no single PyTorch call computes the SSD scan", kernel_ms=k_ms,
+            launches_per_prefill=lm_launches["ssd_chunked"] // (2 * len(LM_BATCHES)),
+            shape=f"Zamba2 prefill: B={sb} T={st} H={sh} N={sn} P={SSD_P} chunk 64, bf16 "
+                  "strided B, C, x",
+        ))
+        del la, xbc, ssd_in
         for m in METHODS:
             m_dev, m_idx, m_acc = eng._scan_operands(eng.plan(query, m))
             m_acc = m_acc.float()
@@ -1365,13 +1878,16 @@ def main(argv=None) -> int:
             print(f"  coadd_fused pass of {m}: {m_ms:.3f} ms over {m_acc.numel()} slots, "
                   f"{m_ms / query_ms[m]:.3f} of the query's {query_ms[m]:.1f} ms")
         for k in kernels:
+            lib_ms = "none" if k["library_ms"] is None else f"{k['library_ms']:.3f}"
             print(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, library "
-                  f"{k['library_ms']:.3f}, bound {k['bound_ms']:.3f} by {k['bound_by']})")
+                  f"{lib_ms}, bound {k['bound_ms']:.3f} by {k['bound_by']})")
+        print(json.dumps({"zamba2_serving": lm_runs}))
 
     print(f"edge flips: {len(edge_flips)}; (case, kernel, [image,] row, col) of the first "
           f"100: {edge_flips[:100]}")
     print(f"decision flips: {len(decision_flips)}; (case, kernel, row, col) of the first "
           f"100: {decision_flips[:100]}")
+    print(f"card: {smi}")   # again here, where the end of a long output still shows it
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

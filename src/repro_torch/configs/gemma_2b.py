@@ -1,0 +1,17 @@
+"""gemma-2b — GeGLU, head_dim=256, MQA (kv=1) [arXiv:2403.08295]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-2b",
+    family="dense",
+    n_layers=18,
+    d_model=2048,
+    n_heads=8,
+    n_kv_heads=1,
+    d_head=256,
+    d_ff=16384,
+    vocab_size=256000,
+    mlp_type="geglu",
+    tie_embeddings=True,
+    embed_scale=True,
+)

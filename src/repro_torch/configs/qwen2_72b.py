@@ -1,0 +1,17 @@
+"""qwen2-72b — GQA kv=8, QKV bias [arXiv:2407.10671]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-72b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=29568,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1e6,
+    param_mode="zero1",    # §Perf B1: bf16 compute params, sharded masters
+    seq_shard_activations=True,  # §Perf B3: TP all-reduce -> RS+AG
+)

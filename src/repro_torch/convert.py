@@ -1,10 +1,11 @@
 """Carry data across from the JAX package's objects to the port's.
 
-For this system data takes the place of weights: a survey and its packed
-layouts.  These functions read the reference objects only through their
-numpy attributes (duck-typed, without importing the JAX package) and build
-the port's `Survey` / `PackedDataset`, so a test can feed both packages the
-very same arrays.
+For the coadd system data takes the place of weights: a survey and its
+packed layouts.  These functions read the reference objects only through
+their numpy attributes (duck-typed, without importing the JAX package) and
+build the port's `Survey` / `PackedDataset`, so a test can feed both
+packages the very same arrays.  For the language model, the JAX ``LM.init``
+parameter tree (as numpy arrays) becomes the port's.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.geometry import WCS
 from repro_torch.core.seqfile import PackedDataset
@@ -62,3 +64,17 @@ def packed_from_reference(ds) -> PackedDataset:
         index={int(k): (int(p), int(s)) for k, (p, s) in ds.index.items()},
         psf_stamps=None if ds.psf_stamps is None else np.asarray(ds.psf_stamps, np.float32),
     )
+
+
+def lm_params_from_reference(params):
+    """The port's `LM` parameters, as CPU tensors, from the JAX package's
+    ``LM.init`` tree.
+
+    ``params`` is that tree with numpy (or array-like) leaves: the stacked
+    ``blocks`` and ``tail``, ``shared_attn``, ``embed`` and ``ln_f``.  Both
+    packages use the same tree, so every leaf keeps its path, shape and dtype.
+    A caller that wants the card moves the tree there itself.
+    """
+    if isinstance(params, dict):
+        return {k: lm_params_from_reference(v) for k, v in params.items()}
+    return torch.from_numpy(np.array(params))

@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # (argtypes, restype) of every entry point, by source name.  Every pointer
 # and the stream are c_void_p: a bare Python int would be cut to 32 bits.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
@@ -56,6 +57,19 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # ..., n_img, cap, h, w, kh, kw, device, stream
         "psf_match_2d_f32": ((_VP,) * 4 + (_I,) * 7 + (_VP,), _I),
         "psf_error_string": ((_I,), ctypes.c_char_p),
+    },
+    "flash": {
+        # q, k, v, o, (b, h, s) element strides of q, k, v, o, batch, hq, hkv,
+        # seq, d, causal, window, scale, is_bf16, device, stream
+        "flash_attention_fwd": (
+            (_VP,) * 4 + (_LL,) * 12 + (_I,) * 7 + (ctypes.c_float, _I, _I, _VP), _I),
+        "flash_error_string": ((_I,), ctypes.c_char_p),
+    },
+    "ssd": {
+        # log_a, B, C, x, y, state, strides (log_a b, t; B b, t; C b, t;
+        # x b, t, h), batch, nheads, seq, n, chunk, is_bf16, device, stream
+        "ssd_scan_fwd": ((_VP,) * 6 + (_LL,) * 9 + (_I,) * 7 + (_VP,), _I),
+        "ssd_error_string": ((_I,), ctypes.c_char_p),
     },
     "mosaic": {
         # tiles, covs, offsets, coadd, depth, b, bh, bw, npix, device, stream

@@ -1,0 +1,100 @@
+"""Wrapper of the hand-written Hopper SSD scan kernel (``csrc/ssd.cu``).
+
+`ssd_log` checks its operands, then:
+
+* CPU tensors go to the kernel's plain torch version, `ref.ssd_chunked_ref`;
+* CUDA tensors launch ``ssd_scan_kernel`` on ``torch.cuda.current_stream()``
+  with outputs from ``torch.empty``, and raise if the launch returns an
+  error.  There is no fallback from the kernel to the plain version.
+
+Only a successful launch adds one to ``ssd_log.launches``.  `ssd` is the
+JAX package's ``a``-form interface over the same kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd import ref
+
+#: State sizes N the kernel is built for, its head dim P and its longest
+#: sub-chunk (longer chunks run as 64-step sub-chunks: the same function).
+STATE_SIZES = (64, 128)
+HEAD_DIM = 64
+MAX_TILE = 64
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(log_a, Bm, Cm, x, chunk):
+    for name, t in (("log_a", log_a), ("B", Bm), ("C", Cm), ("x", x)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if log_a.dim() != 3 or Bm.dim() != 3 or x.dim() != 4:
+        raise ValueError(f"need log_a (B,T,H), B/C (B,T,N), x (B,T,H,P); got "
+                         f"{tuple(log_a.shape)}, {tuple(Bm.shape)}, {tuple(x.shape)}")
+    b, t, h = log_a.shape
+    if Cm.shape != Bm.shape or Bm.shape[:2] != (b, t) or x.shape[:3] != (b, t, h):
+        raise ValueError(f"shapes disagree: log_a {tuple(log_a.shape)}, B {tuple(Bm.shape)}, "
+                         f"C {tuple(Cm.shape)}, x {tuple(x.shape)}")
+    if log_a.dtype != torch.float32:
+        raise ValueError(f"log_a must be float32, got {log_a.dtype}")
+    if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise ValueError(f"B, C and x must share a dtype, got {Bm.dtype}, {Cm.dtype}, {x.dtype}")
+    if min(b, t, h) < 1 or chunk < 1:
+        raise ValueError(f"need a non-empty batch, sequence and heads and chunk >= 1, got "
+                         f"log_a {tuple(log_a.shape)}, chunk {chunk}")
+
+
+def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
+    """The chunked SSD scan -> (y (B,T,H,P) float32, final state (B,H,N,P) float32).
+
+    log_a: (B,T,H) float32 log-decay (<= 0); B/C: (B,T,N), shared across
+    heads; x: (B,T,H,P).  Any T: a ragged last chunk is padded with identity
+    steps.  The operands may be strided views whose last axis is contiguous
+    (the model's slices of its conv output).
+    """
+    _check(log_a, Bm, Cm, x, chunk)
+    if x.device.type == "cpu":
+        return ref.ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ssd kernel for device {x.device}")
+    b, t, h = log_a.shape
+    n, p = Bm.shape[2], x.shape[3]
+    if intra_dtype != "float32":
+        raise ValueError(f"the ssd kernel computes in float32, got intra_dtype {intra_dtype}")
+    if x.dtype not in DTYPES:
+        raise ValueError(f"ssd kernel takes {DTYPES}, got {x.dtype}")
+    if n not in STATE_SIZES or p != HEAD_DIM:
+        raise ValueError(f"ssd kernel is built for N in {STATE_SIZES} and P = {HEAD_DIM}, "
+                         f"got N = {n}, P = {p}")
+    if log_a.stride(2) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1 or x.stride(3) != 1:
+        raise ValueError("log_a, B, C and x must have a contiguous last axis")
+    y = torch.empty((b, t, h, p), dtype=torch.float32, device=x.device)
+    state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    lib = build.library("ssd")
+    err = lib.ssd_scan_fwd(
+        log_a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(), y.data_ptr(),
+        state.data_ptr(), log_a.stride(0), log_a.stride(1), Bm.stride(0), Bm.stride(1),
+        Cm.stride(0), Cm.stride(1), x.stride(0), x.stride(1), x.stride(2),
+        b, h, t, n, min(chunk, MAX_TILE), int(x.dtype == torch.bfloat16), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, err, "ssd_scan launch")
+    ssd_log.launches += 1
+    return y, state
+
+
+ssd_log.launches = 0
+
+
+def ssd(a, B, C, x, chunk: int = 64):
+    """a: (Bt,T,H) decay in (0, 1], B/C: (Bt,T,N), x: (Bt,T,H,P) -> y in x's dtype.
+
+    The JAX package's ``repro.kernels.ssd.ops.ssd``, through `ssd_log` on
+    ``log(a)``.
+    """
+    y, _ = ssd_log(torch.log(a.float()), B, C, x, chunk)
+    return y.to(x.dtype)
