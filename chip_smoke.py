@@ -23,9 +23,11 @@ Phases, in order, each printing its seconds:
    pixels where an accepted sample lies within 1e-3 px of an image edge or
    within 1e-4 (relative) of a clip or bin boundary, which are counted and
    printed.  Then PSF matching: ``psf_match_sep`` and ``psf_match_2d``
-   against their plain version on a K = 1 bank, the 15-tap Gaussian bank
-   at target 2.5, the 13 x 13 homogenization bank, random asymmetric taps,
-   H != W, frames smaller than the kernel, delta rows and a padded pack
+   against their plain version (``psf_match_2d`` bitwise) on a K = 1 bank,
+   the 15-tap Gaussian bank at target 2.5, the 13 x 13 homogenization bank,
+   random asymmetric taps (7 x 11, 13 x 7, 7 x 13), H != W, frames smaller
+   than the kernel, frames of 515 x 509 and 70 x 101 (neither a multiple of
+   4 nor of the 2-D kernel's 64-px tile), delta rows and a padded pack
    index; and ``coadd_fused`` and the three robust passes composed with
    each bank (``psf_kernels=``) against the plain scans, depth exactly.
    Then ``mosaic_bricks`` against its plain version, bitwise: the lattice
@@ -48,7 +50,8 @@ Phases, in order, each printing its seconds:
    with the survey's measured stamps: all six methods x three estimators,
    exactly one ``psf_match_2d`` launch per query before its 1, 2 or 3
    passes, no slot clamped, the mean's depth equal to the unmatched run's,
-   the methods agreeing at 1e-3; then ``sql_structured`` with the Gaussian
+   the methods agreeing at 1e-3; the dense pre-pass over all 2880 frames
+   bitwise its plain version; then ``sql_structured`` with the Gaussian
    fallback (``measured_psf=False``: one ``psf_match_sep`` a query) and on
    the plain path (``use_kernel=False``, the cached matched layout).
    Then the brick path (DESIGN.md §9) on the same survey: a lattice of
@@ -72,7 +75,9 @@ Phases, in order, each printing its seconds:
    (csrc/flash.cu) against its plain version ``flash_ref`` at atol = rtol
    2e-5 (float32) or 2e-2 (bfloat16), the JAX package's own kernel
    tolerances: causal and not, window 64, GQA 32/8 and 4/1, S = 1, 1000
-   and 2048, D = 64, 128 and 256, the model's strided (B, S, H, D) layout;
+   and 2048, D = 64, 128 and 256, the model's strided (B, S, H, D) layout,
+   and in bfloat16 (the tensor-core kernel) S = 1, 63, 65 and 129 at the
+   edges of its 64-key tile, D 128 and D 256 non-causal;
    and ``ssd_log`` (csrc/ssd.cu) against ``ssd_chunked_ref`` at atol
    2e-4 * max(scale, 1), output and final state: T = 1, 1000 and 2048,
    chunk 64 and 256, N = 64 and 128, P = 64, log-decay down to -50 a step,
@@ -115,6 +120,13 @@ Phases, in order, each printing its seconds:
    and float32 softmax operations (flash), float32 operations at 67 TFLOP/s
    (SSD) or bytes; flash's library call is ``F.scaled_dot_product_attention``
    (``is_causal=True``), and no single PyTorch call computes the SSD scan.
+   The two kernels redesigned for the card (``flash_fwd_bf16_kernel``,
+   ``psf_match_2d_kernel``) also print their registers and spills (ptxas
+   ``-v``), and ``psf_match_2d`` its -fmad=false ceiling (twice the
+   operation bound: no product may fuse with its sum), its time launched
+   alone, without the wrapper's pack-index check (a host sync a call), and
+   the time of its any-width path alone on the same 13 x 13 bank
+   (``psf_match_2d_any_f32``, held bitwise too).
 
 The line before the last is ``{"kernels": [...]}``, after the card's name
 and power limit printed again; the last is the device line.  The script
@@ -130,6 +142,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -203,6 +216,13 @@ CATALOG_RTOL, FLUX_ATOL = 1e-4, 1e-3   # kernel vs plain catalog: flux and snr
 # the model's strided (B, S, H, D) layout) and (name, B, T, H, N, chunk,
 # dtype, form: log-decay, "a"-form wrapper, or the model's strided slices).
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# A second bfloat16 check of the tensor-core kernel, row by row.  At S 2048
+# FLASH_TOL is about half a typical output (|o| ~ sqrt(e / S)), so a dropped
+# or doubled kv tile could pass it.  Each output row's max |diff| from
+# flash_ref, in bf16 ulps of the row's largest |value|, at most
+# FLASH_ROW_ULPS, and the relative L2 error at most FLASH_REL_L2: about twice
+# the largest readings on an H100 (PERF.md).
+FLASH_ROW_ULPS, FLASH_REL_L2 = 4.0, 5e-3
 SSD_TOL, SSD_P = 2e-4, 64
 BF16_TC_OPS_PER_S = 989e12              # H100 SXM bf16 tensor cores, dense
 FLASH_CASES = (
@@ -219,6 +239,13 @@ FLASH_CASES = (
     ("s1_d64", 2, 4, 4, 1, 64, True, None, "float32", False),
     ("s1_d128_noncausal", 2, 4, 1, 1, 128, False, None, "bfloat16", False),
     ("d256_s1000", 1, 8, 4, 1000, 256, True, None, "bfloat16", False),
+    # bf16 on the tensor cores at the edges of the 64-key tile, D 128, D 256
+    ("bf16_s1", 2, 4, 2, 1, 64, True, None, "bfloat16", False),
+    ("bf16_s63", 2, 4, 2, 63, 64, True, None, "bfloat16", False),
+    ("bf16_s65_strided", 2, 4, 2, 65, 64, True, None, "bfloat16", True),
+    ("bf16_s129", 2, 4, 2, 129, 64, True, None, "bfloat16", False),
+    ("bf16_noncausal_s1000_d128", 1, 8, 4, 1000, 128, False, None, "bfloat16", False),
+    ("bf16_noncausal_s129_d256", 2, 4, 2, 129, 256, False, None, "bfloat16", True),
 )
 SSD_CASES = (
     ("zamba2_prefill", 4, 2048, 64, 64, 64, "bfloat16", "strided"),
@@ -326,6 +353,30 @@ def psf_bound(n_img, h, w, taps):
     return bound(nbytes, n_img * h * w * psf_ops(taps))
 
 
+def ptxas_summary(log, kernel):
+    """Registers and spills of each instantiation of ``kernel`` from its
+    source's ``nvcc -Xptxas -v`` output -> {"kernel<64>": "80 registers, 0
+    bytes spill stores, 0 bytes spill loads"}; {} when the log is empty (the
+    library was already built)."""
+    out, current = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            current = None
+            if kernel in mangled:
+                args = re.findall(r"Li(\d+)E", mangled.split(kernel, 1)[1])
+                current = f"{kernel}<{', '.join(args)}>" if args else kernel
+                out[current] = ""
+        elif current and "spill stores" in line:
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            out[current] += f", {spills.group(1)} bytes spill stores, {spills.group(2)} loads"
+        elif current and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out[current] = f"{regs.group(1)} registers" + out[current]
+            current = None
+    return out
+
+
 def grid_sample_grid(torch, sky_to_pixel, wcs, grid_ra, grid_dec, h, w):
     """(N,Q,Q,2) normalized sampling grid of ``F.grid_sample`` (align_corners)."""
     n = wcs.shape[0]
@@ -375,6 +426,24 @@ def ssd_bound(b, t, h, n, p, chunk, esize):
     return bound(nbytes, ops)
 
 
+def flash_rows(torch, what, out, plain):
+    """Hold a bf16 flash output against flash_ref row by row -> (largest
+    per-row max |diff| in bf16 ulps of the row's largest |value|, relative L2
+    error)."""
+    o, r = out.float(), plain.float()
+    err = (o - r).abs().amax(-1)
+    scale = r.abs().amax(-1)
+    # bf16 spacing at the row's largest |value|: 2**(e - 8) for one in
+    # [2**(e - 1), 2**e); a zero row allows no error at all.
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)
+    ulps = float((err / torch.where(scale > 0, ulp, torch.full_like(ulp, 2.0 ** -133))).max())
+    l2 = float((o - r).norm()) / max(float(r.norm()), 1e-30)
+    require(ulps <= FLASH_ROW_ULPS and l2 <= FLASH_REL_L2,
+            f"flash {what}: a row {ulps:.3g} bf16 ulps of its scale from flash_ref (limit "
+            f"{FLASH_ROW_ULPS}), relative L2 {l2:.3g} (limit {FLASH_REL_L2})")
+    return ulps, l2
+
+
 def flash_cases(torch, flash, flash_ref, dev):
     """Hold csrc/flash.cu against its plain version in every FLASH_CASES case."""
     g = torch.Generator(device=dev).manual_seed(15)
@@ -399,9 +468,29 @@ def flash_cases(torch, flash, flash_ref, dev):
         require(not bool(bad.any()), f"flash {name}: max |diff| {err:.3g} beyond atol = rtol = "
                                      f"{tol}")
         worst = max(worst, err)
+        rows = ""
+        if dtype == "bfloat16":
+            rows = ", row ulps {:.3g}, relative L2 {:.3g}".format(
+                *flash_rows(torch, name, out, plain))
         print(f"  flash {name}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} "
-              f"window={window} {dtype}{' strided' if strided else ''}: max |diff| {err:.3g}")
-    return worst
+              f"window={window} {dtype}{' strided' if strided else ''}: max |diff| {err:.3g}"
+              + rows)
+    # bf16 operands off 16 bytes (views one element into their storage): the
+    # tensor-core kernel copies their rows element by element.
+    n = 2 * 4 * 129 * 64
+    q, k, v = (torch.randn(n + 1, generator=g, device=dev).bfloat16()[1:].view(2, 4, 129, 64)
+               for _ in range(3))
+    out, plain = flash(q, k, v, True, None), flash_ref(q, k, v, True, None)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL["bfloat16"]
+    err = float((out.float() - plain.float()).abs().max())
+    require(not bool(((out.float() - plain.float()).abs() > tol + tol * plain.float().abs()).any()),
+            f"flash bf16_unaligned_s129: max |diff| {err:.3g} beyond atol = rtol = {tol}")
+    ulps, l2 = flash_rows(torch, "bf16_unaligned_s129", out, plain)
+    print(f"  flash bf16_unaligned_s129: B=2 Hq=4 Hkv=4 S=129 D=64 causal=True bfloat16, "
+          f"operands off 16 bytes: max |diff| {err:.3g}, row ulps {ulps:.3g}, relative L2 "
+          f"{l2:.3g}")
+    return max(worst, err)
 
 
 def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, dev):
@@ -544,11 +633,15 @@ def kernels_swapped_for_plain():
     return lm_kernels_replaced(lambda _, *a: flash_ref(*a), lambda _, *a: ssd_chunked_ref(*a))
 
 
-def kernels_held_per_call(held):
+def kernels_held_per_call(held, rows):
     """The model with each kernel call also run through the kernel's plain
     version on the same operands.  ``held[name]`` gathers the calls, the
     largest |diff| and the largest |diff| over its allowance (the phase-3
-    tolerances: FLASH_TOL as atol = rtol, SSD_TOL * max(scale, 1))."""
+    tolerances: FLASH_TOL as atol = rtol, SSD_TOL * max(scale, 1));
+    ``rows`` the largest bf16 flash row ulps and relative L2 (`flash_rows`,
+    which fails the run beyond its limits)."""
+    import torch
+
     from repro_torch.kernels.attention.ref import flash_ref
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
@@ -564,6 +657,9 @@ def kernels_held_per_call(held):
         plain = flash_ref(q, k, v, causal, window, scale).float()
         tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
         note("flash_attention_single", (out, plain, tol + tol * plain.abs()))
+        if q.dtype == torch.bfloat16:
+            got = flash_rows(torch, "in the model", out, plain)
+            rows[:] = [max(a, b) for a, b in zip(rows, got)]
         return out
 
     def ssd_log(kernel, log_a, Bm, Cm, x, chunk=64, intra_dtype="float32"):
@@ -623,13 +719,14 @@ def zamba2_serving(torch, np, dev, counted):
         # Each kernel call of a bf16 kernel-path prefill against its plain
         # version on the same operands (uncounted: launches made to compare).
         held = dict.fromkeys(("flash_attention_single", "ssd_chunked"), (0, 0.0, 0.0))
-        with kernels_held_per_call(held):
+        rows = [0.0, 0.0]
+        with kernels_held_per_call(held, rows):
             models["bfloat16", True].prefill(params, {"tokens": tokens}, s + LM_DECODE)
         torch.cuda.synchronize()
         print(f"  {b} x {s} bfloat16 prefill, each kernel call vs its plain version on the "
               f"same operands (calls, max |diff|, max |diff| over its allowance): "
-              + ", ".join(f"{k} ({n}, {e:.3g}, {o:.3g})" for k, (n, e, o) in held.items()),
-              flush=True)
+              + ", ".join(f"{k} ({n}, {e:.3g}, {o:.3g})" for k, (n, e, o) in held.items())
+              + f"; flash row ulps {rows[0]:.3g}, relative L2 {rows[1]:.3g}", flush=True)
         for k, (n, _, over) in held.items():
             require(n == want[k] and over <= 1.0,
                     f"{b}x{s} bfloat16 {k}: {n} calls held, expected {want[k]}; largest "
@@ -880,7 +977,8 @@ def main(argv=None) -> int:
         return rest
 
     def psf_match_case(case, pixels, pack_idx, bank):
-        """psf_match (either rank) against its plain version
+        """psf_match (either rank) against its plain version: ``psf_match_2d``
+        bitwise, ``psf_match_sep`` at the kernel tolerance
         -> (counted kernel's name, max error, the plain output)."""
         idx = torch.tensor(pack_idx, dtype=torch.int32, device=dev)
         name = "psf_match_2d" if bank.dim() == 4 else "psf_match_sep"
@@ -888,6 +986,9 @@ def main(argv=None) -> int:
         m_p = ref.psf_match_ref(pixels, idx, bank)
         torch.cuda.synchronize()
         err = hold_values(case, name, m_k, m_p, torch.zeros_like(m_k, dtype=torch.bool))
+        if name == "psf_match_2d":
+            require(torch.equal(m_k, m_p), f"{case}/psf_match_2d: not bitwise its plain "
+                                           f"version (max |diff| {err:.3g})")
         return name, err, m_p
 
     def psf_case(case, ds, qry, accept, pack_idx, bank):
@@ -986,6 +1087,8 @@ def main(argv=None) -> int:
         banks["k1"] = rng.uniform(0.5, 1.5, lead + (1,))
         banks["asym_sep"] = rng.uniform(0.0, 0.25, lead + (9,))
         banks["asym_2d"] = rng.uniform(-0.02, 0.05, lead + (7, 11))
+        banks["asym_13x7"] = rng.uniform(-0.02, 0.05, lead + (13, 7))
+        banks["asym_7x13"] = rng.uniform(-0.02, 0.05, lead + (7, 13))
         q_psf = CoaddQuery(band="u", ra_bounds=(37.5, 38.5), dec_bounds=(-0.5, 0.5), npix=256)
         for name, bank in banks.items():
             qry = q_main if name in ("gauss_k15", "homog_13") else q_psf
@@ -1008,9 +1111,19 @@ def main(argv=None) -> int:
             out = warp_ops.psf_match(tiny, torch.tensor([1, 0], dtype=torch.int32, device=dev),
                                      to_dev(np.broadcast_to(delta, (2, 8) + taps)))
             require(torch.equal(out, tiny[[1, 0]]), f"psf delta rows {taps}: not the frames")
-        print(f"  psf tiny 5 x 6 frames and delta rows: max_err "
-              f"sep={case_err['psf_match_sep']:.3g}, 2d={case_err['psf_match_2d']:.3g}")
-        del case, cases, big, big_ds, sv_wide, ds_wide, tiny
+        # Widths and heights that are neither multiples of 4 (no 16-byte
+        # rows) nor of the 2-D kernel's 64-px tile, Kh != Kw.
+        for h_o, w_o in ((515, 509), (70, 101)):
+            odd = torch.from_numpy(rng.normal(size=(2, 8, h_o, w_o)).astype(np.float32)).to(dev)
+            for taps in ((13, 7), (7, 13), (13, 13), (15,)):
+                bank = to_dev(rng.uniform(-0.02, 0.05, (2, 8) + taps))
+                name, err, _ = psf_match_case(f"psf_odd_{h_o}x{w_o}_{taps}", odd, [1, 0, 1],
+                                              bank)
+                case_err[name] = max(case_err[name], err)
+        print(f"  psf tiny 5 x 6 and odd 515 x 509, 70 x 101 frames, delta rows: max_err "
+              f"sep={case_err['psf_match_sep']:.3g}, 2d={case_err['psf_match_2d']:.3g} "
+              f"(2d bitwise)")
+        del case, cases, big, big_ds, sv_wide, ds_wide, tiny, odd
         torch.cuda.empty_cache()
 
         # Coverage of the main pack's frames on the main grid, plain.
@@ -1362,6 +1475,19 @@ def main(argv=None) -> int:
         bank_2d = eng._device_psf_kernels("structured")
         require(bank_sep.shape[2:] == (15,) and bank_2d.shape[2:] == (13, 13),
                 f"psf banks {tuple(bank_sep.shape)} / {tuple(bank_2d.shape)}")
+        # The dense pre-pass of the main path (all 2880 frames), bitwise.
+        plan_d = eng.plan(query, BRICK_DENSE)
+        dev_d, idx_d, _ = eng._scan_operands(plan_d)
+        bank_d = eng._device_psf_kernels(plan_d.layout)
+        m_k = warp_ops.psf_match_2d(dev_d.pixels, idx_d, bank_d)
+        m_p = ref.psf_match_ref(dev_d.pixels, idx_d, bank_d)
+        torch.cuda.synchronize()
+        require(torch.equal(m_k, m_p), f"psf_match_2d over {BRICK_DENSE}'s "
+                                       f"{m_k.shape[0] * m_k.shape[1]} frames: not bitwise")
+        print(f"  psf_match_2d over {BRICK_DENSE}'s {m_k.shape[0] * m_k.shape[1]} frames, "
+              f"bank {tuple(bank_d.shape[2:])}: bitwise its plain version")
+        del m_k, m_p, dev_d
+        torch.cuda.empty_cache()
 
         # The matched sql_structured pass places the boundaries; its S0 is
         # the coverage, which matching must not change.
@@ -1761,13 +1887,15 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             err = hold_values("sql_structured_pass", name, out_k, out_p,
                               torch.zeros_like(out_k, dtype=torch.bool))
+            require(name != "psf_match_2d" or torch.equal(out_k, out_p),
+                    "sql_structured pass: psf_match_2d not bitwise its plain version")
             lib_diff = float((out_l.reshape(out_k.shape) - out_k).abs().max())
-            del out_k, out_p, out_l
+            del out_k, out_l
             k_ms = cuda_ms(torch, kern, args.reps)
             p_ms = cuda_ms(torch, plain, 2)
             l_ms = cuda_ms(torch, library, args.reps)
             b_ms, b_by = psf_bound(n_img, h, w, taps)
-            kernels.append(dict(
+            row = dict(
                 name=name, route="cuda", source="src/repro_torch/csrc/psf.cu",
                 replaces=f"src/repro/kernels/warp/warp.py:{line}",
                 launches=psf_launches[name], max_abs_err=max(err, case_err[name]), ms=k_ms,
@@ -1775,7 +1903,36 @@ def main(argv=None) -> int:
                 library="F.conv2d depthwise on an F.pad replicate batch, TF32 off",
                 library_max_abs_diff=lib_diff, kernel_ms=k_ms,
                 shape=f"sql_structured pass: {n_img} frames of {h}x{w}, bank {taps}",
-            ))
+            )
+            if name == "psf_match_2d":
+                # No product may fuse with its sum (-fmad=false): an FMUL and
+                # an FADD a tap, twice the operation bound (printed only).
+                psf_ceiling_ms = 2 * n_img * h * w * psf_ops(taps) / FP32_OPS_PER_S * 1e3
+                row["ptxas"] = ptxas_summary(logs.get("psf", ""), "psf_match_2d_kernel")
+                # The kernel alone (the wrapper's pack-index check syncs the
+                # host on every call, which "ms" includes), by the entry point
+                # and by its any-width path, which 13 taps otherwise skip.
+                out_k = torch.empty((idx.shape[0], dsv.capacity, h, w), device=dev)
+                lib = build.library("psf")
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def launch_only(entry, bank=bank):
+                    err = getattr(lib, entry)(dsv.pixels.data_ptr(), idx.data_ptr(),
+                                              bank.data_ptr(), out_k.data_ptr(), n_img,
+                                              dsv.capacity, h, w, *taps,
+                                              torch.cuda.current_device(), stream)
+                    require(err == 0, f"{entry} launch: CUDA error {err}")
+
+                launch_only("psf_match_2d_any_f32")
+                torch.cuda.synchronize()
+                require(torch.equal(out_k, out_p), "sql_structured pass: psf_match_2d's "
+                                                   "any-width path not bitwise its plain version")
+                for entry, key in (("psf_match_2d_f32", "launch_ms"),
+                                   ("psf_match_2d_any_f32", "any_width_launch_ms")):
+                    row[key] = cuda_ms(torch, functools.partial(launch_only, entry), args.reps)
+                del out_k
+            del out_p
+            kernels.append(row)
         del imgs
         # The brick mosaic on the window's 16 materialized tiles, beside
         # F.fold (col2im) as the library call.
@@ -1825,6 +1982,9 @@ def main(argv=None) -> int:
         err = float((out_k.float() - out_p.float()).abs().max())
         require(err <= FLASH_TOL["bfloat16"] * (1 + float(out_p.float().abs().max())),
                 f"flash at the prefill's shapes: max |diff| {err:.3g}")
+        ulps, l2 = flash_rows(torch, "at the prefill's shapes", out_k, out_p)
+        print(f"  flash at the prefill's shapes: max |diff| {err:.3g}, row ulps {ulps:.3g}, "
+              f"relative L2 {l2:.3g}")
         lib_diff = float((out_k.float() - out_l.float()).abs().max())
         del out_k, out_p, out_l
         k_ms = cuda_ms(torch, lambda: flash_ops.flash_attention(*qkv, True, None), args.reps)
@@ -1842,6 +2002,7 @@ def main(argv=None) -> int:
             library_max_abs_diff=lib_diff, kernel_ms=k_ms,
             launches_per_prefill=lm_launches["flash_attention_single"] // (2 * len(LM_BATCHES)),
             shape=f"Zamba2 prefill: B={fb} H={fh} S={fs} D={fd} causal bf16, strided (B,S,H,D)",
+            ptxas=ptxas_summary(logs.get("flash", ""), "flash_fwd_bf16_kernel"),
         ))
         del qkv
         sb, st, sh, sn = 4, 2048, 64, 64
@@ -1879,8 +2040,12 @@ def main(argv=None) -> int:
                   f"{m_ms / query_ms[m]:.3f} of the query's {query_ms[m]:.1f} ms")
         for k in kernels:
             lib_ms = "none" if k["library_ms"] is None else f"{k['library_ms']:.3f}"
+            ceiling = (f", -fmad=false ceiling {psf_ceiling_ms:.3f}, launch alone "
+                       f"{k['launch_ms']:.3f}, any-width path alone {k['any_width_launch_ms']:.3f}"
+                       if k["name"] == "psf_match_2d" else "")
+            ptxas = f"; ptxas {k['ptxas']}" if "ptxas" in k else ""
             print(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, library "
-                  f"{lib_ms}, bound {k['bound_ms']:.3f} by {k['bound_by']})")
+                  f"{lib_ms}, bound {k['bound_ms']:.3f} by {k['bound_by']}{ceiling}){ptxas}")
         print(json.dumps({"zamba2_serving": lm_runs}))
 
     print(f"edge flips: {len(edge_flips)}; (case, kernel, [image,] row, col) of the first "

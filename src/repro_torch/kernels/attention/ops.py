@@ -1,11 +1,14 @@
-"""Wrapper of the hand-written Hopper flash-attention kernel (``csrc/flash.cu``).
+"""Wrapper of the hand-written Hopper flash-attention kernels (``csrc/flash.cu``).
 
 `flash_attention` checks its operands, then:
 
-* CPU tensors go to the kernel's plain torch version, `ref.flash_ref`;
-* CUDA tensors launch ``flash_fwd_kernel`` on ``torch.cuda.current_stream()``
-  with the output from ``torch.empty``, and raise if the launch returns an
-  error.  There is no fallback from the kernel to the plain version.
+* CPU tensors go to the kernels' plain torch version, `ref.flash_ref`;
+* CUDA tensors launch, on ``torch.cuda.current_stream()`` with the output
+  from ``torch.empty``, the kernel of their dtype (`ENTRY_POINTS`):
+  bfloat16 ``flash_fwd_bf16_kernel`` on the tensor cores, float32
+  ``flash_fwd_kernel`` on the CUDA cores; and raise if the launch returns an
+  error.  There is no fallback from one kernel to the other or to the plain
+  version.
 
 Only a successful launch adds one to ``flash_attention.launches``.
 """
@@ -22,7 +25,10 @@ from repro_torch.kernels.attention import ref
 
 #: Head dims the kernel is built for (the repo's configs use 64, 128, 256).
 HEAD_DIMS = (64, 128, 256)
-DTYPES = (torch.float32, torch.bfloat16)
+#: The C entry point of each dtype's kernel.
+ENTRY_POINTS = {torch.float32: "flash_attention_fwd_f32",
+                torch.bfloat16: "flash_attention_fwd_bf16"}
+DTYPES = tuple(ENTRY_POINTS)
 
 
 def _check(q, k, v, window):
@@ -74,17 +80,25 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     o = torch.empty_like(q)   # q's layout when q is dense
     if o.stride(3) != 1:      # a non-dense q may suggest another memory format
         o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib = build.library("flash")
-    strides = [st for t in (q, k, v, o) for st in (t.stride(0), t.stride(1), t.stride(2))]
-    err = lib.flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *strides,
-        b, hq, k.shape[1], s, d, int(causal), 0 if window is None else int(window), scale,
-        int(q.dtype == torch.bfloat16), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(lib, err, "flash_attention launch")
+    _launch(q, k, v, o, causal, window, scale, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
     return o
 
 
 flash_attention.launches = 0
+
+
+def _launch(q, k, v, o, causal, window, scale, device: int, stream: int) -> None:
+    """Call q's dtype's entry point of ``csrc/flash.cu`` on checked operands;
+    raise if it returns an error."""
+    entry = ENTRY_POINTS[q.dtype]
+    b, hq, s, d = q.shape
+    lib = build.library("flash")
+    strides = [st for t in (q, k, v, o) for st in (t.stride(0), t.stride(1), t.stride(2))]
+    err = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *strides,
+        b, hq, k.shape[1], s, d, int(causal), 0 if window is None else int(window), scale,
+        device, stream,
+    )
+    build.check(lib, err, f"{entry} launch")

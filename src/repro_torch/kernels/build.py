@@ -56,13 +56,16 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "psf_match_sep_f32": ((_VP,) * 4 + (_I,) * 6 + (_VP,), _I),
         # ..., n_img, cap, h, w, kh, kw, device, stream
         "psf_match_2d_f32": ((_VP,) * 4 + (_I,) * 7 + (_VP,), _I),
+        "psf_match_2d_any_f32": ((_VP,) * 4 + (_I,) * 7 + (_VP,), _I),
         "psf_error_string": ((_I,), ctypes.c_char_p),
     },
     "flash": {
         # q, k, v, o, (b, h, s) element strides of q, k, v, o, batch, hq, hkv,
-        # seq, d, causal, window, scale, is_bf16, device, stream
-        "flash_attention_fwd": (
-            (_VP,) * 4 + (_LL,) * 12 + (_I,) * 7 + (ctypes.c_float, _I, _I, _VP), _I),
+        # seq, d, causal, window, scale, device, stream
+        "flash_attention_fwd_f32": (
+            (_VP,) * 4 + (_LL,) * 12 + (_I,) * 7 + (ctypes.c_float, _I, _VP), _I),
+        "flash_attention_fwd_bf16": (
+            (_VP,) * 4 + (_LL,) * 12 + (_I,) * 7 + (ctypes.c_float, _I, _VP), _I),
         "flash_error_string": ((_I,), ctypes.c_char_p),
     },
     "ssd": {

@@ -27,8 +27,8 @@ from repro_torch.kernels.warp import ref
 
 # The kernels tile output pixels 32 x 8; the grid's y extent caps at 65535.
 MAX_NPIX = 65535 * 8
-#: Most taps a PSF-matching kernel takes along each axis: its staged window
-#: and taps must fit the 48 KB of static shared memory (csrc/psf.cu).
+#: Most taps a PSF-matching kernel takes along each axis: the separable
+#: kernel's staged window and taps must fit 48 KB of shared memory (csrc/psf.cu).
 MAX_TAPS = 49
 
 

@@ -7,8 +7,11 @@ flash_attention`` (the Pallas kernel in interpret mode) and against
 tolerances (float32 2e-5, bfloat16 2e-2).  Cases the Pallas kernel does not
 take (a sequence that is not a multiple of its block, GQA 4/1 at head dim
 128, window with non-causal) hold the port against its own `mha_ref`.  The
-CUDA kernel runs only on a card: those tests carry the ``gpu`` marker and
-skip here (``python3 chip_smoke.py`` drives it at the model's sizes).
+wrapper's dispatch (bfloat16 to the tensor-core entry point, float32 to the
+CUDA-core one, no other tried on an error) is held on the CPU with a stub
+library.  The CUDA kernels run only on a card: those tests carry the ``gpu``
+marker and skip here (``python3 chip_smoke.py`` drives them at the model's
+sizes).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -112,9 +115,67 @@ def test_wrapper_rejects_bad_operands(bad):
 
 
 def test_flash_source_is_built_from_the_checkout():
-    assert "flash_attention_fwd" in build.SIGNATURES["flash"]
+    entries = build.SIGNATURES["flash"]
+    assert set(ops.ENTRY_POINTS.values()) <= set(entries)
+    # One argument list for both dtypes' kernels.
+    assert entries["flash_attention_fwd_f32"] == entries["flash_attention_fwd_bf16"]
     assert build.CSRC.joinpath("flash.cu").exists()
     assert build.library_path("flash").parent == build.BUILD_DIR
+
+
+class _StubFlash:
+    """Stands in for ``build.library("flash")``: records every entry-point
+    call and returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.rc = rc
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("flash_attention_fwd"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return self.rc
+
+        return entry
+
+    def error_string(self, code):
+        return b"stub error"
+
+
+def _stub_operands(dtype):
+    """The model's (B, S, H, D) activations seen as (B, H, S, D), GQA 4/2."""
+    q, k, v = (torch.from_numpy(a).to(dtype).transpose(1, 2).contiguous().transpose(1, 2)
+               for a in _inputs(4, 2, 40, 64))
+    return q, k, v, torch.empty_like(q)
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "flash_attention_fwd_bf16"),
+                                         (torch.float32, "flash_attention_fwd_f32")])
+def test_launch_calls_the_entry_point_of_its_dtype(monkeypatch, dtype, entry):
+    stub = _StubFlash()
+    monkeypatch.setattr(build, "library", lambda name: stub)
+    q, k, v, o = _stub_operands(dtype)
+    ops._launch(q, k, v, o, True, 16, 0.125, 0, 1234)
+    assert [name for name, _ in stub.calls] == [entry]
+    args = stub.calls[0][1]
+    assert args[:4] == tuple(t.data_ptr() for t in (q, k, v, o))
+    # The same strides, shapes and scale whichever the dtype.
+    assert args[4:16] == (40 * 4 * 64, 64, 4 * 64, 40 * 2 * 64, 64, 2 * 64,
+                          40 * 2 * 64, 64, 2 * 64, 40 * 4 * 64, 64, 4 * 64)
+    assert args[16:] == (2, 4, 2, 40, 64, 1, 16, 0.125, 0, 1234)
+
+
+@pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "flash_attention_fwd_bf16"),
+                                         (torch.float32, "flash_attention_fwd_f32")])
+def test_launch_error_raises_and_tries_no_other_entry_point(monkeypatch, dtype, entry):
+    stub = _StubFlash(rc=98)
+    monkeypatch.setattr(build, "library", lambda name: stub)
+    with pytest.raises(RuntimeError, match=f"{entry} launch: CUDA error 98"):
+        ops._launch(*_stub_operands(dtype), False, None, 0.125, 0, 0)
+    assert [name for name, _ in stub.calls] == [entry]
 
 
 # ----- the CUDA kernel on a card --------------------------------------------
@@ -132,6 +193,13 @@ def cuda():
     (8, 2, 200, 64, True, None, "float32"),
     (4, 1, 1000, 128, True, 64, "bfloat16"),
     (4, 4, 1, 64, False, None, "float32"),
+    # bf16 on the tensor cores at the 64-key tile's edges, D 128, D 256
+    (4, 2, 1, 64, True, None, "bfloat16"),
+    (4, 2, 63, 64, True, None, "bfloat16"),
+    (4, 2, 65, 64, True, None, "bfloat16"),
+    (4, 2, 129, 64, True, None, "bfloat16"),
+    (8, 4, 200, 128, False, None, "bfloat16"),
+    (4, 2, 129, 256, True, None, "bfloat16"),
 ])
 def test_cuda_flash_matches_plain(cuda, hq, hkv, s, d, causal, window, dtype):
     _, (q, k, v) = _both(_inputs(hq, hkv, s, d, seed=5), dtype)

@@ -775,6 +775,17 @@ def test_engine_retune_rebuilds_bank(use_kernel):
     assert np.abs(r_fb.coadd - r_26.coadd).max() > 1e-4
 
 
+def test_fixed_width_2d_path_is_the_survey_stamp():
+    """csrc/psf.cu compiles one width into psf_match_2d_kernel's fixed-width
+    path: the survey's default stamp, the width of every measured bank."""
+    from pathlib import Path
+    import re
+
+    src = (Path(ops.__file__).resolve().parents[2] / "csrc" / "psf.cu").read_text()
+    fixed = re.findall(r"constexpr int kFixedKw = (\d+);", src)
+    assert [int(k) for k in fixed] == [rt.SurveyConfig().psf_stamp_size]
+
+
 # ----- the CUDA kernels on a card -----------------------------------------
 
 @pytest.fixture
@@ -797,13 +808,35 @@ def test_cuda_psf_kernels_match_plain(cuda, pack, bank):
     want = ref.psf_match_ref(px, idx, b)
     torch.cuda.synchronize()
     assert getattr(ops, name).launches == before + 1
-    torch.testing.assert_close(out, want, atol=ATOL, rtol=RTOL)
+    if name == "psf_match_2d":   # the same sums in the same order: bitwise
+        assert torch.equal(out, want)
+    else:
+        torch.testing.assert_close(out, want, atol=ATOL, rtol=RTOL)
     scan = tuple(t.to(cuda) for t in pack["scan"])
     c, d = ops.coadd_fused(*scan, psf_kernels=b)
     c_p, d_p = ref.coadd_scan_ref(*scan, psf_kernels=b)
     near, far = ref.coverage_flips(d, d_p, 16, 16, scan[1][0], scan[3][0], *scan[4:])
     assert not far.any()
     torch.testing.assert_close(c[~near], c_p[~near], atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,h,w", [
+    ((13, 7), 70, 101),      # Kh != Kw; neither H nor W a multiple of the 64-px tile
+    ((7, 13), 101, 70),
+    ((13, 13), 515, 509),    # W not a multiple of 4: no 16-byte rows
+    ((13, 1), 20, 30),       # Kw == 1: one multiply by k[0, 0]
+    ((15, 15), 5, 6),        # frames smaller than the kernel
+])
+def test_cuda_psf_match_2d_is_bitwise_plain(cuda, taps, h, w):
+    rng = np.random.default_rng(16)
+    px = torch.from_numpy(rng.normal(size=(2, 4, h, w)).astype(np.float32)).to(cuda)
+    bank = torch.from_numpy(rng.uniform(-0.02, 0.05, (2, 4) + taps).astype(np.float32)).to(cuda)
+    idx = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
+    out = ops.psf_match_2d(px, idx, bank)
+    want = ref.psf_match_ref(px, idx, bank)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.gpu
