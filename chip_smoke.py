@@ -30,6 +30,15 @@ Phases, in order, each printing its seconds:
    4 nor of the 2-D kernel's 64-px tile), delta rows and a padded pack
    index; and ``coadd_fused`` and the three robust passes composed with
    each bank (``psf_kernels=``) against the plain scans, depth exactly.
+   Every pack scan is also held bitwise against the unculled kernel
+   (``pack_scan_unculled_f32``, the check form no wrapper launches): each
+   case above, all four accumulators (``coadd_hist`` at 8, 16 and 32 bins,
+   ``coadd_clip`` about the clipped mean and the median), unmatched and
+   over each bank's PSF scratch, and a pack whose rejected slots hold a
+   NaN, an inf and a 2**70 pixel inside the query footprint (NaN words
+   compared too), and six synthetic skies at dec +-60, +-80 and across
+   RA 0/360 (``ref.scattered_frames``: 128 frames over a 250-px grid).
+   The count of differing words must be 0.
    Then ``mosaic_bricks`` against its plain version, bitwise: the lattice
    cover (4 x 4 bricks of 256 x 256 into 1024 x 1024), one tile, bh != bw,
    overlapping tiles, offsets past the edges and negative (clamped as the
@@ -54,6 +63,10 @@ Phases, in order, each printing its seconds:
    bitwise its plain version; then ``sql_structured`` with the Gaussian
    fallback (``measured_psf=False``: one ``psf_match_sep`` a query) and on
    the plain path (``use_kernel=False``, the cached matched layout).
+   Then every method's pass, unmatched and over its PSF scratch, through
+   all culled passes against the unculled kernel, bitwise, with the slots
+   and samples the culled kernel skips (counted by the plain twin of its
+   footprint test, ``ref.footprint_keep``).
    Then the brick path (DESIGN.md §9) on the same survey: a lattice of
    256-pixel bricks 0.25 deg on a side (10 x 12 bricks at the main query's
    1024 px/deg) and the 4 x 4 window ``window_query(3, 7, 2, 6, "r")``,
@@ -78,11 +91,13 @@ Phases, in order, each printing its seconds:
    and 2048, D = 64, 128 and 256, the model's strided (B, S, H, D) layout,
    and in bfloat16 (the tensor-core kernel) S = 1, 63, 65 and 129 at the
    edges of its 64-key tile, D 128 and D 256 non-causal;
-   and ``ssd_log`` (csrc/ssd.cu) against ``ssd_chunked_ref`` at atol
-   2e-4 * max(scale, 1), output and final state: T = 1, 1000 and 2048,
-   chunk 64 and 256, N = 64 and 128, P = 64, log-decay down to -50 a step,
-   the model's strided slices, and the ``a``-form ``ssd`` also against the
-   step-by-step scan.
+   and ``ssd_log`` (csrc/ssd.cu, three kernels a call) against
+   ``ssd_chunked_ref`` at atol 2e-4 * max(scale, 1), output and final
+   state: T = 1, 50 (one chunk), 641 and 1025 (a last chunk of one step),
+   1000 and 2048, chunk 64 and 256, N = 64 and 128, P = 64, log-decay down
+   to -50 a step, the model's strided slices, B 4 x H 64 in float32, H 24
+   and 20 (head groups of 16 that do not divide H), and the ``a``-form
+   ``ssd`` also against the step-by-step scan.
 4. zamba2 serving ("4 zamba2 serving", after the coadd main path): the full
    ``zamba2-1.2b`` configuration (38 Mamba-2 layers, d_model 2048, 1.17 B
    parameters from ``LM.init(0)``) through ``LM.prefill`` and 32 decode
@@ -110,6 +125,15 @@ Phases, in order, each printing its seconds:
    the same samples, plus a sum for the coadd; it covers only the
    sampling), and the least time the card could take (bytes over
    3.35 TB/s, or fp32 operations over 67 TFLOP/s, whichever is larger).
+   A pack scan's ``bound_ms`` counts the work that contributes (the
+   samples inside an accepted frame, the accepted slots' pixels:
+   ``contrib_bound``), and ``unculled_ms`` times the unculled kernel beside
+   it; the bound over every scanned slot (``coadd_bound``) and the samples
+   the twin of the footprint test keeps are printed on the human lines,
+   not in the kernels line, and the brick window's 16 materialization
+   passes are timed culled and unculled.  ``ssd_log`` prints each of its
+   three kernels' time (a profiler trace), the memory a call allocates
+   and their registers and spills.
    The PSF kernels' library call is ``F.conv2d`` depthwise on a
    replicate-padded batch, TF32 off (a yardstick only: the port never
    calls it).  ``mosaic_bricks``'s library call is ``F.fold`` (col2im,
@@ -189,6 +213,8 @@ SLOT_OPS = 7
 # PSF matching: an fp32 multiply and add per tap and pass, 2 * Kh * Kw a
 # matched pixel for a 2-D kernel, 2 * 2K for a separable one (K = 1: one
 # multiply).
+# The pack scans' kinds at the unculled entry point (csrc/warp.cu launch_kind).
+SCAN_KIND = {"coadd_fused": 0, "coadd_moments": 1, "coadd_clip": 2, "coadd_hist": 3}
 KERNELS = ("coadd_fused", "warp_project", "coadd_moments", "coadd_hist", "coadd_clip",
            "psf_match_sep", "psf_match_2d", "mosaic_bricks", "flash_attention_single",
            "ssd_chunked")
@@ -256,6 +282,17 @@ SSD_CASES = (
     ("t2048_chunk64_n64", 2, 2048, 8, 64, 64, "float32", "log"),
     ("a_form_t1000", 2, 1000, 4, 64, 64, "float32", "a"),
     ("t1", 2, 1, 4, 64, 64, "float32", "log"),
+    # The chunk-parallel split: T within one chunk, T = 1 strided at N 128,
+    # T = 64 k + 1 (a last chunk of one step, also inside a 256-step chunk),
+    # the prefill's width in float32, and H that the head group (16, from
+    # ops.heads_per_block at these sizes) does not divide.
+    ("t50_one_chunk", 2, 50, 8, 64, 64, "float32", "log"),
+    ("t1_n128_strided", 3, 1, 8, 128, 64, "bfloat16", "strided"),
+    ("t641_64k_plus_1", 2, 641, 8, 64, 64, "float32", "log"),
+    ("t1025_chunk256_n128", 2, 1025, 8, 128, 256, "bfloat16", "log"),
+    ("b4_h64_f32", 4, 2048, 64, 64, 64, "float32", "log"),
+    ("h24_group16", 4, 2112, 24, 64, 64, "float32", "log"),
+    ("h20_group16_n128", 4, 2112, 20, 128, 64, "bfloat16", "strided"),
 )
 # The Zamba2 serving path: the full configuration, random weights from
 # LM.init(LM_SEED), two request batches of (prompts, tokens), greedy decode
@@ -329,6 +366,16 @@ def coadd_bound(n_slots, h, w, q, sample_ops=COADD_SAMPLE_OPS, maps=4):
     return bound(nbytes, ops)
 
 
+def contrib_bound(depth_sum, n_accepted, h, w, q, sample_ops=COADD_SAMPLE_OPS, maps=4):
+    """Bound of one pack-scan pass over the work that contributes: the
+    samples that land inside an accepted frame (the pass's depth map summed,
+    unit weights) and the accepted slots' pixels, beside the (Q, Q) maps.
+    A culled scan skips the rest, so it may run below `coadd_bound`."""
+    nbytes = n_accepted * h * w * 4 + maps * q * q * 4
+    ops = depth_sum * sample_ops + q * q * PIXEL_OPS
+    return bound(nbytes, ops)
+
+
 def warp_bound(n, h, w, q):
     """Bound of one warp_project launch over ``n`` images."""
     nbytes = n * (h * w + 8 + 1) * 4 + 2 * q * q * 4 + 2 * n * q * q * 4
@@ -353,6 +400,32 @@ def psf_bound(n_img, h, w, taps):
     return bound(nbytes, n_img * h * w * psf_ops(taps))
 
 
+def template_args(tail):
+    """The template arguments at the head of a mangled name's tail (what
+    follows the kernel's name), readably: "SumAcc, culled", "bf16, 64"."""
+    head = tail.split("Ev", 1)[0]
+    token = re.compile(r"NS_(\d+)|(\d+)__nv_bfloat16|If|Li(-?\d+)E|Lb([01])E")
+    out, i = [], 0
+    while i < len(head):
+        m = token.match(head, i)
+        if not m:
+            i += 1
+            continue
+        i = m.end()
+        if m.group(1):                      # a name of the kernel's namespace
+            out.append(head[i:i + int(m.group(1))])
+            i += int(m.group(1))
+        elif m.group(2):
+            out.append("bf16")
+        elif m.group(0) == "If":
+            out.append("f32")
+        elif m.group(3):
+            out.append(m.group(3))
+        else:
+            out.append("culled" if m.group(4) == "1" else "unculled")
+    return ", ".join(out)
+
+
 def ptxas_summary(log, kernel):
     """Registers and spills of each instantiation of ``kernel`` from its
     source's ``nvcc -Xptxas -v`` output -> {"kernel<64>": "80 registers, 0
@@ -363,9 +436,9 @@ def ptxas_summary(log, kernel):
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
             current = None
-            if kernel in mangled:
-                args = re.findall(r"Li(\d+)E", mangled.split(kernel, 1)[1])
-                current = f"{kernel}<{', '.join(args)}>" if args else kernel
+            if re.search(rf"\d{kernel}[IE]", mangled):   # the name, not a longer one
+                args = template_args(mangled.split(kernel, 1)[1])
+                current = f"{kernel}<{args}>" if args else kernel
                 out[current] = ""
         elif current and "spill stores" in line:
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -493,7 +566,7 @@ def flash_cases(torch, flash, flash_ref, dev):
     return max(worst, err)
 
 
-def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, dev):
+def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, ssd_heads_per_block, dev):
     """Hold csrc/ssd.cu against its plain versions in every SSD_CASES case."""
     g = torch.Generator(device=dev).manual_seed(16)
     worst = 0.0
@@ -528,7 +601,10 @@ def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, dev):
             atol = SSD_TOL * max(float(want.abs().max()), 1.0)
             require(err <= atol, f"ssd {name} {what}: max |diff| {err:.3g} > {atol:.3g}")
             worst = max(worst, err)
-        print(f"  ssd {name}: B={b} T={t} H={h} N={n} P={SSD_P} chunk={chunk} {dtype} {form}: "
+        group = ssd_heads_per_block(b, -(-t // min(chunk, 64)), h,
+                                    torch.cuda.get_device_properties(dev).multi_processor_count)
+        print(f"  ssd {name}: B={b} T={t} H={h} N={n} P={SSD_P} chunk={chunk} {dtype} {form} "
+              f"group={group}: "
               + ", ".join(f"{what} max |diff| "
                           f"{float((got.float() - want.float()).abs().max()):.3g}"
                           for what, got, want in holds))
@@ -799,7 +875,7 @@ def main(argv=None) -> int:
     from repro_torch.core import mapper, psf, reducer
     from repro_torch.core.detect import sky_to_grid
     from repro_torch.core.geometry import sky_to_pixel
-    from repro_torch.core.seqfile import pack_structured
+    from repro_torch.core.seqfile import finite_slots, pack_structured
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import ops as flash_ops
     from repro_torch.kernels.attention.ref import flash_ref
@@ -871,6 +947,98 @@ def main(argv=None) -> int:
         for p in near.nonzero().tolist():
             decision_flips.append((case, kernel) + tuple(p))
         return near
+
+    def unculled(name, scan, *fixed, nbins=0):
+        """The unculled pack scan (``pack_scan_unculled_f32``) on a culled
+        wrapper's operands -> its outputs, as the wrapper returns them.  The
+        check form: no wrapper launches it and it counts no launch."""
+        pixels, _, idx, _, gra, _ = scan
+        q = gra.shape[0]
+        n_out = {"coadd_fused": 2, "coadd_moments": 3, "coadd_clip": 2, "coadd_hist": 1}[name]
+        shape = (nbins, q, q) if name == "coadd_hist" else (q, q)
+        outs = [torch.empty(shape, device=dev) for _ in range(n_out)]
+        ptrs = [t.data_ptr() for t in scan]
+        ins = [t.data_ptr() for t in fixed] + [None] * (2 - len(fixed))
+        outp = [t.data_ptr() for t in outs] + [None] * (3 - len(outs))
+        err = build.library("warp").pack_scan_unculled_f32(
+            SCAN_KIND[name], nbins, *ptrs, *ins, *outp, idx.shape[0], *pixels.shape[1:], q,
+            torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"pack_scan_unculled_f32 ({name}): CUDA error {err}")
+        return outs[0] if name == "coadd_hist" else tuple(outs)
+
+    def words_differ(a, b):
+        """How many float32 words of two outputs differ, NaN payloads too."""
+        return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).sum())
+
+    cull_checks = {"passes": 0, "differing_words": 0}
+
+    def cull_check(case, scan, finite):
+        """Every culled pass (the counted wrappers, given the slot flag) against
+        the unculled kernel on the same operands, bitwise: coadd_fused,
+        coadd_moments, coadd_hist at 8, 16 and 32 bins and coadd_clip about
+        the clipped mean and the binapprox median, on the fixed operands the
+        culled moments give.  -> the culled moments."""
+        rows = []
+        rows.append(("coadd_fused", warp_ops.coadd_fused(*scan, finite=finite),
+                     unculled("coadd_fused", scan)))
+        mom = warp_ops.coadd_moments(*scan, finite=finite)
+        rows.append(("coadd_moments", mom, unculled("coadd_moments", scan)))
+        mu, sigma = reducer.clip_stats(*mom)
+        for nbins in warp_ops.HIST_BINS:
+            lo, bw, inv_w = reducer.hist_bounds(*mom, nbins)
+            hist = warp_ops.coadd_hist(*scan, lo, inv_w, nbins, finite=finite)
+            rows.append((f"coadd_hist[{nbins}]", (hist,),
+                         (unculled("coadd_hist", scan, lo, inv_w, nbins=nbins),)))
+            if nbins == NBINS:
+                median = reducer.hist_median(hist, mom[0], lo, bw)
+        for red, center in (("clipped", mu), ("median", median)):
+            thresh = reducer.clip_threshold(center, sigma, CLIP_K)
+            rows.append((f"coadd_clip[{red}]", warp_ops.coadd_clip(*scan, center, thresh,
+                                                                   finite=finite),
+                         unculled("coadd_clip", scan, center, thresh)))
+        torch.cuda.synchronize()
+        for name, got, want in rows:
+            n = sum(words_differ(a, b) for a, b in zip(got, want))
+            cull_checks["passes"] += 1
+            cull_checks["differing_words"] += n
+            require(n == 0, f"{case}/{name}: the culled kernel differs from the unculled one "
+                            f"at {n} words")
+        return mom
+
+    def cull_counts(scan, finite):
+        """What the culled kernel skips on one pass, by the plain twin of its
+        footprint test (``ref.footprint_keep``) -> dict."""
+        pixels, wcs, idx, acc, gra, gdec = scan
+        h, w = pixels.shape[-2:]
+        q = gra.shape[0]
+        rows = idx.long()
+        flat_wcs, flat_acc = wcs[rows].reshape(-1, 8), acc.reshape(-1)
+        flat_fin = None if finite is None else finite[rows].reshape(-1) != 0
+        ny, nx = -(-q // ref.TILE_Y), -(-q // ref.TILE_X)
+        live = torch.zeros((ny * ref.TILE_Y, nx * ref.TILE_X), device=dev)
+        live[:q, :q] = 1.0
+        live = live.reshape(ny, ref.TILE_Y, nx, ref.TILE_X).sum((1, 3))
+        pairs = samples = 0
+        for s0 in range(0, flat_wcs.shape[0], 256):
+            keep = ref.footprint_keep(flat_wcs[s0:s0 + 256], flat_acc[s0:s0 + 256],
+                                      None if flat_fin is None else flat_fin[s0:s0 + 256],
+                                      gra, gdec, h, w)
+            pairs += int(keep.sum())
+            samples += int((keep * live[..., None]).sum())
+        n = flat_wcs.shape[0]
+        return dict(slots=n, accepted=int((flat_acc != 0).sum()),
+                    rejected_skipped=0 if flat_fin is None else int(((flat_acc == 0)
+                                                                     & flat_fin).sum()),
+                    pairs=pairs, pairs_scanned=n * ny * nx, samples=samples,
+                    samples_scanned=n * q * q)
+
+    def print_counts(what, c, depth_sum):
+        print(f"  {what}: {c['slots']} slots ({c['accepted']} accepted, "
+              f"{c['rejected_skipped']} rejected and skipped); (tile, slot) pairs sampled "
+              f"{c['pairs']} of {c['pairs_scanned']}; samples {c['samples']} of "
+              f"{c['samples_scanned']} ({100.0 * c['samples'] / c['samples_scanned']:.2f} %), "
+              f"skipped {c['samples_scanned'] - c['samples']}; contributing {depth_sum:.0f}",
+              flush=True)
 
     def robust_kernels(case, scan, bank=None, dscan=None):
         """coadd_moments, coadd_hist and coadd_clip (both centres) against their
@@ -960,6 +1128,7 @@ def main(argv=None) -> int:
             outs = [c_k, d_k, t_k, v_k, *s_k, h_k] + [t for pair in clipped.values() for t in pair]
             require(not any(bool(t.any()) for t in outs),
                     f"{case}: an empty gate must give exact zeros")
+        cull_check(case, scan, finite_slots(pixels))
         print(f"  {case:16s} P,cap,H,W={tuple(pixels.shape)} G={len(pack_idx)} "
               f"Q={qry.npix} accepted={int((acc != 0).sum())} depth_max={float(d_k.max()):.0f} "
               f"| max_err {', '.join(f'{k}={v:.3g}' for k, v in errs.items())} "
@@ -1018,6 +1187,9 @@ def main(argv=None) -> int:
         r_errs, r_flips, *_ = robust_kernels(case, scan, bank, dscan)
         errs.update(r_errs)
         flips.update(r_flips)
+        # The culled passes over the kernel's own scratch, as the engine runs them.
+        cull_check(f"{case} (scratch)", warp_ops.matched_packs(pixels, wcs, idx, bank) + scan[3:],
+                   warp_ops.matched_finite(finite_slots(pixels), idx, bank))
         print(f"  {case:16s} P,cap,H,W={tuple(pixels.shape)} bank={tuple(bank.shape[2:])} "
               f"G={len(pack_idx)} Q={qry.npix} | max_err "
               f"{', '.join(f'{k}={v:.3g}' for k, v in errs.items())} | flips {flips} "
@@ -1070,6 +1242,63 @@ def main(argv=None) -> int:
         cases.append(("offsets_64bit", big_ds, q_wide, wide_ones, [n_big - 1], big))
         for case in cases:
             run_case(*case)
+
+        # Rejected slots poisoned inside the query footprint with a NaN, an
+        # inf and a 2**70 pixel.  Their flag is clear, so the culled kernels
+        # sample them as the unculled one does: the same bits, NaN included.
+        gra_m, gdec_m = (torch.from_numpy(a).to(dev) for a in mapper.query_grid_sky(q_main))
+        poison, acc_p, planted = ds.pixels[:1].copy(), ones[:1].copy(), []
+        h0, w0 = ds.pixels.shape[-2:]
+        for slot in range(ds.pixels.shape[1]):
+            sx, sy = sky_to_pixel(gra_m, gdec_m, torch.from_numpy(ds.wcs[0, slot]).to(dev))
+            inside = ((sx >= 0) & (sx <= w0 - 1) & (sy >= 0) & (sy <= h0 - 1)).nonzero()
+            if len(inside) and len(planted) < 3:
+                at = inside[len(inside) // 2]
+                y, x = int(torch.floor(sy[tuple(at)])), int(torch.floor(sx[tuple(at)]))
+                poison[0, slot, y, x] = (np.nan, np.inf, np.float32(2.0 ** 70))[len(planted)]
+                acc_p[0, slot] = 0.0
+                planted.append((slot, y, x))
+        require(len(planted) == 3, "poisoned_rejected: three slots must cover the query")
+        pix_p = torch.from_numpy(poison).to(dev)
+        scan_p = (pix_p, torch.from_numpy(ds.wcs[:1]).to(dev),
+                  torch.zeros(1, dtype=torch.int32, device=dev), torch.from_numpy(acc_p).to(dev),
+                  gra_m, gdec_m)
+        fin_p = finite_slots(pix_p)
+        require(not any(int(fin_p[0, k]) for k, _, _ in planted)
+                and int(fin_p.sum()) == fin_p.numel() - 3, "poisoned_rejected: slot flags")
+        mom_p = cull_check("poisoned_rejected", scan_p, fin_p)
+        c_pk, _ = warp_ops.coadd_fused(*scan_p, finite=fin_p)
+        c_pp, _ = ref.coadd_scan_ref(*scan_p)
+        mom_pp = ref.moments_scan_ref(*scan_p)
+        torch.cuda.synchronize()
+        print(f"  poisoned_rejected: NaN, inf, 2**70 at (slot, y, x) {planted}, accept 0: culled "
+              f"bitwise the unculled kernel; NaN pixels kernel / plain: coadd "
+              f"{int(c_pk.isnan().sum())} / {int(c_pp.isnan().sum())}, S1 "
+              f"{int(mom_p[1].isnan().sum())} / {int(mom_pp[1].isnan().sum())}, S2 "
+              f"{int(mom_p[2].isnan().sum())} / {int(mom_pp[2].isnan().sum())}", flush=True)
+        del poison, pix_p, scan_p
+
+        # Culling where the survey's patch does not reach: frames scattered
+        # over grids at dec +-60 and +-80 and across RA 0/360
+        # (ref.scattered_frames), every accumulator culled vs unculled, bitwise.
+        rng_w = np.random.default_rng(17)
+        for ra_c, dec_c in ((117.0, 60.0), (250.0, -60.0), (45.0, 80.0), (300.0, -80.0),
+                            (0.0, 0.4), (359.95, 70.0)):
+            gr_w, gd_w, wv_w = ref.scattered_frames(ra_c, dec_c, 250, 0.5, 128, 64, 96,
+                                                    seed=int(ra_c) + 1000)
+            scan_w = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+                rng_w.normal(100.0, 10.0, (2, 64, 64, 96)).astype(np.float32),
+                wv_w.reshape(2, 64, 8), np.arange(2, dtype=np.int32),
+                rng_w.choice(np.float32([0.0, 0.5, 1.0]), (2, 64)), gr_w, gd_w))
+            fin_w = finite_slots(scan_w[0])
+            mom_w = cull_check(f"wide_sky ra {ra_c} dec {dec_c}", scan_w, fin_w)
+            c_w = cull_counts(scan_w, fin_w)
+            require(0 < c_w["pairs"] < c_w["pairs_scanned"] and float(mom_w[0].sum()) > 0,
+                    f"wide_sky ra {ra_c} dec {dec_c}: the frames must reach the grid and "
+                    "some (tile, slot) pairs must be culled")
+            print_counts(f"wide_sky ra {ra_c} dec {dec_c}", c_w, float(mom_w[0].sum()))
+        print(f"  culled vs unculled in phase 3: {cull_checks['passes']} passes, "
+              f"{cull_checks['differing_words']} differing words", flush=True)
 
         # PSF matching: the main path's two banks at its sizes, then edge cases.
         def to_dev(bank):
@@ -1213,7 +1442,7 @@ def main(argv=None) -> int:
                                                          flash_ref, dev)
         case_err["ssd_chunked"] = ssd_cases(torch, ssd_ops.ssd_log, ssd_ops.ssd,
                                             ssd_ref.ssd_chunked_ref, ssd_ref.ssd_batched_ref,
-                                            dev)
+                                            ssd_ops.heads_per_block, dev)
 
     # ------------------------------------------------------- 4 main path --
     cfg = SurveyConfig(n_runs=args.n_runs, n_camcols=6, n_bands=5, n_fields=12,
@@ -1561,6 +1790,33 @@ def main(argv=None) -> int:
         eng.use_kernel = True
         eng._matched_cache.clear()
 
+        # Culled against unculled over the main path: each method's pass,
+        # unmatched and over its PSF scratch (the measured 13 x 13 bank), with
+        # what the culled kernel skips by the plain twin of its test.
+        checks0 = dict(cull_checks)
+        main_counts = {}
+        for m in METHODS:
+            m_plan = eng.plan(query, m)
+            m_dev, m_idx, m_acc = eng._scan_operands(m_plan)
+            m_scan = (m_dev.pixels, m_dev.wcs, m_idx, m_acc.float(), gra, gdec)
+            m_bank = eng._device_psf_kernels(m_plan.layout)
+            for psf_on in (False, True):
+                scan_c, fin_c = m_scan, m_dev.finite
+                if psf_on:
+                    fin_c = warp_ops.matched_finite(fin_c, m_idx, m_bank)
+                    scan_c = warp_ops.matched_packs(m_dev.pixels, m_dev.wcs, m_idx,
+                                                    m_bank) + m_scan[3:]
+                what = f"{m}{' psf' if psf_on else ''}"
+                mom_c = cull_check(f"main_path {what}", scan_c, fin_c)
+                main_counts[what] = cull_counts(scan_c, fin_c)
+                print_counts(what, main_counts[what], float(mom_c[0].sum()))
+                del scan_c
+        torch.cuda.empty_cache()
+        print(f"  culled vs unculled over the main path: "
+              f"{cull_checks['passes'] - checks0['passes']} passes (6 methods x unmatched and "
+              f"PSF-matched x 7), {cull_checks['differing_words'] - checks0['differing_words']} "
+              f"differing words", flush=True)
+
         # The brick path (DESIGN.md §9), counted on its own: every count 0
         # just before it.  Each case starts from an empty brick store.
         eng.match_psf_sigma = None
@@ -1756,13 +2012,22 @@ def main(argv=None) -> int:
 
     # --------------------------------------------------------- 5 measure --
     kernels = []
+    scanned_bounds = {}   # every-slot bounds (coadd_bound), printed beside the kernels line
     with phase("5 measure"):
         h, w = cfg.height, cfg.width
         q = query.npix
         n_slots = idx.shape[0] * dsv.capacity
         acc_f = accept.float()
+        fin = dsv.finite
         k_ms = cuda_ms(torch, lambda: warp_ops.coadd_fused(dsv.pixels, dsv.wcs, idx, acc_f,
-                                                           gra, gdec), args.reps)
+                                                           gra, gdec, finite=fin), args.reps)
+        scan5 = (dsv.pixels, dsv.wcs, idx, acc_f, gra, gdec)
+        u_ms = cuda_ms(torch, lambda: unculled("coadd_fused", scan5), args.reps)
+        # The work that contributes: the pass's unit-weight depth and the
+        # accepted slots (the sql_structured pass's S0 is its depth map).
+        depth_sum = float(warp_ops.coadd_moments(*scan5, finite=fin)[0].sum())
+        n_acc = int((acc_f != 0).sum())
+        counts5 = main_counts["sql_structured"]
         p_ms = cuda_ms(torch, lambda: ref.coadd_scan_ref(dsv.pixels, dsv.wcs, idx, acc_f,
                                                          gra, gdec), 2)
         c_k, d_k = warp_ops.coadd_fused(dsv.pixels, dsv.wcs, idx, acc_f, gra, gdec)
@@ -1784,16 +2049,22 @@ def main(argv=None) -> int:
                                                          padding_mode="border",
                                                          align_corners=True), 2)
         del grid, imgs
-        b_ms, b_by = coadd_bound(n_slots, h, w, q)
+        scanned_bounds["coadd_fused"] = coadd_bound(n_slots, h, w, q)
+        b_ms, b_by = contrib_bound(depth_sum, n_acc, h, w, q)
         kernels.append(dict(
             name="coadd_fused", route="cuda", source="src/repro_torch/csrc/warp.cu",
             replaces="src/repro/kernels/warp/warp.py:371", launches=launches["coadd_fused"],
             max_abs_err=max(err, case_err["coadd_fused"]), ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
             library="F.grid_sample bilinear + sum (sampling only)", kernel_ms=k_ms,
+            unculled_ms=u_ms,
+            bound_note="bound_ms: the contributing samples and accepted slots (contrib_bound)",
+            samples_contributing=depth_sum,
+            ptxas=ptxas_summary(logs.get("warp", ""), "pack_scan_kernel"),
             edge_flips=case_flips["coadd_fused"] + int(near.sum()),
             shape=f"sql_structured pass: G={idx.shape[0]} packs x 64 slots of {h}x{w}, Q={q}",
         ))
+        print_counts("timed sql_structured pass", counts5, depth_sum)
 
         g0 = gated[0]
         p0 = int(idx[g0])
@@ -1830,27 +2101,33 @@ def main(argv=None) -> int:
         m_errs, m_flips, *_ = robust_kernels("sql_structured_pass", scan)
         center, thresh = bounds["clipped"]["clip"]
         robust_calls = {
-            "coadd_moments": (lambda: warp_ops.coadd_moments(*scan),
+            "coadd_moments": (lambda: warp_ops.coadd_moments(*scan, finite=fin),
                               lambda: ref.moments_scan_ref(*scan),
+                              lambda: unculled("coadd_moments", scan),
                               MOMENTS_SAMPLE_OPS, 5, 579),
-            "coadd_hist": (lambda: warp_ops.coadd_hist(*scan, lo, inv_w, NBINS),
+            "coadd_hist": (lambda: warp_ops.coadd_hist(*scan, lo, inv_w, NBINS, finite=fin),
                            lambda: ref.hist_scan_ref(*scan, lo, inv_w, NBINS),
+                           lambda: unculled("coadd_hist", scan, lo, inv_w, nbins=NBINS),
                            HIST_SAMPLE_OPS, 4 + NBINS, 640),
-            "coadd_clip": (lambda: warp_ops.coadd_clip(*scan, center, thresh),
+            "coadd_clip": (lambda: warp_ops.coadd_clip(*scan, center, thresh, finite=fin),
                            lambda: ref.clip_scan_ref(*scan, center, thresh),
+                           lambda: unculled("coadd_clip", scan, center, thresh),
                            CLIP_SAMPLE_OPS, 6, 606),
         }
-        for name, (kern, plain, sample_ops, maps, line) in robust_calls.items():
+        for name, (kern, plain, unc, sample_ops, maps, line) in robust_calls.items():
             k_ms = cuda_ms(torch, kern, args.reps)
             p_ms = cuda_ms(torch, plain, 2)
-            b_ms, b_by = coadd_bound(n_slots, h, w, q, sample_ops, maps)
+            u_ms = cuda_ms(torch, unc, args.reps)
+            scanned_bounds[name] = coadd_bound(n_slots, h, w, q, sample_ops, maps)
+            b_ms, b_by = contrib_bound(depth_sum, n_acc, h, w, q, sample_ops, maps)
             kernels.append(dict(
                 name=name, route="cuda", source="src/repro_torch/csrc/warp.cu",
                 replaces=f"src/repro/kernels/warp/warp.py:{line}",
                 launches=robust_launches[name], max_abs_err=max(m_errs[name], case_err[name]),
                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=sample_ms,
                 library="F.grid_sample bilinear over the pass's samples (sampling only)",
-                kernel_ms=k_ms, decision_flips=case_flips[name] + m_flips[name],
+                kernel_ms=k_ms, unculled_ms=u_ms,
+                decision_flips=case_flips[name] + m_flips[name],
                 shape=f"sql_structured pass: G={idx.shape[0]} packs x 64 slots of {h}x{w}, "
                       f"Q={q}" + (f", nbins={NBINS}" if name == "coadd_hist" else ""),
             ))
@@ -2017,9 +2294,29 @@ def main(argv=None) -> int:
         require(err <= SSD_TOL * max(float(y_p.abs().max()), float(s_p.abs().max()), 1.0),
                 f"ssd at the prefill's shapes: max |diff| {err:.3g}")
         del y_k, s_k, y_p, s_p
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
         k_ms = cuda_ms(torch, lambda: ssd_ops.ssd_log(*ssd_in, 64), args.reps)
+        ssd_peak = torch.cuda.max_memory_allocated() - base_mem
         p_ms = cuda_ms(torch, lambda: ssd_ref.ssd_chunked_ref(*ssd_in, 64), 2)
         b_ms, b_by = ssd_bound(sb, st, sh, sn, SSD_P, 64, 2)
+        # Each of the call's kernels, from a profiler trace of a few calls.
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                ssd_ops.ssd_log(*ssd_in, 64)
+            torch.cuda.synchronize()
+        ssd_parts = {}
+        for ev in prof.key_averages():
+            dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+            for part in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                         "ssd_chunk_scan_kernel"):
+                if part in ev.key and dt:
+                    ssd_parts[part] = ssd_parts.get(part, 0.0) + dt / args.reps / 1e3
+        print(f"  ssd_log at the prefill's shapes: {k_ms:.3f} ms a call of "
+              f"{ssd_ops.KERNELS_PER_CALL} kernel launches, by kernel (profiler) "
+              f"{ {k: round(v, 4) for k, v in ssd_parts.items()} }; memory a call beyond its "
+              f"operands {ssd_peak} bytes (y, state and the chunk states' scratch)")
         kernels.append(dict(
             name="ssd_chunked", route="cuda", source="src/repro_torch/csrc/ssd.cu",
             replaces="src/repro/kernels/ssd/ssd.py:68", launches=lm_launches["ssd_chunked"],
@@ -2027,25 +2324,54 @@ def main(argv=None) -> int:
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             library="none: no single PyTorch call computes the SSD scan", kernel_ms=k_ms,
             launches_per_prefill=lm_launches["ssd_chunked"] // (2 * len(LM_BATCHES)),
+            kernel_ms_by_part=ssd_parts,
+            call_bytes=ssd_peak,
             shape=f"Zamba2 prefill: B={sb} T={st} H={sh} N={sn} P={SSD_P} chunk 64, bf16 "
                   "strided B, C, x",
+            ptxas={k: v for part in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
+                                     "ssd_chunk_scan_kernel")
+                   for k, v in ptxas_summary(logs.get("ssd", ""), part).items()},
         ))
         del la, xbc, ssd_in
         for m in METHODS:
             m_dev, m_idx, m_acc = eng._scan_operands(eng.plan(query, m))
-            m_acc = m_acc.float()
-            m_ms = cuda_ms(torch, lambda: warp_ops.coadd_fused(
-                m_dev.pixels, m_dev.wcs, m_idx, m_acc, gra, gdec), args.reps)
-            print(f"  coadd_fused pass of {m}: {m_ms:.3f} ms over {m_acc.numel()} slots, "
-                  f"{m_ms / query_ms[m]:.3f} of the query's {query_ms[m]:.1f} ms")
+            m_scan = (m_dev.pixels, m_dev.wcs, m_idx, m_acc.float(), gra, gdec)
+            m_ms = cuda_ms(torch, lambda: warp_ops.coadd_fused(*m_scan, finite=m_dev.finite),
+                           args.reps)
+            mu_ms = cuda_ms(torch, lambda: unculled("coadd_fused", m_scan), args.reps)
+            print(f"  coadd_fused pass of {m}: {m_ms:.3f} ms (unculled {mu_ms:.3f}) over "
+                  f"{m_scan[3].numel()} slots, {m_ms / query_ms[m]:.3f} of the query's "
+                  f"{query_ms[m]:.1f} ms")
+        # The brick window's materialization passes, one coadd_fused pass a
+        # brick onto its lattice tile, culled and unculled: a frame covers a
+        # larger share of a brick's tile than of the query grid.
+        for m in ("sql_structured", BRICK_DENSE):
+            b_scans = []
+            for r, c in cover.bricks:
+                b_plan = eng._brick_plan("r", r, c, m)
+                b_dev, b_idx, b_acc = eng._scan_operands(b_plan)
+                b_scans.append(((b_dev.pixels, b_dev.wcs, b_idx, b_acc.float(),
+                                 *eng._plan_grids(b_plan)), b_dev.finite))
+            bk_ms = cuda_ms(torch, lambda: [warp_ops.coadd_fused(*s, finite=f)
+                                            for s, f in b_scans], args.reps)
+            bu_ms = cuda_ms(torch, lambda: [unculled("coadd_fused", s) for s, _ in b_scans],
+                            args.reps)
+            print(f"  brick window materialization, {m}: {len(b_scans)} coadd_fused passes "
+                  f"onto {BRICK_NPIX}^2 tiles over {b_scans[0][0][3].numel()} slots each: "
+                  f"culled {bk_ms:.3f} ms, unculled {bu_ms:.3f} ms", flush=True)
+            del b_scans
         for k in kernels:
             lib_ms = "none" if k["library_ms"] is None else f"{k['library_ms']:.3f}"
             ceiling = (f", -fmad=false ceiling {psf_ceiling_ms:.3f}, launch alone "
                        f"{k['launch_ms']:.3f}, any-width path alone {k['any_width_launch_ms']:.3f}"
                        if k["name"] == "psf_match_2d" else "")
             ptxas = f"; ptxas {k['ptxas']}" if "ptxas" in k else ""
+            extra = (f", unculled {k['unculled_ms']:.3f}, every-slot bound "
+                     f"{scanned_bounds[k['name']][0]:.3f} by {scanned_bounds[k['name']][1]}"
+                     if k["name"] in scanned_bounds else "")
             print(f"  {k['name']}: {k['ms']:.3f} ms (plain {k['plain_ms']:.3f}, library "
-                  f"{lib_ms}, bound {k['bound_ms']:.3f} by {k['bound_by']}{ceiling}){ptxas}")
+                  f"{lib_ms}, bound {k['bound_ms']:.3f} by {k['bound_by']}{ceiling}{extra})"
+                  f"{ptxas}")
         print(json.dumps({"zamba2_serving": lm_runs}))
 
     print(f"edge flips: {len(edge_flips)}; (case, kernel, [image,] row, col) of the first "

@@ -198,18 +198,22 @@ def _accept_from_meta(ints, floats, qvec):
 
 def _query_scan(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
                 grid_ra, grid_dec, use_kernel: bool, psf_kernels=None):
-    """The operands every pass of a query scans -> (scan, bank left to apply).
+    """The operands every pass of a query scans -> (scan, bank left to apply,
+    slot flag).
 
     With a bank on the kernel path, ONE ``psf_match`` launch writes the
     scanned packs' matched pixels to a (G, cap, H, W) scratch, and every
-    pass reads that (`ops.matched_packs`); on the plain path the bank rides
-    into each plain scan, which matches pack by pack.
+    pass reads that (`ops.matched_packs`, its flag `ops.matched_finite`); on
+    the plain path the bank rides into each plain scan, which matches pack
+    by pack.  The flag lets the kernels skip rejected slots.
     """
-    pixels, wcs = dev.pixels, dev.wcs
+    pixels, wcs, finite = dev.pixels, dev.wcs, dev.finite
     if use_kernel and psf_kernels is not None:
+        finite = warp_ops.matched_finite(finite, idx, psf_kernels)
         pixels, wcs, idx = warp_ops.matched_packs(pixels, wcs, idx, psf_kernels)
         psf_kernels = None
-    return (pixels, wcs, idx, accept.to(torch.float32), grid_ra, grid_dec), psf_kernels
+    scan = (pixels, wcs, idx, accept.to(torch.float32), grid_ra, grid_dec)
+    return scan, psf_kernels, finite
 
 
 def _scan_coadd(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
@@ -221,9 +225,10 @@ def _scan_coadd(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tenso
     pack goes through the plain map stage and local reduce (the kernel's
     plain version, the counterpart of the reference's XLA path).
     """
-    scan, bank = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel, psf_kernels)
+    scan, bank, finite = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel,
+                                     psf_kernels)
     if use_kernel:
-        return warp_ops.coadd_fused(*scan)
+        return warp_ops.coadd_fused(*scan, finite=finite)
     return warp_ref.coadd_scan_ref(*scan, psf_kernels=bank)
 
 
@@ -241,9 +246,11 @@ def _robust_passes(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Te
     and reduces pack by pack and never holds the query's warped stack.  A
     bank is applied once for all passes on the kernel path (`_query_scan`).
     """
-    scan, bank = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel, psf_kernels)
+    scan, bank, finite = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel,
+                                     psf_kernels)
     if use_kernel:
-        moments, hist, clip = warp_ops.coadd_moments, warp_ops.coadd_hist, warp_ops.coadd_clip
+        moments, hist, clip = (functools.partial(f, finite=finite) for f in (
+            warp_ops.coadd_moments, warp_ops.coadd_hist, warp_ops.coadd_clip))
     else:
         moments, hist, clip = (functools.partial(f, psf_kernels=bank) for f in (
             warp_ref.moments_scan_ref, warp_ref.hist_scan_ref, warp_ref.clip_scan_ref))

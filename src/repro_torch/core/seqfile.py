@@ -53,6 +53,7 @@ class DevicePackedDataset:
     ints: Dict[str, torch.Tensor]   # (P, cap) int32 each; empty slots have
                                     #   image_id -1 (rejected by acceptance)
     floats: Dict[str, torch.Tensor] # (P, cap) float32 each
+    finite: Optional[torch.Tensor] = None   # (P, cap) uint8, `finite_slots`
 
     @property
     def n_packs(self) -> int:
@@ -66,7 +67,33 @@ class DevicePackedDataset:
     def nbytes(self) -> int:
         """Device bytes the layout occupies."""
         tensors = [self.pixels, self.wcs, *self.ints.values(), *self.floats.values()]
+        if self.finite is not None:
+            tensors.append(self.finite)
         return sum(t.numel() * t.element_size() for t in tensors)
+
+
+#: Largest |pixel| of a slot the pack scans may skip when it is rejected:
+#: a rejected sample adds vm * 0 (and vm*vm/m * 0), exactly +-0 only while
+#: vm and vm*vm are finite (csrc/warp.cu).  The bilinear vm is at most
+#: 2**62 * (1 + 2**-21), so vm*vm < 2**125.
+FINITE_LIMIT = 2.0 ** 62
+
+#: Pixels `finite_slots` tests at a time (whole packs, at least one), so its
+#: temporaries stay a few hundred MB on a full-size layout.
+FINITE_CHUNK = 2 ** 26
+
+
+def finite_slots(pixels: torch.Tensor) -> torch.Tensor:
+    """(P, cap, H, W) pixels -> (P, cap) uint8: 1 where every pixel of the
+    slot is finite with |p| <= `FINITE_LIMIT` (a NaN compares false).  One
+    pass, `FINITE_CHUNK` pixels at a time."""
+    p, cap = pixels.shape[:2]
+    out = torch.empty((p, cap), dtype=torch.uint8, device=pixels.device)
+    step = max(1, FINITE_CHUNK // max(1, pixels[0].numel()))
+    for p0 in range(0, p, step):
+        blk = pixels[p0:p0 + step]
+        out[p0:p0 + step] = (blk.abs() <= FINITE_LIMIT).flatten(2).all(-1)
+    return out
 
 
 # Rebuild-cost classes for cost-aware eviction (DESIGN.md §9).  The number
@@ -457,11 +484,13 @@ class PackedDataset:
         masks the resident tensors on the device.
         """
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        pixels = put(self.pixels)
         return DevicePackedDataset(
-            pixels=put(self.pixels),
+            pixels=pixels,
             wcs=put(self.wcs),
             ints={k: put(v) for k, v in self.ints.items()},
             floats={k: put(v) for k, v in self.floats.items()},
+            finite=finite_slots(pixels),
         )
 
     def slot_mask(self, image_ids) -> np.ndarray:

@@ -19,29 +19,63 @@
 // on the RA offset, three divisions, the bilinear blend), against 67 TFLOP/s
 // of fp32 outside the tensor cores; each is one instruction sequence of its
 // own here (sinf alone is tens of instructions), so the kernels sit well
-// above that bound.  The scans read each scanned frame once (4 bytes per
-// source pixel) and write a few (Q, Q) maps, so they are bounded by
-// operations; the robust accumulators add 7 to 9 operations a sample, the
-// histogram 3 per bin (an unrolled compare-and-select).  warp_project
-// writes 8 bytes per sample (tile and coverage) against ~49 operations,
-// under the card's ~20 operations per byte of 3.35 TB/s, so it is bounded
-// by bytes.  The four neighbour loads mostly hit L1/L2: neighbouring output
-// pixels read neighbouring source pixels, and a sample off the image clamps
-// to its edge, one address for a whole warp.  The design cuts what it can
-// without changing the result: sin/cos of the output pixel's declination
-// once per thread, and the per-image terms (sin/cos of the WCS reference
+// above that bound.  warp_project writes 8 bytes per sample (tile and
+// coverage) against ~49 operations, under the card's ~20 operations per
+// byte of 3.35 TB/s, so it is bounded by bytes.  The four neighbour loads
+// mostly hit L1/L2: neighbouring output pixels read neighbouring source
+// pixels, and a sample off the image clamps to its edge, one address for a
+// whole warp.  Sin/cos of the output pixel's declination are taken once per
+// thread, and the per-image terms (sin/cos of the WCS reference
 // declination, the CD determinant) once per image per block, staged in
 // shared memory.
 //
 // A pack scan is one whole pass of a query in ONE launch: one thread owns
-// one output pixel, loops over the G gated packs x cap slots inside the
-// kernel, and keeps its sums in registers: no atomics, a fixed order, and no
-// (N, Q, Q) stack ever written.  As in the reference scan, each pack's
-// partial sums are added to the carry after the pack.  Rejected slots
-// (accept 0) are computed and contribute x * 0, exactly as in the
-// reference.  The four passes differ only in the per-sample accumulator, a
-// template parameter; the robust ones read their fixed (Q, Q) operands
-// (clip centre and radius, histogram bounds) once per thread into registers.
+// one output pixel of a 32 x 8 block tile, loops over the G gated packs x
+// cap slots inside the kernel, and keeps its sums in registers: no atomics,
+// a fixed order, and no (N, Q, Q) stack ever written.  As in the reference
+// scan, each pack's partial sums are added to the carry after the pack.
+// The four passes differ only in the per-sample accumulator, a template
+// parameter; the robust ones read their fixed (Q, Q) operands (clip centre
+// and radius, histogram bounds) once per thread into registers.
+//
+// Culling (the kCull form every wrapper launches).  A query's frames are
+// few and small beside the grid: on the survey's main path 164 of 512 (or
+// 2880) scanned slots are accepted, and each covers about 5 % of the grid.
+// So each block stages a chunk of up to 256 slots, each staging thread
+// decides whether its slot can add anything to this block's tile, the kept
+// slots are compacted in order (warp ballot and prefix), and the block
+// samples only those.  A slot is skipped when
+//   (a) it is rejected (accept == 0) and its flag in `finite` is set: every
+//       pixel finite with |p| <= 2^62 (PackedDataset.to_device; ops.py
+//       derives the PSF scratch's flag).  A rejected sample then adds
+//       (finite vm) * 0 = +-0, and vm*vm stays finite, so MomentsAcc's
+//       vm*vm/m * 0 is +-0 too.  Without the flag it may add NaN: kept.
+//   (b) its accept is finite and its footprint misses the tile.  A sample
+//       outside the frame is the select's exact 0 with coverage 0, so it
+//       adds 0 * a = +-0 to every sum (HistAcc adds weight 0 to some bin,
+//       or returns on NaN).
+// Adding +-0 leaves every partial bitwise unchanged: a sum that starts at
+// +0 is never -0 under round-to-nearest, and x + (+-0) == x for any other
+// x.  begin_pack/end_pack still frame every pack, so the order of every
+// sum that is not skipped is the unculled kernel's, and the result is
+// bitwise the same.  The footprint test of (b), `misses_tile`, is exact
+// for any grid: the block's tile is split into four 8 x 8 sub-tiles, each
+// with a centre pixel c and the largest chord r from c to its pixels
+// (computed once per block); every pixel of the sub-tile lies within the
+// spherical cap (c, r).  The gnomonic projection stretches arc length by
+// at most 1/cos^2(theta) at angle theta from the frame's tangent point, so
+// every pixel's (sx, sy) lies within (r + e) / cos^2(theta_c + r) times
+// the CD inverse's row sums of c's own (sx, sy), where e = 4e-6 rad covers
+// the float32 rounding of a sample's sky->pixel map (under 1e-6 rad), plus
+// 1 px and 2e-5 of |sx| + |sy| for the CD products and the reference-pixel
+// addition.  The slot is culled only if that box misses [0, W-1] x
+// [0, H-1] for every live sub-tile, and only when c maps to finite (sx, sy)
+// with cos(theta_c + r) > 0.05; anything else keeps the slot.  So what
+// bounds a culled scan is the samples that contribute (about the query's
+// depth sum), the per-slot staging, and the block-uniform branches.
+// pack_scan_kernel<Acc, false> is the unculled scan, kept as one extra C
+// entry point (pack_scan_unculled_f32) for chip_smoke.py to hold the
+// culled form against bitwise; no wrapper launches it.
 //
 // Numerics: built WITHOUT --use_fast_math and with -fmad=false, so every
 // product and sum rounds on its own, as in the plain torch version (one
@@ -53,6 +87,7 @@
 
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -85,20 +120,29 @@ __device__ __forceinline__ SlotConst make_slot(const float* __restrict__ w, floa
   return c;
 }
 
+// Gnomonic sky -> source pixel of slot c at a sky point given as (ra_r,
+// sin_dec, cos_dec); cosc is the cosine of its angle from c's tangent
+// point.  Operation order is the reference's (_sky_to_pixel).
+__device__ __forceinline__ void sky_to_src(const SlotConst& c, float ra_r, float sin_dec,
+                                           float cos_dec, float& sx, float& sy, float& cosc) {
+  const float dra = ra_r - c.ra0_r;
+  const float cos_dra = cosf(dra);
+  const float sin_dra = sinf(dra);
+  cosc = c.sin_dec0 * sin_dec + c.cos_dec0 * cos_dec * cos_dra;
+  const float xi = cos_dec * sin_dra / cosc * kRad2Deg;
+  const float eta = (c.cos_dec0 * sin_dec - c.sin_dec0 * cos_dec * cos_dra) / cosc * kRad2Deg;
+  sx = (c.cd22 * xi - c.cd12 * eta) / c.det + c.x0;
+  sy = (-c.cd21 * xi + c.cd11 * eta) / c.det + c.y0;
+}
+
 // One sample: returns val * m and m for the image `img` (H, W) at the output
 // pixel whose sky position gives (ra_r, sin_dec, cos_dec).  Operation order
 // is the reference's (_sky_to_pixel, _bilinear_via_matmul).
 __device__ __forceinline__ void warp_sample(const float* __restrict__ img, int h, int w,
                                             const SlotConst& c, float ra_r, float sin_dec,
                                             float cos_dec, float& vm, float& m) {
-  const float dra = ra_r - c.ra0_r;
-  const float cos_dra = cosf(dra);
-  const float sin_dra = sinf(dra);
-  const float cosc = c.sin_dec0 * sin_dec + c.cos_dec0 * cos_dec * cos_dra;
-  const float xi = cos_dec * sin_dra / cosc * kRad2Deg;
-  const float eta = (c.cos_dec0 * sin_dec - c.sin_dec0 * cos_dec * cos_dra) / cosc * kRad2Deg;
-  const float sx = (c.cd22 * xi - c.cd12 * eta) / c.det + c.x0;
-  const float sy = (-c.cd21 * xi + c.cd11 * eta) / c.det + c.y0;
+  float sx, sy, cosc;
+  sky_to_src(c, ra_r, sin_dec, cos_dec, sx, sy, cosc);
 
   const float sxc = fminf(fmaxf(sx, -1.0f), static_cast<float>(w));
   const float syc = fminf(fmaxf(sy, -1.0f), static_cast<float>(h));
@@ -310,15 +354,125 @@ struct HistAcc {  // median round 1: hist[b] += a*m at b = clip(floor((x-lo)*inv
   }
 };
 
-template <class Acc>
+// ----- footprint culling (see the header) --------------------------------
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kSub = 4;                  // 8 x 8 sub-tiles of a 32 x 8 block tile
+constexpr int kSubW = kTileX / kSub;
+constexpr float kMaxChord = 0.05f;       // a wider sub-tile is never culled
+constexpr float kSkyErr = 4e-6f;         // rad, over a sample's sky->pixel rounding
+constexpr float kMinCosFar = 0.05f;      // caps reaching this near the horizon are kept
+
+// A sub-tile's centre pixel and the padded cap (radius r, rad) around it
+// that holds every pixel of the sub-tile.  state: 0 no live pixel, 1
+// cullable, 2 never culled (a wide or non-finite cap).
+struct SubTile {
+  float ra_r, sin_dec, cos_dec;
+  float x, y, z;
+  float r, cos_r, sin_r;
+  int state;
+};
+
+__device__ __forceinline__ void unit_vector(float ra_r, float sin_dec, float cos_dec, float& x,
+                                            float& y, float& z) {
+  x = cos_dec * cosf(ra_r);
+  y = cos_dec * sinf(ra_r);
+  z = sin_dec;
+}
+
+// Once per block: the four sub-tiles' centres and caps, into shared `sub`.
+__device__ void tile_caps(SubTile* sub, unsigned* chord_bits, const PixelSky& px,
+                          const float* __restrict__ gra, const float* __restrict__ gdec, int q) {
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  if (tid < kSub) {
+    SubTile& t = sub[tid];
+    const int col0 = blockIdx.x * kTileX + tid * kSubW;
+    const int row0 = blockIdx.y * kTileY;
+    t.state = col0 < q ? 1 : 0;
+    const int col = min(col0 + kSubW / 2 - 1, q - 1);   // a live pixel of the sub-tile
+    const int row = min(row0 + kTileY / 2 - 1, q - 1);
+    const int64_t o = static_cast<int64_t>(row) * q + col;
+    t.ra_r = gra[o] * kDeg2Rad;
+    const float dec_r = gdec[o] * kDeg2Rad;
+    t.sin_dec = sinf(dec_r);
+    t.cos_dec = cosf(dec_r);
+    unit_vector(t.ra_r, t.sin_dec, t.cos_dec, t.x, t.y, t.z);
+    chord_bits[tid] = 0u;
+  }
+  __syncthreads();
+  const int k = threadIdx.x / kSubW;
+  float chord = 0.0f;
+  if (px.live) {
+    float x, y, z;
+    unit_vector(px.ra_r, px.sin_dec, px.cos_dec, x, y, z);
+    const float dx = x - sub[k].x, dy = y - sub[k].y, dz = z - sub[k].z;
+    chord = sqrtf(dx * dx + dy * dy + dz * dz);
+    if (!(chord <= kMaxChord)) chord = 1.0f;   // NaN too: never culled
+  }
+#pragma unroll
+  for (int off = kSubW / 2; off > 0; off >>= 1)
+    chord = fmaxf(chord, __shfl_xor_sync(0xffffffffu, chord, off));
+  // Non-negative floats order as their bits.
+  if ((threadIdx.x & (kSubW - 1)) == 0) atomicMax(&chord_bits[k], __float_as_uint(chord));
+  __syncthreads();
+  if (tid < kSub) {
+    SubTile& t = sub[tid];
+    const float c = __uint_as_float(chord_bits[tid]);
+    if (t.state == 1 && !(c <= kMaxChord)) t.state = 2;
+    // The arc 2 asin(c / 2) is at most 1.0002 c for c <= 0.05.
+    t.r = c * 1.01f + kSkyErr;
+    t.cos_r = cosf(t.r);
+    t.sin_r = sinf(t.r);
+  }
+  __syncthreads();
+}
+
+// True only if no pixel of the block's tile can sample slot c's frame
+// (H, W) inside [0, W-1] x [0, H-1]: the bound of the header.
+__device__ bool misses_tile(const SlotConst& c, const SubTile* sub, int h, int w) {
+  const float adet = fabsf(c.det);
+  const float lx = (fabsf(c.cd22) + fabsf(c.cd12)) / adet * kRad2Deg;   // px per radian
+  const float ly = (fabsf(c.cd21) + fabsf(c.cd11)) / adet * kRad2Deg;
+  if (!(isfinite(lx) && isfinite(ly))) return false;   // det 0 or non-finite WCS
+  for (int k = 0; k < kSub; ++k) {
+    const SubTile& t = sub[k];
+    if (t.state == 0) continue;
+    if (t.state == 2) return false;
+    float sx, sy, cosc;
+    sky_to_src(c, t.ra_r, t.sin_dec, t.cos_dec, sx, sy, cosc);
+    const float sin_c = sqrtf(fmaxf(1.0f - cosc * cosc, 0.0f));
+    const float cos_far = cosc * t.cos_r - sin_c * t.sin_r;   // cos(theta_c + r)
+    if (!(cos_far > kMinCosFar && fabsf(sx) < 1e30f && fabsf(sy) < 1e30f)) return false;
+    const float stretch = 1.01f * t.r / (cos_far * cos_far);
+    const float slack = 1.0f + 2e-5f * (fabsf(sx) + fabsf(sy));
+    const float ex = stretch * lx + slack;
+    const float ey = stretch * ly + slack;
+    if (sx + ex >= 0.0f && sx - ex <= static_cast<float>(w - 1) && sy + ey >= 0.0f &&
+        sy - ey <= static_cast<float>(h - 1))
+      return false;
+  }
+  return true;
+}
+
+// The pass.  kCull: skip what adds nothing (the header); without it every
+// scanned slot is sampled, the check form.
+template <class Acc, bool kCull>
 __global__ void __launch_bounds__(kThreads)
     pack_scan_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
                      const int* __restrict__ pack_idx, const float* __restrict__ accept,
-                     const float* __restrict__ gra, const float* __restrict__ gdec,
-                     const typename Acc::Args args, int n_packs, int cap, int h, int w, int q) {
-  __shared__ SlotConst slots[kThreads];
+                     const unsigned char* __restrict__ finite, const float* __restrict__ gra,
+                     const float* __restrict__ gdec, const typename Acc::Args args, int n_packs,
+                     int cap, int h, int w, int q) {
+  __shared__ SlotConst slots[kThreads];   // the chunk's kept slots, in slot order
+  __shared__ int kept[kThreads];          // ... and their offsets in the chunk
+  __shared__ int warp_kept[kWarps];
+  __shared__ SubTile sub[kSub];
+  __shared__ unsigned chord_bits[kSub];
   const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const PixelSky px = pixel_sky(gra, gdec, q);
+  if (kCull) tile_caps(sub, chord_bits, px, gra, gdec, q);
   const int64_t plane = static_cast<int64_t>(h) * w;
   Acc acc;
   if (px.live) acc.load(args, px.o);
@@ -327,17 +481,42 @@ __global__ void __launch_bounds__(kThreads)
     acc.begin_pack();
     for (int s0 = 0; s0 < cap; s0 += kThreads) {
       const int n = min(kThreads, cap - s0);
-      __syncthreads();  // the previous chunk of slots is no longer read
+      __syncthreads();  // the previous chunk's slots and counts are no longer read
+      bool keep = false;
+      SlotConst c = {};
       if (tid < n) {
-        slots[tid] = make_slot(wcs + (first_slot + s0 + tid) * 8,
-                               accept[static_cast<int64_t>(g) * cap + s0 + tid]);
+        const int64_t slot = first_slot + s0 + tid;
+        const float a = accept[static_cast<int64_t>(g) * cap + s0 + tid];
+        // (a): a rejected slot whose samples are all finite adds +-0.
+        keep = !kCull || !(a == 0.0f && finite != nullptr && finite[slot] != 0);
+        if (keep) {
+          c = make_slot(wcs + slot * 8, a);
+          // (b): a finite accept times a sample outside the frame adds +-0.
+          if (kCull && isfinite(a) && misses_tile(c, sub, h, w)) keep = false;
+        }
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) warp_kept[warp] = __popc(ballot);
+      __syncthreads();
+      int base = 0;
+      int total = 0;
+#pragma unroll
+      for (int k = 0; k < kWarps; ++k) {
+        base += k < warp ? warp_kept[k] : 0;
+        total += warp_kept[k];
+      }
+      if (keep) {
+        const int at = base + __popc(ballot & ((1u << lane) - 1u));
+        slots[at] = c;
+        kept[at] = tid;
       }
       __syncthreads();
       if (px.live) {
         const float* img = pixels + (first_slot + s0) * plane;
-        for (int j = 0; j < n; ++j) {
+        for (int j = 0; j < total; ++j) {
           float vm, m;
-          warp_sample(img + j * plane, h, w, slots[j], px.ra_r, px.sin_dec, px.cos_dec, vm, m);
+          warp_sample(img + kept[j] * plane, h, w, slots[j], px.ra_r, px.sin_dec, px.cos_dec,
+                      vm, m);
           acc.add(vm, m, slots[j].a);
         }
       }
@@ -351,16 +530,54 @@ dim3 pixel_grid(int q, int z) {
   return dim3((q + kTileX - 1) / kTileX, (q + kTileY - 1) / kTileY, z);
 }
 
-template <class Acc>
-int launch_scan(const float* pixels, const float* wcs, const int* pack_idx, const float* accept,
-                const float* gra, const float* gdec, const typename Acc::Args& args,
-                int n_packs, int cap, int h, int w, int q, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// The scan operands every pass shares.
+struct Scan {
+  const float* pixels;
+  const float* wcs;
+  const int* pack_idx;
+  const float* accept;
+  const unsigned char* finite;
+  const float* gra;
+  const float* gdec;
+  int n_packs, cap, h, w, q, device;
+  void* stream;
+};
+
+template <class Acc, bool kCull>
+int launch_scan(const Scan& s, const typename Acc::Args& args) {
+  cudaError_t err = cudaSetDevice(s.device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pack_scan_kernel<Acc><<<pixel_grid(q, 1), dim3(kTileX, kTileY), 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      pixels, wcs, pack_idx, accept, gra, gdec, args, n_packs, cap, h, w, q);
+  pack_scan_kernel<Acc, kCull><<<pixel_grid(s.q, 1), dim3(kTileX, kTileY), 0,
+                                 static_cast<cudaStream_t>(s.stream)>>>(
+      s.pixels, s.wcs, s.pack_idx, s.accept, s.finite, s.gra, s.gdec, args, s.n_packs, s.cap,
+      s.h, s.w, s.q);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One pass of either form.  kind 0 coadd_fused (out0 coadd, out1 depth), 1
+// coadd_moments (out0..2 = S0, S1, S2), 2 coadd_clip (in0 centre, in1
+// radius, out0 coadd, out1 depth), 3 coadd_hist (in0 lo, in1 inv_w, out0
+// the (nbins, Q, Q) histogram; nbins 8, 16 or 32).
+template <bool kCull>
+int launch_kind(int kind, int nbins, const Scan& s, const float* in0, const float* in1,
+                float* out0, float* out1, float* out2) {
+  const int64_t qq = static_cast<int64_t>(s.q) * s.q;
+  switch (kind * 64 + (kind == 3 ? nbins : 0)) {
+    case 0:
+      return launch_scan<SumAcc, kCull>(s, {out0, out1});
+    case 64:
+      return launch_scan<MomentsAcc, kCull>(s, {out0, out1, out2});
+    case 128:
+      return launch_scan<ClipAcc, kCull>(s, {in0, in1, out0, out1});
+    case 192 + 8:
+      return launch_scan<HistAcc<8>, kCull>(s, {in0, in1, out0, qq});
+    case 192 + 16:
+      return launch_scan<HistAcc<16>, kCull>(s, {in0, in1, out0, qq});
+    case 192 + 32:
+      return launch_scan<HistAcc<32>, kCull>(s, {in0, in1, out0, qq});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -381,53 +598,64 @@ extern "C" int warp_project_f32(const float* pixels, const float* wcs, const flo
   return static_cast<int>(cudaGetLastError());
 }
 
+// The culled passes.  `finite` is the (packs, cap) uint8 slot flag of the
+// header's rule (a), indexed like the pixels' slots; null skips no
+// rejected slot.
+
 extern "C" int coadd_fused_f32(const float* pixels, const float* wcs, const int* pack_idx,
-                               const float* accept, const float* gra, const float* gdec,
-                               float* coadd, float* depth, int n_packs, int cap, int h, int w,
-                               int q, int device, void* stream) {
-  return launch_scan<SumAcc>(pixels, wcs, pack_idx, accept, gra, gdec, {coadd, depth}, n_packs,
-                             cap, h, w, q, device, stream);
+                               const float* accept, const unsigned char* finite,
+                               const float* gra, const float* gdec, float* coadd, float* depth,
+                               int n_packs, int cap, int h, int w, int q, int device,
+                               void* stream) {
+  const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_packs, cap, h, w, q, device,
+               stream};
+  return launch_kind<true>(0, 0, s, nullptr, nullptr, coadd, depth, nullptr);
 }
 
 extern "C" int coadd_moments_f32(const float* pixels, const float* wcs, const int* pack_idx,
-                                 const float* accept, const float* gra, const float* gdec,
-                                 float* s0, float* s1, float* s2, int n_packs, int cap, int h,
-                                 int w, int q, int device, void* stream) {
-  return launch_scan<MomentsAcc>(pixels, wcs, pack_idx, accept, gra, gdec, {s0, s1, s2},
-                                 n_packs, cap, h, w, q, device, stream);
+                                 const float* accept, const unsigned char* finite,
+                                 const float* gra, const float* gdec, float* s0, float* s1,
+                                 float* s2, int n_packs, int cap, int h, int w, int q,
+                                 int device, void* stream) {
+  const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_packs, cap, h, w, q, device,
+               stream};
+  return launch_kind<true>(1, 0, s, nullptr, nullptr, s0, s1, s2);
 }
 
 extern "C" int coadd_clip_f32(const float* pixels, const float* wcs, const int* pack_idx,
-                              const float* accept, const float* gra, const float* gdec,
-                              const float* center, const float* thresh, float* coadd,
-                              float* depth, int n_packs, int cap, int h, int w, int q,
-                              int device, void* stream) {
-  return launch_scan<ClipAcc>(pixels, wcs, pack_idx, accept, gra, gdec,
-                              {center, thresh, coadd, depth}, n_packs, cap, h, w, q, device,
-                              stream);
+                              const float* accept, const unsigned char* finite,
+                              const float* gra, const float* gdec, const float* center,
+                              const float* thresh, float* coadd, float* depth, int n_packs,
+                              int cap, int h, int w, int q, int device, void* stream) {
+  const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_packs, cap, h, w, q, device,
+               stream};
+  return launch_kind<true>(2, 0, s, center, thresh, coadd, depth, nullptr);
 }
 
 // nbins must be one of 8, 16, 32 (the wrapper checks); any other value
 // returns cudaErrorInvalidValue and launches nothing.
 extern "C" int coadd_hist_f32(const float* pixels, const float* wcs, const int* pack_idx,
-                              const float* accept, const float* gra, const float* gdec,
-                              const float* lo, const float* inv_w, float* hist, int nbins,
-                              int n_packs, int cap, int h, int w, int q, int device,
-                              void* stream) {
-  const int64_t qq = static_cast<int64_t>(q) * q;
-#define HIST_CASE(NB)                                                                      \
-  case NB:                                                                                 \
-    return launch_scan<HistAcc<NB>>(pixels, wcs, pack_idx, accept, gra, gdec,              \
-                                    {lo, inv_w, hist, qq}, n_packs, cap, h, w, q, device,  \
-                                    stream);
-  switch (nbins) {
-    HIST_CASE(8)
-    HIST_CASE(16)
-    HIST_CASE(32)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef HIST_CASE
+                              const float* accept, const unsigned char* finite,
+                              const float* gra, const float* gdec, const float* lo,
+                              const float* inv_w, float* hist, int nbins, int n_packs, int cap,
+                              int h, int w, int q, int device, void* stream) {
+  const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_packs, cap, h, w, q, device,
+               stream};
+  return launch_kind<true>(3, nbins, s, lo, inv_w, hist, nullptr, nullptr);
+}
+
+// The unculled form of any pass (`kind` and operands as launch_kind;
+// `finite` is not read): the check chip_smoke.py holds the culled passes
+// against, bitwise.  No wrapper launches it.
+extern "C" int pack_scan_unculled_f32(int kind, int nbins, const float* pixels,
+                                      const float* wcs, const int* pack_idx,
+                                      const float* accept, const float* gra, const float* gdec,
+                                      const float* in0, const float* in1, float* out0,
+                                      float* out1, float* out2, int n_packs, int cap, int h,
+                                      int w, int q, int device, void* stream) {
+  const Scan s{pixels, wcs, pack_idx, accept, nullptr, gra, gdec, n_packs, cap, h, w, q, device,
+               stream};
+  return launch_kind<false>(kind, nbins, s, in0, in1, out0, out1, out2);
 }
 
 extern "C" const char* warp_error_string(int code) {

@@ -40,15 +40,18 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "warp": {
         # pixels, wcs, accept, gra, gdec, tile, cov, n, h, w, q, device, stream
         "warp_project_f32": ((_VP,) * 7 + (_I,) * 5 + (_VP,), _I),
-        # pixels, wcs, pack_idx, accept, gra, gdec, coadd, depth,
+        # pixels, wcs, pack_idx, accept, finite, gra, gdec, coadd, depth,
         # n_packs, cap, h, w, q, device, stream
-        "coadd_fused_f32": ((_VP,) * 8 + (_I,) * 6 + (_VP,), _I),
+        "coadd_fused_f32": ((_VP,) * 9 + (_I,) * 6 + (_VP,), _I),
         # ... gra, gdec, s0, s1, s2, n_packs, ...
-        "coadd_moments_f32": ((_VP,) * 9 + (_I,) * 6 + (_VP,), _I),
+        "coadd_moments_f32": ((_VP,) * 10 + (_I,) * 6 + (_VP,), _I),
         # ... gra, gdec, center, thresh, coadd, depth, n_packs, ...
-        "coadd_clip_f32": ((_VP,) * 10 + (_I,) * 6 + (_VP,), _I),
+        "coadd_clip_f32": ((_VP,) * 11 + (_I,) * 6 + (_VP,), _I),
         # ... gra, gdec, lo, inv_w, hist, nbins, n_packs, ...
-        "coadd_hist_f32": ((_VP,) * 9 + (_I,) * 7 + (_VP,), _I),
+        "coadd_hist_f32": ((_VP,) * 10 + (_I,) * 7 + (_VP,), _I),
+        # kind, nbins, pixels, wcs, pack_idx, accept, gra, gdec, in0, in1,
+        # out0, out1, out2, n_packs, cap, h, w, q, device, stream
+        "pack_scan_unculled_f32": ((_I,) * 2 + (_VP,) * 11 + (_I,) * 6 + (_VP,), _I),
         "warp_error_string": ((_I,), ctypes.c_char_p),
     },
     "psf": {
@@ -69,9 +72,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "flash_error_string": ((_I,), ctypes.c_char_p),
     },
     "ssd": {
-        # log_a, B, C, x, y, state, strides (log_a b, t; B b, t; C b, t;
-        # x b, t, h), batch, nheads, seq, n, chunk, is_bf16, device, stream
-        "ssd_scan_fwd": ((_VP,) * 6 + (_LL,) * 9 + (_I,) * 7 + (_VP,), _I),
+        # log_a, B, C, x, y, dS and cumsum scratch, state, strides (log_a
+        # b, t; B b, t; C b, t; x b, t, h), batch, nheads, seq, n, chunk,
+        # group, is_bf16, device, stream
+        "ssd_scan_fwd": ((_VP,) * 8 + (_LL,) * 9 + (_I,) * 8 + (_VP,), _I),
         "ssd_error_string": ((_I,), ctypes.c_char_p),
     },
     "mosaic": {

@@ -1,14 +1,16 @@
-"""Wrapper of the hand-written Hopper SSD scan kernel (``csrc/ssd.cu``).
+"""Wrapper of the hand-written Hopper SSD scan kernels (``csrc/ssd.cu``).
 
 `ssd_log` checks its operands, then:
 
-* CPU tensors go to the kernel's plain torch version, `ref.ssd_chunked_ref`;
-* CUDA tensors launch ``ssd_scan_kernel`` on ``torch.cuda.current_stream()``
-  with outputs from ``torch.empty``, and raise if the launch returns an
-  error.  There is no fallback from the kernel to the plain version.
+* CPU tensors go to the kernels' plain torch version, `ref.ssd_chunked_ref`;
+* CUDA tensors launch ``ssd_chunk_state_kernel``, ``ssd_state_pass_kernel``
+  and ``ssd_chunk_scan_kernel`` (one C call, `KERNELS_PER_CALL` launches) on
+  ``torch.cuda.current_stream()``, with outputs and scratch from
+  ``torch.empty``, and raise if a launch returns an error.  There is no
+  fallback from the kernels to the plain version.
 
-Only a successful launch adds one to ``ssd_log.launches``.  `ssd` is the
-JAX package's ``a``-form interface over the same kernel.
+Only a successful call adds one to ``ssd_log.launches``.  `ssd` is the
+JAX package's ``a``-form interface over the same kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +26,24 @@ STATE_SIZES = (64, 128)
 HEAD_DIM = 64
 MAX_TILE = 64
 DTYPES = (torch.float32, torch.bfloat16)
+#: Kernel launches one `ssd_log` call makes on a card.
+KERNELS_PER_CALL = 3
+#: Blocks of the chunk kernels one SM holds at N 64 (csrc/ssd.cu's launch
+#: bounds): the launch aims for this many on each of the card's SMs.
+BLOCKS_PER_SM = 2
+#: Most heads one block of the chunk kernels may own (csrc/ssd.cu kMaxGroup).
+MAX_GROUP = 16
+
+
+def heads_per_block(batch: int, n_chunks: int, nheads: int, sm_count: int) -> int:
+    """Heads one block of the chunk kernels owns: `MAX_GROUP` (C Bᵀ computed
+    once for 16 heads), halved while the launch would have fewer than
+    `BLOCKS_PER_SM` blocks for each of the card's `sm_count` SMs (on an
+    H100's 132, a 1 x 1000 prefill: 16 chunks, 2 heads)."""
+    g = MAX_GROUP
+    while g > 1 and batch * n_chunks * -(-nheads // g) < BLOCKS_PER_SM * sm_count:
+        g //= 2
+    return min(g, nheads)
 
 
 def _check(log_a, Bm, Cm, x, chunk):
@@ -54,7 +74,11 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
     log_a: (B,T,H) float32 log-decay (<= 0); B/C: (B,T,N), shared across
     heads; x: (B,T,H,P).  Any T: a ragged last chunk is padded with identity
     steps.  The operands may be strided views whose last axis is contiguous
-    (the model's slices of its conv output).
+    (the model's slices of its conv output).  On a card a block of the chunk
+    kernels owns `heads_per_block` heads (the last block fewer when that
+    does not divide H), and the call allocates two scratch tensors: the
+    chunk states, (B, n_chunks, H, N, P) float32, and the decays,
+    (B, n_chunks, H, 64).
     """
     _check(log_a, Bm, Cm, x, chunk)
     if x.device.type == "cpu":
@@ -72,14 +96,20 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
                          f"got N = {n}, P = {p}")
     if log_a.stride(2) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1 or x.stride(3) != 1:
         raise ValueError("log_a, B, C and x must have a contiguous last axis")
+    tile = min(chunk, MAX_TILE)
+    n_chunks = -(-t // tile)
+    group = heads_per_block(b, n_chunks, h,
+                            torch.cuda.get_device_properties(x.device).multi_processor_count)
     y = torch.empty((b, t, h, p), dtype=torch.float32, device=x.device)
+    dstate = torch.empty((b, n_chunks, h, n, p), dtype=torch.float32, device=x.device)
+    cums = torch.empty((b, n_chunks, h, MAX_TILE), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     lib = build.library("ssd")
     err = lib.ssd_scan_fwd(
         log_a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(), y.data_ptr(),
-        state.data_ptr(), log_a.stride(0), log_a.stride(1), Bm.stride(0), Bm.stride(1),
-        Cm.stride(0), Cm.stride(1), x.stride(0), x.stride(1), x.stride(2),
-        b, h, t, n, min(chunk, MAX_TILE), int(x.dtype == torch.bfloat16), x.device.index,
+        dstate.data_ptr(), cums.data_ptr(), state.data_ptr(), log_a.stride(0), log_a.stride(1),
+        Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), x.stride(0), x.stride(1),
+        x.stride(2), b, h, t, n, tile, group, int(x.dtype == torch.bfloat16), x.device.index,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     build.check(lib, err, "ssd_scan launch")

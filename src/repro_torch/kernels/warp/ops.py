@@ -16,6 +16,13 @@ each frame correlated with its slot's kernel, to a (G, cap, H, W) scratch,
 and the pack scans read that scratch (`matched_packs`).  The scans'
 ``psf_kernels`` argument composes the two: one ``psf_match`` call, then the
 pass (on the CPU both are plain versions).
+
+The pack scans launch the culled form of ``pack_scan_kernel`` (the header
+of ``csrc/warp.cu``): it skips a slot in a block whose tile its footprint
+misses, and a rejected slot whose ``finite`` flag is set (a (P, cap) uint8
+tensor, `seqfile.finite_slots`; the PSF scratch's flag is
+`matched_finite`).  Both skips add exact zeros, so the result is bitwise
+the unculled scan's, which only ``chip_smoke.py`` launches.
 """
 
 from __future__ import annotations
@@ -191,6 +198,26 @@ def psf_match(pixels, pack_idx, psf_kernels):
     return psf_match_sep(pixels, pack_idx, psf_kernels)
 
 
+#: Largest gain of a slot's PSF-matching kernel (the sum of |taps|; a
+#: separable row's square, the gain of its 2-D kernel) under which the
+#: matched frame of a flagged slot keeps the flag.  A matched pixel is then
+#: at most 3.5 * 2**62 * (1 + 2 * MAX_TAPS * 2**-24) < 0.88 * 2**64 in
+#: magnitude, so vm*vm stays finite in every pass.  The survey's measured
+#: homogenization kernels reach gains of about 2.5.
+MAX_MATCH_GAIN = 3.5
+
+
+def matched_finite(finite, pack_idx, psf_kernels):
+    """The (G, cap) uint8 ``finite`` flag of the PSF scratch `matched_packs`
+    writes: the source slot's flag, kept where its kernel's gain is at most
+    `MAX_MATCH_GAIN` (a reduction over the bank, not a pass over the
+    scratch)."""
+    taps = psf_kernels.abs().flatten(2).sum(-1)
+    gain = taps * taps if psf_kernels.dim() == 3 else taps
+    ok = (finite != 0) & (gain <= MAX_MATCH_GAIN)
+    return ok[pack_idx.to(torch.int64)].to(torch.uint8)
+
+
 def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels):
     """The scan operands over a query's PSF-matched packs -> (pixels, wcs_vecs,
     pack_idx) for the pack scans.
@@ -229,15 +256,22 @@ def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
     return g, cap, h, w, q
 
 
-def _prepare_scan(scan, psf_kernels, **fixed):
-    """Check a pass's operands -> (scan, dims); with a bank, the scan over the
-    PSF-matched packs (`matched_packs`).  ``fixed`` are the pass's (Q,Q)
-    operands."""
+def _prepare_scan(scan, psf_kernels, finite, **fixed):
+    """Check a pass's operands -> (scan, dims, finite); with a bank, the scan
+    over the PSF-matched packs (`matched_packs`) and their flag
+    (`matched_finite`).  ``fixed`` are the pass's (Q,Q) operands."""
     dims = _check_scan(*scan)
     _check_fixed(dims[-1], scan[0].device, **fixed)
+    if finite is not None:
+        _require(finite, "finite", torch.uint8, 2, scan[0].device)
+        if tuple(finite.shape) != tuple(scan[0].shape[:2]):
+            raise ValueError(f"finite {tuple(finite.shape)} does not match the layout's "
+                             f"{tuple(scan[0].shape[:2])} slots")
     if psf_kernels is not None:
+        if finite is not None:
+            finite = matched_finite(finite, scan[2], psf_kernels)
         scan = matched_packs(*scan[:3], psf_kernels) + scan[3:]
-    return scan, dims
+    return scan, dims, finite
 
 
 def _check_fixed(q, device, **operands):
@@ -248,16 +282,18 @@ def _check_fixed(q, device, **operands):
             raise ValueError(f"{name} must be ({q}, {q}), got {tuple(t.shape)}")
 
 
-def _launch_scan(entry, scan, dims, outputs, *extra_ints):
-    """Launch the pack-scan entry point ``entry`` of csrc/warp.cu.
+def _launch_scan(entry, scan, finite, dims, outputs, *extra_ints):
+    """Launch the culled pack-scan entry point ``entry`` of csrc/warp.cu.
 
     ``scan`` is the operands (pixels, wcs_vecs, pack_idx, accept, grid_ra,
-    grid_dec) followed by the fixed (Q,Q) operands, ``dims`` (g, cap, h, w, q).
+    grid_dec) followed by the fixed (Q,Q) operands, ``finite`` the slot
+    flag or None, ``dims`` (g, cap, h, w, q).
     """
     index, stream = _launch_args(scan[0].device)
     lib = build.library("warp")
     err = getattr(lib, entry)(
-        *(t.data_ptr() for t in scan), *(t.data_ptr() for t in outputs),
+        *(t.data_ptr() for t in scan[:4]), None if finite is None else finite.data_ptr(),
+        *(t.data_ptr() for t in scan[4:]), *(t.data_ptr() for t in outputs),
         *extra_ints, *dims, index, stream,
     )
     build.check(lib, err, f"{entry} launch")
@@ -267,7 +303,8 @@ def _empty(shape, like):
     return torch.empty(shape, dtype=torch.float32, device=like.device)
 
 
-def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None):
+def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None, *,
+                finite=None):
     """The whole query's map+reduce in ONE launch -> (Q,Q) coadd and depth.
 
     ``pixels`` (P,cap,H,W) and ``wcs_vecs`` (P,cap,8) are the resident
@@ -276,14 +313,16 @@ def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kerne
     gate).  Each pack's partial sum is added to the carry in ``pack_idx``
     order, as the reference scan does.  With a ``psf_kernels`` bank
     ((P,cap,K) or (P,cap,Kh,Kw)) the frames are PSF-matched first: one
-    `psf_match` launch, then the scan.
+    `psf_match` launch, then the scan.  ``finite`` is the layout's (P,cap)
+    uint8 slot flag (`seqfile.finite_slots`): with it the kernel also skips
+    rejected flagged slots; the result is the same bits either way.
     """
-    scan, dims = _prepare_scan((pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec),
-                               psf_kernels)
+    scan, dims, finite = _prepare_scan(
+        (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite)
     if pixels.device.type == "cpu":
         return ref.coadd_scan_ref(*scan)
     out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
-    _launch_scan("coadd_fused_f32", scan, dims, out)
+    _launch_scan("coadd_fused_f32", scan, finite, dims, out)
     coadd_fused.launches += 1
     return out
 
@@ -291,18 +330,19 @@ def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kerne
 coadd_fused.launches = 0
 
 
-def coadd_moments(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None):
+def coadd_moments(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None,
+                  *, finite=None):
     """Robust pass 1 in ONE launch -> (S0, S1, S2), each (Q,Q).
 
     S0 = Σ a·m, S1 = Σ a·vm, S2 = Σ a·vm²/m (m > 0) over every scanned slot;
     operands as `coadd_fused`.
     """
-    scan, dims = _prepare_scan((pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec),
-                               psf_kernels)
+    scan, dims, finite = _prepare_scan(
+        (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite)
     if pixels.device.type == "cpu":
         return ref.moments_scan_ref(*scan)
     out = tuple(_empty(grid_ra.shape, pixels) for _ in range(3))
-    _launch_scan("coadd_moments_f32", scan, dims, out)
+    _launch_scan("coadd_moments_f32", scan, finite, dims, out)
     coadd_moments.launches += 1
     return out
 
@@ -311,18 +351,19 @@ coadd_moments.launches = 0
 
 
 def coadd_clip(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, thresh,
-               psf_kernels=None):
+               psf_kernels=None, *, finite=None):
     """Robust final pass in ONE launch -> (coadd, depth) of the kept samples.
 
     A sample is kept where m > 0 and |vm - m·center| <= m·thresh; ``center``
     and ``thresh`` are (Q,Q) float32, the other operands as `coadd_fused`.
     """
-    scan, dims = _prepare_scan((pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec),
-                               psf_kernels, center=center, thresh=thresh)
+    scan, dims, finite = _prepare_scan(
+        (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite,
+        center=center, thresh=thresh)
     if pixels.device.type == "cpu":
         return ref.clip_scan_ref(*scan, center, thresh)
     out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
-    _launch_scan("coadd_clip_f32", scan + (center, thresh), dims, out)
+    _launch_scan("coadd_clip_f32", scan + (center, thresh), finite, dims, out)
     coadd_clip.launches += 1
     return out
 
@@ -334,7 +375,7 @@ HIST_BINS = (8, 16, 32)
 
 
 def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w, nbins=16,
-               psf_kernels=None):
+               psf_kernels=None, *, finite=None):
     """Median round 1 in ONE launch -> (nbins,Q,Q) coverage-weighted histogram.
 
     Each sample adds a·m to bin clip(floor((vm/m - lo)·inv_w), 0, nbins-1);
@@ -343,12 +384,13 @@ def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w,
     """
     if nbins not in HIST_BINS:
         raise ValueError(f"nbins must be one of {HIST_BINS}, got {nbins}")
-    scan, dims = _prepare_scan((pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec),
-                               psf_kernels, lo=lo, inv_w=inv_w)
+    scan, dims, finite = _prepare_scan(
+        (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite,
+        lo=lo, inv_w=inv_w)
     if pixels.device.type == "cpu":
         return ref.hist_scan_ref(*scan, lo, inv_w, nbins)
     out = _empty((nbins,) + tuple(grid_ra.shape), pixels)
-    _launch_scan("coadd_hist_f32", scan + (lo, inv_w), dims, (out,), nbins)
+    _launch_scan("coadd_hist_f32", scan + (lo, inv_w), finite, dims, (out,), nbins)
     coadd_hist.launches += 1
     return out
 

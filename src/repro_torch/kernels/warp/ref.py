@@ -8,10 +8,11 @@ same operation order, and are no yardstick of speed.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import psf, reducer
-from repro_torch.core.geometry import sky_to_pixel
+from repro_torch.core.geometry import make_grid_wcs, pixel_to_sky, sky_to_pixel, tangent_to_sky
 from repro_torch.core.mapper import map_batch, project_batch, project_one
 
 #: Distance (px) from an image edge within which a one-ulp difference in
@@ -136,6 +137,110 @@ def clip_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center,
     """The clip pass, plain, on the `coadd_clip` kernel's operands."""
     return _scan(lambda px, wv, a: coadd_clip_ref(px, wv, a, grid_ra, grid_dec, center, thresh),
                  pixels, wcs_vecs, pack_idx, accept, psf_kernels)
+
+
+# The culled pack scan's footprint test (csrc/warp.cu, `misses_tile`): the
+# block tile, its four 8 x 8 sub-tiles, and the constants of its bound.
+TILE_X, TILE_Y, SUB_W = 32, 8, 8
+MAX_CHORD, SKY_ERR, MIN_COS_FAR = 0.05, 4e-6, 0.05
+
+
+def _sub_tiles(grid_ra, grid_dec):
+    """Per sub-tile of each block tile -> (ra_r, sin_dec, cos_dec, r, state),
+    each (ny, nx, 4): its centre pixel, padded cap radius and state (0 no
+    live pixel, 1 cullable, 2 never culled), as ``tile_caps`` computes them."""
+    q = grid_ra.shape[0]
+    dev = grid_ra.device
+    ny, nx = -(-q // TILE_Y), -(-q // TILE_X)
+    ra_r, dec_r = grid_ra * (torch.pi / 180.0), grid_dec * (torch.pi / 180.0)
+    sd, cd = torch.sin(dec_r), torch.cos(dec_r)
+    unit = torch.stack([cd * torch.cos(ra_r), cd * torch.sin(ra_r), sd], -1)   # (Q,Q,3)
+    col0 = (torch.arange(nx, device=dev)[:, None] * TILE_X
+            + torch.arange(4, device=dev)[None, :] * SUB_W)                      # (nx,4)
+    cols = (col0 + SUB_W // 2 - 1).clamp(max=q - 1)
+    rows = (torch.arange(ny, device=dev) * TILE_Y + TILE_Y // 2 - 1).clamp(max=q - 1)
+    cen = unit[rows[:, None, None], cols[None]]                                   # (ny,nx,4,3)
+    # Each pixel's chord to its sub-tile's centre; dead pixels (past q) add 0.
+    pad = torch.zeros((ny * TILE_Y, nx * TILE_X, 3), device=dev)
+    pad[:q, :q] = unit
+    live = torch.zeros((ny * TILE_Y, nx * TILE_X), dtype=torch.bool, device=dev)
+    live[:q, :q] = True
+    blocks = pad.reshape(ny, TILE_Y, nx, 4, SUB_W, 3)
+    live = live.reshape(ny, TILE_Y, nx, 4, SUB_W)
+    chord = (blocks - cen[:, None, :, :, None]).square().sum(-1).sqrt()
+    chord = torch.where(live & ~(chord <= MAX_CHORD), 1.0, torch.where(live, chord, 0.0))
+    chord = chord.amax(dim=(1, 4))                                                # (ny,nx,4)
+    state = torch.where(col0[None] < q, torch.where(chord <= MAX_CHORD, 1, 2), 0)
+    r = chord * 1.01 + SKY_ERR
+    pick = (rows[:, None, None], cols[None])
+    return ra_r[pick], sd[pick], cd[pick], r, state
+
+
+def footprint_keep(wcs_vecs, accept, finite, grid_ra, grid_dec, height, width):
+    """The culled pack scan's staging decision, plain: (ny, nx, S) bool, True
+    where the block tile (by, bx) samples slot s of the flat (S, 8)
+    ``wcs_vecs`` with (S,) ``accept`` and (S,) bool ``finite`` flag (or None).
+
+    A slot is skipped when it is rejected and flagged, or when its accept is
+    finite and every live sub-tile's padded box misses the frame (the bound
+    in the header of csrc/warp.cu).  Float32 like the kernel, but torch's
+    trig may round differently: tests and ``chip_smoke.py`` use it to count
+    and to check the bound, never in place of the kernel.
+    """
+    sra, ssd, scd, r, state = (t[..., None] for t in _sub_tiles(grid_ra, grid_dec))
+    cos_r, sin_r = torch.cos(r), torch.sin(r)
+    k2r = torch.pi / 180.0
+    v = wcs_vecs.T.reshape(8, 1, 1, 1, -1)
+    ra0_r, dec0_r = v[0] * k2r, v[1] * k2r
+    sin0, cos0 = torch.sin(dec0_r), torch.cos(dec0_r)
+    cd11, cd12, cd21, cd22 = v[4], v[5], v[6], v[7]
+    det = cd11 * cd22 - cd12 * cd21
+    dra = sra - ra0_r
+    cosc = sin0 * ssd + cos0 * scd * torch.cos(dra)
+    xi = scd * torch.sin(dra) / cosc * (180.0 / torch.pi)
+    eta = (cos0 * ssd - sin0 * scd * torch.cos(dra)) / cosc * (180.0 / torch.pi)
+    sx = (cd22 * xi - cd12 * eta) / det + v[2]
+    sy = (-cd21 * xi + cd11 * eta) / det + v[3]
+    sin_c = (1.0 - cosc * cosc).clamp(min=0.0).sqrt()
+    cos_far = cosc * cos_r - sin_c * sin_r
+    lx = (cd22.abs() + cd12.abs()) / det.abs() * (180.0 / torch.pi)
+    ly = (cd21.abs() + cd11.abs()) / det.abs() * (180.0 / torch.pi)
+    stretch = 1.01 * r / (cos_far * cos_far)
+    slack = 1.0 + 2e-5 * (sx.abs() + sy.abs())
+    ex, ey = stretch * lx + slack, stretch * ly + slack
+    hit = (sx + ex >= 0) & (sx - ex <= width - 1) & (sy + ey >= 0) & (sy - ey <= height - 1)
+    bounded = (cos_far > MIN_COS_FAR) & (sx.abs() < 1e30) & (sy.abs() < 1e30)
+    keep_sub = (state == 2) | ((state == 1) & (~bounded | hit))
+    misses = ~keep_sub.any(dim=2) & ((lx < float("inf")) & (ly < float("inf"))).reshape(-1)
+    culled = misses & (accept.abs() < float("inf"))
+    if finite is not None:
+        culled |= (accept == 0) & finite
+    return ~culled
+
+
+def scattered_frames(center_ra, center_dec, npix, fov_deg, n, height, width, seed):
+    """A synthetic sky anywhere on the sphere, for the footprint test where
+    the survey's own patch does not reach (high |dec|, RA 0/360): the
+    (npix, npix) float32 sky of a TAN grid centred at (center_ra,
+    center_dec), and (n, 8) float32 WCS vectors of (height, width) frames
+    scattered over the grid and just past its edges, rotated and flipped at
+    random, at 0.5-2x the grid's scale.  Every RA, the grid's and the
+    frames' reference, is wrapped into [0, 360), so a grid about RA 0 holds
+    both 359.9x and 0.0x.  -> (grid_ra, grid_dec, wcs) numpy."""
+    g = make_grid_wcs(center_ra, center_dec, npix, fov_deg).to_vector().astype(np.float64)
+    xs, ys = np.meshgrid(np.arange(npix, dtype=np.float64), np.arange(npix, dtype=np.float64))
+    ra, dec = pixel_to_sky(xs, ys, g)
+    rng = np.random.default_rng(seed)
+    xi, eta = rng.uniform(-0.65 * fov_deg, 0.65 * fov_deg, (2, n))
+    ra0, dec0 = tangent_to_sky(xi, eta, center_ra, center_dec)
+    scale = fov_deg / npix * rng.uniform(0.5, 2.0, n)
+    theta = rng.uniform(0.0, 2.0 * np.pi, n)
+    flip = rng.choice([-1.0, 1.0], n)
+    cd = np.stack([scale * flip * np.cos(theta), -scale * np.sin(theta),
+                   scale * flip * np.sin(theta), scale * np.cos(theta)], 1)
+    crpix = np.stack([rng.uniform(0.0, width - 1.0, n), rng.uniform(0.0, height - 1.0, n)], 1)
+    wcs = np.concatenate([np.stack([ra0 % 360.0, dec0], 1), crpix, cd], 1)
+    return ((ra % 360.0).astype(np.float32), dec.astype(np.float32), wcs.astype(np.float32))
 
 
 def near_edge(height, width, wcs_vecs, accepts, ra, dec, tol=EDGE_TOL):

@@ -1,0 +1,323 @@
+"""What the culled pack scans may skip, held on the CPU.
+
+The culled ``pack_scan_kernel`` (csrc/warp.cu) skips a rejected slot whose
+``finite`` flag is set and a slot whose footprint misses a block's tile;
+``chip_smoke.py`` holds it bitwise against the unculled kernel on the card.
+Here: the flag from `PackedDataset.to_device` against numpy, the PSF
+scratch's flag, the plain twin of the footprint test (`ref.footprint_keep`)
+against brute force (no (tile, slot) pair it culls has a sample inside the
+frame), and where NaNs fall on the plain path when a rejected slot holds a
+non-finite pixel, against the JAX package's Pallas kernels in interpret mode.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro_torch as rt
+from repro.kernels.warp import ops as ref_ops
+from repro_torch.core.geometry import sky_to_pixel
+from repro_torch.core.mapper import query_grid_sky
+from repro_torch.core import seqfile
+from repro_torch.core.seqfile import FINITE_LIMIT, finite_slots, pack_structured
+from repro_torch.kernels.warp import ops, ref
+
+SURVEY = rt.make_survey(rt.SurveyConfig(n_runs=2, n_fields=3, n_sources=40,
+                                        height=24, width=40))
+LAYOUT = pack_structured(SURVEY, 4)   # (60, 4, 24, 40), 60 empty slots
+
+
+def _planted(value, at):
+    px = LAYOUT.pixels.copy()
+    px[at] = value
+    return px
+
+
+PLANTS = {
+    "nan": (np.nan, (1, 2, 3, 4)),
+    "inf": (np.inf, (0, 0, 0, 0)),
+    "neg_inf": (-np.inf, (2, 2, 23, 39)),
+    "two_70": (np.float32(2.0 ** 70), (3, 1, 10, 10)),
+    "neg_two_62": (np.float32(-(2.0 ** 62)), (1, 3, 5, 5)),
+    "above_two_62": (np.nextafter(np.float32(2.0 ** 62), np.float32(np.inf)), (0, 3, 0, 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLANTS))
+def test_finite_flag_matches_numpy(name, monkeypatch):
+    value, at = PLANTS[name]
+    px = _planted(value, at)
+    want = (np.isfinite(px) & (np.abs(px) <= 2.0 ** 62)).all(axis=(2, 3))
+    # Chunks of 3 packs, so the planted pixels fall in several chunks.
+    monkeypatch.setattr(seqfile, "FINITE_CHUNK", 3 * px[0].size + 5)
+    got = finite_slots(torch.from_numpy(px))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.uint8))
+    assert got.dtype == torch.uint8
+    assert bool(got[at[:2]]) == (name == "neg_two_62")
+    assert int(got.sum()) == px.shape[0] * px.shape[1] - (name != "neg_two_62")
+
+
+def test_to_device_carries_the_flag():
+    ds = type(LAYOUT)(**{**LAYOUT.__dict__, "pixels": _planted(np.nan, (2, 3, 0, 0))})
+    dev = ds.to_device("cpu")
+    want = np.isfinite(ds.pixels).all(axis=(2, 3)) & (np.abs(ds.pixels) <= FINITE_LIMIT).all(
+        axis=(2, 3))
+    np.testing.assert_array_equal(dev.finite.numpy(), want.astype(np.uint8))
+    assert dev.nbytes == ds.to_device("cpu").nbytes >= dev.finite.numel()
+
+
+@pytest.mark.parametrize("rank", [3, 4])
+def test_matched_flag_follows_source_and_gain(rank):
+    p, cap = LAYOUT.pixels.shape[:2]
+    rng = np.random.default_rng(rank)
+    taps = (5,) if rank == 3 else (5, 3)
+    bank = rng.uniform(0.0, 0.2, (p, cap) + taps).astype(np.float32)
+    bank[1, 2] *= 10.0                      # gain far above MAX_MATCH_GAIN
+    bank[0, 3] = -bank[0, 3]                # |taps|: the sign does not help
+    finite = np.ones((p, cap), np.uint8)
+    finite[3, 1] = 0
+    idx = np.array([3, 1, 1, 0], np.int32)
+    got = ops.matched_finite(torch.from_numpy(finite), torch.from_numpy(idx),
+                             torch.from_numpy(bank)).numpy()
+    s = np.abs(bank).reshape(p, cap, -1).sum(-1)
+    gain = s * s if rank == 3 else s
+    want = (finite != 0) & (gain <= ops.MAX_MATCH_GAIN)
+    np.testing.assert_array_equal(got, want[idx].astype(np.uint8))
+    assert got.shape == (len(idx), cap) and not got[1, 2] and not got[0, 1]
+
+
+# ----- the footprint test's plain twin against brute force -----------------
+
+def _inside(wcs, grid_ra, grid_dec, h, w):
+    """(S, Q, Q) bool: the plain sample of each slot lies inside its frame."""
+    lead = (wcs.shape[0], 1, 1)
+    sx, sy = sky_to_pixel(grid_ra, grid_dec, wcs.T.reshape(8, *lead))
+    return (sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)
+
+
+def _tiles_with_inside(wcs, grid_ra, grid_dec, h, w):
+    """(ny, nx, S) bool: some pixel of the 32 x 8 block tile samples inside."""
+    q = grid_ra.shape[0]
+    ny, nx = -(-q // ref.TILE_Y), -(-q // ref.TILE_X)
+    out = []
+    for s0 in range(0, wcs.shape[0], 8):
+        ins = _inside(wcs[s0:s0 + 8], grid_ra, grid_dec, h, w)
+        pad = torch.zeros((ins.shape[0], ny * ref.TILE_Y, nx * ref.TILE_X), dtype=torch.bool)
+        pad[:, :q, :q] = ins
+        out.append(pad.reshape(-1, ny, ref.TILE_Y, nx, ref.TILE_X).any(dim=(2, 4)))
+    return torch.cat(out).permute(1, 2, 0)
+
+
+CASES = {
+    # (ra, dec, npix, packs or None for every pack): sparse and dense scans.
+    "dense_q96": ((37.0, 37.9), (-0.9, 0.5), 96, None),
+    "sparse_q200": ((37.2, 37.7), (-0.4, 0.2), 200, [1, 4, 9, 21]),
+    "ragged_q997": ((37.3, 37.65), (-0.3, 0.1), 997, [3, 7]),
+    "outside_q64": ((36.2, 36.9), (-0.2, 0.3), 64, None),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_footprint_twin_never_culls_an_inside_sample(name):
+    ra, dec, npix, packs = CASES[name]
+    q = rt.CoaddQuery(band="r", ra_bounds=ra, dec_bounds=dec, npix=npix)
+    gr, gd = (torch.from_numpy(a) for a in query_grid_sky(q))
+    packs = range(LAYOUT.n_packs) if packs is None else packs
+    wcs = torch.from_numpy(LAYOUT.wcs[list(packs)].reshape(-1, 8))
+    empty = ~torch.from_numpy(LAYOUT.valid[list(packs)].reshape(-1))
+    assert empty.any(), "the layout must hold empty (all-zero WCS) slots"
+    acc = torch.ones(wcs.shape[0])
+    h, w = LAYOUT.image_hw()
+    keep = ref.footprint_keep(wcs, acc, None, gr, gd, h, w)
+    need = _tiles_with_inside(wcs, gr, gd, h, w)
+    assert keep.shape == need.shape
+    assert not (need & ~keep).any(), "a culled (tile, slot) pair samples inside its frame"
+    assert keep[..., empty].all(), "an all-zero WCS is never culled"
+    culled = (~keep[..., ~empty]).float().mean()
+    assert culled > (0.99 if name == "outside_q64" else 0.3), float(culled)
+    # A rejected slot is skipped everywhere only when its flag is set.
+    acc[::3] = 0.0
+    flag = torch.zeros(wcs.shape[0], dtype=torch.bool)
+    flag[::2] = True
+    keep_r = ref.footprint_keep(wcs, acc, flag, gr, gd, h, w)
+    skipped = (acc == 0) & flag
+    assert not keep_r[..., skipped].any()
+    assert torch.equal(keep_r[..., ~skipped], keep[..., ~skipped])
+
+
+WIDE_SKY = {
+    # (center ra, center dec, npix, fov deg): where the survey's patch does
+    # not reach; the 1/cos^2 stretch and RA's wrap are what is held here.
+    "dec_p60": (117.0, 60.0, 150, 0.3),
+    "dec_m60": (250.0, -60.0, 150, 0.3),
+    "dec_p80": (45.0, 80.0, 150, 0.3),
+    "dec_m80": (300.0, -80.0, 150, 0.3),
+    "ra_wrap_dec0": (0.0, 0.4, 150, 0.3),
+    "ra_wrap_dec70": (359.95, 70.0, 150, 0.3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_SKY))
+def test_footprint_twin_holds_at_high_dec_and_across_ra_zero(name):
+    ra_c, dec_c, npix, fov = WIDE_SKY[name]
+    h, w = 24, 40
+    sky = ref.scattered_frames(ra_c, dec_c, npix, fov, 96, h, w, seed=int(ra_c) + 1000)
+    gr, gd, wcs = (torch.from_numpy(a) for a in sky)
+    if name.startswith("ra_wrap"):
+        assert float(gr.max()) > 359.0 and float(gr.min()) < 1.0
+        assert float(wcs[:, 0].max()) > 359.0 and float(wcs[:, 0].min()) < 1.0
+    keep = ref.footprint_keep(wcs, torch.ones(wcs.shape[0]), None, gr, gd, h, w)
+    need = _tiles_with_inside(wcs, gr, gd, h, w)
+    assert need.any(dim=(0, 1)).float().mean() > 0.5, "most frames must reach the grid"
+    assert not (need & ~keep).any(), "a culled (tile, slot) pair samples inside its frame"
+    assert (~keep).float().mean() > 0.5, float((~keep).float().mean())
+
+
+def test_footprint_twin_keeps_non_finite_accepts_and_wide_caps():
+    q = rt.CoaddQuery(band="r", ra_bounds=(36.0, 36.5), dec_bounds=(-0.2, 0.2), npix=64)
+    gr, gd = (torch.from_numpy(a) for a in query_grid_sky(q))
+    wcs = torch.from_numpy(LAYOUT.wcs[0, :4].copy())
+    h, w = LAYOUT.image_hw()
+    acc = torch.tensor([1.0, float("nan"), float("inf"), 0.0])
+    keep = ref.footprint_keep(wcs, acc, torch.ones(4, dtype=torch.bool), gr, gd, h, w)
+    assert not keep[..., 0].any() and keep[..., 1:3].all() and not keep[..., 3].any()
+    # A grid whose 8 x 8 sub-tiles span more than MAX_CHORD is never culled.
+    coarse = rt.CoaddQuery(band="r", ra_bounds=(0.0, 60.0), dec_bounds=(-20.0, 20.0), npix=16)
+    gr, gd = (torch.from_numpy(a) for a in query_grid_sky(coarse))
+    assert ref.footprint_keep(wcs, torch.ones(4), None, gr, gd, h, w).all()
+
+
+# ----- a non-finite pixel in a rejected slot: where the NaNs fall ----------
+
+def _poisoned():
+    """One pack of 4 frames over the query, slot 1 rejected and poisoned at a
+    source pixel its footprint samples: NaN, inf and 2**70."""
+    q = rt.CoaddQuery(band="r", ra_bounds=(37.0, 37.3), dec_bounds=(-0.3, 0.0), npix=48)
+    gr, gd = query_grid_sky(q)
+    ids = rt.SpatialIndex.build(SURVEY).select(q)[:4]
+    px = np.stack([SURVEY.images[i].pixels for i in ids]).astype(np.float32)
+    wv = np.stack([SURVEY.images[i].wcs.to_vector() for i in ids]).astype(np.float32)
+    acc = np.array([1.0, 0.0, 1.0, 1.0], np.float32)
+    sx, sy = sky_to_pixel(torch.from_numpy(gr), torch.from_numpy(gd), torch.from_numpy(wv[1]))
+    inside = (sx >= 0) & (sx <= px.shape[2] - 1) & (sy >= 0) & (sy <= px.shape[1] - 1)
+    ys, xs = torch.floor(sy[inside]).long(), torch.floor(sx[inside]).long()
+    spots = [(int(ys[k]), int(xs[k])) for k in (0, len(ys) // 2, len(ys) - 1)]
+    for (y, x), v in zip(spots, (np.nan, np.inf, np.float32(2.0 ** 70))):
+        px[1, y, x] = v
+    return px, wv, acc, gr, gd, spots
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def test_rejected_poisoned_slot_nans_are_pinned():
+    px, wv, acc, gr, gd, spots = _poisoned()
+    scan = _t(px[None], wv[None], np.zeros(1, np.int32), acc[None], gr, gd)
+    flag = finite_slots(scan[0])
+    assert flag[0].tolist() == [1, 0, 1, 1]
+    c, d = ops.coadd_fused(*scan, finite=flag)
+    s0, s1, s2 = ops.coadd_moments(*scan, finite=flag)
+    clean = px.copy()
+    clean[1] = 0.0
+    c0, d0 = ops.coadd_fused(*_t(clean[None], wv[None], np.zeros(1, np.int32), acc[None],
+                                 gr, gd))
+    center = c0 / d0.clamp(min=1.0)
+    cc, dc = ops.coadd_clip(*scan, center, torch.full(gr.shape, 1e4), finite=flag)
+    # The plain path weights each tile by its accept before any sum: a NaN or
+    # inf read by the rejected slot's bilinear sample (NaN * 0, or inf * a
+    # zero weight) stays NaN after * 0, a 2**70 one becomes 0, and the clip's
+    # select drops the NaN.  Depth never sees the rejected slot.
+    _, cov = ref.warp_batch_ref(*_t(px[1:2], wv[1:2], np.ones(1, np.float32), gr, gd))
+    reads = {}
+    for (y, x), name in zip(spots, ("nan", "inf", "two_70")):
+        one = np.zeros_like(px[1])
+        one[y, x] = 1.0
+        t1, _ = ref.warp_batch_ref(*_t(one[None], wv[1:2], np.ones(1, np.float32), gr, gd))
+        reads[name] = (t1[0] != 0) & (cov[0] > 0)
+    assert all(bool(m.any()) for m in reads.values())
+    nan_c = reads["nan"] | reads["inf"]
+    assert int(nan_c.sum()) == 6
+    assert torch.equal(d, d0) and torch.equal(s0, d0) and torch.equal(dc, d0)
+    for got in (c, s1, s2):
+        assert torch.equal(torch.isnan(got), nan_c)
+    assert torch.equal(c[~nan_c], c0[~nan_c]) and torch.isfinite(cc).all()
+    # The JAX package's Pallas kernels on the same input: the one-hot matmul
+    # gathers spread a non-finite source pixel through whole source rows and
+    # columns (NaN * 0 = NaN), so more output pixels are NaN, the plain
+    # path's among them; S2 also where the 2**70 pixel is squared.
+    jin = tuple(map(jnp.asarray, (px, wv, acc, gr, gd)))
+    c_r, d_r = (np.asarray(a) for a in ref_ops.coadd_fused(*jin))
+    m_r = [np.asarray(a) for a in ref_ops.coadd_moments(*jin)]
+    cl_r = [np.asarray(a) for a in ref_ops.coadd_clip(*jin, jnp.asarray(center.numpy()),
+                                                       jnp.full(gr.shape, 1e4))]
+    np.testing.assert_array_equal(d_r, d.numpy())
+    np.testing.assert_array_equal(m_r[0], s0.numpy())
+    assert (np.isnan(c_r) >= nan_c.numpy()).all() and np.isnan(c_r).sum() == 48
+    np.testing.assert_array_equal(np.isnan(m_r[1]), np.isnan(c_r))
+    assert (np.isnan(m_r[2]) >= (nan_c | reads["two_70"]).numpy()).all()
+    assert np.isnan(m_r[2]).sum() == 56
+    np.testing.assert_array_equal(np.isnan(cl_r[0]), np.isnan(c_r))
+    assert not np.isnan(cl_r[1]).any()
+
+
+def test_rejected_poisoned_slot_leaves_the_histogram_finite():
+    """The histogram's weight a·m is 0 for a rejected slot: nothing lands."""
+    px, wv, acc, gr, gd, _ = _poisoned()
+    scan = _t(px[None], wv[None], np.zeros(1, np.int32), acc[None], gr, gd)
+    lo = torch.zeros(gr.shape)
+    inv_w = torch.full(gr.shape, 0.5)
+    hist = ops.coadd_hist(*scan, lo, inv_w, 8, finite=finite_slots(scan[0]))
+    clean = px.copy()
+    clean[1] = 0.0
+    hist0 = ops.coadd_hist(*_t(clean[None], wv[None], np.zeros(1, np.int32), acc[None], gr, gd),
+                           lo, inv_w, 8)
+    assert torch.isfinite(hist).all() and torch.equal(hist, hist0)
+
+
+# ----- the culled kernels on a card ----------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run python3 chip_smoke.py on the card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_poisoned_scan_matches_plain_nans(cuda):
+    px, wv, acc, gr, gd, _ = _poisoned()
+    scan = [t.to(cuda) for t in _t(px[None], wv[None], np.zeros(1, np.int32), acc[None], gr, gd)]
+    flag = finite_slots(scan[0])
+    c, d = ops.coadd_fused(*scan, finite=flag)
+    c_p, d_p = ref.coadd_scan_ref(*scan)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(c), torch.isnan(c_p)) and torch.equal(d, d_p)
+
+
+# ----- the engine hands the flag to the kernels -----------------------------
+
+@pytest.mark.parametrize("matched", [False, True])
+def test_engine_passes_the_slot_flag(matched, monkeypatch):
+    """The kernel path gives each pass the resident layout's flag, or over a
+    PSF scratch the flag `ops.matched_finite` derives."""
+    eng = rt.CoaddEngine(SURVEY, pack_capacity=8, device="cpu",
+                         match_psf_sigma=2.5 if matched else None)
+    seen = []
+    real = ops.coadd_fused
+
+    def spy(*scan, finite=None, **kw):
+        seen.append((scan, finite))
+        return real(*scan, finite=finite, **kw)
+
+    monkeypatch.setattr(ops, "coadd_fused", spy)
+    q = rt.CoaddQuery(band="r", ra_bounds=(37.0, 37.5), dec_bounds=(-0.4, 0.2), npix=24)
+    plan = eng.plan(q, "sql_structured")
+    res = eng.execute(plan)
+    dev, idx, _ = eng._scan_operands(plan)
+    (scan, finite), = seen
+    want = dev.finite
+    if matched:
+        want = ops.matched_finite(dev.finite, idx, eng._device_psf_kernels(plan.layout))
+    assert finite is not None and torch.equal(finite, want)
+    assert finite.shape == scan[0].shape[:2] and res.depth.max() > 0

@@ -157,3 +157,13 @@ def test_cuda_ssd_matches_plain(cuda, t, chunk, n, dtype):
     assert ops.ssd_log.launches == before + 1
     torch.testing.assert_close(y, y_p, atol=_atol(y_p.cpu().numpy()), rtol=0)
     torch.testing.assert_close(s, s_p, atol=_atol(s_p.cpu().numpy()), rtol=0)
+
+
+@pytest.mark.parametrize("b,t,h,want", [(4, 2048, 64, 16), (1, 1000, 64, 2), (2, 50, 3, 1),
+                                        (1, 1, 64, 1), (8, 4096, 64, 16), (64, 640, 6, 6),
+                                        (4, 2112, 24, 16)])
+def test_heads_per_block_fills_the_card(b, t, h, want):
+    n_chunks = -(-t // ops.MAX_TILE)
+    g = ops.heads_per_block(b, n_chunks, h, 132)   # an H100's SMs
+    assert g == want and 1 <= g <= ops.MAX_GROUP
+    assert g == 1 or b * n_chunks * -(-h // g) >= ops.BLOCKS_PER_SM * 132
