@@ -22,14 +22,25 @@ Phases, in order, each printing its seconds:
    kernel-vs-oracle tolerance; depth, coverage and bins exactly, except at
    pixels where an accepted sample lies within 1e-3 px of an image edge or
    within 1e-4 (relative) of a clip or bin boundary, which are counted and
-   printed.  Then PSF matching: ``psf_match_sep`` and ``psf_match_2d``
-   against their plain version (``psf_match_2d`` bitwise) on a K = 1 bank,
+   printed.  ``warp_batch`` (the culled ``warp_project_kernel``) is also
+   held bitwise against the unculled kernel (``warp_project_unculled_f32``,
+   the check form no wrapper launches) on each case and on the synthetic
+   skies below.  Then PSF matching: ``psf_match_sep`` and ``psf_match_2d``
+   against their plain version, bitwise, ungated and under a random
+   ``skip`` (zeros there, the same words elsewhere), on a K = 1 bank,
    the 15-tap Gaussian bank at target 2.5, the 13 x 13 homogenization bank,
    random asymmetric taps (7 x 11, 13 x 7, 7 x 13), H != W, frames smaller
    than the kernel, frames of 515 x 509 and 70 x 101 (neither a multiple of
    4 nor of the 2-D kernel's 64-px tile), delta rows and a padded pack
    index; and ``coadd_fused`` and the three robust passes composed with
    each bank (``psf_kernels=``) against the plain scans, depth exactly.
+   Each bank's scratch is also written gated as the engine writes it
+   (``ops.matched_packs`` given the accept and the flag: rejected slots
+   whose flag is set are zeros, ``ops.prepass_skip``) and ungated, every
+   culled pass over either bitwise the unculled kernel and the passes over
+   the two bitwise each other; so is the poisoned pack,
+   PSF-matched with both main banks (its poisoned slots are still matched
+   and keep their NaNs).
    Every pack scan is also held bitwise against the unculled kernel
    (``pack_scan_unculled_f32``, the check form no wrapper launches): each
    case above, all four accumulators (``coadd_hist`` at 8, 16 and 32 bins,
@@ -59,14 +70,22 @@ Phases, in order, each printing its seconds:
    with the survey's measured stamps: all six methods x three estimators,
    exactly one ``psf_match_2d`` launch per query before its 1, 2 or 3
    passes, no slot clamped, the mean's depth equal to the unmatched run's,
-   the methods agreeing at 1e-3; the dense pre-pass over all 2880 frames
-   bitwise its plain version; then ``sql_structured`` with the Gaussian
-   fallback (``measured_psf=False``: one ``psf_match_sep`` a query) and on
-   the plain path (``use_kernel=False``, the cached matched layout).
-   Then every method's pass, unmatched and over its PSF scratch, through
-   all culled passes against the unculled kernel, bitwise, with the slots
-   and samples the culled kernel skips (counted by the plain twin of its
-   footprint test, ``ref.footprint_keep``).
+   the methods agreeing at 1e-3; then ``sql_structured`` with the Gaussian
+   fallback (``measured_psf=False``: one ``psf_match_sep`` a query); each
+   pre-pass matches only the slots a pass reads (its matched and skipped
+   slots printed), and every one of these queries run again with the
+   pre-pass ungated (``ops.psf_match`` given ``skip=None``) gives bitwise
+   the same coadd and depth; the dense
+   pre-pass over all 2880 frames, ungated and gated, bitwise its plain
+   version; then the plain path (``use_kernel=False``, the cached matched
+   layout).  ``warp_batch`` over every gated pack of the unfused stage is
+   held bitwise against its check form, with the (tile, image) pairs it
+   samples.
+   Then every method's pass, unmatched and over its PSF scratch (gated and
+   ungated, the two bitwise each other), through all culled passes against
+   the unculled kernel, bitwise, with the slots and samples the culled
+   kernel skips (counted by the plain twin of its footprint test,
+   ``ref.footprint_keep``).
    Then the brick path (DESIGN.md §9) on the same survey: a lattice of
    256-pixel bricks 0.25 deg on a side (10 x 12 bricks at the main query's
    1024 px/deg) and the 4 x 4 window ``window_query(3, 7, 2, 6, "r")``,
@@ -144,13 +163,17 @@ Phases, in order, each printing its seconds:
    and float32 softmax operations (flash), float32 operations at 67 TFLOP/s
    (SSD) or bytes; flash's library call is ``F.scaled_dot_product_attention``
    (``is_causal=True``), and no single PyTorch call computes the SSD scan.
-   The two kernels redesigned for the card (``flash_fwd_bf16_kernel``,
-   ``psf_match_2d_kernel``) also print their registers and spills (ptxas
-   ``-v``), and ``psf_match_2d`` its -fmad=false ceiling (twice the
-   operation bound: no product may fuse with its sum), its time launched
-   alone, without the wrapper's pack-index check (a host sync a call), and
-   the time of its any-width path alone on the same 13 x 13 bank
-   (``psf_match_2d_any_f32``, held bitwise too).
+   The kernels redesigned for the card (``flash_fwd_bf16_kernel``,
+   ``psf_match_2d_kernel``, ``psf_match_sep_kernel``,
+   ``warp_project_kernel``) also print their registers and spills (ptxas
+   ``-v``); ``warp_project`` the unculled kernel's time; ``psf_match_2d``
+   its -fmad=false ceiling (twice the operation bound: no product may fuse
+   with its sum); both PSF kernels their time launched alone, without the
+   wrapper's pack-index check (a host sync a call), and the gated
+   pre-pass's time alone; ``psf_match_2d`` also its any-width path alone on
+   the same bank (``psf_match_2d_any_f32``, held bitwise too); and the dense
+   pre-pass (2880 slots) gated, ungated and with every slot skipped (its
+   zero writes alone).
 
 The line before the last is ``{"kernels": [...]}``, after the card's name
 and power limit printed again; the last is the device line.  The script
@@ -972,12 +995,13 @@ def main(argv=None) -> int:
 
     cull_checks = {"passes": 0, "differing_words": 0}
 
-    def cull_check(case, scan, finite):
+    def cull_check(case, scan, finite, outputs=None):
         """Every culled pass (the counted wrappers, given the slot flag) against
         the unculled kernel on the same operands, bitwise: coadd_fused,
         coadd_moments, coadd_hist at 8, 16 and 32 bins and coadd_clip about
         the clipped mean and the binapprox median, on the fixed operands the
-        culled moments give.  -> the culled moments."""
+        culled moments give.  -> the culled moments; each pass's culled
+        outputs are appended to the list ``outputs`` when one is given."""
         rows = []
         rows.append(("coadd_fused", warp_ops.coadd_fused(*scan, finite=finite),
                      unculled("coadd_fused", scan)))
@@ -1003,7 +1027,74 @@ def main(argv=None) -> int:
             cull_checks["differing_words"] += n
             require(n == 0, f"{case}/{name}: the culled kernel differs from the unculled one "
                             f"at {n} words")
+            if outputs is not None:
+                outputs.append((name, got))
         return mom
+
+    gate_checks = {"scratches": 0, "passes": 0, "differing_words": 0}
+
+    def gate_check(case, pixels, wcs, idx, acc, gra, gdec, bank, finite):
+        """The PSF pre-pass gated as the engine runs it (``ops.matched_packs``
+        given the accept and the flag) against the ungated one: zeros exactly
+        at the skipped slots, the same words elsewhere; every culled pass
+        over either scratch bitwise the unculled kernel, and the passes over
+        the two bitwise each other, NaN words included -> (slots matched,
+        slots skipped)."""
+        flag = warp_ops.matched_finite(finite, idx, bank)
+        skip = warp_ops.prepass_skip(acc, flag)
+        gated = warp_ops.matched_packs(pixels, wcs, idx, bank, acc, flag)
+        ungated = warp_ops.matched_packs(pixels, wcs, idx, bank)
+        torch.cuda.synchronize()
+        off = skip != 0
+        require(not gated[0][off].any() and not torch.signbit(gated[0][off]).any()
+                and words_differ(gated[0][~off], ungated[0][~off]) == 0,
+                f"{case}: the gated pre-pass is not zeros at the skipped slots and the ungated "
+                "one elsewhere")
+        outs = []
+        for what, scratch in (("gated", gated), ("ungated", ungated)):
+            outs.append([])
+            cull_check(f"{case} ({what} scratch)", scratch + (acc, gra, gdec), flag, outs[-1])
+        for (name, a), (_, b) in zip(*outs):
+            n = sum(words_differ(x, y) for x, y in zip(a, b))
+            gate_checks["passes"] += 1
+            gate_checks["differing_words"] += n
+            require(n == 0, f"{case}/{name}: the pass over the gated scratch differs from the "
+                            f"ungated at {n} words")
+        gate_checks["scratches"] += 1
+        n_skip = int(off.sum())
+        return off.numel() - n_skip, n_skip
+
+    warp_checks = {"calls": 0, "differing_words": 0, "pairs": 0, "pairs_sampled": 0}
+
+    def warp_unculled(px, wv, a, gra, gdec):
+        """The unculled warp_project (``warp_project_unculled_f32``) on the
+        wrapper's operands -> (tile, cov).  The check form: no wrapper
+        launches it and it counts no launch."""
+        n, h, w = px.shape
+        q = gra.shape[0]
+        outs = [torch.empty((n, q, q), device=dev) for _ in range(2)]
+        err = build.library("warp").warp_project_unculled_f32(
+            *(t.data_ptr() for t in (px, wv, a, gra, gdec, *outs)), n, h, w, q,
+            torch.cuda.current_device(), torch.cuda.current_stream().cuda_stream)
+        require(err == 0, f"warp_project_unculled_f32: CUDA error {err}")
+        return tuple(outs)
+
+    def warp_check(case, px, wv, a, gra, gdec):
+        """warp_project (the counted wrapper, culled) against its check form,
+        every word -> (tile, cov); counts the (tile, image) pairs the plain
+        twin of the footprint test keeps (``ref.footprint_keep``)."""
+        got = warp_ops.warp_batch(px, wv, a, gra, gdec)
+        want = warp_unculled(px, wv, a, gra, gdec)
+        torch.cuda.synchronize()
+        n = sum(words_differ(x, y) for x, y in zip(got, want))
+        warp_checks["calls"] += 1
+        warp_checks["differing_words"] += n
+        require(n == 0, f"{case}/warp_project: the culled kernel differs from the unculled one "
+                        f"at {n} words")
+        keep = ref.footprint_keep(wv, a, None, gra, gdec, *px.shape[1:])
+        warp_checks["pairs"] += keep.numel()
+        warp_checks["pairs_sampled"] += int(keep.sum())
+        return got
 
     def cull_counts(scan, finite):
         """What the culled kernel skips on one pass, by the plain twin of its
@@ -1120,6 +1211,7 @@ def main(argv=None) -> int:
                         wcs[rows[0], i:i + 1], acc[0, i:i + 1], gra, gdec)
             errs["warp_project"] = max(errs["warp_project"], e)
             flips["warp_project"] += n
+        warp_check(case, px0, wcs[rows[0]], acc[0], gra, gdec)
         scan = (pixels, wcs, idx, acc, gra, gdec)
         r_errs, r_flips, s_k, h_k, clipped = robust_kernels(case, scan)
         errs.update(r_errs)
@@ -1146,8 +1238,8 @@ def main(argv=None) -> int:
         return rest
 
     def psf_match_case(case, pixels, pack_idx, bank):
-        """psf_match (either rank) against its plain version: ``psf_match_2d``
-        bitwise, ``psf_match_sep`` at the kernel tolerance
+        """psf_match (either rank) against its plain version, bitwise, then
+        gated by a random ``skip``: zeros there, the same words elsewhere
         -> (counted kernel's name, max error, the plain output)."""
         idx = torch.tensor(pack_idx, dtype=torch.int32, device=dev)
         name = "psf_match_2d" if bank.dim() == 4 else "psf_match_sep"
@@ -1155,9 +1247,15 @@ def main(argv=None) -> int:
         m_p = ref.psf_match_ref(pixels, idx, bank)
         torch.cuda.synchronize()
         err = hold_values(case, name, m_k, m_p, torch.zeros_like(m_k, dtype=torch.bool))
-        if name == "psf_match_2d":
-            require(torch.equal(m_k, m_p), f"{case}/psf_match_2d: not bitwise its plain "
-                                           f"version (max |diff| {err:.3g})")
+        require(torch.equal(m_k, m_p), f"{case}/{name}: not bitwise its plain version "
+                                       f"(max |diff| {err:.3g})")
+        skip = torch.from_numpy((np.random.default_rng(len(case)).random(m_k.shape[:2]) < 0.5)
+                                .astype(np.uint8)).to(dev)
+        m_g = warp_ops.psf_match(pixels, idx, bank, skip)
+        m_gp = ref.psf_match_ref(pixels, idx, bank, skip)
+        torch.cuda.synchronize()
+        require(words_differ(m_g, m_gp) == 0 and torch.equal(m_g[skip == 0], m_k[skip == 0]),
+                f"{case}/{name}: gated, not its plain version or not zeros where skipped")
         return name, err, m_p
 
     def psf_case(case, ds, qry, accept, pack_idx, bank):
@@ -1187,9 +1285,9 @@ def main(argv=None) -> int:
         r_errs, r_flips, *_ = robust_kernels(case, scan, bank, dscan)
         errs.update(r_errs)
         flips.update(r_flips)
-        # The culled passes over the kernel's own scratch, as the engine runs them.
-        cull_check(f"{case} (scratch)", warp_ops.matched_packs(pixels, wcs, idx, bank) + scan[3:],
-                   warp_ops.matched_finite(finite_slots(pixels), idx, bank))
+        # The culled passes over the kernel's own scratch, gated as the engine
+        # runs it and ungated.
+        gate_check(case, pixels, wcs, idx, acc, gra, gdec, bank, finite_slots(pixels))
         print(f"  {case:16s} P,cap,H,W={tuple(pixels.shape)} bank={tuple(bank.shape[2:])} "
               f"G={len(pack_idx)} Q={qry.npix} | max_err "
               f"{', '.join(f'{k}={v:.3g}' for k, v in errs.items())} | flips {flips} "
@@ -1276,7 +1374,7 @@ def main(argv=None) -> int:
               f"{int(c_pk.isnan().sum())} / {int(c_pp.isnan().sum())}, S1 "
               f"{int(mom_p[1].isnan().sum())} / {int(mom_pp[1].isnan().sum())}, S2 "
               f"{int(mom_p[2].isnan().sum())} / {int(mom_pp[2].isnan().sum())}", flush=True)
-        del poison, pix_p, scan_p
+        del poison
 
         # Culling where the survey's patch does not reach: frames scattered
         # over grids at dec +-60 and +-80 and across RA 0/360
@@ -1297,8 +1395,17 @@ def main(argv=None) -> int:
                     f"wide_sky ra {ra_c} dec {dec_c}: the frames must reach the grid and "
                     "some (tile, slot) pairs must be culled")
             print_counts(f"wide_sky ra {ra_c} dec {dec_c}", c_w, float(mom_w[0].sum()))
+            pairs0 = dict(warp_checks)
+            warp_check(f"wide_sky ra {ra_c} dec {dec_c}", scan_w[0].reshape(128, 64, 96),
+                       scan_w[1].reshape(128, 8), scan_w[3].reshape(128), *scan_w[4:])
+            sampled = warp_checks["pairs_sampled"] - pairs0["pairs_sampled"]
+            require(sampled < warp_checks["pairs"] - pairs0["pairs"],
+                    f"wide_sky ra {ra_c} dec {dec_c}: warp_project culls no (tile, image) pair")
         print(f"  culled vs unculled in phase 3: {cull_checks['passes']} passes, "
-              f"{cull_checks['differing_words']} differing words", flush=True)
+              f"{cull_checks['differing_words']} differing words; warp_project "
+              f"{warp_checks['calls']} calls, {warp_checks['differing_words']} differing words, "
+              f"(tile, image) pairs sampled {warp_checks['pairs_sampled']} of "
+              f"{warp_checks['pairs']}", flush=True)
 
         # PSF matching: the main path's two banks at its sizes, then edge cases.
         def to_dev(bank):
@@ -1324,6 +1431,25 @@ def main(argv=None) -> int:
             run_case(f"psf_{name}", ds, qry, ones, [0], to_dev(bank), kernel_case=psf_case)
         run_case("psf_padded_idx", ds, q_psf, np.concatenate([ones, 0 * ones]), [0, 0],
                  to_dev(banks["homog_13"]), kernel_case=psf_case)
+        # The poisoned pack PSF-matched, with every fourth clean slot rejected
+        # too: the gate skips those, while the poisoned slots (flag clear) are
+        # still matched and keep their NaNs through every pass.
+        acc_g = scan_p[3].clone()
+        clean = [k for k in range(acc_g.shape[1]) if k not in {s for s, _, _ in planted}]
+        acc_g[0, clean[::4]] = 0.0
+        for name in ("gauss_k15", "homog_13"):
+            bank = to_dev(banks[name][:1])
+            n_m, n_s = gate_check(f"poisoned_rejected psf_{name}", *scan_p[:3], acc_g, gra_m,
+                                  gdec_m, bank, fin_p)
+            c_m, _ = warp_ops.coadd_fused(*scan_p[:3], acc_g, gra_m, gdec_m, bank,
+                                          finite=fin_p)
+            torch.cuda.synchronize()
+            require(n_s == len(clean[::4]) and bool(c_m.isnan().any()),
+                    f"poisoned_rejected psf_{name}: skipped {n_s}, or the NaNs were lost")
+            print(f"  poisoned_rejected psf_{name}: pre-pass matched {n_m}, skipped {n_s}; "
+                  f"passes over the gated scratch bitwise the ungated and the unculled kernel; "
+                  f"NaN coadd pixels {int(c_m.isnan().sum())}", flush=True)
+        del pix_p, scan_p
         for name, bank in main_banks(ds_wide).items():
             run_case(f"psf_wide_{name}", ds_wide, q_wide, wide_ones, [0], to_dev(bank),
                      kernel_case=psf_case)
@@ -1351,7 +1477,9 @@ def main(argv=None) -> int:
                 case_err[name] = max(case_err[name], err)
         print(f"  psf tiny 5 x 6 and odd 515 x 509, 70 x 101 frames, delta rows: max_err "
               f"sep={case_err['psf_match_sep']:.3g}, 2d={case_err['psf_match_2d']:.3g} "
-              f"(2d bitwise)")
+              f"(both bitwise); gated pre-pass vs ungated: {gate_checks['scratches']} "
+              f"scratches, {gate_checks['passes']} passes, {gate_checks['differing_words']} "
+              f"differing words", flush=True)
         del case, cases, big, big_ds, sv_wide, ds_wide, tiny, odd
         torch.cuda.empty_cache()
 
@@ -1497,6 +1625,19 @@ def main(argv=None) -> int:
         unfused = (unfused_c.cpu().numpy(), unfused_d.cpu().numpy())
         launches = {k: fn.launches for k, fn in counted.items()}
         peak = torch.cuda.max_memory_allocated()
+        # warp_project over every gated pack against its check form (after
+        # the counts are read: these launches only compare).
+        warp0 = dict(warp_checks)
+        for g in gated:
+            p = int(idx[g])
+            warp_check(f"main_path pack {p}", dsv.pixels[p], dsv.wcs[p], accept[g].float(), gra,
+                       gdec)
+        main_pairs = (warp_checks["pairs_sampled"] - warp0["pairs_sampled"],
+                      warp_checks["pairs"] - warp0["pairs"])
+        print(f"  warp_project culled vs unculled over the {len(gated)} gated packs: "
+              f"{warp_checks['differing_words'] - warp0['differing_words']} differing words; "
+              f"(tile, image) pairs sampled {main_pairs[0]} of {main_pairs[1]} "
+              f"({100.0 * (1 - main_pairs[0] / main_pairs[1]):.2f} % culled)", flush=True)
         print(f"  main-path launches: {launches}")
         require(launches["coadd_fused"] == len(METHODS) * (args.reps + 1),
                 "coadd_fused launch count")
@@ -1704,9 +1845,39 @@ def main(argv=None) -> int:
         bank_2d = eng._device_psf_kernels("structured")
         require(bank_sep.shape[2:] == (15,) and bank_2d.shape[2:] == (13, 13),
                 f"psf banks {tuple(bank_sep.shape)} / {tuple(bank_2d.shape)}")
+
+        # Each query's pre-pass: the slots it matches and the rejected ones
+        # it writes as zeros (ops.prepass_skip).  Then every PSF-matched query
+        # again with the pre-pass ungated (ops.psf_match given skip=None:
+        # every slot matched): bitwise the gated run's coadd and depth.
+        # After the counts are read.
+        psf_kinds = [(None, m, m) for m in METHODS] + [(False, "sql_structured", "fallback")]
+        prepass = {}
+        for measured, m, key in psf_kinds:
+            eng.measured_psf = measured
+            pl = eng.plan(query, m)
+            d_m, i_m, a_m = eng._scan_operands(pl)
+            sk = warp_ops.prepass_skip(
+                a_m, warp_ops.matched_finite(d_m.finite, i_m, eng._device_psf_kernels(pl.layout)))
+            prepass[key] = (sk.numel() - int(sk.sum()), int(sk.sum()))
+        gate = warp_ops.psf_match
+        warp_ops.psf_match = lambda pixels, pack_idx, bank, skip=None: gate(pixels, pack_idx, bank)
+        try:
+            for measured, m, key in psf_kinds:
+                eng.measured_psf = measured
+                for red in REDUCES:
+                    r, g = eng.run(query, m, reduce=red), psf_res[red, key]
+                    require(np.array_equal(r.coadd.view(np.int32), g.coadd.view(np.int32))
+                            and np.array_equal(r.depth.view(np.int32), g.depth.view(np.int32)),
+                            f"psf {key}/{red}: the gated pre-pass changed the result")
+        finally:
+            warp_ops.psf_match = gate
+            eng.measured_psf = None
+        print(f"  psf queries gated vs ungated pre-pass: {len(psf_kinds) * len(REDUCES)} "
+              f"queries, coadd and depth bitwise", flush=True)
         # The dense pre-pass of the main path (all 2880 frames), bitwise.
         plan_d = eng.plan(query, BRICK_DENSE)
-        dev_d, idx_d, _ = eng._scan_operands(plan_d)
+        dev_d, idx_d, acc_d = eng._scan_operands(plan_d)
         bank_d = eng._device_psf_kernels(plan_d.layout)
         m_k = warp_ops.psf_match_2d(dev_d.pixels, idx_d, bank_d)
         m_p = ref.psf_match_ref(dev_d.pixels, idx_d, bank_d)
@@ -1715,6 +1886,15 @@ def main(argv=None) -> int:
                                        f"{m_k.shape[0] * m_k.shape[1]} frames: not bitwise")
         print(f"  psf_match_2d over {BRICK_DENSE}'s {m_k.shape[0] * m_k.shape[1]} frames, "
               f"bank {tuple(bank_d.shape[2:])}: bitwise its plain version")
+        del m_k, m_p
+        skip_d = warp_ops.prepass_skip(acc_d, warp_ops.matched_finite(dev_d.finite, idx_d, bank_d))
+        m_k = warp_ops.psf_match_2d(dev_d.pixels, idx_d, bank_d, skip_d)
+        m_p = ref.psf_match_ref(dev_d.pixels, idx_d, bank_d, skip_d)
+        torch.cuda.synchronize()
+        require(words_differ(m_k, m_p) == 0, f"gated psf_match_2d over {BRICK_DENSE}'s "
+                                             "frames: not bitwise its plain version")
+        print(f"  gated psf_match_2d over {BRICK_DENSE}'s frames: {int((skip_d == 0).sum())} "
+              f"matched, {int(skip_d.sum())} skipped (zeros): bitwise its plain version")
         del m_k, m_p, dev_d
         torch.cuda.empty_cache()
 
@@ -1756,7 +1936,8 @@ def main(argv=None) -> int:
                 require(r.stats.files_contributing == unmatched.stats.files_contributing,
                         f"psf {m}/{red}: files_contributing differs")
                 print(f"  psf {red:7s} {m:28s} query_ms={psf_ms[red, m]:.3f} "
-                      f"pass_ms={psf_pass_ms[red, m]:.3f} depth_sum={float(r.depth.sum()):.0f} "
+                      f"pass_ms={psf_pass_ms[red, m]:.3f} prepass_matched={prepass[m][0]} "
+                      f"prepass_skipped={prepass[m][1]} depth_sum={float(r.depth.sum()):.0f} "
                       f"max|coadd-sql_structured(measured)|={dc:.3g} decision_flips={flips}")
 
         # The plain path: the structured layout matched once and cached.
@@ -1803,19 +1984,27 @@ def main(argv=None) -> int:
             for psf_on in (False, True):
                 scan_c, fin_c = m_scan, m_dev.finite
                 if psf_on:
+                    # The gated scratch and the ungated one, each culled vs
+                    # unculled, and the two bitwise each other.
+                    gate_check(f"main_path {m}", m_dev.pixels, m_dev.wcs, m_idx, m_scan[3], gra,
+                               gdec, m_bank, fin_c)
                     fin_c = warp_ops.matched_finite(fin_c, m_idx, m_bank)
-                    scan_c = warp_ops.matched_packs(m_dev.pixels, m_dev.wcs, m_idx,
-                                                    m_bank) + m_scan[3:]
+                    scan_c = warp_ops.matched_packs(
+                        m_dev.pixels, m_dev.wcs, m_idx, m_bank, m_scan[3], fin_c) + m_scan[3:]
+                    mom_c = warp_ops.coadd_moments(*scan_c, finite=fin_c)
+                else:
+                    mom_c = cull_check(f"main_path {m}", scan_c, fin_c)
                 what = f"{m}{' psf' if psf_on else ''}"
-                mom_c = cull_check(f"main_path {what}", scan_c, fin_c)
                 main_counts[what] = cull_counts(scan_c, fin_c)
                 print_counts(what, main_counts[what], float(mom_c[0].sum()))
                 del scan_c
         torch.cuda.empty_cache()
         print(f"  culled vs unculled over the main path: "
-              f"{cull_checks['passes'] - checks0['passes']} passes (6 methods x unmatched and "
-              f"PSF-matched x 7), {cull_checks['differing_words'] - checks0['differing_words']} "
-              f"differing words", flush=True)
+              f"{cull_checks['passes'] - checks0['passes']} passes (6 methods x unmatched, PSF "
+              f"gated and PSF ungated x 7), "
+              f"{cull_checks['differing_words'] - checks0['differing_words']} differing words; "
+              f"gated vs ungated scratch: {gate_checks['passes']} passes in all, "
+              f"{gate_checks['differing_words']} differing words", flush=True)
 
         # The brick path (DESIGN.md §9), counted on its own: every count 0
         # just before it.  Each case starts from an empty brick store.
@@ -2070,6 +2259,7 @@ def main(argv=None) -> int:
         p0 = int(idx[g0])
         px, wv, a0 = dsv.pixels[p0], dsv.wcs[p0], accept[g0].float()
         k_ms = cuda_ms(torch, lambda: warp_ops.warp_batch(px, wv, a0, gra, gdec), args.reps)
+        u_ms = cuda_ms(torch, lambda: warp_unculled(px, wv, a0, gra, gdec), args.reps)
         p_ms = cuda_ms(torch, lambda: ref.warp_batch_ref(px, wv, a0, gra, gdec), 2)
         t_k, v_k = warp_ops.warp_batch(px, wv, a0, gra, gdec)
         t_p, v_p = ref.warp_batch_ref(px, wv, a0, gra, gdec)
@@ -2092,7 +2282,8 @@ def main(argv=None) -> int:
             replaces="src/repro/kernels/warp/warp.py:240", launches=launches["warp_project"],
             max_abs_err=max(err, case_err["warp_project"]), ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
-            library="F.grid_sample bilinear (sampling only)", kernel_ms=k_ms,
+            library="F.grid_sample bilinear (sampling only)", kernel_ms=k_ms, unculled_ms=u_ms,
+            ptxas=ptxas_summary(logs.get("warp", ""), "warp_project_kernel"),
             edge_flips=case_flips["warp_project"] + flips,
             shape=f"one pack: N={px.shape[0]} frames of {h}x{w}, Q={q}",
         ))
@@ -2164,8 +2355,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             err = hold_values("sql_structured_pass", name, out_k, out_p,
                               torch.zeros_like(out_k, dtype=torch.bool))
-            require(name != "psf_match_2d" or torch.equal(out_k, out_p),
-                    "sql_structured pass: psf_match_2d not bitwise its plain version")
+            require(torch.equal(out_k, out_p),
+                    f"sql_structured pass: {name} not bitwise its plain version")
             lib_diff = float((out_l.reshape(out_k.shape) - out_k).abs().max())
             del out_k, out_l
             k_ms = cuda_ms(torch, kern, args.reps)
@@ -2185,32 +2376,58 @@ def main(argv=None) -> int:
                 # No product may fuse with its sum (-fmad=false): an FMUL and
                 # an FADD a tap, twice the operation bound (printed only).
                 psf_ceiling_ms = 2 * n_img * h * w * psf_ops(taps) / FP32_OPS_PER_S * 1e3
-                row["ptxas"] = ptxas_summary(logs.get("psf", ""), "psf_match_2d_kernel")
-                # The kernel alone (the wrapper's pack-index check syncs the
-                # host on every call, which "ms" includes), by the entry point
-                # and by its any-width path, which 13 taps otherwise skip.
-                out_k = torch.empty((idx.shape[0], dsv.capacity, h, w), device=dev)
-                lib = build.library("psf")
-                stream = torch.cuda.current_stream().cuda_stream
+            row["ptxas"] = ptxas_summary(logs.get("psf", ""), f"{name}_kernel")
+            # The kernel alone (the wrapper's pack-index check syncs the host
+            # on every call, which "ms" includes); psf_match_2d also by its
+            # any-width path, which the fixed width otherwise skips.
+            out_k = torch.empty((idx.shape[0], dsv.capacity, h, w), device=dev)
+            lib = build.library("psf")
+            stream = torch.cuda.current_stream().cuda_stream
 
-                def launch_only(entry, bank=bank):
-                    err = getattr(lib, entry)(dsv.pixels.data_ptr(), idx.data_ptr(),
-                                              bank.data_ptr(), out_k.data_ptr(), n_img,
-                                              dsv.capacity, h, w, *taps,
-                                              torch.cuda.current_device(), stream)
-                    require(err == 0, f"{entry} launch: CUDA error {err}")
+            def launch_only(entry, bank=bank, skip=None):
+                err = getattr(lib, entry)(dsv.pixels.data_ptr(), idx.data_ptr(), bank.data_ptr(),
+                                          None if skip is None else skip.data_ptr(),
+                                          out_k.data_ptr(), n_img, dsv.capacity, h, w, *taps,
+                                          torch.cuda.current_device(), stream)
+                require(err == 0, f"{entry} launch: CUDA error {err}")
 
-                launch_only("psf_match_2d_any_f32")
+            row["launch_ms"] = cuda_ms(torch, functools.partial(launch_only, f"{name}_f32"),
+                                       args.reps)
+            if name == "psf_match_2d":
+                launch_only(f"{name}_any_f32")
                 torch.cuda.synchronize()
-                require(torch.equal(out_k, out_p), "sql_structured pass: psf_match_2d's "
-                                                   "any-width path not bitwise its plain version")
-                for entry, key in (("psf_match_2d_f32", "launch_ms"),
-                                   ("psf_match_2d_any_f32", "any_width_launch_ms")):
-                    row[key] = cuda_ms(torch, functools.partial(launch_only, entry), args.reps)
-                del out_k
+                require(torch.equal(out_k, out_p), f"sql_structured pass: {name}'s any-width "
+                                                   "path not bitwise its plain version")
+                row["any_width_launch_ms"] = cuda_ms(
+                    torch, functools.partial(launch_only, f"{name}_any_f32"), args.reps)
+            # The pre-pass the engine runs on this pass: gated (ops.prepass_skip).
+            skip5 = warp_ops.prepass_skip(acc_f, warp_ops.matched_finite(fin, idx, bank))
+            row["gated_launch_ms"] = cuda_ms(
+                torch, functools.partial(launch_only, f"{name}_f32", skip=skip5), args.reps)
+            row["gated_slots_matched"] = int((skip5 == 0).sum())
+            del out_k
             del out_p
             kernels.append(row)
         del imgs
+        # The dense pre-pass the engine runs (raw_fits, every pack), gated,
+        # ungated and with every slot skipped (the gated pass's zero writes
+        # alone), through the wrapper, with the measured bank.
+        eng.match_psf_sigma = PSF_TARGET
+        plan_d = eng.plan(query, BRICK_DENSE)
+        dev_d, idx_d, acc_d = eng._scan_operands(plan_d)
+        bank_d = eng._device_psf_kernels(plan_d.layout)
+        eng.match_psf_sigma = None
+        skip_d = warp_ops.prepass_skip(acc_d, warp_ops.matched_finite(dev_d.finite, idx_d, bank_d))
+        dense_ms = {what: cuda_ms(torch, functools.partial(warp_ops.psf_match_2d, dev_d.pixels,
+                                                           idx_d, bank_d, sk), args.reps)
+                    for what, sk in (("gated", skip_d), ("ungated", None),
+                                     ("all skipped", torch.ones_like(skip_d)))}
+        n_d = skip_d.numel()
+        print(f"  dense psf_match_2d pre-pass ({BRICK_DENSE}, {n_d} slots, 13 x 13): gated "
+              f"{dense_ms['gated']:.3f} ms ({n_d - int(skip_d.sum())} matched, "
+              f"{int(skip_d.sum())} written as zeros), ungated {dense_ms['ungated']:.3f} ms, "
+              f"every slot skipped (zeros only) {dense_ms['all skipped']:.3f} ms", flush=True)
+        del dev_d
         # The brick mosaic on the window's 16 materialized tiles, beside
         # F.fold (col2im) as the library call.
         tiles = torch.from_numpy(np.stack([a for a, _ in mosaic_inputs])).to(dev)
@@ -2362,9 +2579,16 @@ def main(argv=None) -> int:
             del b_scans
         for k in kernels:
             lib_ms = "none" if k["library_ms"] is None else f"{k['library_ms']:.3f}"
-            ceiling = (f", -fmad=false ceiling {psf_ceiling_ms:.3f}, launch alone "
-                       f"{k['launch_ms']:.3f}, any-width path alone {k['any_width_launch_ms']:.3f}"
-                       if k["name"] == "psf_match_2d" else "")
+            ceiling = (f", launch alone {k['launch_ms']:.3f}"
+                       + (f", any-width path alone {k['any_width_launch_ms']:.3f}"
+                          if "any_width_launch_ms" in k else "")
+                       + f", gated alone {k['gated_launch_ms']:.3f} "
+                       f"({k['gated_slots_matched']} slots matched)"
+                       if "launch_ms" in k else "")
+            if k["name"] == "psf_match_2d":
+                ceiling = f", -fmad=false ceiling {psf_ceiling_ms:.3f}" + ceiling
+            if k["name"] == "warp_project":
+                ceiling = f", unculled {k['unculled_ms']:.3f}"
             ptxas = f"; ptxas {k['ptxas']}" if "ptxas" in k else ""
             extra = (f", unculled {k['unculled_ms']:.3f}, every-slot bound "
                      f"{scanned_bounds[k['name']][0]:.3f} by {scanned_bounds[k['name']][1]}"

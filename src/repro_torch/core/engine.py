@@ -33,7 +33,9 @@ when the survey carries stamps, the separable Gaussian bank
 (`psf.matching_kernel_bank`) otherwise; ``measured_psf`` forces either.
 With ``use_kernel=True`` a query first runs ONE ``psf_match`` launch, which
 writes its scanned packs' matched pixels to a scratch that each of its
-passes reads: 2, 3 or 4 launches a query.  The plain path convolves the
+passes reads: 2, 3 or 4 launches a query.  It matches only the slots a
+pass reads, and writes zeros for the rejected slots the culled passes skip
+(`_query_scan`).  The plain path convolves the
 whole resident layout once per (layout, PSF state) and caches the matched
 copy (``matched_pixel_cache``, the default), or convolves pack by pack
 inside every pass; both give the same bytes.
@@ -205,12 +207,14 @@ def _query_scan(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tenso
     scanned packs' matched pixels to a (G, cap, H, W) scratch, and every
     pass reads that (`ops.matched_packs`, its flag `ops.matched_finite`); on
     the plain path the bank rides into each plain scan, which matches pack
-    by pack.  The flag lets the kernels skip rejected slots.
+    by pack.  The flag lets the kernels skip rejected slots, and the
+    pre-pass writes those as zeros without matching them: the same bits in
+    every pass.
     """
     pixels, wcs, finite = dev.pixels, dev.wcs, dev.finite
     if use_kernel and psf_kernels is not None:
         finite = warp_ops.matched_finite(finite, idx, psf_kernels)
-        pixels, wcs, idx = warp_ops.matched_packs(pixels, wcs, idx, psf_kernels)
+        pixels, wcs, idx = warp_ops.matched_packs(pixels, wcs, idx, psf_kernels, accept, finite)
         psf_kernels = None
     scan = (pixels, wcs, idx, accept.to(torch.float32), grid_ra, grid_dec)
     return scan, psf_kernels, finite

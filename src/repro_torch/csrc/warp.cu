@@ -77,6 +77,15 @@
 // entry point (pack_scan_unculled_f32) for chip_smoke.py to hold the
 // culled form against bitwise; no wrapper launches it.
 //
+// warp_project_kernel is culled by (b) alone: it writes every image's tile,
+// so a culled (tile, image) pair writes 0 * a to tile and coverage without
+// sampling, which is what the select gives there.  Its bytes bound it (8 per
+// output pixel and image): a block walks a chunk of images over its 32 x 8
+// tile, so the pixel trig and the tile's caps are taken once a chunk and the
+// slots' constants staged by one thread each, and it writes with streaming
+// stores.  The unculled kernel (one image a block, every sample computed) is
+// the check form, warp_project_unculled_f32, held bitwise by chip_smoke.py.
+//
 // Numerics: built WITHOUT --use_fast_math and with -fmad=false, so every
 // product and sum rounds on its own, as in the plain torch version (one
 // elementwise op per torch kernel), and sinf/cosf are the accurate library
@@ -199,11 +208,15 @@ __device__ __forceinline__ PixelSky pixel_sky(const float* __restrict__ gra,
   return s;
 }
 
+// The unculled warp_project (the check form): one image a block, every
+// sample computed.
 __global__ void __launch_bounds__(kThreads)
-    warp_project_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
-                        const float* __restrict__ accept, const float* __restrict__ gra,
-                        const float* __restrict__ gdec, float* __restrict__ tile,
-                        float* __restrict__ cov, int n_img, int h, int w, int q) {
+    warp_project_unculled_kernel(const float* __restrict__ pixels,
+                                 const float* __restrict__ wcs,
+                                 const float* __restrict__ accept,
+                                 const float* __restrict__ gra, const float* __restrict__ gdec,
+                                 float* __restrict__ tile, float* __restrict__ cov, int n_img,
+                                 int h, int w, int q) {
   __shared__ SlotConst slot;
   const int tid = threadIdx.y * kTileX + threadIdx.x;
   const PixelSky px = pixel_sky(gra, gdec, q);
@@ -454,6 +467,48 @@ __device__ bool misses_tile(const SlotConst& c, const SubTile* sub, int h, int w
   return true;
 }
 
+// warp_project, culled (see the header): a block walks chunks of up to
+// kThreads images over its tile.  A slot with a finite accept whose
+// footprint misses the tile writes the select's +0 (vm and m) times a, as
+// the unculled kernel does there, without sampling.
+__global__ void __launch_bounds__(kThreads)
+    warp_project_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
+                        const float* __restrict__ accept, const float* __restrict__ gra,
+                        const float* __restrict__ gdec, float* __restrict__ tile,
+                        float* __restrict__ cov, int n_img, int h, int w, int q) {
+  __shared__ SlotConst slots[kThreads];
+  __shared__ unsigned char culled[kThreads];
+  __shared__ SubTile sub[kSub];
+  __shared__ unsigned chord_bits[kSub];
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const PixelSky px = pixel_sky(gra, gdec, q);
+  tile_caps(sub, chord_bits, px, gra, gdec, q);
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  const int64_t qq = static_cast<int64_t>(q) * q;
+  for (int n0 = blockIdx.z * kThreads; n0 < n_img; n0 += gridDim.z * kThreads) {
+    const int n = min(kThreads, n_img - n0);
+    __syncthreads();  // the previous chunk's slots are no longer read
+    if (tid < n) {
+      const float a = accept[n0 + tid];
+      const SlotConst c = make_slot(wcs + static_cast<int64_t>(n0 + tid) * 8, a);
+      slots[tid] = c;
+      culled[tid] = isfinite(a) && misses_tile(c, sub, h, w);
+    }
+    __syncthreads();
+    if (!px.live) continue;
+    for (int j = 0; j < n; ++j) {
+      float vm = 0.0f, m = 0.0f;
+      if (!culled[j])   // block-uniform
+        warp_sample(pixels + (n0 + j) * plane, h, w, slots[j], px.ra_r, px.sin_dec,
+                    px.cos_dec, vm, m);
+      const float a = slots[j].a;
+      const int64_t at = (n0 + j) * qq + px.o;
+      __stcs(tile + at, vm * a);
+      __stcs(cov + at, m * a);
+    }
+  }
+}
+
 // The pass.  kCull: skip what adds nothing (the header); without it every
 // scanned slot is sampled, the check form.
 template <class Acc, bool kCull>
@@ -591,10 +646,26 @@ extern "C" int warp_project_f32(const float* pixels, const float* wcs, const flo
                                 int n_img, int h, int w, int q, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int z = n_img < 65535 ? n_img : 65535;
-  warp_project_kernel<<<pixel_grid(q, z), dim3(kTileX, kTileY), 0,
+  const int chunks = (n_img + kThreads - 1) / kThreads;
+  warp_project_kernel<<<pixel_grid(q, chunks < 65535 ? chunks : 65535), dim3(kTileX, kTileY), 0,
                         static_cast<cudaStream_t>(stream)>>>(pixels, wcs, accept, gra, gdec,
                                                              tile, cov, n_img, h, w, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The unculled warp_project (operands as warp_project_f32): the check form
+// chip_smoke.py holds the culled kernel against, bitwise.  No wrapper
+// launches it.
+extern "C" int warp_project_unculled_f32(const float* pixels, const float* wcs,
+                                         const float* accept, const float* gra,
+                                         const float* gdec, float* tile, float* cov, int n_img,
+                                         int h, int w, int q, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int z = n_img < 65535 ? n_img : 65535;
+  warp_project_unculled_kernel<<<pixel_grid(q, z), dim3(kTileX, kTileY), 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      pixels, wcs, accept, gra, gdec, tile, cov, n_img, h, w, q);
   return static_cast<int>(cudaGetLastError());
 }
 

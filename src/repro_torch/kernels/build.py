@@ -40,6 +40,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "warp": {
         # pixels, wcs, accept, gra, gdec, tile, cov, n, h, w, q, device, stream
         "warp_project_f32": ((_VP,) * 7 + (_I,) * 5 + (_VP,), _I),
+        "warp_project_unculled_f32": ((_VP,) * 7 + (_I,) * 5 + (_VP,), _I),
         # pixels, wcs, pack_idx, accept, finite, gra, gdec, coadd, depth,
         # n_packs, cap, h, w, q, device, stream
         "coadd_fused_f32": ((_VP,) * 9 + (_I,) * 6 + (_VP,), _I),
@@ -55,11 +56,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "warp_error_string": ((_I,), ctypes.c_char_p),
     },
     "psf": {
-        # pixels, pack_idx, bank, out, n_img, cap, h, w, k, device, stream
-        "psf_match_sep_f32": ((_VP,) * 4 + (_I,) * 6 + (_VP,), _I),
+        # pixels, pack_idx, bank, skip, out, n_img, cap, h, w, k, device, stream
+        "psf_match_sep_f32": ((_VP,) * 5 + (_I,) * 6 + (_VP,), _I),
         # ..., n_img, cap, h, w, kh, kw, device, stream
-        "psf_match_2d_f32": ((_VP,) * 4 + (_I,) * 7 + (_VP,), _I),
-        "psf_match_2d_any_f32": ((_VP,) * 4 + (_I,) * 7 + (_VP,), _I),
+        "psf_match_2d_f32": ((_VP,) * 5 + (_I,) * 7 + (_VP,), _I),
+        "psf_match_2d_any_f32": ((_VP,) * 5 + (_I,) * 7 + (_VP,), _I),
         "psf_error_string": ((_I,), ctypes.c_char_p),
     },
     "flash": {

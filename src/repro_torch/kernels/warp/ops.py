@@ -15,7 +15,16 @@ PSF matching is a pre-pass: `psf_match` writes the query's scanned packs,
 each frame correlated with its slot's kernel, to a (G, cap, H, W) scratch,
 and the pack scans read that scratch (`matched_packs`).  The scans'
 ``psf_kernels`` argument composes the two: one ``psf_match`` call, then the
-pass (on the CPU both are plain versions).
+pass (on the CPU both are plain versions).  Given the scan's ``accept``
+and the scratch's flag, `matched_packs` gives the pre-pass a (G, cap) uint8
+``skip`` (`prepass_skip`): rejected slots whose flag is set, which no culled
+pass reads, are written as zeros and not matched.  The ``psf_match*``
+wrappers take that ``skip`` as it is, or None to match every slot.
+
+``warp_batch`` launches the culled ``warp_project_kernel``: a (tile, image)
+pair whose footprint misses the tile is written without sampling, the same
+bits as the unculled kernel (``warp_project_unculled_f32``), which only
+``chip_smoke.py`` launches.
 
 The pack scans launch the culled form of ``pack_scan_kernel`` (the header
 of ``csrc/warp.cu``): it skips a slot in a block whose tile its footprint
@@ -34,8 +43,9 @@ from repro_torch.kernels.warp import ref
 
 # The kernels tile output pixels 32 x 8; the grid's y extent caps at 65535.
 MAX_NPIX = 65535 * 8
-#: Most taps a PSF-matching kernel takes along each axis: the separable
-#: kernel's staged window and taps must fit 48 KB of shared memory (csrc/psf.cu).
+#: Most taps a PSF-matching kernel takes along each axis: the kernels' staged
+#: windows are sized for it (83 KB of shared memory for the separable kernel
+#: at 49 taps, csrc/psf.cu).
 MAX_TAPS = 49
 
 
@@ -116,11 +126,12 @@ def _check_pack_idx(pack_idx, n_packs):
         raise IndexError(f"pack_idx spans [{lo}, {hi}], layout has {n_packs} packs")
 
 
-def _check_bank(pixels, pack_idx, bank, ndim):
+def _check_bank(pixels, pack_idx, bank, ndim, skip=None):
     """Check a PSF-matching pre-pass's operands -> (g, cap, h, w).
 
     ``bank`` is (P, cap, K) separable rows (``ndim`` 3) or (P, cap, Kh, Kw)
-    taps (``ndim`` 4), odd widths of at most `MAX_TAPS`.
+    taps (``ndim`` 4), odd widths of at most `MAX_TAPS`; ``skip`` None or a
+    (G, cap) uint8 flag.
     """
     dev = pixels.device
     _require(pixels, "pixels", torch.float32, 4, dev)
@@ -138,31 +149,37 @@ def _check_bank(pixels, pack_idx, bank, ndim):
         raise ValueError(f"need a non-empty layout and pack_idx, got pixels "
                          f"{tuple(pixels.shape)} and {g} packs")
     _check_pack_idx(pack_idx, n_packs)
+    if skip is not None:
+        _require(skip, "skip", torch.uint8, 2, dev)
+        if tuple(skip.shape) != (g, cap):
+            raise ValueError(f"skip {tuple(skip.shape)} does not match {g} packs of {cap} slots")
     return g, cap, h, w
 
 
-def _launch_psf(entry, pixels, pack_idx, bank, dims, taps):
+def _launch_psf(entry, pixels, pack_idx, bank, skip, dims, taps):
     g, cap, h, w = dims
     index, stream = _launch_args(pixels.device)
     lib = build.library("psf")
     out = torch.empty((g, cap, h, w), dtype=torch.float32, device=pixels.device)
     err = getattr(lib, entry)(pixels.data_ptr(), pack_idx.data_ptr(), bank.data_ptr(),
-                              out.data_ptr(), g * cap, cap, h, w, *taps, index, stream)
+                              None if skip is None else skip.data_ptr(), out.data_ptr(),
+                              g * cap, cap, h, w, *taps, index, stream)
     build.check(lib, err, f"{entry} launch")
     return out
 
 
-def psf_match_sep(pixels, pack_idx, psf_kernels):
+def psf_match_sep(pixels, pack_idx, psf_kernels, skip=None):
     """(G, cap, H, W) frames of the packs ``pack_idx``, each correlated with its
-    slot's (K,) row of the (P, cap, K) bank along W, then along H.
+    slot's (K,) row of the (P, cap, K) bank along W, then along H; zeros
+    where the (G, cap) uint8 ``skip`` is set.
 
     ONE launch of ``psf_match_sep_kernel``; edge-clamped, as
     ``psf.convolve_batch`` (its plain version, via `ref.psf_match_ref`).
     """
-    dims = _check_bank(pixels, pack_idx, psf_kernels, 3)
+    dims = _check_bank(pixels, pack_idx, psf_kernels, 3, skip)
     if pixels.device.type == "cpu":
-        return ref.psf_match_ref(pixels, pack_idx, psf_kernels)
-    out = _launch_psf("psf_match_sep_f32", pixels, pack_idx, psf_kernels, dims,
+        return ref.psf_match_ref(pixels, pack_idx, psf_kernels, skip)
+    out = _launch_psf("psf_match_sep_f32", pixels, pack_idx, psf_kernels, skip, dims,
                       psf_kernels.shape[2:])
     psf_match_sep.launches += 1
     return out
@@ -171,17 +188,18 @@ def psf_match_sep(pixels, pack_idx, psf_kernels):
 psf_match_sep.launches = 0
 
 
-def psf_match_2d(pixels, pack_idx, psf_kernels):
+def psf_match_2d(pixels, pack_idx, psf_kernels, skip=None):
     """(G, cap, H, W) frames of the packs ``pack_idx``, each correlated with its
-    slot's (Kh, Kw) taps of the (P, cap, Kh, Kw) bank.
+    slot's (Kh, Kw) taps of the (P, cap, Kh, Kw) bank; zeros where the
+    (G, cap) uint8 ``skip`` is set.
 
     ONE launch of ``psf_match_2d_kernel``; edge-clamped, as
     ``psf.convolve_batch`` (its plain version, via `ref.psf_match_ref`).
     """
-    dims = _check_bank(pixels, pack_idx, psf_kernels, 4)
+    dims = _check_bank(pixels, pack_idx, psf_kernels, 4, skip)
     if pixels.device.type == "cpu":
-        return ref.psf_match_ref(pixels, pack_idx, psf_kernels)
-    out = _launch_psf("psf_match_2d_f32", pixels, pack_idx, psf_kernels, dims,
+        return ref.psf_match_ref(pixels, pack_idx, psf_kernels, skip)
+    out = _launch_psf("psf_match_2d_f32", pixels, pack_idx, psf_kernels, skip, dims,
                       psf_kernels.shape[2:])
     psf_match_2d.launches += 1
     return out
@@ -190,12 +208,12 @@ def psf_match_2d(pixels, pack_idx, psf_kernels):
 psf_match_2d.launches = 0
 
 
-def psf_match(pixels, pack_idx, psf_kernels):
+def psf_match(pixels, pack_idx, psf_kernels, skip=None):
     """The PSF-matching pre-pass for either bank rank: `psf_match_sep` for a
     (P, cap, K) bank, `psf_match_2d` for a (P, cap, Kh, Kw) one."""
     if isinstance(psf_kernels, torch.Tensor) and psf_kernels.dim() == 4:
-        return psf_match_2d(pixels, pack_idx, psf_kernels)
-    return psf_match_sep(pixels, pack_idx, psf_kernels)
+        return psf_match_2d(pixels, pack_idx, psf_kernels, skip)
+    return psf_match_sep(pixels, pack_idx, psf_kernels, skip)
 
 
 #: Largest gain of a slot's PSF-matching kernel (the sum of |taps|; a
@@ -218,15 +236,30 @@ def matched_finite(finite, pack_idx, psf_kernels):
     return ok[pack_idx.to(torch.int64)].to(torch.uint8)
 
 
-def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels):
+def prepass_skip(accept, matched_flag):
+    """The pre-pass's (G, cap) uint8 ``skip``: rejected slots (accept 0) whose
+    PSF scratch flag (`matched_finite`) is set.  The culled passes skip
+    exactly those (rule (a) of csrc/warp.cu), so their matched pixels are
+    never read; a rejected slot without the flag is still matched, NaNs and
+    all, as the passes sample it."""
+    return ((accept == 0) & (matched_flag != 0)).to(torch.uint8)
+
+
+def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels, accept=None, matched_flag=None):
     """The scan operands over a query's PSF-matched packs -> (pixels, wcs_vecs,
     pack_idx) for the pack scans.
 
     One `psf_match` launch writes the (G, cap, H, W) scratch; the scan then
     reads it with its own (G, cap, 8) WCS rows and pack index ``arange(G)``
     (a pack scan takes one base, pack_idx[g] * cap, for both pixels and WCS).
+    Given the scan's (G, cap) ``accept`` and the scratch's flag
+    (`matched_finite`), the slots no culled pass reads (`prepass_skip`) are
+    written as zeros and not matched; without them every slot is matched.
     """
-    matched = psf_match(pixels, pack_idx, psf_kernels)
+    skip = None
+    if accept is not None and matched_flag is not None:
+        skip = prepass_skip(accept, matched_flag)
+    matched = psf_match(pixels, pack_idx, psf_kernels, skip)
     wcs = wcs_vecs[pack_idx.to(torch.int64)]
     idx = torch.arange(pack_idx.shape[0], dtype=torch.int32, device=pack_idx.device)
     return matched, wcs, idx
@@ -258,8 +291,9 @@ def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
 
 def _prepare_scan(scan, psf_kernels, finite, **fixed):
     """Check a pass's operands -> (scan, dims, finite); with a bank, the scan
-    over the PSF-matched packs (`matched_packs`) and their flag
-    (`matched_finite`).  ``fixed`` are the pass's (Q,Q) operands."""
+    over the PSF-matched packs (`matched_packs`, gated by the flag) and
+    their flag (`matched_finite`).  ``fixed`` are the pass's (Q,Q)
+    operands."""
     dims = _check_scan(*scan)
     _check_fixed(dims[-1], scan[0].device, **fixed)
     if finite is not None:
@@ -270,7 +304,7 @@ def _prepare_scan(scan, psf_kernels, finite, **fixed):
     if psf_kernels is not None:
         if finite is not None:
             finite = matched_finite(finite, scan[2], psf_kernels)
-        scan = matched_packs(*scan[:3], psf_kernels) + scan[3:]
+        scan = matched_packs(*scan[:3], psf_kernels, scan[3], finite) + scan[3:]
     return scan, dims, finite
 
 

@@ -62,19 +62,27 @@ def coadd_clip_ref(pixels, wcs_vecs, accepts, grid_ra, grid_dec, center, thresh)
     return reducer.clip_local(tiles, covs, center, thresh)
 
 
-def psf_match_ref(pixels, pack_idx, bank):
+def psf_match_ref(pixels, pack_idx, bank, skip=None):
     """The ``psf_match`` kernels' plain version -> (G,cap,H,W) matched frames.
 
     The packs ``pack_idx`` of the resident (P,cap,H,W) ``pixels``, each
     frame correlated with its slot's kernel of the (P,cap,K) or
-    (P,cap,Kh,Kw) ``bank`` (`psf.convolve_batch`).
+    (P,cap,Kh,Kw) ``bank`` (`psf.convolve_batch`).  Frames whose (G,cap)
+    ``skip`` flag is set are zeros, and only the others are matched; None
+    matches every frame.
     """
     rows = pack_idx.to(torch.int64)
     g = rows.shape[0]
     cap, h, w = pixels.shape[1:]
     images = pixels[rows].reshape(g * cap, h, w)
     kernels = bank[rows].reshape((g * cap,) + tuple(bank.shape[2:]))
-    return psf.convolve_batch(images, kernels).reshape(g, cap, h, w)
+    if skip is None:
+        return psf.convolve_batch(images, kernels).reshape(g, cap, h, w)
+    keep = (skip == 0).reshape(-1)
+    out = torch.zeros_like(images)
+    if bool(keep.any()):
+        out[keep] = psf.convolve_batch(images[keep], kernels[keep])
+    return out.reshape(g, cap, h, w)
 
 
 def mosaic_bricks_ref(tiles, covs, offsets, npix):

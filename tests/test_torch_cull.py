@@ -8,6 +8,13 @@ scratch's flag, the plain twin of the footprint test (`ref.footprint_keep`)
 against brute force (no (tile, slot) pair it culls has a sample inside the
 frame), and where NaNs fall on the plain path when a rejected slot holds a
 non-finite pixel, against the JAX package's Pallas kernels in interpret mode.
+
+``warp_project_kernel`` is culled by the same footprint test: every (tile,
+image) pair the twin culls must be exactly +-0 in the JAX package's
+``warp_project`` (interpret mode), tile and coverage.  And the PSF pre-pass
+writes zeros for the rejected slots the culled passes skip
+(`ops.prepass_skip`, which `ops.matched_packs` applies): a poisoned rejected
+slot is still matched.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +23,7 @@ import torch
 
 import repro_torch as rt
 from repro.kernels.warp import ops as ref_ops
+from repro_torch.core import psf
 from repro_torch.core.geometry import sky_to_pixel
 from repro_torch.core.mapper import query_grid_sky
 from repro_torch.core import seqfile
@@ -173,6 +181,51 @@ def test_footprint_twin_holds_at_high_dec_and_across_ra_zero(name):
     assert (~keep).float().mean() > 0.5, float((~keep).float().mean())
 
 
+def _culled_pixels(keep, q):
+    """(S, Q, Q) bool: the output pixels of each slot's culled block tiles."""
+    ny, nx, s = keep.shape
+    tiles = (~keep).permute(2, 0, 1)[:, :, None, :, None]
+    full = tiles.expand(s, ny, ref.TILE_Y, nx, ref.TILE_X).reshape(s, ny * ref.TILE_Y,
+                                                                     nx * ref.TILE_X)
+    return full[:, :q, :q]
+
+
+def _warp_case(name):
+    """(pixels, wcs, grid_ra, grid_dec, h, w) of a footprint case: the layout's
+    frames over a CASES query, or frames of random pixels over a WIDE_SKY."""
+    if name in CASES:
+        ra, dec, npix, packs = CASES[name]
+        gr, gd = query_grid_sky(rt.CoaddQuery(band="r", ra_bounds=ra, dec_bounds=dec,
+                                              npix=npix))
+        packs = list(range(LAYOUT.n_packs) if packs is None else packs)
+        h, w = LAYOUT.image_hw()
+        return (LAYOUT.pixels[packs].reshape(-1, h, w), LAYOUT.wcs[packs].reshape(-1, 8),
+                gr, gd, h, w)
+    ra_c, dec_c, npix, fov = WIDE_SKY[name]
+    h, w = 24, 40
+    gr, gd, wcs = ref.scattered_frames(ra_c, dec_c, npix, fov, 96, h, w, seed=int(ra_c) + 1000)
+    px = np.random.default_rng(int(ra_c)).normal(100.0, 10.0, (96, h, w)).astype(np.float32)
+    return px, wcs, gr, gd, h, w
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(WIDE_SKY))
+def test_warp_project_is_zero_where_the_twin_culls(name):
+    """What the culled warp_project writes without sampling, 0 * a with a = 1,
+    is what the JAX package's warp_project gives at every pixel of every
+    (tile, image) pair the twin culls."""
+    px, wcs, gr, gd, h, w = _warp_case(name)
+    q = gr.shape[0]
+    acc = np.ones(len(px), np.float32)
+    keep = ref.footprint_keep(*_t(wcs, acc), None, *_t(gr, gd), h, w)
+    culled = _culled_pixels(keep, q).numpy()
+    assert 0.3 < culled.mean() < 1.0, float(culled.mean())
+    rows = max(b for b in range(1, 9) if q % b == 0)
+    tile, cov = (np.asarray(a) for a in ref_ops.warp_batch(
+        *map(jnp.asarray, (px, wcs, acc, gr, gd)), block_rows=rows))
+    assert (tile[culled] == 0).all() and (cov[culled] == 0).all()
+    assert cov[~culled].sum() > 0 or name == "outside_q64"   # that grid misses every frame
+
+
 def test_footprint_twin_keeps_non_finite_accepts_and_wide_caps():
     q = rt.CoaddQuery(band="r", ra_bounds=(36.0, 36.5), dec_bounds=(-0.2, 0.2), npix=64)
     gr, gd = (torch.from_numpy(a) for a in query_grid_sky(q))
@@ -275,6 +328,41 @@ def test_rejected_poisoned_slot_leaves_the_histogram_finite():
     assert torch.isfinite(hist).all() and torch.equal(hist, hist0)
 
 
+@pytest.mark.parametrize("rank", [3, 4])
+def test_gated_prepass_keeps_the_poisoned_nans(rank):
+    """The poisoned rejected slot's flag is clear, so the gated pre-pass still
+    matches it and every pass keeps its NaNs; a clean rejected slot is
+    written as zeros; every pass over the gated scratch is bitwise the pass
+    over the ungated one, NaN words included."""
+    px, wv, acc, gr, gd, _ = _poisoned()
+    acc[3] = 0.0                                  # a clean rejected slot too
+    taps = (psf.gaussian_kernel_1d(1.2).numpy() if rank == 3
+            else psf.gaussian_stamp(1.2, 7).astype(np.float32))
+    bank = np.broadcast_to(taps, (1, 4) + taps.shape).copy()
+    pixels, wcs, idx, accept, g_ra, g_dec, banks = _t(px[None], wv[None], np.zeros(1, np.int32),
+                                                      acc[None], gr, gd, bank)
+    flag = ops.matched_finite(finite_slots(pixels), idx, banks)
+    skip = ops.prepass_skip(accept, flag)
+    assert skip[0].tolist() == [0, 0, 0, 1] and flag[0].tolist() == [1, 0, 1, 1]
+    gated = ops.matched_packs(pixels, wcs, idx, banks, accept, flag)
+    ungated = ops.matched_packs(pixels, wcs, idx, banks)
+    assert not gated[0][0, 3].any() and ungated[0][0, 3].abs().sum() > 0
+    assert torch.equal(gated[0][0, :3].view(torch.int32), ungated[0][0, :3].view(torch.int32))
+    assert torch.isnan(gated[0][0, 1]).any()
+    outs = []
+    for scan in (gated, ungated):
+        scan = scan + (accept, g_ra, g_dec)
+        s = ops.coadd_moments(*scan, finite=flag)
+        lo, inv_w = torch.zeros(gr.shape), torch.full(gr.shape, 0.5)
+        outs.append(ops.coadd_fused(*scan, finite=flag) + s
+                    + (ops.coadd_hist(*scan, lo, inv_w, 8, finite=flag),)
+                    + ops.coadd_clip(*scan, s[1] / s[0].clamp(min=1.0), torch.full(gr.shape, 1e4),
+                                     finite=flag))
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(torch.isnan(outs[0][0]).sum()) > 6       # matching spreads the NaN
+
+
 # ----- the culled kernels on a card ----------------------------------------
 
 @pytest.fixture
@@ -293,6 +381,27 @@ def test_cuda_poisoned_scan_matches_plain_nans(cuda):
     c_p, d_p = ref.coadd_scan_ref(*scan)
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(c), torch.isnan(c_p)) and torch.equal(d, d_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(WIDE_SKY))
+def test_cuda_warp_project_is_bitwise_its_check_form(cuda, name):
+    """The culled warp_project against the unculled kernel, every word."""
+    from repro_torch.kernels import build
+
+    px, wcs, gr, gd, h, w = _warp_case(name)
+    acc = np.ones(len(px), np.float32)
+    acc[::5] = 0.0
+    args = [t.to(cuda) for t in _t(px, wcs, acc, gr, gd)]
+    tile, cov = ops.warp_batch(*args)
+    want = [torch.empty_like(tile) for _ in range(2)]
+    err = build.library("warp").warp_project_unculled_f32(
+        *(t.data_ptr() for t in args + want), len(px), h, w, gr.shape[0], cuda.index or 0,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for a, b in zip((tile, cov), want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 # ----- the engine hands the flag to the kernels -----------------------------

@@ -808,10 +808,7 @@ def test_cuda_psf_kernels_match_plain(cuda, pack, bank):
     want = ref.psf_match_ref(px, idx, b)
     torch.cuda.synchronize()
     assert getattr(ops, name).launches == before + 1
-    if name == "psf_match_2d":   # the same sums in the same order: bitwise
-        assert torch.equal(out, want)
-    else:
-        torch.testing.assert_close(out, want, atol=ATOL, rtol=RTOL)
+    assert torch.equal(out, want)   # the same sums in the same order: bitwise
     scan = tuple(t.to(cuda) for t in pack["scan"])
     c, d = ops.coadd_fused(*scan, psf_kernels=b)
     c_p, d_p = ref.coadd_scan_ref(*scan, psf_kernels=b)
@@ -834,6 +831,26 @@ def test_cuda_psf_match_2d_is_bitwise_plain(cuda, taps, h, w):
     bank = torch.from_numpy(rng.uniform(-0.02, 0.05, (2, 4) + taps).astype(np.float32)).to(cuda)
     idx = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
     out = ops.psf_match_2d(px, idx, bank)
+    want = ref.psf_match_ref(px, idx, bank)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,h,w", [
+    (1, 40, 64),             # one multiply
+    (3, 70, 101),            # neither H nor W a multiple of the 64-px tile or of 4
+    (15, 515, 509),          # the main path's Gaussian width, W not a multiple of 4
+    (15, 128, 192),
+    (49, 130, 66),           # MAX_TAPS
+    (49, 5, 6),              # frames smaller than the kernel
+])
+def test_cuda_psf_match_sep_is_bitwise_plain(cuda, k, h, w):
+    rng = np.random.default_rng(k + h)
+    px = torch.from_numpy(rng.normal(size=(2, 4, h, w)).astype(np.float32)).to(cuda)
+    bank = torch.from_numpy(rng.uniform(-0.02, 0.08, (2, 4, k)).astype(np.float32)).to(cuda)
+    idx = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
+    out = ops.psf_match_sep(px, idx, bank)
     want = ref.psf_match_ref(px, idx, bank)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
