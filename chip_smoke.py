@@ -50,6 +50,16 @@ Phases, in order, each printing its seconds:
    compared too), and six synthetic skies at dec +-60, +-80 and across
    RA 0/360 (``ref.scattered_frames``: 128 frames over a 250-px grid).
    The count of differing words must be 0.
+   Then the batched pack scans (``coadd_fused_batch``, ``coadd_moments_batch``,
+   ``coadd_hist_batch`` at 8, 16 and 32 bins, ``coadd_clip_batch`` about
+   the clipped mean and the median: ONE launch of the query-axis
+   ``pack_scan_kernel`` for K queries) at K = 1, 3 and 16, the main box
+   moved in RA, dense (4 packs of 16) and sparse (2 packs and 2 padding
+   rows), with and without the slot flag: each query bitwise its one-query
+   launch on the same operands, and against the plain versions
+   (``ref.*_batch_ref``) query by query at the tolerances above; and the
+   poisoned pack by 3 queries, bitwise its one-query launches (NaN words
+   too), the coadd's NaN pixels and the depth those of the plain version.
    Then ``mosaic_bricks`` against its plain version, bitwise: the lattice
    cover (4 x 4 bricks of 256 x 256 into 1024 x 1024), one tile, bh != bw,
    overlapping tiles, offsets past the edges and negative (clamped as the
@@ -117,6 +127,21 @@ Phases, in order, each printing its seconds:
    to -50 a step, the model's strided slices, B 4 x H 64 in float32, H 24
    and 20 (head groups of 16 that do not divide H), and the ``a``-form
    ``ssd`` also against the step-by-step scan.
+4. batch path ("4 batch path", after the main path): ``run_batch`` of K = 4
+   queries (the main box and three moved by +0.25, +0.5 and -0.25 deg in
+   RA) for ``raw_fits`` (dense) and ``sql_structured`` (sparse, the union
+   of the four queries' packs), mean, clipped and median, unmatched and
+   PSF-matched at 2.5 with the measured 13 x 13 bank, each twice: exactly
+   1, 2 or 3 batched launches a batch (plus 1 ``psf_match_2d``) and no
+   one-query pass launch; every query bitwise its own ``engine.run``.
+   Prints batch ms (host), pass ms, the four runs' ms and the four host
+   grids' ms.
+4. service ("4 service"): ``CoaddService`` on the main engine, the serve
+   drill's burst (``repro_torch.launch.serve.drill_queries``, 16 clients, a
+   pool of 8) scaled to the main survey: cheap 0.8 x 0.9 deg boxes at npix
+   1024, every fourth query the whole footprint at npix 2048.  Every
+   response bitwise ``engine.run``, coalesce factor above 1, nothing shed,
+   at least one batched launch; prints wall, p50, p95 and the counters.
 4. zamba2 serving ("4 zamba2 serving", after the coadd main path): the full
    ``zamba2-1.2b`` configuration (38 Mamba-2 layers, d_model 2048, 1.17 B
    parameters from ``LM.init(0)``) through ``LM.prefill`` and 32 decode
@@ -173,7 +198,11 @@ Phases, in order, each printing its seconds:
    pre-pass's time alone; ``psf_match_2d`` also its any-width path alone on
    the same bank (``psf_match_2d_any_f32``, held bitwise too); and the dense
    pre-pass (2880 slots) gated, ungated and with every slot skipped (its
-   zero writes alone).
+   zero writes alone).  The batched pack scans over the ``sql_structured``
+   union of K = 4 and 16 boxes, each beside K one-query launches on the
+   same pack index; µs a query; the bound (``batch_bound``: the pixels of
+   the slots any query accepts read once, every query's maps and
+   contributing samples); the library time K times the one-query row's.
 
 The line before the last is ``{"kernels": [...]}``, after the card's name
 and power limit printed again; the last is the device line.  The script
@@ -184,6 +213,7 @@ builds goes to ``build/``.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import contextlib
 import dataclasses
 import functools
@@ -240,13 +270,34 @@ SLOT_OPS = 7
 SCAN_KIND = {"coadd_fused": 0, "coadd_moments": 1, "coadd_clip": 2, "coadd_hist": 3}
 KERNELS = ("coadd_fused", "warp_project", "coadd_moments", "coadd_hist", "coadd_clip",
            "psf_match_sep", "psf_match_2d", "mosaic_bricks", "flash_attention_single",
-           "ssd_chunked")
+           "ssd_chunked", "coadd_fused_batch", "coadd_moments_batch", "coadd_hist_batch",
+           "coadd_clip_batch")
 PSF_TARGET = 2.5                        # the main path's match_psf_sigma: no slot clamps
 REDUCES = ("mean",) + ROBUST
 PASSES = {"mean": ("coadd_fused",), "clipped": ("coadd_moments", "coadd_clip"),
           "median": ("coadd_moments", "coadd_hist", "coadd_clip")}
 
 MAIN_QUERY = dict(band="r", ra_bounds=(37.5, 38.5), dec_bounds=(-0.5, 0.5), npix=1024)
+# Batched queries (paper Fig. 5): the main path's batch is the main query and
+# three boxes moved by these RA offsets (deg), K = 4; phase 5 also times 16
+# (twelve more offsets, every box inside the survey's RA 37-40).  Phase 3
+# holds the batched kernels at BATCH_KS queries.  The batch path runs one
+# dense and one sparse (union index) method, BATCH_REPS times each.
+BATCH_OFFSETS = (0.0, 0.25, 0.5, -0.25)
+BATCH16_OFFSETS = BATCH_OFFSETS + tuple(0.125 * i for i in (-4, -3, -1, 1, 3, 5, 6, 7, 8, 9,
+                                                             10, 11))
+BATCH_KS = (1, 3, 16)
+BATCH_METHODS = ("raw_fits", "sql_structured")
+BATCH_REPS = 2
+# The TPU program each batched wrapper replaces: the reference's vmapped
+# pack-scan call site (src/repro/core/engine.py).
+BATCH_REPLACES = {"coadd_fused_batch": 387, "coadd_moments_batch": 692,
+                  "coadd_hist_batch": 707, "coadd_clip_batch": 723}
+# The service drill (repro_torch.launch.serve) scaled to the main survey
+# (RA 37-40, Dec +-1.2): cheap 0.8 x 0.9 deg boxes at the main query's npix,
+# every fourth query the whole footprint at 2048; 16 clients, 8 queries.
+SERVICE_CLIENTS, SERVICE_POOL, SERVICE_SEED = 16, 8, 0
+SERVICE_SHAPE = (37.2, 0.3, 0.8, (-0.45, 0.45), 1024, (37.0, 40.0), (-1.2, 1.2), 2048)
 # The brick path: 256-pixel bricks 0.25 deg on a side (the main query's
 # 1024 px/deg) and a 4 x 4 window of them; the dense method it also runs
 # robust and PSF-matched; warm repeats per brick-served query.
@@ -397,6 +448,49 @@ def contrib_bound(depth_sum, n_accepted, h, w, q, sample_ops=COADD_SAMPLE_OPS, m
     nbytes = n_accepted * h * w * 4 + maps * q * q * 4
     ops = depth_sum * sample_ops + q * q * PIXEL_OPS
     return bound(nbytes, ops)
+
+
+def batch_bound(depth_sum, n_accepted, k, h, w, q, sample_ops=COADD_SAMPLE_OPS, maps=4):
+    """`contrib_bound` of one batched pass over K queries: the pixels of the
+    slots any query accepts read once (the queries share them), each
+    query's ``maps`` (Q, Q) maps, and every query's contributing samples
+    (``depth_sum`` over all K)."""
+    nbytes = n_accepted * h * w * 4 + k * maps * q * q * 4
+    ops = depth_sum * sample_ops + k * q * q * PIXEL_OPS
+    return bound(nbytes, ops)
+
+
+def device_breakdown(torch, prof, wall_ms, pass_ms):
+    """A profiled interval's device work -> one line: the device time of the
+    largest kernels and copies, the device's busy time (the union of its
+    events) and its idle share of the host interval ``wall_ms`` and of the
+    pass interval ``pass_ms``."""
+    spans, by_name = [], {}
+    for ev in prof.events():
+        if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = ev.time_range.start, ev.time_range.end
+        spans.append((start, end))
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + (end - start) / 1e3
+    busy, last = 0.0, None
+    for start, end in sorted(spans):
+        if last is None or start > last:
+            busy += end - start
+            last = end
+        elif end > last:
+            busy += end - last
+            last = end
+    busy /= 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (f"device busy {busy:.3f} ms of {wall_ms:.1f} ms host ({100 * (1 - busy / wall_ms):.1f} % "
+            f"idle; pass {pass_ms:.3f} ms, {100 * max(0.0, 1 - busy / pass_ms):.1f} % idle); by "
+            "kernel and copy (ms): " + ", ".join(f"{n[:48]} {t:.3f}" for n, t in top))
+
+
+def offset_queries(CoaddQuery, base, offsets):
+    """The query ``base`` (a dict) moved by each RA offset (deg)."""
+    lo, hi = base["ra_bounds"]
+    return [CoaddQuery(**{**base, "ra_bounds": (lo + o, hi + o)}) for o in offsets]
 
 
 def warp_bound(n, h, w, q):
@@ -906,6 +1000,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.kernels.warp import ops as warp_ops
     from repro_torch.kernels.warp import ref
+    from repro_torch.launch.serve import DrillShape, drill_failures, drill_queries, run_service
 
     dev = torch.device(DEVICE)
     procs = os.cpu_count() or 1
@@ -914,7 +1009,11 @@ def main(argv=None) -> int:
                "coadd_clip": warp_ops.coadd_clip, "psf_match_sep": warp_ops.psf_match_sep,
                "psf_match_2d": warp_ops.psf_match_2d, "mosaic_bricks": warp_ops.mosaic_bricks,
                "flash_attention_single": flash_ops.flash_attention,
-               "ssd_chunked": ssd_ops.ssd_log}
+               "ssd_chunked": ssd_ops.ssd_log,
+               "coadd_fused_batch": warp_ops.coadd_fused_batch,
+               "coadd_moments_batch": warp_ops.coadd_moments_batch,
+               "coadd_hist_batch": warp_ops.coadd_hist_batch,
+               "coadd_clip_batch": warp_ops.coadd_clip_batch}
 
     # ------------------------------------------------------------ 1 card --
     with phase("1 card"):
@@ -1063,6 +1162,102 @@ def main(argv=None) -> int:
         gate_checks["scratches"] += 1
         n_skip = int(off.sum())
         return off.numel() - n_skip, n_skip
+
+    batch_checks = {"cases": 0, "passes": 0, "differing_words": 0}
+    batch_fns = (warp_ops.coadd_fused_batch, warp_ops.coadd_moments_batch,
+                 warp_ops.coadd_hist_batch, warp_ops.coadd_clip_batch)
+    single_fns = (warp_ops.coadd_fused, warp_ops.coadd_moments, warp_ops.coadd_hist,
+                  warp_ops.coadd_clip)
+
+    def batch_passes(fns, scan, finite, fixed, k=None):
+        """Every pass through ``fns`` (the batched wrappers, or the one-query
+        ones with ``k``, query k's fixed operands) -> [(name, outputs)]:
+        fused, moments, hist at each bin count, clip about each centre.
+        ``fixed`` = (bins {nbins: (lo, bw, inv_w)}, centres, radii)."""
+        bins, centers, threshs = fixed
+        pick = (lambda t: t) if k is None else (lambda t: t[k])
+        fused, moments, hist, clip = fns
+        out = [("coadd_fused", fused(*scan, finite=finite)),
+               ("coadd_moments", moments(*scan, finite=finite))]
+        for nb, (lo, _, inv_w) in bins.items():
+            out.append((f"coadd_hist[{nb}]", (hist(*scan, pick(lo), pick(inv_w), nb,
+                                                   finite=finite),)))
+        for red in centers:
+            out.append((f"coadd_clip[{red}]", clip(*scan, pick(centers[red]), pick(threshs[red]),
+                                                   finite=finite)))
+        return out
+
+    def batch_vs_singles(case, scan, finite, fixed):
+        """Each query of every batched pass against its one-query launch on
+        the same operands, every word (NaN payloads too) -> batched outputs."""
+        got = batch_passes(batch_fns, scan, finite, fixed)
+        pixels, wcs, idx, acc, gra, gdec = scan
+        for k in range(acc.shape[0]):
+            want = batch_passes(single_fns, (pixels, wcs, idx, acc[k], gra[k], gdec[k]), finite,
+                                fixed, k)
+            torch.cuda.synchronize()
+            for (name, a), (_, b) in zip(got, want):
+                n = sum(words_differ(x[k], y) for x, y in zip(a, b))
+                batch_checks["passes"] += 1
+                batch_checks["differing_words"] += n
+                require(n == 0, f"{case}/{name} batched (flag {finite is not None}): query {k} "
+                                f"differs from its one-query launch at {n} words")
+        return dict(got)
+
+    def batch_case(case, scan, finite):
+        """The batched kernels of one (K, G, cap) accept: against the one-query
+        launches bitwise, with and without the slot flag; then against their
+        plain versions (``ref.*_batch_ref``) query by query at the phase-3
+        tolerances, on fixed operands from the plain moments."""
+        pixels, wcs, idx, acc, gra, gdec = scan
+        h, w = pixels.shape[-2:]
+        s_p = ref.moments_scan_batch_ref(*scan)
+        mu, sigma = reducer.clip_stats(*s_p)
+        bins = {nb: reducer.hist_bounds(*s_p, nb) for nb in warp_ops.HIST_BINS}
+        h_p = {nb: ref.hist_scan_batch_ref(*scan, lo, inv_w, nb)
+               for nb, (lo, _, inv_w) in bins.items()}
+        centers = {"clipped": mu, "median": reducer.hist_median(h_p[NBINS], s_p[0],
+                                                                *bins[NBINS][:2])}
+        threshs = {red: reducer.clip_threshold(c, sigma, CLIP_K) for red, c in centers.items()}
+        fixed = (bins, centers, threshs)
+        batch_vs_singles(case, scan, finite, fixed)
+        got = batch_vs_singles(case, scan, None, fixed)
+        c_p, d_p = ref.coadd_scan_batch_ref(*scan)
+        clip_p = {red: ref.clip_scan_batch_ref(*scan, centers[red], threshs[red])
+                  for red in centers}
+        torch.cuda.synchronize()
+        flat_wcs = wcs[idx.long()].reshape(-1, 8)
+        for k in range(acc.shape[0]):
+            dscan = (pixels, wcs, idx, acc[k], gra[k], gdec[k])
+            c_k, d_k = (t[k] for t in got["coadd_fused"])
+            e, n = hold(case, "coadd_fused_batch", c_k, d_k, c_p[k], d_p[k], h, w, flat_wcs,
+                        acc[k].reshape(-1), gra[k], gdec[k])
+            note_batch("coadd_fused_batch", e, n)
+            s_k = got["coadd_moments"]
+            near = hold_decisions(case, "coadd_moments_batch", s_k[0][k] != s_p[0][k], dscan)
+            note_batch("coadd_moments_batch",
+                       max(hold_values(case, "coadd_moments_batch", a[k], b[k], near)
+                           for a, b in zip(s_k, s_p)), int(near.sum()))
+            for nb, (lo, bw, inv_w) in bins.items():
+                (h_k,) = got[f"coadd_hist[{nb}]"]
+                near = hold_decisions(case, f"coadd_hist_batch[{nb}]",
+                                      (h_k[k] != h_p[nb][k]).any(0), dscan,
+                                      bins=(lo[k], bw[k], inv_w[k], nb))
+                require(torch.equal(h_k[k].sum(0), s_k[0][k]),
+                        f"{case}/coadd_hist_batch[{nb}]: query {k}'s bins do not sum to S0")
+                note_batch("coadd_hist_batch", float((h_k[k] - h_p[nb][k]).abs().max()),
+                           int(near.sum()))
+            for red in centers:
+                cb, db = (t[k] for t in got[f"coadd_clip[{red}]"])
+                cp, dp = (t[k] for t in clip_p[red])
+                diff = (db != dp) | ((cb - cp).abs() > COADD_ATOL + COADD_RTOL * cp.abs())
+                near = hold_decisions(case, f"coadd_clip_batch[{red}]", diff, dscan,
+                                      clip=(centers[red][k], threshs[red][k]))
+                note_batch("coadd_clip_batch",
+                           hold_values(case, f"coadd_clip_batch[{red}]", cb, cp, near),
+                           int(near.sum()))
+        batch_checks["cases"] += 1
+        return got
 
     warp_checks = {"calls": 0, "differing_words": 0, "pairs": 0, "pairs_sampled": 0}
 
@@ -1229,6 +1424,10 @@ def main(argv=None) -> int:
 
     case_err = {k: 0.0 for k in KERNELS}
     case_flips = {k: 0 for k in KERNELS}
+
+    def note_batch(kernel, err, flips):
+        case_err[kernel] = max(case_err[kernel], err)
+        case_flips[kernel] += flips
 
     def run_case(*case, kernel_case=kernel_case):
         errs, flips, *rest = kernel_case(*case)
@@ -1406,6 +1605,64 @@ def main(argv=None) -> int:
               f"{warp_checks['calls']} calls, {warp_checks['differing_words']} differing words, "
               f"(tile, image) pairs sampled {warp_checks['pairs_sampled']} of "
               f"{warp_checks['pairs']}", flush=True)
+
+        # The batched pack scans: the pack split into 4 packs of 16, scanned
+        # dense (every pack) and sparse (2 packs and 2 padding rows), by 1, 3
+        # and 16 queries, each the main box moved in RA, with random accepts.
+        t0 = time.perf_counter()
+        n_split = ds.pixels.shape[1] // 16
+        split = (torch.from_numpy(ds.pixels).to(dev).reshape(n_split, 16, *ds.pixels.shape[2:]),
+                 torch.from_numpy(ds.wcs).to(dev).reshape(n_split, 16, 8))
+        fin_split = finite_slots(split[0])
+        valid_split = torch.from_numpy(ds.valid.reshape(n_split, 16)).to(dev)
+        rng_b = np.random.default_rng(19)
+        for n_q in BATCH_KS:
+            qs = offset_queries(CoaddQuery, dict(MAIN_QUERY, band="u"), BATCH16_OFFSETS[:n_q])
+            grids = [mapper.query_grid_sky(qq) for qq in qs]
+            gra_b, gdec_b = (torch.from_numpy(np.stack([g[i] for g in grids])).to(dev)
+                             for i in (0, 1))
+            for kind, packs in (("dense", list(range(n_split))), ("sparse", [1, 3, 0, 0])):
+                idx_b = torch.tensor(packs, dtype=torch.int32, device=dev)
+                acc_b = torch.from_numpy((rng_b.random((n_q, len(packs), 16)) < 0.7)
+                                         .astype(np.float32)).to(dev)
+                acc_b *= valid_split[idx_b.long()]
+                if kind == "sparse":
+                    acc_b[:, 2:] = 0.0           # padding rows, as compact_gates writes them
+                batch_case(f"batch K={n_q} {kind}", split + (idx_b, acc_b, gra_b, gdec_b),
+                           fin_split)
+        del split, fin_split
+        # The poisoned pack by 3 queries (every poisoned slot rejected by all,
+        # some clean slots by one): each query bitwise its one-query launch,
+        # NaN words too; against the plain version, the coadd's NaN pixels and
+        # the depth exactly.
+        qs = offset_queries(CoaddQuery, dict(MAIN_QUERY, band="u"), (0.0, 0.25, -0.25))
+        grids = [mapper.query_grid_sky(qq) for qq in qs]
+        gra_b, gdec_b = (torch.from_numpy(np.stack([g[i] for g in grids])).to(dev) for i in (0, 1))
+        acc_b = scan_p[3].repeat(3, 1, 1)
+        acc_b[1, 0, ::5] = 0.0
+        acc_b[2, 0, 1::7] = 0.0
+        scan_bp = scan_p[:3] + (acc_b, gra_b, gdec_b)
+        s_bp = warp_ops.coadd_moments_batch(*scan_bp, finite=fin_p)
+        mu_bp, sigma_bp = reducer.clip_stats(*s_bp)
+        bins_bp = {nb: reducer.hist_bounds(*s_bp, nb) for nb in warp_ops.HIST_BINS}
+        got_p = batch_vs_singles("poisoned_rejected batch", scan_bp, fin_p, (
+            bins_bp, {"clipped": mu_bp}, {"clipped": reducer.clip_threshold(mu_bp, sigma_bp,
+                                                                            CLIP_K)}))
+        c_bp, d_bp = ref.coadd_scan_batch_ref(*scan_bp)
+        torch.cuda.synchronize()
+        c_bk, d_bk = got_p["coadd_fused"]
+        require(torch.equal(torch.isnan(c_bk), torch.isnan(c_bp)) and torch.equal(d_bk, d_bp)
+                and bool(torch.isnan(c_bk).any()),
+                "poisoned_rejected batch: NaN pixels or depth differ from the plain version")
+        print(f"  batched pack scans: {batch_checks['cases']} cases (K {BATCH_KS}, dense and "
+              f"sparse, flag and none) + the poisoned pack by 3 queries (NaN coadd pixels "
+              f"{[int(torch.isnan(c_bk[k]).sum()) for k in range(3)]}, plain the same): "
+              f"{batch_checks['passes']} query passes against their one-query launches, "
+              f"{batch_checks['differing_words']} differing words; against the plain "
+              f"version max_err " + ", ".join(f"{k}={case_err[k]:.3g}" for k in BATCH_REPLACES)
+              + f", flips {dict((k, case_flips[k]) for k in BATCH_REPLACES)} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        del scan_bp, got_p, acc_b, gra_b, gdec_b
 
         # PSF matching: the main path's two banks at its sizes, then edge cases.
         def to_dev(bank):
@@ -1728,7 +1985,9 @@ def main(argv=None) -> int:
         require(robust_launches == {"coadd_fused": 0, "warp_project": 0, "coadd_moments": 2 * n_q,
                                     "coadd_hist": n_q, "coadd_clip": 2 * n_q,
                                     "psf_match_sep": 0, "psf_match_2d": 0, "mosaic_bricks": 0,
-                                    "flash_attention_single": 0, "ssd_chunked": 0},
+                                    "flash_attention_single": 0, "ssd_chunked": 0,
+                                    "coadd_fused_batch": 0, "coadd_moments_batch": 0,
+                                    "coadd_hist_batch": 0, "coadd_clip_batch": 0},
                 "robust launch counts")
 
         # Each estimator's fixed operands on the sql_structured pass (after
@@ -2195,6 +2454,120 @@ def main(argv=None) -> int:
         del eng_d, diff
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------ 4 batch path --
+    # K = 4 queries (the main box and three moved in RA) through run_batch:
+    # one dense and one sparse method, three estimators, unmatched and
+    # PSF-matched (the measured 13 x 13 bank).  Counted on its own: each pass
+    # ONE launch of its batched kernel for all four, plus one psf_match_2d.
+    bqueries = offset_queries(CoaddQuery, MAIN_QUERY, BATCH_OFFSETS)
+    with phase("4 batch path"):
+        for fn in counted.values():
+            fn.launches = 0
+        batch_res, batch_ms, batch_pass_ms = {}, {}, {}
+        for target in (None, PSF_TARGET):
+            eng.match_psf_sigma = target
+            for m in BATCH_METHODS:
+                for red in REDUCES:
+                    want = {k: (PASSES[red].count(k.removesuffix("_batch")) if k.endswith("_batch")
+                                else int(target is not None and k == "psf_match_2d"))
+                            for k in counted}
+                    for _ in range(BATCH_REPS):
+                        before = {k: fn.launches for k, fn in counted.items()}
+                        d0 = eng.dispatch_count
+                        t0 = time.perf_counter()
+                        res = eng.run_batch(bqueries, m, reduce=red)
+                        ms = (time.perf_counter() - t0) * 1e3
+                        got = {k: fn.launches - before[k] for k, fn in counted.items()}
+                        what = f"batch {m}/{red}/psf={target}"
+                        require(got == want, f"{what}: launches {got}, expected {want}")
+                        require(eng.dispatch_count - d0 == res[0].stats.dispatches
+                                == sum(want.values()), f"{what}: dispatches")
+                    batch_res[target, m, red] = res
+                    batch_ms[target, m, red] = ms
+                    batch_pass_ms[target, m, red] = res[0].stats.t_map_reduce_s * 1e3
+        batch_launches = {k: fn.launches for k, fn in counted.items()}
+        print(f"  batch-path launches: {batch_launches}")
+        n_b = len(BATCH_METHODS) * BATCH_REPS
+        require(batch_launches["coadd_fused_batch"] == 2 * n_b
+                and batch_launches["coadd_moments_batch"] == 4 * n_b
+                and batch_launches["coadd_hist_batch"] == 2 * n_b
+                and batch_launches["coadd_clip_batch"] == 4 * n_b
+                and batch_launches["psf_match_2d"] == 3 * n_b, "batch launch counts")
+        # Each query alone (uncounted): the batch gives its bits.
+        t0 = time.perf_counter()
+        grids_b = [eng._plan_grids(eng.plan(qq, "sql_structured")) for qq in bqueries]
+        torch.cuda.synchronize()
+        grid_ms = (time.perf_counter() - t0) * 1e3
+        del grids_b
+        single_ms = {}
+        for (target, m, red), res in batch_res.items():
+            eng.match_psf_sigma = target
+            t0 = time.perf_counter()
+            alone = [eng.run(qq, m, reduce=red) for qq in bqueries]
+            single_ms[target, m, red] = (time.perf_counter() - t0) * 1e3
+            for k, (r, a) in enumerate(zip(res, alone)):
+                require(np.array_equal(r.coadd.view(np.int32), a.coadd.view(np.int32))
+                        and np.array_equal(r.depth.view(np.int32), a.depth.view(np.int32)),
+                        f"batch {m}/{red}/psf={target}: query {k} differs from its own run")
+                require(r.stats.batch_scan == "" and np.isfinite(r.coadd).all()
+                        and r.stats.files_contributing == a.stats.files_contributing,
+                        f"batch {m}/{red}/psf={target}: query {k} stats or non-finite")
+            require(res[0].depth.max() > 0, f"batch {m}/{red}: the main query covers nothing")
+            s0 = res[0].stats
+            print(f"  batch K={len(bqueries)} {red:7s} {m:16s} psf={target} "
+                  f"batch_ms={batch_ms[target, m, red]:.1f} "
+                  f"pass_ms={batch_pass_ms[target, m, red]:.3f} "
+                  f"four_runs_ms={single_ms[target, m, red]:.1f} packs_scanned={s0.packs_scanned} "
+                  f"launches={s0.dispatches} depth_sums="
+                  f"{[int(r.depth.sum()) for r in res]}: each query bitwise its own run")
+        print(f"  host grids of the batch's {len(bqueries)} queries (query_grid_sky, float64 "
+              f"numpy): {grid_ms:.1f} ms, inside batch_ms and outside pass_ms", flush=True)
+        # Where a batch's time goes: one batch under the profiler, its device
+        # work by kernel and copy, busy time (the union of the device
+        # events) against the host interval, after the counts are read.
+        for target, m, red in ((None, "sql_structured", "median"), (PSF_TARGET, "raw_fits", "mean")):
+            eng.match_psf_sigma = target
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                res = eng.run_batch(bqueries, m, reduce=red)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            print(f"  batch K={len(bqueries)} {red} {m} psf={target} profiled: "
+                  f"{device_breakdown(torch, prof, wall_ms, res[0].stats.t_map_reduce_s * 1e3)}",
+                  flush=True)
+        eng.match_psf_sigma = None
+
+    # --------------------------------------------------------- 4 service --
+    # CoaddService on the main engine: the drill's burst, scaled to the main
+    # survey, every response bitwise engine.run, coalesce factor above 1.
+    with phase("4 service"):
+        shape = DrillShape(*SERVICE_SHAPE)
+        s_queries = drill_queries(SERVICE_SEED, SERVICE_CLIENTS, SERVICE_POOL, shape)
+        serial = {}
+        t0 = time.perf_counter()
+        for qq in s_queries:
+            if qq not in serial:
+                serial[qq] = eng.run(qq, "sql_structured")
+        serial_s = time.perf_counter() - t0
+        for fn in counted.values():
+            fn.launches = 0
+        svc, s_results, s_wall = asyncio.run(run_service(eng, s_queries))
+        service_launches = {k: fn.launches for k, fn in counted.items()}
+        mismatched, failures = drill_failures(svc, s_queries, s_results, serial, SERVICE_CLIENTS)
+        require(not failures, "service: " + "; ".join(failures))
+        require(service_launches["coadd_fused_batch"] > 0, "service: no batched launch")
+        service = svc.stats.snapshot()
+        print(f"  service: {SERVICE_CLIENTS} clients over {len(serial)} distinct queries "
+              f"(cheap npix {shape.cheap_npix}, whole footprint npix {shape.monster_npix}): "
+              f"wall {s_wall * 1e3:.1f} ms against {serial_s * 1e3:.1f} ms for the distinct "
+              f"queries one by one; {service['dispatches']} dispatches, coalesce factor "
+              f"{service['coalesce_factor']}, merged {service['merged_inflight']}, p50 "
+              f"{service['p50_ms']} ms, p95 {service['p95_ms']} ms; every response bitwise "
+              f"engine.run", flush=True)
+        print(f"  service launches: {service_launches}")
+        print(json.dumps({"service": service}))
+        del s_results, serial
+
     # ---------------------------------------------- 4 zamba2 serving path --
     with phase("4 zamba2 serving"):
         lm_runs, lm_launches = zamba2_serving(torch, np, dev, counted)
@@ -2462,6 +2835,111 @@ def main(argv=None) -> int:
             shape=f"brick window: {n_t} tiles of {BRICK_NPIX}x{BRICK_NPIX} into {q}x{q}",
         ))
         del tiles, covs, cols, out_k, out_p, out_l
+        # The batched pack scans over the sql_structured union of K = 4 and 16
+        # queries (the main box moved in RA), each beside K one-query
+        # launches on the same pack index; plain ms at K = 4 (the batch
+        # path's K); the library time is K x the one-query row's library call.
+        lib_single = {k["name"]: k["library_ms"] for k in kernels}
+        plans16 = [eng.plan(qq, "sql_structured") for qq in
+                   offset_queries(CoaddQuery, MAIN_QUERY, BATCH16_OFFSETS)]
+        batch_rows = {}
+        for n_q in (4, 16):
+            plans = plans16[:n_q]
+            t0 = time.perf_counter()
+            grids_b = [eng._plan_grids(pl) for pl in plans]
+            torch.cuda.synchronize()
+            grid_ms = (time.perf_counter() - t0) * 1e3
+            gra_b, gdec_b = (torch.stack([g[i] for g in grids_b]) for i in (0, 1))
+            dev_b, idx_b, acc_b = eng._operands(
+                "structured", np.stack([eng._exec_gate(pl) for pl in plans]),
+                np.stack([pl.qvec for pl in plans]))
+            acc_b = acc_b.float()
+            scan_b = (dev_b.pixels, dev_b.wcs, idx_b, acc_b, gra_b, gdec_b)
+            fin_b = dev_b.finite
+            s_b = warp_ops.coadd_moments_batch(*scan_b, finite=fin_b)
+            mu_b, sig_b = reducer.clip_stats(*s_b)
+            lo_b, _, iw_b = reducer.hist_bounds(*s_b, NBINS)
+            th_b = reducer.clip_threshold(mu_b, sig_b, CLIP_K)
+            depth_b = float(s_b[0].sum())
+            n_acc_b = int((acc_b != 0).any(0).sum())
+
+            def one(k):
+                return (dev_b.pixels, dev_b.wcs, idx_b, acc_b[k], gra_b[k], gdec_b[k])
+
+            calls = {
+                "coadd_fused_batch": (
+                    lambda: warp_ops.coadd_fused_batch(*scan_b, finite=fin_b),
+                    lambda: [warp_ops.coadd_fused(*one(k), finite=fin_b) for k in range(n_q)],
+                    lambda: ref.coadd_scan_batch_ref(*scan_b), COADD_SAMPLE_OPS, 4),
+                "coadd_moments_batch": (
+                    lambda: warp_ops.coadd_moments_batch(*scan_b, finite=fin_b),
+                    lambda: [warp_ops.coadd_moments(*one(k), finite=fin_b) for k in range(n_q)],
+                    lambda: ref.moments_scan_batch_ref(*scan_b), MOMENTS_SAMPLE_OPS, 5),
+                "coadd_hist_batch": (
+                    lambda: warp_ops.coadd_hist_batch(*scan_b, lo_b, iw_b, NBINS, finite=fin_b),
+                    lambda: [warp_ops.coadd_hist(*one(k), lo_b[k], iw_b[k], NBINS, finite=fin_b)
+                             for k in range(n_q)],
+                    lambda: ref.hist_scan_batch_ref(*scan_b, lo_b, iw_b, NBINS),
+                    HIST_SAMPLE_OPS, 4 + NBINS),
+                "coadd_clip_batch": (
+                    lambda: warp_ops.coadd_clip_batch(*scan_b, mu_b, th_b, finite=fin_b),
+                    lambda: [warp_ops.coadd_clip(*one(k), mu_b[k], th_b[k], finite=fin_b)
+                             for k in range(n_q)],
+                    lambda: ref.clip_scan_batch_ref(*scan_b, mu_b, th_b), CLIP_SAMPLE_OPS, 6),
+            }
+            if n_q == 4:
+                c_k, d_k = warp_ops.coadd_fused_batch(*scan_b, finite=fin_b)
+                c_p, d_p = ref.coadd_scan_batch_ref(*scan_b)
+                torch.cuda.synchronize()
+                err_b = 0.0
+                flat_wcs_b = dev_b.wcs[idx_b.long()].reshape(-1, 8)
+                for k in range(n_q):
+                    near, far = ref.coverage_flips(d_k[k], d_p[k], h, w, flat_wcs_b,
+                                                   acc_b[k].reshape(-1), gra_b[k], gdec_b[k])
+                    require(not far.any(), f"batch K=4 query {k}: coverage differs off the edges")
+                    err_b = max(err_b, float((c_k[k] - c_p[k]).abs()[~near].max()))
+                    case_flips["coadd_fused_batch"] += int(near.sum())
+                case_err["coadd_fused_batch"] = max(case_err["coadd_fused_batch"], err_b)
+                del c_k, d_k, c_p, d_p
+            for name, (kern, singles, plain, sample_ops, maps) in calls.items():
+                row = batch_rows.setdefault(name, {})
+                row[n_q] = dict(ms=cuda_ms(torch, kern, args.reps),
+                                singles_ms=cuda_ms(torch, singles, args.reps),
+                                bound=batch_bound(depth_b, n_acc_b, n_q, h, w, q, sample_ops,
+                                                  maps),
+                                grid_ms=grid_ms, packs=idx_b.shape[0], accepted=n_acc_b,
+                                depth_sum=depth_b)
+                if n_q == 4:
+                    row[n_q]["plain_ms"] = cuda_ms(torch, plain, 1)
+            del scan_b, grids_b, gra_b, gdec_b, acc_b, s_b, mu_b, sig_b, lo_b, iw_b, th_b
+            torch.cuda.empty_cache()
+        for name, row in batch_rows.items():
+            single = name.removesuffix("_batch")
+            r4, r16 = row[4], row[16]
+            kernels.append(dict(
+                name=name, route="cuda", source="src/repro_torch/csrc/warp.cu",
+                replaces=f"src/repro/core/engine.py:{BATCH_REPLACES[name]}",
+                launches=batch_launches[name], max_abs_err=case_err[name], ms=r4["ms"],
+                plain_ms=r4["plain_ms"], bound_ms=r4["bound"][0], bound_by=r4["bound"][1],
+                library_ms=4 * lib_single[single],
+                library=f"4 x the {single} row's library call (no PyTorch call batches it)",
+                kernel_ms=r4["ms"], singles_ms=r4["singles_ms"], us_per_query=r4["ms"] * 250.0,
+                ms_k16=r16["ms"], singles_ms_k16=r16["singles_ms"],
+                us_per_query_k16=r16["ms"] * 1e3 / 16, bound_ms_k16=r16["bound"][0],
+                bound_by_k16=r16["bound"][1], host_grid_ms=r4["grid_ms"],
+                host_grid_ms_k16=r16["grid_ms"],
+                flips=case_flips[name], service_launches=service_launches[name],
+                shape=f"sql_structured union of K=4 (and 16) queries: G={r4['packs']} "
+                      f"({r16['packs']}) packs x 64 slots of {h}x{w}, Q={q}, "
+                      f"{r4['accepted']} ({r16['accepted']}) slots accepted by some query"
+                      + (f", nbins={NBINS}" if name == "coadd_hist_batch" else ""),
+            ))
+            print(f"  {name}: K=4 {r4['ms']:.3f} ms ({r4['ms'] * 250.0:.1f} us a query) against "
+                  f"4 one-query launches {r4['singles_ms']:.3f} ms; K=16 {r16['ms']:.3f} ms "
+                  f"({r16['ms'] * 1e3 / 16:.1f} us a query) against 16 launches "
+                  f"{r16['singles_ms']:.3f} ms; bound K=4 {r4['bound'][0]:.3f} by "
+                  f"{r4['bound'][1]}, K=16 {r16['bound'][0]:.3f} by {r16['bound'][1]}; host "
+                  f"grids {r4['grid_ms']:.1f} / {r16['grid_ms']:.1f} ms", flush=True)
         # The LM kernels at the Zamba2 prefill's shapes (the 4 x 2048 batch):
         # flash beside F.scaled_dot_product_attention; no single PyTorch call
         # computes the SSD scan.

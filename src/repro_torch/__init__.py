@@ -14,9 +14,12 @@ from repro_torch.core import (
     CoaddPlan,
     CoaddQuery,
     CoaddResult,
+    CoaddService,
     DetectionCatalog,
     JobStats,
     MaterializeReport,
+    Overloaded,
+    ServiceStats,
     SpatialIndex,
     Survey,
     SurveyConfig,
@@ -35,10 +38,13 @@ __all__ = [
     "CoaddPlan",
     "CoaddQuery",
     "CoaddResult",
+    "CoaddService",
     "DetectionCatalog",
     "JobStats",
     "METHODS",
     "MaterializeReport",
+    "Overloaded",
+    "ServiceStats",
     "SpatialIndex",
     "Survey",
     "SurveyConfig",

@@ -5,7 +5,8 @@ Public API of this slice:
   CoaddQuery, BANDS, make_survey, SurveyConfig, Survey, CoaddEngine,
   CoaddResult, JobStats, METHODS, CoaddPlan, SpatialIndex, BrickGrid,
   BrickCover, MaterializeReport, DetectionCatalog, detect_sources,
-  difference_image, inject_transients, match_detections.
+  difference_image, inject_transients, match_detections, CoaddService,
+  Overloaded, ServiceStats.
 """
 
 from repro_torch.core.bricks import BrickCover, BrickGrid
@@ -21,6 +22,7 @@ from repro_torch.core.jobtracker import MaterializeReport
 from repro_torch.core.plan import CoaddPlan
 from repro_torch.core.prefilter import SpatialIndex
 from repro_torch.core.query import BANDS, CoaddQuery
+from repro_torch.core.serve import CoaddService, Overloaded, ServiceStats
 from repro_torch.core.survey import Survey, SurveyConfig, make_survey
 
 __all__ = [
@@ -31,10 +33,13 @@ __all__ = [
     "CoaddPlan",
     "CoaddQuery",
     "CoaddResult",
+    "CoaddService",
     "DetectionCatalog",
     "JobStats",
     "METHODS",
     "MaterializeReport",
+    "Overloaded",
+    "ServiceStats",
     "SpatialIndex",
     "Survey",
     "SurveyConfig",

@@ -48,14 +48,23 @@ mosaicking its cached tiles in ONE ``mosaic_bricks`` launch (with
 ``use_kernel=True``), bitwise equal to ``run_window``, the fresh scan of the
 same lattice window; an unaligned query falls back to the ordinary path.
 
-Later slices of the port (batched queries, streaming residency, the fault
-domain) are not here; their arguments raise NotImplementedError.
+Batches (paper Fig. 5): ``run_batch``/``execute_batch`` run K same-layout
+plans as one pass a pass over the union of their packs: with
+``use_kernel=True`` each pass is ONE launch of a query-axis kernel
+(``coadd_fused_batch``, ``coadd_moments_batch``, ``coadd_hist_batch``,
+``coadd_clip_batch``) for all K queries, after one ``psf_match`` launch when
+PSF-matched, and each query's result is bitwise its own ``run`` wherever
+the union adds only finite slots (`result_key`).
+
+Later slices of the port (streaming residency, the fault domain) are not
+here; their arguments raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -69,7 +78,10 @@ from repro_torch.core.plan import (
     CoaddPlan,
     SparseScanIndex,
     compact_gate,
+    compact_gates,
     sparse_pack_index,
+    stack_plans,
+    union_sparse_index,
 )
 from repro_torch.core.prefilter import (
     SpatialIndex,
@@ -136,6 +148,11 @@ class JobStats:
     # quarantine yet: always False / (), carried through `BrickMeta`.
     partial: bool = False
     uncovered_packs: Tuple[int, ...] = ()
+    # `execute_batch`: a digest of the batch's pack index when it scans packs
+    # this query's own run does not and some of their slots lack the finite
+    # flag (so a rejected NaN may reach this result); "" when the result is
+    # bitwise its own run's.  `CoaddEngine.result_key` joins it to the key.
+    batch_scan: str = ""
 
 
 @dataclasses.dataclass
@@ -189,12 +206,18 @@ def _mosaic_bricks(tiles, covs, offsets, npix: int, use_kernel: bool):
 
 
 def _accept_from_meta(ints, floats, qvec):
-    """Algorithm-2 acceptance on (..., cap) metadata: band, valid, box, time."""
-    band_ok = ints["band_id"].to(torch.float32) == qvec[0]
+    """Algorithm-2 acceptance on (..., cap) metadata: band, valid, box, time.
+
+    ``qvec`` is one query's (7,) vector, or a batch's (K, 7), broadcast over
+    the metadata's axes to a (K, ..., cap) accept.
+    """
+    meta = ints["band_id"].dim()
+    q = qvec.reshape(tuple(qvec.shape[:-1]) + (1,) * meta + (7,)).unbind(-1)
+    band_ok = ints["band_id"].to(torch.float32) == q[0]
     valid = ints["image_id"] >= 0
-    ra_ok = (floats["ra_max"] >= qvec[1]) & (floats["ra_min"] <= qvec[2])
-    dec_ok = (floats["dec_max"] >= qvec[3]) & (floats["dec_min"] <= qvec[4])
-    t_ok = (floats["t_obs"] >= qvec[5]) & (floats["t_obs"] <= qvec[6])
+    ra_ok = (floats["ra_max"] >= q[1]) & (floats["ra_min"] <= q[2])
+    dec_ok = (floats["dec_max"] >= q[3]) & (floats["dec_min"] <= q[4])
+    t_ok = (floats["t_obs"] >= q[5]) & (floats["t_obs"] <= q[6])
     return band_ok & valid & ra_ok & dec_ok & t_ok
 
 
@@ -209,7 +232,8 @@ def _query_scan(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tenso
     the plain path the bank rides into each plain scan, which matches pack
     by pack.  The flag lets the kernels skip rejected slots, and the
     pre-pass writes those as zeros without matching them: the same bits in
-    every pass.
+    every pass.  A batch's (K, G, cap) ``accept`` shares one pre-pass, which
+    skips only the slots every query rejects.
     """
     pixels, wcs, finite = dev.pixels, dev.wcs, dev.finite
     if use_kernel and psf_kernels is not None:
@@ -227,13 +251,16 @@ def _scan_coadd(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tenso
     ``use_kernel`` sends the whole pass through ONE ``coadd_fused`` launch
     (after one ``psf_match`` launch when a bank is given); otherwise each
     pack goes through the plain map stage and local reduce (the kernel's
-    plain version, the counterpart of the reference's XLA path).
+    plain version, the counterpart of the reference's XLA path).  A batch
+    ((K, G, cap) ``accept``, (K, Q, Q) grids) runs ``coadd_fused_batch``, or
+    the plain version query by query, -> (K, Q, Q) each.
     """
     scan, bank, finite = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel,
                                      psf_kernels)
+    batch = "_batch" if accept.dim() == 3 else ""
     if use_kernel:
-        return warp_ops.coadd_fused(*scan, finite=finite)
-    return warp_ref.coadd_scan_ref(*scan, psf_kernels=bank)
+        return getattr(warp_ops, f"coadd_fused{batch}")(*scan, finite=finite)
+    return getattr(warp_ref, f"coadd_scan{batch}_ref")(*scan, psf_kernels=bank)
 
 
 def _robust_passes(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
@@ -249,15 +276,20 @@ def _robust_passes(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Te
     kernel; otherwise each pass is the kernel's plain version, which maps
     and reduces pack by pack and never holds the query's warped stack.  A
     bank is applied once for all passes on the kernel path (`_query_scan`).
+    A batch runs each pass's ``_batch`` kernel (or plain version) and keeps
+    the between-pass arithmetic on (K, Q, Q) operands.
     """
     scan, bank, finite = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel,
                                      psf_kernels)
+    batch = "_batch" if accept.dim() == 3 else ""
     if use_kernel:
-        moments, hist, clip = (functools.partial(f, finite=finite) for f in (
-            warp_ops.coadd_moments, warp_ops.coadd_hist, warp_ops.coadd_clip))
+        moments, hist, clip = (
+            functools.partial(getattr(warp_ops, f"coadd_{p}{batch}"), finite=finite)
+            for p in ("moments", "hist", "clip"))
     else:
-        moments, hist, clip = (functools.partial(f, psf_kernels=bank) for f in (
-            warp_ref.moments_scan_ref, warp_ref.hist_scan_ref, warp_ref.clip_scan_ref))
+        moments, hist, clip = (
+            functools.partial(getattr(warp_ref, f"{p}_scan{batch}_ref"), psf_kernels=bank)
+            for p in ("moments", "hist", "clip"))
     s0, s1, s2 = moments(*scan)
     mu, sigma = reducer.clip_stats(s0, s1, s2)
     if reduce == "median":
@@ -333,7 +365,9 @@ class CoaddEngine:
         self._matched_cache: Dict[Tuple, DevicePackedDataset] = {}
         self._pack_capacity = pack_capacity
         self.pack_upload_count = 0   # host->device uploads of whole layouts
-        self.dispatch_count = 0      # executed passes over the gated packs
+        self.dispatch_count = 0      # executed passes over the gated packs, plus
+                                     #   each psf_match pre-pass; a batch counts
+                                     #   as one query
         self.matched_builds = 0      # whole-layout matched copies built
         # Brick tessellation (DESIGN.md §9): the grid is built lazily from the
         # survey footprint; the store's device tier lives in the engine's
@@ -565,45 +599,52 @@ class CoaddEngine:
         _, remap = self.exec_dataset(plan.layout)
         return remap.apply(plan.gate) if remap is not None else plan.gate
 
-    def _sparse_index(self, gate: np.ndarray) -> Optional[SparseScanIndex]:
-        """The gather plan for a gate, or None for the dense scan.
+    def _sparse_index(self, gate_or_gates: np.ndarray) -> Optional[SparseScanIndex]:
+        """The gather plan for a (P, cap) gate, or a batch's (K, P, cap) stack
+        (the union of their packs), or None for the dense scan.
 
         Sparse execution pays only when the bucket is smaller than the
         layout; a full-archive gate scans densely.
         """
         if not self.sparse:
             return None
-        sp = sparse_pack_index(gate)
+        sp = (union_sparse_index(gate_or_gates) if gate_or_gates.ndim == 3
+              else sparse_pack_index(gate_or_gates))
         return sp if sp.worthwhile else None
 
     # ----- execution: one pass against resident data -----
-    def _scan_operands(self, plan: CoaddPlan):
-        """The pass's operands for a plan.
+    def _operands(self, layout: str, gate: np.ndarray, qvec: np.ndarray):
+        """A pass's operands for an execution-layout gate and query vector.
 
         Returns the resident layout, the (G,) int32 pack index on the device
         (``arange(P)`` when dense) and the (G, cap) bool slots the pass
-        accumulates.  Acceptance runs as plain torch ops on the gathered
-        metadata (in the reference it is XLA outside the Pallas kernel),
-        ANDed with the gate.
+        accumulates; for a batch's (K, P, cap) gates and (K, 7) vectors the
+        union's index and (K, G, cap) slots.  Acceptance runs as plain torch
+        ops on the gathered metadata (in the reference it is XLA outside the
+        Pallas kernel), ANDed with the gate.
         """
-        exec_ds, _ = self.exec_dataset(plan.layout)
-        dev = self.device_dataset(plan.layout)
-        gate = self._exec_gate(plan)
+        exec_ds, _ = self.exec_dataset(layout)
+        dev = self.device_dataset(layout)
         sp = self._sparse_index(gate)
         if sp is None:
             pack_idx = np.arange(exec_ds.n_packs, dtype=np.int32)
             scan_gate = gate
         else:
             pack_idx = sp.pack_idx
-            scan_gate = compact_gate(gate, sp)
+            scan_gate = compact_gates(gate, sp) if gate.ndim == 3 else compact_gate(gate, sp)
         idx = torch.from_numpy(pack_idx).to(self.device)
         rows = idx.to(torch.int64)
         accept = _accept_from_meta(
             {k: v[rows] for k, v in dev.ints.items()},
             {k: v[rows] for k, v in dev.floats.items()},
-            torch.from_numpy(plan.qvec).to(self.device),
+            torch.from_numpy(qvec).to(self.device),
         ) & torch.from_numpy(scan_gate).to(self.device)
         return dev, idx, accept
+
+    def _scan_operands(self, plan: CoaddPlan):
+        """The pass's operands for a plan: (resident layout, (G,) pack index,
+        (G, cap) accepted slots), as `_operands`."""
+        return self._operands(plan.layout, self._exec_gate(plan), plan.qvec)
 
     def execute(self, plan: CoaddPlan) -> CoaddResult:
         """Run a plan: device-resident packs + (P, cap) slot gate."""
@@ -618,15 +659,8 @@ class CoaddEngine:
         grid_ra, grid_dec = self._plan_grids(plan)
         t1 = time.perf_counter()
         _, idx, accept = self._scan_operands(plan)
-        if plan.reduce == "mean":
-            passes = 1
-            coadd, depth = _scan_coadd(dev, idx, accept, grid_ra, grid_dec, self.use_kernel,
-                                       bank)
-        else:
-            passes = 3 if plan.reduce == "median" else 2
-            coadd, depth = _robust_passes(dev, idx, accept, grid_ra, grid_dec, plan.reduce,
-                                          self.clip_k, self.median_bins, self.use_kernel, bank)
-        self.dispatch_count += passes
+        passes, (coadd, depth) = self._passes(dev, idx, accept, grid_ra, grid_dec, plan.reduce,
+                                              bank)
         contrib = int(accept.sum())
         coadd_h, depth_h = coadd.cpu().numpy(), depth.cpu().numpy()
         t2 = time.perf_counter()
@@ -654,6 +688,41 @@ class CoaddEngine:
                 matched_cache_hits=m_hits,
             ),
         )
+
+    def _passes(self, dev, idx, accept, grid_ra, grid_dec, reduce: str, bank):
+        """The estimator's passes over ``idx`` -> (passes, (coadd, depth)):
+        one query, or a batch's (K, G, cap) ``accept`` and (K, Q, Q) grids.
+        Counts the passes, and the pre-pass a bank costs on the kernel path,
+        in ``dispatch_count``: a batch counts as one query."""
+        if reduce == "mean":
+            passes = 1
+            out = _scan_coadd(dev, idx, accept, grid_ra, grid_dec, self.use_kernel, bank)
+        else:
+            passes = 3 if reduce == "median" else 2
+            out = _robust_passes(dev, idx, accept, grid_ra, grid_dec, reduce, self.clip_k,
+                                 self.median_bins, self.use_kernel, bank)
+        self.dispatch_count += passes + (self.use_kernel and bank is not None)
+        return passes, out
+
+    def result_key(self, plan: CoaddPlan, result: Optional[CoaddResult] = None) -> str:
+        """Serving-cache identity of one plan's result (DESIGN.md §10).
+
+        The plan's value fingerprint (`CoaddPlan.fingerprint`) joined with the
+        engine state that also determines the pixels: the live PSF state, the
+        program family (kernel or plain path, sparse gather; their sums
+        differ in order) and, for a robust plan, the clip radius and bin
+        count.  Contract: equal keys => bitwise-equal coadds.  Given a
+        ``result`` of `execute_batch` that may differ from the plan's own run
+        (`JobStats.batch_scan`), the digest of that batch's scan joins the
+        key, so the result never answers for the plan's own run.
+        """
+        key = (f"{plan.fingerprint}|{self._psf_state()}"
+               f"|k{int(self.use_kernel)}|s{int(self.sparse)}")
+        if plan.reduce != "mean":
+            key += f"|ck{self.clip_k}|mb{self.median_bins}"
+        if result is not None and result.stats.batch_scan:
+            key += f"|x{result.stats.batch_scan}"
+        return key
 
     def run(self, query: CoaddQuery, method: str, use_bricks: bool = False,
             reduce: str = "mean") -> CoaddResult:
@@ -852,3 +921,116 @@ class CoaddEngine:
             task.packs_scanned = res.stats.packs_scanned
 
         return MaterializeReport(MaterializeTracker().run(tasks, is_done, run_one))
+
+    # ----- batched multi-query jobs (paper Fig. 5) -----
+    def run_batch(self, queries: Sequence[CoaddQuery], method: str,
+                  reduce: str = "mean") -> List[CoaddResult]:
+        """Plan + execute K same-method queries as one batch (`execute_batch`)."""
+        queries = list(queries)
+        if not queries:
+            return []
+        return self.execute_batch([self.plan(q, method, reduce) for q in queries])
+
+    def execute_batch(self, plans: Sequence[CoaddPlan]) -> List[CoaddResult]:
+        """K stacked plans -> one batched pass a pass -> per-query results.
+
+        The plans must share a layout, npix and estimator (`stack_plans`).
+        Sparse batches scan the union of their gates' packs
+        (`union_sparse_index`), each query's compacted gate re-selecting its
+        own slots; a union that is not worthwhile scans densely.  With
+        ``use_kernel`` each pass is ONE launch of its batched kernel for all
+        K queries, after one ``psf_match`` launch when PSF-matched: 1, 2 or
+        3 launches, plus 1, whatever K is.  The one interval, the launches
+        and the scanned packs go to the first result's stats.
+        """
+        plans = list(plans)
+        for p in plans:
+            self._check_plan_psf(p)
+        gates, qvecs = stack_plans(plans)
+        layout = plans[0].layout
+        _, remap = self.exec_dataset(layout)
+        if remap is not None:
+            gates = np.stack([remap.apply(g) for g in gates])
+        # The one upload, the bank, a matched copy and the host grids stay
+        # out of the timing, as in `execute`.
+        dev = self.device_dataset(layout)
+        bank = self._device_psf_kernels(layout)
+        m_builds0, m_hits = self.matched_builds, 0
+        if self._matched_mode():
+            dev, m_hits = self._matched_device_dataset(layout, dev)
+            bank = None
+        grids = [self._plan_grids(p) for p in plans]
+        grids_ra = torch.stack([g[0] for g in grids])
+        grids_dec = torch.stack([g[1] for g in grids])
+        t1 = time.perf_counter()
+        _, idx, accept = self._operands(layout, gates, qvecs)
+        passes, (coadds, depths) = self._passes(dev, idx, accept, grids_ra, grids_dec,
+                                                plans[0].reduce, bank)
+        contribs = accept.sum(dim=(1, 2)).tolist()
+        coadds_h, depths_h = coadds.cpu().numpy(), depths.cpu().numpy()
+        t2 = time.perf_counter()
+        n_scanned = idx.shape[0]
+        scans = self._batch_scans(layout, gates, idx)
+        dispatches = passes + (bank is not None) if self.use_kernel else passes * n_scanned
+        results = []
+        for i, p in enumerate(plans):
+            first = i == 0
+            t_mr = (t2 - t1) if first else 0.0
+            results.append(CoaddResult(
+                coadds_h[i],
+                depths_h[i],
+                JobStats(
+                    method=p.method,
+                    files_considered=int(gates[i].sum()),
+                    files_contributing=int(contribs[i]),
+                    packs_touched=p.packs_touched,
+                    t_locate_s=p.t_locate_s,
+                    t_map_reduce_s=t_mr,
+                    t_total_s=p.t_locate_s + t_mr,
+                    dispatches=dispatches if first else 0,
+                    packs_gated=int(gates[i].any(axis=1).sum()),
+                    packs_scanned=n_scanned if first else 0,
+                    scan_budget=n_scanned,
+                    reduce=p.reduce,
+                    reduce_passes=passes,
+                    matched_cache_builds=(self.matched_builds - m_builds0) if first else 0,
+                    matched_cache_hits=m_hits if first else 0,
+                    batch_scan=scans[i],
+                ),
+            ))
+        return results
+
+    def _batch_scans(self, layout: str, gates: np.ndarray, idx: torch.Tensor) -> List[str]:
+        """Per query of a batch: "" when the batch's scan is bitwise its own
+        run's, else a digest of the batch's pack index (`JobStats.batch_scan`).
+
+        The batch scans the union of the queries' packs.  A pack the query's
+        own run does not scan holds only slots it rejects, and a rejected
+        slot adds exact zeros while its pixels are finite and at most 2^62
+        (the finite flag; over a PSF bank, `ops.matched_finite`'s).  A
+        rejected NaN adds NaN, as it does in the reference's batches.
+        """
+        batch_packs = idx.cpu().numpy()
+        digest = hashlib.sha256(batch_packs.tobytes()).hexdigest()[:16]
+        n_packs = self.exec_dataset(layout)[0].n_packs
+        flag = None
+        out = []
+        for gate in gates:
+            sp = self._sparse_index(gate)
+            own = np.arange(n_packs) if sp is None else sp.pack_idx
+            extra = np.setdiff1d(batch_packs, own)
+            if len(extra) and flag is None:
+                flag = self._slot_flag(layout)
+            out.append(digest if len(extra) and not flag[extra].all() else "")
+        return out
+
+    def _slot_flag(self, layout: str) -> np.ndarray:
+        """(P, cap) bool: the slots from which a query that rejects them adds
+        only exact zeros on this engine's passes (the culled passes' flag)."""
+        dev = self.device_dataset(layout)
+        flag = dev.finite
+        bank = self._device_psf_kernels(layout)
+        if bank is not None:
+            every = torch.arange(dev.n_packs, dtype=torch.int32, device=flag.device)
+            flag = warp_ops.matched_finite(flag, every, bank)
+        return flag.cpu().numpy() != 0

@@ -12,12 +12,21 @@ derives from a gate the list of pack indices it actually opens, padded up to
 a power-of-two *budget bucket* (capped at P), and the executor scans just
 those packs of the resident layout — map work scales with the packs the
 gate opens instead of P.
+
+Batches (paper Fig. 5): `stack_plans` stacks same-layout plans into (K, P,
+cap) gates and (K, 7) query vectors, and a sparse batch scans the union of
+their packs (`union_sparse_index`), each query's gate re-selecting its own
+slots within it (`compact_gates`).  `CoaddPlan.coalesce_key` is the
+precondition of one batch as a hashable key, `cost_budget` the scan bucket
+a service classes a plan by, and `fingerprint` the value identity of its
+pixels.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import hashlib
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -54,6 +63,44 @@ class CoaddPlan:
     def packs_touched(self) -> int:
         """Distinct containers the gate opens (§4.1.4 locality statistic)."""
         return int(self.gate.any(axis=1).sum())
+
+    @property
+    def cost_budget(self) -> int:
+        """The budget bucket this plan scans at: the service's admission cost
+        signal (DESIGN.md §10), which splits cheap plans from expensive."""
+        return scan_budget(self.packs_touched, self.gate.shape[0])
+
+    @property
+    def coalesce_key(self) -> Tuple[str, int, str, Optional[float], str]:
+        """Compatibility class for batching (DESIGN.md §10): plans stack into
+        one `execute_batch` iff they share a resident layout, an output grid
+        size, a grid override, a PSF target and an estimator."""
+        return (self.layout, self.npix, grid_digest(self.grid_sky),
+                self.psf_target, self.reduce)
+
+    @property
+    def fingerprint(self) -> str:
+        """Value identity of this plan's pixels, independent of the method:
+        a digest of layout, grid size and override, PSF target, estimator,
+        gate bytes and query vector."""
+        h = hashlib.sha256()
+        h.update(
+            f"{self.layout}|{self.npix}|{self.psf_target}"
+            f"|{grid_digest(self.grid_sky)}|{self.reduce}".encode()
+        )
+        h.update(np.ascontiguousarray(self.gate).tobytes())
+        h.update(np.ascontiguousarray(self.qvec, np.float32).tobytes())
+        return h.hexdigest()
+
+
+def grid_digest(grid_sky: Optional[Tuple[np.ndarray, np.ndarray]]) -> str:
+    """Digest of an output-grid override ("" for the query's own grid)."""
+    if grid_sky is None:
+        return ""
+    h = hashlib.sha256()
+    for g in grid_sky:
+        h.update(np.ascontiguousarray(g, np.float32).tobytes())
+    return h.hexdigest()[:16]
 
 
 def scan_budget(n_gated: int, n_packs: int) -> int:
@@ -111,3 +158,54 @@ def compact_gate(gate: np.ndarray, sp: SparseScanIndex) -> np.ndarray:
     g = gate[sp.pack_idx].copy()
     g[sp.n_gated :] = False
     return g
+
+
+def union_sparse_index(gates: np.ndarray) -> SparseScanIndex:
+    """Sparse index for a (K, P, cap) stack of gates: the union of their packs.
+
+    A batch scans one pack index for all its queries; each query's
+    compacted gate (`compact_gates`) then re-selects its own slots.
+    """
+    return sparse_pack_index(gates.any(axis=0))
+
+
+def compact_gates(gates: np.ndarray, sp: SparseScanIndex) -> np.ndarray:
+    """(K, P, cap) gates -> (K, budget, cap) over the union-gathered packs."""
+    g = gates[:, sp.pack_idx].copy()
+    g[:, sp.n_gated :] = False
+    return g
+
+
+def stack_plans(plans: Sequence[CoaddPlan]) -> Tuple[np.ndarray, np.ndarray]:
+    """Stack same-layout plans into (K, P, cap) gates + (K, 7) query vectors.
+
+    One batch must share a layout (one resident dataset to scan), an output
+    grid size and an estimator; all three are checked here.
+    """
+    if not plans:
+        raise ValueError("cannot stack zero plans")
+    layouts = {p.layout for p in plans}
+    if len(layouts) != 1:
+        raise ValueError(f"batched plans must share a layout, got {layouts}")
+    npixes = {p.npix for p in plans}
+    if len(npixes) != 1:
+        raise ValueError(f"batched plans must share npix, got {npixes}")
+    reduces = {p.reduce for p in plans}
+    if len(reduces) != 1:
+        raise ValueError(f"batched plans must share a reduce, got {reduces}")
+    gates = np.stack([p.gate for p in plans])
+    qvecs = np.stack([p.qvec for p in plans])
+    return gates, qvecs
+
+
+__all__: List[str] = [
+    "CoaddPlan",
+    "SparseScanIndex",
+    "compact_gate",
+    "compact_gates",
+    "grid_digest",
+    "scan_budget",
+    "sparse_pack_index",
+    "stack_plans",
+    "union_sparse_index",
+]

@@ -119,9 +119,14 @@ def hist_local(tiles: torch.Tensor, covs: torch.Tensor, lo: torch.Tensor,
 
 def hist_median(hist: torch.Tensor, s0: torch.Tensor, lo: torch.Tensor,
                 w: torch.Tensor) -> torch.Tensor:
-    """Approximate weighted median: first bin whose cumsum crosses S0/2."""
-    c = torch.cumsum(hist, dim=0)
-    j = (c >= 0.5 * s0[None]).to(torch.uint8).argmax(dim=0).to(hist.dtype)
+    """Approximate weighted median: first bin whose cumsum crosses S0/2.
+
+    The bins are the third axis from the end, so a batch's (K, nbins, Q, Q)
+    histograms take their (K, Q, Q) ``s0``, ``lo`` and ``w`` as one query's
+    (nbins, Q, Q) takes its (Q, Q) ones, query by query the same bits.
+    """
+    c = torch.cumsum(hist, dim=-3)
+    j = (c >= 0.5 * s0.unsqueeze(-3)).to(torch.uint8).argmax(dim=-3).to(hist.dtype)
     return lo + (j + 0.5) * w
 
 

@@ -77,6 +77,15 @@
 // entry point (pack_scan_unculled_f32) for chip_smoke.py to hold the
 // culled form against bitwise; no wrapper launches it.
 //
+// Batches (paper Fig. 5).  A pack scan carries a query axis: blockIdx.z is
+// the query k of K, and each block reads that query's accept (K, G, cap),
+// grids (K, Q, Q) and fixed operands (K, Q, Q), and writes its own output
+// planes; pixels, WCS, the pack index and the finite flag are shared by
+// every query.  The footprint caps come from that query's grid, so culling
+// is per query, and the slot order is the one-query kernel's: each query of
+// a batch is bitwise its own one-query launch on the same pack index, which
+// is pack_scan_f32 with n_queries = 1.
+//
 // warp_project_kernel is culled by (b) alone: it writes every image's tile,
 // so a culled (tile, image) pair writes 0 * a to tile and coverage without
 // sampling, which is what the select gives there.  Its bytes bound it (8 per
@@ -241,7 +250,8 @@ __global__ void __launch_bounds__(kThreads)
 // the thread's fixed operands (live threads only), add() takes one sample
 // (vm, m) of a slot with accept weight a, end_pack() adds the partial to
 // the carry, store() writes the outputs.  Each add() repeats its Pallas
-// body's arithmetic in the same order.
+// body's arithmetic in the same order.  query(args, k, qq) moves every
+// pointer to query k's planes of a batch.
 
 struct SumAcc {  // coadd_fused: sum a*vm, sum a*m
   struct Args {
@@ -249,6 +259,9 @@ struct SumAcc {  // coadd_fused: sum a*vm, sum a*m
     float* depth;
   };
   float c = 0.0f, d = 0.0f, pc = 0.0f, pd = 0.0f;
+  static __device__ Args query(const Args& p, int64_t k, int64_t qq) {
+    return {p.coadd + k * qq, p.depth + k * qq};
+  }
   __device__ void load(const Args&, int64_t) {}
   __device__ void begin_pack() { pc = pd = 0.0f; }
   __device__ void add(float vm, float m, float a) {
@@ -272,6 +285,9 @@ struct MomentsAcc {  // robust pass 1: S0 = sum a*m, S1 = sum a*vm, S2 = sum a*v
     float* s2;
   };
   float s[3] = {0.0f, 0.0f, 0.0f}, p[3] = {0.0f, 0.0f, 0.0f};
+  static __device__ Args query(const Args& a, int64_t k, int64_t qq) {
+    return {a.s0 + k * qq, a.s1 + k * qq, a.s2 + k * qq};
+  }
   __device__ void load(const Args&, int64_t) {}
   __device__ void begin_pack() { p[0] = p[1] = p[2] = 0.0f; }
   __device__ void add(float vm, float m, float a) {
@@ -301,6 +317,9 @@ struct ClipAcc {  // final pass: sums of the samples inside the clip window
   };
   float center = 0.0f, thresh = 0.0f;
   float c = 0.0f, d = 0.0f, pc = 0.0f, pd = 0.0f;
+  static __device__ Args query(const Args& p, int64_t k, int64_t qq) {
+    return {p.center + k * qq, p.thresh + k * qq, p.coadd + k * qq, p.depth + k * qq};
+  }
   __device__ void load(const Args& p, int64_t o) {
     center = p.center[o];
     thresh = p.thresh[o];
@@ -334,6 +353,9 @@ struct HistAcc {  // median round 1: hist[b] += a*m at b = clip(floor((x-lo)*inv
   };
   float lo = 0.0f, inv_w = 0.0f;
   float h[NB] = {}, ph[NB] = {};
+  static __device__ Args query(const Args& p, int64_t k, int64_t qq) {
+    return {p.lo + k * qq, p.inv_w + k * qq, p.hist + k * NB * qq, p.qq};
+  }
   __device__ void load(const Args& p, int64_t o) {
     lo = p.lo[o];
     inv_w = p.inv_w[o];
@@ -509,15 +531,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The pass.  kCull: skip what adds nothing (the header); without it every
-// scanned slot is sampled, the check form.
+// The pass, for query blockIdx.z of the batch (see the header).  kCull:
+// skip what adds nothing (the header); without it every scanned slot is
+// sampled, the check form.
 template <class Acc, bool kCull>
 __global__ void __launch_bounds__(kThreads)
     pack_scan_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
-                     const int* __restrict__ pack_idx, const float* __restrict__ accept,
-                     const unsigned char* __restrict__ finite, const float* __restrict__ gra,
-                     const float* __restrict__ gdec, const typename Acc::Args args, int n_packs,
-                     int cap, int h, int w, int q) {
+                     const int* __restrict__ pack_idx, const float* __restrict__ accepts,
+                     const unsigned char* __restrict__ finite, const float* __restrict__ gras,
+                     const float* __restrict__ gdecs, const typename Acc::Args batch_args,
+                     int n_packs, int cap, int h, int w, int q) {
   __shared__ SlotConst slots[kThreads];   // the chunk's kept slots, in slot order
   __shared__ int kept[kThreads];          // ... and their offsets in the chunk
   __shared__ int warp_kept[kWarps];
@@ -526,6 +549,12 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.y * kTileX + threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // This block's query: its grids, accept rows and output planes.
+  const int64_t qq = static_cast<int64_t>(q) * q;
+  const float* gra = gras + blockIdx.z * qq;
+  const float* gdec = gdecs + blockIdx.z * qq;
+  const float* accept = accepts + static_cast<int64_t>(blockIdx.z) * n_packs * cap;
+  const typename Acc::Args args = Acc::query(batch_args, blockIdx.z, qq);
   const PixelSky px = pixel_sky(gra, gdec, q);
   if (kCull) tile_caps(sub, chord_bits, px, gra, gdec, q);
   const int64_t plane = static_cast<int64_t>(h) * w;
@@ -585,7 +614,8 @@ dim3 pixel_grid(int q, int z) {
   return dim3((q + kTileX - 1) / kTileX, (q + kTileY - 1) / kTileY, z);
 }
 
-// The scan operands every pass shares.
+// The scan operands every pass shares; accept and the grids hold n_queries
+// queries' rows and planes.
 struct Scan {
   const float* pixels;
   const float* wcs;
@@ -594,7 +624,7 @@ struct Scan {
   const unsigned char* finite;
   const float* gra;
   const float* gdec;
-  int n_packs, cap, h, w, q, device;
+  int n_queries, n_packs, cap, h, w, q, device;
   void* stream;
 };
 
@@ -602,7 +632,7 @@ template <class Acc, bool kCull>
 int launch_scan(const Scan& s, const typename Acc::Args& args) {
   cudaError_t err = cudaSetDevice(s.device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pack_scan_kernel<Acc, kCull><<<pixel_grid(s.q, 1), dim3(kTileX, kTileY), 0,
+  pack_scan_kernel<Acc, kCull><<<pixel_grid(s.q, s.n_queries), dim3(kTileX, kTileY), 0,
                                  static_cast<cudaStream_t>(s.stream)>>>(
       s.pixels, s.wcs, s.pack_idx, s.accept, s.finite, s.gra, s.gdec, args, s.n_packs, s.cap,
       s.h, s.w, s.q);
@@ -612,7 +642,8 @@ int launch_scan(const Scan& s, const typename Acc::Args& args) {
 // One pass of either form.  kind 0 coadd_fused (out0 coadd, out1 depth), 1
 // coadd_moments (out0..2 = S0, S1, S2), 2 coadd_clip (in0 centre, in1
 // radius, out0 coadd, out1 depth), 3 coadd_hist (in0 lo, in1 inv_w, out0
-// the (nbins, Q, Q) histogram; nbins 8, 16 or 32).
+// the (nbins, Q, Q) histogram; nbins 8, 16 or 32).  Each in and out is
+// (n_queries, ...) for a batch.
 template <bool kCull>
 int launch_kind(int kind, int nbins, const Scan& s, const float* in0, const float* in1,
                 float* out0, float* out1, float* out2) {
@@ -669,52 +700,6 @@ extern "C" int warp_project_unculled_f32(const float* pixels, const float* wcs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The culled passes.  `finite` is the (packs, cap) uint8 slot flag of the
-// header's rule (a), indexed like the pixels' slots; null skips no
-// rejected slot.
-
-extern "C" int coadd_fused_f32(const float* pixels, const float* wcs, const int* pack_idx,
-                               const float* accept, const unsigned char* finite,
-                               const float* gra, const float* gdec, float* coadd, float* depth,
-                               int n_packs, int cap, int h, int w, int q, int device,
-                               void* stream) {
-  const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_packs, cap, h, w, q, device,
-               stream};
-  return launch_kind<true>(0, 0, s, nullptr, nullptr, coadd, depth, nullptr);
-}
-
-extern "C" int coadd_moments_f32(const float* pixels, const float* wcs, const int* pack_idx,
-                                 const float* accept, const unsigned char* finite,
-                                 const float* gra, const float* gdec, float* s0, float* s1,
-                                 float* s2, int n_packs, int cap, int h, int w, int q,
-                                 int device, void* stream) {
-  const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_packs, cap, h, w, q, device,
-               stream};
-  return launch_kind<true>(1, 0, s, nullptr, nullptr, s0, s1, s2);
-}
-
-extern "C" int coadd_clip_f32(const float* pixels, const float* wcs, const int* pack_idx,
-                              const float* accept, const unsigned char* finite,
-                              const float* gra, const float* gdec, const float* center,
-                              const float* thresh, float* coadd, float* depth, int n_packs,
-                              int cap, int h, int w, int q, int device, void* stream) {
-  const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_packs, cap, h, w, q, device,
-               stream};
-  return launch_kind<true>(2, 0, s, center, thresh, coadd, depth, nullptr);
-}
-
-// nbins must be one of 8, 16, 32 (the wrapper checks); any other value
-// returns cudaErrorInvalidValue and launches nothing.
-extern "C" int coadd_hist_f32(const float* pixels, const float* wcs, const int* pack_idx,
-                              const float* accept, const unsigned char* finite,
-                              const float* gra, const float* gdec, const float* lo,
-                              const float* inv_w, float* hist, int nbins, int n_packs, int cap,
-                              int h, int w, int q, int device, void* stream) {
-  const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_packs, cap, h, w, q, device,
-               stream};
-  return launch_kind<true>(3, nbins, s, lo, inv_w, hist, nullptr, nullptr);
-}
-
 // The unculled form of any pass (`kind` and operands as launch_kind;
 // `finite` is not read): the check chip_smoke.py holds the culled passes
 // against, bitwise.  No wrapper launches it.
@@ -724,9 +709,29 @@ extern "C" int pack_scan_unculled_f32(int kind, int nbins, const float* pixels,
                                       const float* in0, const float* in1, float* out0,
                                       float* out1, float* out2, int n_packs, int cap, int h,
                                       int w, int q, int device, void* stream) {
-  const Scan s{pixels, wcs, pack_idx, accept, nullptr, gra, gdec, n_packs, cap, h, w, q, device,
-               stream};
+  const Scan s{pixels, wcs, pack_idx, accept, nullptr, gra, gdec, 1, n_packs, cap, h, w, q,
+               device, stream};
   return launch_kind<false>(kind, nbins, s, in0, in1, out0, out1, out2);
+}
+
+// The culled pass of any kind (`kind`, `nbins` and operands as launch_kind)
+// for n_queries queries in ONE launch, query k in blockIdx.z: accept
+// (n_queries, n_packs, cap), the grids, in0, in1 and every output n_queries
+// planes (or histograms) one after another; n_queries = 1 is the one-query
+// pass.  `finite` is the (packs, cap) uint8 slot flag of the header's rule
+// (a), indexed like the pixels' slots; null skips no rejected slot.
+// n_queries must be in [1, 65535] and nbins one of 8, 16, 32 (the wrappers
+// check); anything else returns cudaErrorInvalidValue and launches nothing.
+extern "C" int pack_scan_f32(int kind, int nbins, const float* pixels, const float* wcs,
+                             const int* pack_idx, const float* accept,
+                             const unsigned char* finite, const float* gra, const float* gdec,
+                             const float* in0, const float* in1, float* out0, float* out1,
+                             float* out2, int n_queries, int n_packs, int cap, int h, int w,
+                             int q, int device, void* stream) {
+  if (n_queries < 1 || n_queries > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_queries, n_packs, cap, h, w,
+               q, device, stream};
+  return launch_kind<true>(kind, nbins, s, in0, in1, out0, out1, out2);
 }
 
 extern "C" const char* warp_error_string(int code) {

@@ -41,18 +41,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # pixels, wcs, accept, gra, gdec, tile, cov, n, h, w, q, device, stream
         "warp_project_f32": ((_VP,) * 7 + (_I,) * 5 + (_VP,), _I),
         "warp_project_unculled_f32": ((_VP,) * 7 + (_I,) * 5 + (_VP,), _I),
-        # pixels, wcs, pack_idx, accept, finite, gra, gdec, coadd, depth,
-        # n_packs, cap, h, w, q, device, stream
-        "coadd_fused_f32": ((_VP,) * 9 + (_I,) * 6 + (_VP,), _I),
-        # ... gra, gdec, s0, s1, s2, n_packs, ...
-        "coadd_moments_f32": ((_VP,) * 10 + (_I,) * 6 + (_VP,), _I),
-        # ... gra, gdec, center, thresh, coadd, depth, n_packs, ...
-        "coadd_clip_f32": ((_VP,) * 11 + (_I,) * 6 + (_VP,), _I),
-        # ... gra, gdec, lo, inv_w, hist, nbins, n_packs, ...
-        "coadd_hist_f32": ((_VP,) * 10 + (_I,) * 7 + (_VP,), _I),
         # kind, nbins, pixels, wcs, pack_idx, accept, gra, gdec, in0, in1,
         # out0, out1, out2, n_packs, cap, h, w, q, device, stream
         "pack_scan_unculled_f32": ((_I,) * 2 + (_VP,) * 11 + (_I,) * 6 + (_VP,), _I),
+        # kind, nbins, pixels, wcs, pack_idx, accept, finite, gra, gdec, in0,
+        # in1, out0, out1, out2, n_queries, n_packs, cap, h, w, q, device,
+        # stream
+        "pack_scan_f32": ((_I,) * 2 + (_VP,) * 12 + (_I,) * 7 + (_VP,), _I),
         "warp_error_string": ((_I,), ctypes.c_char_p),
     },
     "psf": {

@@ -32,6 +32,14 @@ misses, and a rejected slot whose ``finite`` flag is set (a (P, cap) uint8
 tensor, `seqfile.finite_slots`; the PSF scratch's flag is
 `matched_finite`).  Both skips add exact zeros, so the result is bitwise
 the unculled scan's, which only ``chip_smoke.py`` launches.
+
+Batches (paper Fig. 5): ``coadd_fused_batch``, ``coadd_moments_batch``,
+``coadd_clip_batch`` and ``coadd_hist_batch`` run K queries over one pack
+index in ONE launch of the query-axis ``pack_scan_kernel``: ``accept`` is
+(K, G, cap), the grids and fixed operands (K, Q, Q), and the outputs gain a
+leading K.  Each query is bitwise its own one-query launch on the same
+operands.  With a bank, the batch's one ``psf_match`` pre-pass skips only
+the slots every query rejects (`prepass_skip` of the (K, G, cap) accept).
 """
 
 from __future__ import annotations
@@ -62,13 +70,16 @@ def _require(t, name: str, dtype: torch.dtype, ndim: int, device: torch.device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_grids(grid_ra, grid_dec, device) -> int:
-    _require(grid_ra, "grid_ra", torch.float32, 2, device)
-    _require(grid_dec, "grid_dec", torch.float32, 2, device)
-    q = grid_ra.shape[0]
-    if grid_ra.shape != (q, q) or grid_dec.shape != (q, q):
+def _check_grids(grid_ra, grid_dec, device, lead=()) -> int:
+    """The output grids: (Q, Q) each, or (K, Q, Q) for ``lead`` (K,)."""
+    _require(grid_ra, "grid_ra", torch.float32, 2 + len(lead), device)
+    _require(grid_dec, "grid_dec", torch.float32, 2 + len(lead), device)
+    q = grid_ra.shape[-1]
+    want = tuple(lead) + (q, q)
+    if grid_ra.shape != want or grid_dec.shape != want:
         raise ValueError(
-            f"grids must both be (Q, Q), got {tuple(grid_ra.shape)} and "
+            f"grids must both be {'(K, Q, Q)' if lead else '(Q, Q)'} for K = "
+            f"{lead[0] if lead else 1}, got {tuple(grid_ra.shape)} and "
             f"{tuple(grid_dec.shape)}"
         )
     if not 1 <= q <= MAX_NPIX:
@@ -241,8 +252,12 @@ def prepass_skip(accept, matched_flag):
     PSF scratch flag (`matched_finite`) is set.  The culled passes skip
     exactly those (rule (a) of csrc/warp.cu), so their matched pixels are
     never read; a rejected slot without the flag is still matched, NaNs and
-    all, as the passes sample it."""
-    return ((accept == 0) & (matched_flag != 0)).to(torch.uint8)
+    all, as the passes sample it.  A batch's (K, G, cap) accept skips a slot
+    only when every query rejects it: one that any query accepts is read."""
+    rejected = accept == 0
+    if rejected.dim() == 3:
+        rejected = rejected.all(dim=0)
+    return (rejected & (matched_flag != 0)).to(torch.uint8)
 
 
 def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels, accept=None, matched_flag=None):
@@ -252,9 +267,10 @@ def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels, accept=None, matched_
     One `psf_match` launch writes the (G, cap, H, W) scratch; the scan then
     reads it with its own (G, cap, 8) WCS rows and pack index ``arange(G)``
     (a pack scan takes one base, pack_idx[g] * cap, for both pixels and WCS).
-    Given the scan's (G, cap) ``accept`` and the scratch's flag
-    (`matched_finite`), the slots no culled pass reads (`prepass_skip`) are
-    written as zeros and not matched; without them every slot is matched.
+    Given the scan's (G, cap) ``accept`` (a batch's (K, G, cap)) and the
+    scratch's flag (`matched_finite`), the slots no culled pass reads
+    (`prepass_skip`) are written as zeros and not matched; without them
+    every slot is matched.
     """
     skip = None
     if accept is not None and matched_flag is not None:
@@ -265,16 +281,22 @@ def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels, accept=None, matched_
     return matched, wcs, idx
 
 
-def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
-    """Check a pack scan's operands -> (g, cap, h, w, q)."""
+#: Most queries one batched launch takes (the grid's z extent).
+MAX_QUERIES = 65535
+
+
+def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, batched=False):
+    """Check a pack scan's operands -> (g, cap, h, w, q).  ``batched``: a
+    (K, G, cap) accept and (K, Q, Q) grids."""
     dev = pixels.device
     _require(pixels, "pixels", torch.float32, 4, dev)
     n_packs, cap, h, w = pixels.shape
     _require(wcs_vecs, "wcs_vecs", torch.float32, 3, dev)
     _require(pack_idx, "pack_idx", torch.int32, 1, dev)
-    _require(accept, "accept", torch.float32, 2, dev)
+    _require(accept, "accept", torch.float32, 2 + batched, dev)
     g = pack_idx.shape[0]
-    if wcs_vecs.shape != (n_packs, cap, 8) or accept.shape != (g, cap):
+    lead = tuple(accept.shape[:1]) if batched else ()
+    if wcs_vecs.shape != (n_packs, cap, 8) or accept.shape != lead + (g, cap):
         raise ValueError(
             f"wcs_vecs {tuple(wcs_vecs.shape)} / accept {tuple(accept.shape)} do "
             f"not match {n_packs} packs of {cap} slots scanned {g} times"
@@ -284,18 +306,21 @@ def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec):
             f"need a non-empty layout and pack_idx, got pixels "
             f"{tuple(pixels.shape)} and {g} packs"
         )
-    q = _check_grids(grid_ra, grid_dec, dev)
+    if batched and not 1 <= lead[0] <= MAX_QUERIES:
+        raise ValueError(f"a batch takes 1 to {MAX_QUERIES} queries, got {lead[0]}")
+    q = _check_grids(grid_ra, grid_dec, dev, lead)
     _check_pack_idx(pack_idx, n_packs)
     return g, cap, h, w, q
 
 
-def _prepare_scan(scan, psf_kernels, finite, **fixed):
+def _prepare_scan(scan, psf_kernels, finite, batched=False, **fixed):
     """Check a pass's operands -> (scan, dims, finite); with a bank, the scan
     over the PSF-matched packs (`matched_packs`, gated by the flag) and
     their flag (`matched_finite`).  ``fixed`` are the pass's (Q,Q)
-    operands."""
-    dims = _check_scan(*scan)
-    _check_fixed(dims[-1], scan[0].device, **fixed)
+    operands, (K,Q,Q) when ``batched``."""
+    dims = _check_scan(*scan, batched=batched)
+    _check_fixed(dims[-1], scan[0].device, tuple(scan[3].shape[:1]) if batched else (),
+                 **fixed)
     if finite is not None:
         _require(finite, "finite", torch.uint8, 2, scan[0].device)
         if tuple(finite.shape) != tuple(scan[0].shape[:2]):
@@ -308,29 +333,34 @@ def _prepare_scan(scan, psf_kernels, finite, **fixed):
     return scan, dims, finite
 
 
-def _check_fixed(q, device, **operands):
-    """The robust passes' fixed per-pixel operands: (Q,Q) float32 each."""
+def _check_fixed(q, device, lead=(), **operands):
+    """The robust passes' fixed per-pixel operands: (Q,Q) float32 each, or
+    (K,Q,Q) for ``lead`` (K,)."""
+    want = tuple(lead) + (q, q)
     for name, t in operands.items():
-        _require(t, name, torch.float32, 2, device)
-        if t.shape != (q, q):
-            raise ValueError(f"{name} must be ({q}, {q}), got {tuple(t.shape)}")
+        _require(t, name, torch.float32, len(want), device)
+        if t.shape != want:
+            raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
 
 
-def _launch_scan(entry, scan, finite, dims, outputs, *extra_ints):
-    """Launch the culled pack-scan entry point ``entry`` of csrc/warp.cu.
-
-    ``scan`` is the operands (pixels, wcs_vecs, pack_idx, accept, grid_ra,
-    grid_dec) followed by the fixed (Q,Q) operands, ``finite`` the slot
-    flag or None, ``dims`` (g, cap, h, w, q).
-    """
+def _launch_pass(kind, nbins, scan, fixed, finite, dims, outputs):
+    """Launch the culled pack scan ``pack_scan_f32`` (csrc/warp.cu): pass
+    ``kind`` (0 fused, 1 moments, 2 clip, 3 hist) over ``scan`` = (pixels,
+    wcs_vecs, pack_idx, accept, grid_ra, grid_dec), with the (Q,Q) operands
+    ``fixed``, the slot flag ``finite`` or None, ``dims`` (g, cap, h, w, q).
+    A (K, G, cap) accept with (K, Q, Q) grids, operands and outputs runs K
+    queries in the one launch; a (G, cap) one is K = 1."""
     index, stream = _launch_args(scan[0].device)
     lib = build.library("warp")
-    err = getattr(lib, entry)(
-        *(t.data_ptr() for t in scan[:4]), None if finite is None else finite.data_ptr(),
-        *(t.data_ptr() for t in scan[4:]), *(t.data_ptr() for t in outputs),
-        *extra_ints, *dims, index, stream,
+    ins = [t.data_ptr() for t in fixed] + [None] * (2 - len(fixed))
+    outs = [t.data_ptr() for t in outputs] + [None] * (3 - len(outputs))
+    n_queries = scan[3].shape[0] if scan[3].dim() == 3 else 1
+    err = lib.pack_scan_f32(
+        kind, nbins, *(t.data_ptr() for t in scan[:4]),
+        None if finite is None else finite.data_ptr(), *(t.data_ptr() for t in scan[4:]),
+        *ins, *outs, n_queries, *dims, index, stream,
     )
-    build.check(lib, err, f"{entry} launch")
+    build.check(lib, err, "pack_scan_f32 launch")
 
 
 def _empty(shape, like):
@@ -356,7 +386,7 @@ def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kerne
     if pixels.device.type == "cpu":
         return ref.coadd_scan_ref(*scan)
     out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
-    _launch_scan("coadd_fused_f32", scan, finite, dims, out)
+    _launch_pass(0, 0, scan, (), finite, dims, out)
     coadd_fused.launches += 1
     return out
 
@@ -376,7 +406,7 @@ def coadd_moments(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_ker
     if pixels.device.type == "cpu":
         return ref.moments_scan_ref(*scan)
     out = tuple(_empty(grid_ra.shape, pixels) for _ in range(3))
-    _launch_scan("coadd_moments_f32", scan, finite, dims, out)
+    _launch_pass(1, 0, scan, (), finite, dims, out)
     coadd_moments.launches += 1
     return out
 
@@ -397,7 +427,7 @@ def coadd_clip(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, th
     if pixels.device.type == "cpu":
         return ref.clip_scan_ref(*scan, center, thresh)
     out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
-    _launch_scan("coadd_clip_f32", scan + (center, thresh), finite, dims, out)
+    _launch_pass(2, 0, scan, (center, thresh), finite, dims, out)
     coadd_clip.launches += 1
     return out
 
@@ -424,12 +454,95 @@ def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w,
     if pixels.device.type == "cpu":
         return ref.hist_scan_ref(*scan, lo, inv_w, nbins)
     out = _empty((nbins,) + tuple(grid_ra.shape), pixels)
-    _launch_scan("coadd_hist_f32", scan + (lo, inv_w), finite, dims, (out,), nbins)
+    _launch_pass(3, nbins, scan, (lo, inv_w), finite, dims, (out,))
     coadd_hist.launches += 1
     return out
 
 
 coadd_hist.launches = 0
+
+
+def coadd_fused_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
+                      psf_kernels=None, *, finite=None):
+    """K queries' map+reduce over one pack index in ONE launch -> (K,Q,Q)
+    coadds and depths.
+
+    ``accepts`` (K,G,cap) float32 and ``grids_ra``/``grids_dec`` (K,Q,Q) are
+    each query's; the layout, ``pack_idx``, a bank and ``finite`` are shared,
+    as in `coadd_fused`.  Query k is bitwise `coadd_fused` on its own accept
+    and grids.
+    """
+    scan, dims, finite = _prepare_scan(
+        (pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec), psf_kernels, finite,
+        batched=True)
+    if pixels.device.type == "cpu":
+        return ref.coadd_scan_batch_ref(*scan)
+    out = (_empty(grids_ra.shape, pixels), _empty(grids_ra.shape, pixels))
+    _launch_pass(0, 0, scan, (), finite, dims, out)
+    coadd_fused_batch.launches += 1
+    return out
+
+
+coadd_fused_batch.launches = 0
+
+
+def coadd_moments_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
+                        psf_kernels=None, *, finite=None):
+    """Robust pass 1 for K queries in ONE launch -> (S0, S1, S2), each
+    (K,Q,Q); operands as `coadd_fused_batch`."""
+    scan, dims, finite = _prepare_scan(
+        (pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec), psf_kernels, finite,
+        batched=True)
+    if pixels.device.type == "cpu":
+        return ref.moments_scan_batch_ref(*scan)
+    out = tuple(_empty(grids_ra.shape, pixels) for _ in range(3))
+    _launch_pass(1, 0, scan, (), finite, dims, out)
+    coadd_moments_batch.launches += 1
+    return out
+
+
+coadd_moments_batch.launches = 0
+
+
+def coadd_clip_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec, centers,
+                     threshs, psf_kernels=None, *, finite=None):
+    """Robust final pass for K queries in ONE launch -> (K,Q,Q) coadds and
+    depths of the kept samples; ``centers``/``threshs`` (K,Q,Q) float32, the
+    other operands as `coadd_fused_batch`."""
+    scan, dims, finite = _prepare_scan(
+        (pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec), psf_kernels, finite,
+        batched=True, center=centers, thresh=threshs)
+    if pixels.device.type == "cpu":
+        return ref.clip_scan_batch_ref(*scan, centers, threshs)
+    out = (_empty(grids_ra.shape, pixels), _empty(grids_ra.shape, pixels))
+    _launch_pass(2, 0, scan, (centers, threshs), finite, dims, out)
+    coadd_clip_batch.launches += 1
+    return out
+
+
+coadd_clip_batch.launches = 0
+
+
+def coadd_hist_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec, los, inv_ws,
+                     nbins=16, psf_kernels=None, *, finite=None):
+    """Median round 1 for K queries in ONE launch -> (K,nbins,Q,Q)
+    histograms; ``los``/``inv_ws`` (K,Q,Q) float32, ``nbins`` one of
+    `HIST_BINS`, the other operands as `coadd_fused_batch`."""
+    if nbins not in HIST_BINS:
+        raise ValueError(f"nbins must be one of {HIST_BINS}, got {nbins}")
+    scan, dims, finite = _prepare_scan(
+        (pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec), psf_kernels, finite,
+        batched=True, lo=los, inv_w=inv_ws)
+    if pixels.device.type == "cpu":
+        return ref.hist_scan_batch_ref(*scan, los, inv_ws, nbins)
+    k, q = grids_ra.shape[0], grids_ra.shape[-1]
+    out = _empty((k, nbins, q, q), pixels)
+    _launch_pass(3, nbins, scan, (los, inv_ws), finite, dims, (out,))
+    coadd_hist_batch.launches += 1
+    return out
+
+
+coadd_hist_batch.launches = 0
 
 
 def mosaic_bricks(tiles, covs, offsets, npix: int):

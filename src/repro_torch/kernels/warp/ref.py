@@ -147,6 +147,45 @@ def clip_scan_ref(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center,
                  pixels, wcs_vecs, pack_idx, accept, psf_kernels)
 
 
+def _per_query(scan_ref, pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec, *fixed,
+               **kw):
+    """A one-query scan's plain version over K queries: query k on its own
+    (G,cap) accept, (Q,Q) grids and fixed operands, stacked along K."""
+    outs = [scan_ref(pixels, wcs_vecs, pack_idx, accepts[k], grids_ra[k], grids_dec[k],
+                     *(f[k] for f in fixed), **kw) for k in range(accepts.shape[0])]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def coadd_scan_batch_ref(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
+                         psf_kernels=None):
+    """`coadd_fused_batch`'s plain version: `coadd_scan_ref` per query."""
+    return _per_query(coadd_scan_ref, pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
+                      psf_kernels=psf_kernels)
+
+
+def moments_scan_batch_ref(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
+                           psf_kernels=None):
+    """`coadd_moments_batch`'s plain version: `moments_scan_ref` per query."""
+    return _per_query(moments_scan_ref, pixels, wcs_vecs, pack_idx, accepts, grids_ra,
+                      grids_dec, psf_kernels=psf_kernels)
+
+
+def hist_scan_batch_ref(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec, los, inv_ws,
+                        nbins, psf_kernels=None):
+    """`coadd_hist_batch`'s plain version: `hist_scan_ref` per query."""
+    return _per_query(hist_scan_ref, pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
+                      los, inv_ws, nbins=nbins, psf_kernels=psf_kernels)
+
+
+def clip_scan_batch_ref(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec, centers,
+                        threshs, psf_kernels=None):
+    """`coadd_clip_batch`'s plain version: `clip_scan_ref` per query."""
+    return _per_query(clip_scan_ref, pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
+                      centers, threshs, psf_kernels=psf_kernels)
+
+
 # The culled pack scan's footprint test (csrc/warp.cu, `misses_tile`): the
 # block tile, its four 8 x 8 sub-tiles, and the constants of its bound.
 TILE_X, TILE_Y, SUB_W = 32, 8, 8
