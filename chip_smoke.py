@@ -60,6 +60,13 @@ Phases, in order, each printing its seconds:
    (``ref.*_batch_ref``) query by query at the tolerances above; and the
    poisoned pack by 3 queries, bitwise its one-query launches (NaN words
    too), the coadd's NaN pixels and the depth those of the plain version.
+   Then the staging shapes of the culled scan body (``ref.staging_scans``,
+   3 queries each: a pack across two 256-slot rounds at cap 300, cap 1 and
+   33, padding rows repeating pack 0, every slot rejected and flagged, no
+   flag, sub-tiles too wide to cull so that a block keeps more than 256
+   slots across packs, and a poisoned pack): every query's culled passes
+   bitwise the unculled kernel, each batched query bitwise its one-query
+   launch, NaN words too.
    Then ``mosaic_bricks`` against its plain version, bitwise: the lattice
    cover (4 x 4 bricks of 256 x 256 into 1024 x 1024), one tile, bh != bw,
    overlapping tiles, offsets past the edges and negative (clamped as the
@@ -203,6 +210,15 @@ Phases, in order, each printing its seconds:
    same pack index; µs a query; the bound (``batch_bound``: the pixels of
    the slots any query accepts read once, every query's maps and
    contributing samples); the library time K times the one-query row's.
+   Every pack scan is also timed launched alone through ``pack_scan_f32``
+   on the same operands (``alone_ms``; the wrappers' pack-index check syncs
+   the host), its outputs bitwise the wrapper's, and carries its culled
+   kernel's registers and spills; ``coadd_moments_batch`` at K = 4 also
+   split by its inputs alone: every slot rejected and flagged (the
+   skeleton) and every frame accepted over grids moved off the survey
+   (the footprint tests, no slot sampled).  Each method's fused, moments
+   and clip passes are timed launched alone over its own packs, and its
+   fused pass's skeleton (every slot rejected and flagged).
 
 The line before the last is ``{"kernels": [...]}``, after the card's name
 and power limit printed again; the last is the device line.  The script
@@ -268,6 +284,9 @@ SLOT_OPS = 7
 # multiply).
 # The pack scans' kinds at the unculled entry point (csrc/warp.cu launch_kind).
 SCAN_KIND = {"coadd_fused": 0, "coadd_moments": 1, "coadd_clip": 2, "coadd_hist": 3}
+# Each pass's accumulator, the template argument of its culled kernel.
+ACCUMULATOR = {"coadd_fused": "SumAcc", "coadd_moments": "MomentsAcc", "coadd_clip": "ClipAcc",
+               "coadd_hist": "HistAcc"}
 KERNELS = ("coadd_fused", "warp_project", "coadd_moments", "coadd_hist", "coadd_clip",
            "psf_match_sep", "psf_match_2d", "mosaic_bricks", "flash_attention_single",
            "ssd_chunked", "coadd_fused_batch", "coadd_moments_batch", "coadd_hist_batch",
@@ -1088,6 +1107,44 @@ def main(argv=None) -> int:
         require(err == 0, f"pack_scan_unculled_f32 ({name}): CUDA error {err}")
         return outs[0] if name == "coadd_hist" else tuple(outs)
 
+    def scan_alone(name, scan, finite, *fixed, nbins=0):
+        """The culled pass ``name`` launched alone through ``pack_scan_f32``
+        on a wrapper's operands (a (K, G, cap) accept: K queries) -> (launch,
+        outputs): ``launch()`` runs it into ``outputs``, without the
+        wrappers' checks (their pack-index check syncs the host) and without
+        counting a launch."""
+        pixels, _, idx, acc, gra, _ = scan
+        n_q = acc.shape[0] if acc.dim() == 3 else 1
+        q = gra.shape[-1]
+        n_out = {"coadd_fused": 2, "coadd_moments": 3, "coadd_clip": 2, "coadd_hist": 1}[name]
+        lead = (n_q,) if acc.dim() == 3 else ()
+        shape = lead + ((nbins, q, q) if name == "coadd_hist" else (q, q))
+        outs = [torch.empty(shape, device=dev) for _ in range(n_out)]
+        ptrs = ([t.data_ptr() for t in scan[:4]] + [None if finite is None else finite.data_ptr()]
+                + [t.data_ptr() for t in scan[4:]]
+                + [t.data_ptr() for t in fixed] + [None] * (2 - len(fixed))
+                + [t.data_ptr() for t in outs] + [None] * (3 - len(outs)))
+        lib = build.library("warp")
+
+        def launch():
+            err = lib.pack_scan_f32(SCAN_KIND[name], nbins, *ptrs, n_q, idx.shape[0],
+                                    *pixels.shape[1:], q, torch.cuda.current_device(),
+                                    torch.cuda.current_stream().cuda_stream)
+            require(err == 0, f"pack_scan_f32 ({name}) alone: CUDA error {err}")
+
+        return launch, outs
+
+    def alone_ms(name, scan, finite, *fixed, nbins=0, want=None):
+        """``scan_alone``'s time over ``--reps`` launches; its outputs bitwise
+        ``want`` (the wrapper's) when given."""
+        launch, outs = scan_alone(name, scan, finite, *fixed, nbins=nbins)
+        ms = cuda_ms(torch, launch, args.reps)
+        if want is not None:
+            torch.cuda.synchronize()
+            require(sum(words_differ(a, b) for a, b in zip(outs, want)) == 0,
+                    f"{name} launched alone differs from its wrapper")
+        return ms
+
     def words_differ(a, b):
         """How many float32 words of two outputs differ, NaN payloads too."""
         return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).sum())
@@ -1663,6 +1720,43 @@ def main(argv=None) -> int:
               + f", flips {dict((k, case_flips[k]) for k in BATCH_REPLACES)} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         del scan_bp, got_p, acc_b, gra_b, gdec_b
+
+        # The staging shapes of the culled scan body (ref.staging_scans, 3
+        # queries each): every query's culled passes bitwise the unculled
+        # kernel, and each batched query bitwise its one-query launch.
+        t0 = time.perf_counter()
+        checks0 = (cull_checks["passes"], batch_checks["passes"])
+        kept_max = {}
+        for name, (*arrays, flag) in ref.staging_scans().items():
+            scan_s = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays)
+            fin_s = finite_slots(scan_s[0]) if flag else None
+            for k in range(scan_s[3].shape[0]):
+                cull_check(f"staging {name} query {k}",
+                           scan_s[:3] + tuple(t[k] for t in scan_s[3:]), fin_s)
+            s_s = warp_ops.coadd_moments_batch(*scan_s, finite=fin_s)
+            mu_s, sig_s = reducer.clip_stats(*s_s)
+            got_s = batch_vs_singles(f"staging {name}", scan_s, fin_s, (
+                {nb: reducer.hist_bounds(*s_s, nb) for nb in warp_ops.HIST_BINS},
+                {"clipped": mu_s}, {"clipped": reducer.clip_threshold(mu_s, sig_s, CLIP_K)}))
+            # The most slots one block of query 0 keeps, by the footprint twin.
+            pixels_s, wcs_s, idx_s, acc_s, gra_s, gdec_s = scan_s
+            rows_s = idx_s.long()
+            keep = ref.footprint_keep(wcs_s[rows_s].reshape(-1, 8), acc_s[0].reshape(-1),
+                                      None if fin_s is None else fin_s[rows_s].reshape(-1) != 0,
+                                      gra_s[0], gdec_s[0], *pixels_s.shape[-2:])
+            kept_max[name] = int(keep.sum(-1).max())
+            coadd_s = got_s["coadd_fused"][0]
+            require(bool(coadd_s.isnan().any()) == (name == "poisoned"),
+                    f"staging {name}: NaN coadd pixels only where a poisoned slot is sampled")
+            require(name != "all_rejected" or not coadd_s.any(),
+                    "staging all_rejected: every slot rejected must give zeros")
+        require(kept_max["wide_cap"] > 256 and kept_max["all_rejected"] == 0,
+                f"staging shapes: most slots a block keeps {kept_max}")
+        print(f"  staging shapes {sorted(kept_max)}: {cull_checks['passes'] - checks0[0]} passes "
+              f"culled vs unculled and {batch_checks['passes'] - checks0[1]} batched query "
+              f"passes vs their one-query launches, {cull_checks['differing_words']} / "
+              f"{batch_checks['differing_words']} differing words in phase 3; most slots a "
+              f"block keeps {kept_max} ({time.perf_counter() - t0:.1f} s)", flush=True)
 
         # PSF matching: the main path's two banks at its sizes, then edge cases.
         def to_dev(bank):
@@ -2585,6 +2679,15 @@ def main(argv=None) -> int:
                                                            gra, gdec, finite=fin), args.reps)
         scan5 = (dsv.pixels, dsv.wcs, idx, acc_f, gra, gdec)
         u_ms = cuda_ms(torch, lambda: unculled("coadd_fused", scan5), args.reps)
+        a_ms = alone_ms("coadd_fused", scan5, fin, want=warp_ops.coadd_fused(*scan5, finite=fin))
+        # Registers and spills of each accumulator's culled kernel (ptxas -v).
+        scan_ptxas = ptxas_summary(logs.get("warp", ""), "pack_scan_kernel")
+
+        def acc_ptxas(kernel):
+            acc = ACCUMULATOR[kernel.removesuffix("_batch")]
+            return {k: v for k, v in scan_ptxas.items()
+                    if k.startswith(f"pack_scan_kernel<{acc}") and "unculled" not in k}
+
         # The work that contributes: the pass's unit-weight depth and the
         # accepted slots (the sql_structured pass's S0 is its depth map).
         depth_sum = float(warp_ops.coadd_moments(*scan5, finite=fin)[0].sum())
@@ -2619,10 +2722,9 @@ def main(argv=None) -> int:
             max_abs_err=max(err, case_err["coadd_fused"]), ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
             library="F.grid_sample bilinear + sum (sampling only)", kernel_ms=k_ms,
-            unculled_ms=u_ms,
+            unculled_ms=u_ms, alone_ms=a_ms,
             bound_note="bound_ms: the contributing samples and accepted slots (contrib_bound)",
-            samples_contributing=depth_sum,
-            ptxas=ptxas_summary(logs.get("warp", ""), "pack_scan_kernel"),
+            samples_contributing=depth_sum, ptxas=acc_ptxas("coadd_fused"),
             edge_flips=case_flips["coadd_fused"] + int(near.sum()),
             shape=f"sql_structured pass: G={idx.shape[0]} packs x 64 slots of {h}x{w}, Q={q}",
         ))
@@ -2666,22 +2768,20 @@ def main(argv=None) -> int:
         center, thresh = bounds["clipped"]["clip"]
         robust_calls = {
             "coadd_moments": (lambda: warp_ops.coadd_moments(*scan, finite=fin),
-                              lambda: ref.moments_scan_ref(*scan),
-                              lambda: unculled("coadd_moments", scan),
+                              lambda: ref.moments_scan_ref(*scan), (), 0,
                               MOMENTS_SAMPLE_OPS, 5, 579),
-            "coadd_hist": (lambda: warp_ops.coadd_hist(*scan, lo, inv_w, NBINS, finite=fin),
-                           lambda: ref.hist_scan_ref(*scan, lo, inv_w, NBINS),
-                           lambda: unculled("coadd_hist", scan, lo, inv_w, nbins=NBINS),
-                           HIST_SAMPLE_OPS, 4 + NBINS, 640),
+            "coadd_hist": (lambda: (warp_ops.coadd_hist(*scan, lo, inv_w, NBINS, finite=fin),),
+                           lambda: ref.hist_scan_ref(*scan, lo, inv_w, NBINS), (lo, inv_w),
+                           NBINS, HIST_SAMPLE_OPS, 4 + NBINS, 640),
             "coadd_clip": (lambda: warp_ops.coadd_clip(*scan, center, thresh, finite=fin),
-                           lambda: ref.clip_scan_ref(*scan, center, thresh),
-                           lambda: unculled("coadd_clip", scan, center, thresh),
-                           CLIP_SAMPLE_OPS, 6, 606),
+                           lambda: ref.clip_scan_ref(*scan, center, thresh), (center, thresh),
+                           0, CLIP_SAMPLE_OPS, 6, 606),
         }
-        for name, (kern, plain, unc, sample_ops, maps, line) in robust_calls.items():
+        for name, (kern, plain, fixed, nb, sample_ops, maps, line) in robust_calls.items():
             k_ms = cuda_ms(torch, kern, args.reps)
             p_ms = cuda_ms(torch, plain, 2)
-            u_ms = cuda_ms(torch, unc, args.reps)
+            u_ms = cuda_ms(torch, lambda: unculled(name, scan, *fixed, nbins=nb), args.reps)
+            a_ms = alone_ms(name, scan, fin, *fixed, nbins=nb, want=kern())
             scanned_bounds[name] = coadd_bound(n_slots, h, w, q, sample_ops, maps)
             b_ms, b_by = contrib_bound(depth_sum, n_acc, h, w, q, sample_ops, maps)
             kernels.append(dict(
@@ -2690,7 +2790,7 @@ def main(argv=None) -> int:
                 launches=robust_launches[name], max_abs_err=max(m_errs[name], case_err[name]),
                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=sample_ms,
                 library="F.grid_sample bilinear over the pass's samples (sampling only)",
-                kernel_ms=k_ms, unculled_ms=u_ms,
+                kernel_ms=k_ms, unculled_ms=u_ms, alone_ms=a_ms, ptxas=acc_ptxas(name),
                 decision_flips=case_flips[name] + m_flips[name],
                 shape=f"sql_structured pass: G={idx.shape[0]} packs x 64 slots of {h}x{w}, "
                       f"Q={q}" + (f", nbins={NBINS}" if name == "coadd_hist" else ""),
@@ -2870,22 +2970,23 @@ def main(argv=None) -> int:
                 "coadd_fused_batch": (
                     lambda: warp_ops.coadd_fused_batch(*scan_b, finite=fin_b),
                     lambda: [warp_ops.coadd_fused(*one(k), finite=fin_b) for k in range(n_q)],
-                    lambda: ref.coadd_scan_batch_ref(*scan_b), COADD_SAMPLE_OPS, 4),
+                    lambda: ref.coadd_scan_batch_ref(*scan_b), COADD_SAMPLE_OPS, 4, ()),
                 "coadd_moments_batch": (
                     lambda: warp_ops.coadd_moments_batch(*scan_b, finite=fin_b),
                     lambda: [warp_ops.coadd_moments(*one(k), finite=fin_b) for k in range(n_q)],
-                    lambda: ref.moments_scan_batch_ref(*scan_b), MOMENTS_SAMPLE_OPS, 5),
+                    lambda: ref.moments_scan_batch_ref(*scan_b), MOMENTS_SAMPLE_OPS, 5, ()),
                 "coadd_hist_batch": (
                     lambda: warp_ops.coadd_hist_batch(*scan_b, lo_b, iw_b, NBINS, finite=fin_b),
                     lambda: [warp_ops.coadd_hist(*one(k), lo_b[k], iw_b[k], NBINS, finite=fin_b)
                              for k in range(n_q)],
                     lambda: ref.hist_scan_batch_ref(*scan_b, lo_b, iw_b, NBINS),
-                    HIST_SAMPLE_OPS, 4 + NBINS),
+                    HIST_SAMPLE_OPS, 4 + NBINS, (lo_b, iw_b)),
                 "coadd_clip_batch": (
                     lambda: warp_ops.coadd_clip_batch(*scan_b, mu_b, th_b, finite=fin_b),
                     lambda: [warp_ops.coadd_clip(*one(k), mu_b[k], th_b[k], finite=fin_b)
                              for k in range(n_q)],
-                    lambda: ref.clip_scan_batch_ref(*scan_b, mu_b, th_b), CLIP_SAMPLE_OPS, 6),
+                    lambda: ref.clip_scan_batch_ref(*scan_b, mu_b, th_b), CLIP_SAMPLE_OPS, 6,
+                    (mu_b, th_b)),
             }
             if n_q == 4:
                 c_k, d_k = warp_ops.coadd_fused_batch(*scan_b, finite=fin_b)
@@ -2901,9 +3002,15 @@ def main(argv=None) -> int:
                     case_flips["coadd_fused_batch"] += int(near.sum())
                 case_err["coadd_fused_batch"] = max(case_err["coadd_fused_batch"], err_b)
                 del c_k, d_k, c_p, d_p
-            for name, (kern, singles, plain, sample_ops, maps) in calls.items():
+            for name, (kern, singles, plain, sample_ops, maps, fixed) in calls.items():
                 row = batch_rows.setdefault(name, {})
+                single = name.removesuffix("_batch")
+                want = kern()
+                want = want if isinstance(want, tuple) else (want,)
                 row[n_q] = dict(ms=cuda_ms(torch, kern, args.reps),
+                                alone_ms=alone_ms(single, scan_b, fin_b, *fixed,
+                                                  nbins=NBINS if single == "coadd_hist" else 0,
+                                                  want=want),
                                 singles_ms=cuda_ms(torch, singles, args.reps),
                                 bound=batch_bound(depth_b, n_acc_b, n_q, h, w, q, sample_ops,
                                                   maps),
@@ -2911,6 +3018,25 @@ def main(argv=None) -> int:
                                 depth_sum=depth_b)
                 if n_q == 4:
                     row[n_q]["plain_ms"] = cuda_ms(torch, plain, 1)
+            if n_q == 4:
+                # The moments pass split by its inputs alone: the skeleton
+                # (every slot rejected and flagged, so no candidate), then
+                # every frame accepted over the grids moved 20 deg off the
+                # survey (every footprint tested, no slot sampled).
+                framed = (dev_b.wcs[idx_b.long()][..., 4:].abs().sum(-1) != 0).float()
+                split = {"skeleton": ((torch.zeros_like(acc_b), gdec_b), torch.ones_like(fin_b)),
+                         "footprint": ((framed.expand_as(acc_b).contiguous(), gdec_b + 20.0),
+                                       fin_b)}
+                for what, ((acc_x, gdec_x), fin_x) in split.items():
+                    scan_x = (dev_b.pixels, dev_b.wcs, idx_b, acc_x, gra_b, gdec_x)
+                    launch, outs = scan_alone("coadd_moments", scan_x, fin_x)
+                    launch()
+                    torch.cuda.synchronize()
+                    require(not any(bool(t.any()) for t in outs),
+                            f"coadd_moments_batch {what} split: a sample was added")
+                    batch_rows["coadd_moments_batch"][f"{what}_ms"] = cuda_ms(torch, launch,
+                                                                               args.reps)
+                del framed, split
             del scan_b, grids_b, gra_b, gdec_b, acc_b, s_b, mu_b, sig_b, lo_b, iw_b, th_b
             torch.cuda.empty_cache()
         for name, row in batch_rows.items():
@@ -2923,8 +3049,10 @@ def main(argv=None) -> int:
                 plain_ms=r4["plain_ms"], bound_ms=r4["bound"][0], bound_by=r4["bound"][1],
                 library_ms=4 * lib_single[single],
                 library=f"4 x the {single} row's library call (no PyTorch call batches it)",
-                kernel_ms=r4["ms"], singles_ms=r4["singles_ms"], us_per_query=r4["ms"] * 250.0,
-                ms_k16=r16["ms"], singles_ms_k16=r16["singles_ms"],
+                kernel_ms=r4["ms"], alone_ms=r4["alone_ms"], singles_ms=r4["singles_ms"],
+                us_per_query=r4["ms"] * 250.0, ms_k16=r16["ms"], alone_ms_k16=r16["alone_ms"],
+                singles_ms_k16=r16["singles_ms"], ptxas=acc_ptxas(name),
+                **{k: v for k, v in row.items() if k in ("skeleton_ms", "footprint_ms")},
                 us_per_query_k16=r16["ms"] * 1e3 / 16, bound_ms_k16=r16["bound"][0],
                 bound_by_k16=r16["bound"][1], host_grid_ms=r4["grid_ms"],
                 host_grid_ms_k16=r16["grid_ms"],
@@ -2934,12 +3062,16 @@ def main(argv=None) -> int:
                       f"{r4['accepted']} ({r16['accepted']}) slots accepted by some query"
                       + (f", nbins={NBINS}" if name == "coadd_hist_batch" else ""),
             ))
-            print(f"  {name}: K=4 {r4['ms']:.3f} ms ({r4['ms'] * 250.0:.1f} us a query) against "
+            split = (f"; moments split alone: skeleton {row['skeleton_ms']:.3f} ms, footprint "
+                     f"tests {row['footprint_ms']:.3f} ms" if "skeleton_ms" in row else "")
+            print(f"  {name}: K=4 {r4['ms']:.3f} ms (alone {r4['alone_ms']:.3f}; "
+                  f"{r4['ms'] * 250.0:.1f} us a query) against "
                   f"4 one-query launches {r4['singles_ms']:.3f} ms; K=16 {r16['ms']:.3f} ms "
-                  f"({r16['ms'] * 1e3 / 16:.1f} us a query) against 16 launches "
+                  f"(alone {r16['alone_ms']:.3f}; "
+                  f"{r16['ms'] * 1e3 / 16:.1f} us a query) against 16 launches "
                   f"{r16['singles_ms']:.3f} ms; bound K=4 {r4['bound'][0]:.3f} by "
                   f"{r4['bound'][1]}, K=16 {r16['bound'][0]:.3f} by {r16['bound'][1]}; host "
-                  f"grids {r4['grid_ms']:.1f} / {r16['grid_ms']:.1f} ms", flush=True)
+                  f"grids {r4['grid_ms']:.1f} / {r16['grid_ms']:.1f} ms{split}", flush=True)
         # The LM kernels at the Zamba2 prefill's shapes (the 4 x 2048 batch):
         # flash beside F.scaled_dot_product_attention; no single PyTorch call
         # computes the SSD scan.
@@ -3034,9 +3166,24 @@ def main(argv=None) -> int:
             m_ms = cuda_ms(torch, lambda: warp_ops.coadd_fused(*m_scan, finite=m_dev.finite),
                            args.reps)
             mu_ms = cuda_ms(torch, lambda: unculled("coadd_fused", m_scan), args.reps)
-            print(f"  coadd_fused pass of {m}: {m_ms:.3f} ms (unculled {mu_ms:.3f}) over "
-                  f"{m_scan[3].numel()} slots, {m_ms / query_ms[m]:.3f} of the query's "
-                  f"{query_ms[m]:.1f} ms")
+            # Each pass of the method launched alone: fused, moments, and
+            # clip about the clipped mean.
+            m_fin = m_dev.finite
+            m_mom = warp_ops.coadd_moments(*m_scan, finite=m_fin)
+            m_mu, m_sigma = reducer.clip_stats(*m_mom)
+            m_fixed = {"coadd_fused": (), "coadd_moments": (),
+                       "coadd_clip": (m_mu, reducer.clip_threshold(m_mu, m_sigma, CLIP_K))}
+            m_alone = {name: alone_ms(name, m_scan, m_fin, *fixed)
+                       for name, fixed in m_fixed.items()}
+            # The skeleton alone: every slot rejected and flagged.
+            m_alone["skeleton"] = alone_ms(
+                "coadd_fused", m_scan[:3] + (torch.zeros_like(m_scan[3]),) + m_scan[4:],
+                torch.ones_like(m_fin))
+            print(f"  pass of {m} over {m_scan[3].numel()} slots: coadd_fused {m_ms:.3f} ms "
+                  f"(unculled {mu_ms:.3f}), {m_ms / query_ms[m]:.3f} of the query's "
+                  f"{query_ms[m]:.1f} ms; launched alone: " + ", ".join(
+                      f"{name} {t:.3f}" for name, t in m_alone.items()) + " ms")
+            del m_mom, m_mu, m_sigma, m_fixed
         # The brick window's materialization passes, one coadd_fused pass a
         # brick onto its lattice tile, culled and unculled: a frame covers a
         # larger share of a brick's tile than of the query grid.
@@ -3068,6 +3215,8 @@ def main(argv=None) -> int:
             if k["name"] == "warp_project":
                 ceiling = f", unculled {k['unculled_ms']:.3f}"
             ptxas = f"; ptxas {k['ptxas']}" if "ptxas" in k else ""
+            if "alone_ms" in k:
+                ceiling = f", launched alone {k['alone_ms']:.3f}"
             extra = (f", unculled {k['unculled_ms']:.3f}, every-slot bound "
                      f"{scanned_bounds[k['name']][0]:.3f} by {scanned_bounds[k['name']][1]}"
                      if k["name"] in scanned_bounds else "")

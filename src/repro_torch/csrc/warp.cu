@@ -30,21 +30,20 @@
 // shared memory.
 //
 // A pack scan is one whole pass of a query in ONE launch: one thread owns
-// one output pixel of a 32 x 8 block tile, loops over the G gated packs x
-// cap slots inside the kernel, and keeps its sums in registers: no atomics,
-// a fixed order, and no (N, Q, Q) stack ever written.  As in the reference
-// scan, each pack's partial sums are added to the carry after the pack.
-// The four passes differ only in the per-sample accumulator, a template
-// parameter; the robust ones read their fixed (Q, Q) operands (clip centre
-// and radius, histogram bounds) once per thread into registers.
+// one output pixel of a 32 x 8 block tile, the block walks the G gated
+// packs x cap slots inside the kernel, and each thread keeps its sums in
+// registers: no atomics, a fixed order, and no (N, Q, Q) stack ever
+// written.  As in the reference scan, each pack's partial sums are added to
+// the carry after the pack.  The four passes differ only in the per-sample
+// accumulator, a template parameter; the robust ones read their fixed
+// (Q, Q) operands (clip centre and radius, histogram bounds) once per
+// thread into registers.
 //
-// Culling (the kCull form every wrapper launches).  A query's frames are
-// few and small beside the grid: on the survey's main path 164 of 512 (or
-// 2880) scanned slots are accepted, and each covers about 5 % of the grid.
-// So each block stages a chunk of up to 256 slots, each staging thread
-// decides whether its slot can add anything to this block's tile, the kept
-// slots are compacted in order (warp ballot and prefix), and the block
-// samples only those.  A slot is skipped when
+// Culling (pack_scan_kernel, the form every wrapper launches).  A query's
+// frames are few and small beside the grid: on the survey's main path 164
+// of 512 (or 2880) scanned slots are accepted, and each covers about 5 % of
+// the grid, so a 32 x 8 tile is reached by about 9.5 of them.  A slot adds
+// nothing to a block's tile when
 //   (a) it is rejected (accept == 0) and its flag in `finite` is set: every
 //       pixel finite with |p| <= 2^62 (PackedDataset.to_device; ops.py
 //       derives the PSF scratch's flag).  A rejected sample then adds
@@ -54,11 +53,34 @@
 //       outside the frame is the select's exact 0 with coverage 0, so it
 //       adds 0 * a = +-0 to every sum (HistAcc adds weight 0 to some bin,
 //       or returns on NaN).
-// Adding +-0 leaves every partial bitwise unchanged: a sum that starts at
-// +0 is never -0 under round-to-nearest, and x + (+-0) == x for any other
-// x.  begin_pack/end_pack still frame every pack, so the order of every
-// sum that is not skipped is the unculled kernel's, and the result is
-// bitwise the same.  The footprint test of (b), `misses_tile`, is exact
+// A block culls the whole scan at once, not pack by pack:
+//   1. Candidates: the scan's G * cap slots in rounds of 256, one slot a
+//      thread, with no trig: load the accept and the flag, apply (a), and
+//      compact the candidates in scan order (warp ballot and prefix) into a
+//      shared buffer of (scan position g, slot, accept).  A round may hold
+//      slots of several packs, and a pack may span rounds (cap > 256).
+//   2. Footprint: whenever 256 candidates wait, or the scan has ended, each
+//      thread takes one, builds its SlotConst (two trig calls) and applies
+//      (b); the kept slots are compacted in order into the kept list.
+//   3. Sampling: each thread walks the kept list in order.  A kept slot of
+//      another pack than the last one closes that pack's partial
+//      (end_pack) and opens its own (begin_pack); the scan's end closes
+//      the last.  A pack whose kept slots fall into two footprint rounds
+//      keeps its partial open across them.
+// So the main path's sparse pass stages 2 cheap rounds and 1 footprint
+// round of 164 candidates a block, not 8 packs of 64 staging threads with
+// three barriers each, and a dense one 12 cheap rounds, not 45 packs.
+// Why the result is bitwise the unculled scan's: adding +-0 leaves every
+// partial unchanged, since a sum that starts at +0 is never -0 under
+// round-to-nearest and x + (+-0) == x for any other x (a NaN stays the
+// card's one NaN).  A pack with no kept slot goes unframed: its partial in
+// the unculled scan is +0 (a sum of +-0 that starts at +0), and the carry,
+// which also starts at +0, is never -0, so carry + (+0) is the carry.
+// Every other pack is framed where the unculled scan frames it, after its
+// last slot and before the next pack's first, and its kept slots are added
+// in scan order.  So every sum that is not skipped is added in the
+// unculled kernel's order, and the result is the same bits.  The footprint
+// test of (b), `misses_tile`, is exact
 // for any grid: the block's tile is split into four 8 x 8 sub-tiles, each
 // with a centre pixel c and the largest chord r from c to its pixels
 // (computed once per block); every pixel of the sub-tile lies within the
@@ -72,19 +94,24 @@
 // [0, H-1] for every live sub-tile, and only when c maps to finite (sx, sy)
 // with cos(theta_c + r) > 0.05; anything else keeps the slot.  So what
 // bounds a culled scan is the samples that contribute (about the query's
-// depth sum), the per-slot staging, and the block-uniform branches.
-// pack_scan_kernel<Acc, false> is the unculled scan, kept as one extra C
-// entry point (pack_scan_unculled_f32) for chip_smoke.py to hold the
-// culled form against bitwise; no wrapper launches it.
+// depth sum), the footprint tests (one a candidate and block) and the
+// block-uniform branches.  Each accumulator sets the kernel's minimum
+// resident blocks (kMinBlocks, __launch_bounds__): the register cap that
+// builds it without spills.  Its shared memory, 20.2 KB a block, allows
+// the SM's eight blocks of 256 threads.  pack_scan_unculled_kernel is the
+// unculled scan, pack by pack in chunks of 256 slots, every slot sampled:
+// one extra C entry point (pack_scan_unculled_f32) for chip_smoke.py to
+// hold the culled form against bitwise; no wrapper launches it.
 //
 // Batches (paper Fig. 5).  A pack scan carries a query axis: blockIdx.z is
 // the query k of K, and each block reads that query's accept (K, G, cap),
 // grids (K, Q, Q) and fixed operands (K, Q, Q), and writes its own output
 // planes; pixels, WCS, the pack index and the finite flag are shared by
-// every query.  The footprint caps come from that query's grid, so culling
-// is per query, and the slot order is the one-query kernel's: each query of
-// a batch is bitwise its own one-query launch on the same pack index, which
-// is pack_scan_f32 with n_queries = 1.
+// every query.  The candidates and the footprint caps come from that
+// query's accept and grid, so culling is per query, and the slot order is
+// the one-query kernel's: each query of a batch is bitwise its own
+// one-query launch on the same pack index, which is pack_scan_f32 with
+// n_queries = 1.
 //
 // warp_project_kernel is culled by (b) alone: it writes every image's tile,
 // so a culled (tile, image) pair writes 0 * a to tile and coverage without
@@ -251,13 +278,19 @@ __global__ void __launch_bounds__(kThreads)
 // (vm, m) of a slot with accept weight a, end_pack() adds the partial to
 // the carry, store() writes the outputs.  Each add() repeats its Pallas
 // body's arithmetic in the same order.  query(args, k, qq) moves every
-// pointer to query k's planes of a batch.
+// pointer to query k's planes of a batch.  kMinBlocks is the culled
+// kernel's minimum resident blocks an SM, so its register cap is 65536 /
+// (256 kMinBlocks) a thread, chosen where ptxas (CUDA 12.9) builds it
+// without spills: Sum, Moments, Clip and Hist<8> take 62-64 registers at
+// 4 (Moments and Clip spill at 5); Hist<16> 80 at 3; Hist<32> spills at 2
+// (128), so it keeps one block an SM and 147 registers.
 
 struct SumAcc {  // coadd_fused: sum a*vm, sum a*m
   struct Args {
     float* coadd;
     float* depth;
   };
+  static constexpr int kMinBlocks = 4;
   float c = 0.0f, d = 0.0f, pc = 0.0f, pd = 0.0f;
   static __device__ Args query(const Args& p, int64_t k, int64_t qq) {
     return {p.coadd + k * qq, p.depth + k * qq};
@@ -284,6 +317,7 @@ struct MomentsAcc {  // robust pass 1: S0 = sum a*m, S1 = sum a*vm, S2 = sum a*v
     float* s1;
     float* s2;
   };
+  static constexpr int kMinBlocks = 4;
   float s[3] = {0.0f, 0.0f, 0.0f}, p[3] = {0.0f, 0.0f, 0.0f};
   static __device__ Args query(const Args& a, int64_t k, int64_t qq) {
     return {a.s0 + k * qq, a.s1 + k * qq, a.s2 + k * qq};
@@ -315,6 +349,7 @@ struct ClipAcc {  // final pass: sums of the samples inside the clip window
     float* coadd;
     float* depth;
   };
+  static constexpr int kMinBlocks = 4;
   float center = 0.0f, thresh = 0.0f;
   float c = 0.0f, d = 0.0f, pc = 0.0f, pd = 0.0f;
   static __device__ Args query(const Args& p, int64_t k, int64_t qq) {
@@ -351,6 +386,7 @@ struct HistAcc {  // median round 1: hist[b] += a*m at b = clip(floor((x-lo)*inv
     float* hist;  // (NB, Q, Q)
     int64_t qq;
   };
+  static constexpr int kMinBlocks = NB <= 8 ? 4 : NB <= 16 ? 3 : 1;
   float lo = 0.0f, inv_w = 0.0f;
   float h[NB] = {}, ph[NB] = {};
   static __device__ Args query(const Args& p, int64_t k, int64_t qq) {
@@ -531,32 +567,156 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The pass, for query blockIdx.z of the batch (see the header).  kCull:
-// skip what adds nothing (the header); without it every scanned slot is
-// sampled, the check form.
-template <class Acc, bool kCull>
-__global__ void __launch_bounds__(kThreads)
+// Ranks a predicate block-wide, in thread order: -> this thread's rank
+// among the threads whose `pred` is set; `total` is their count.  One
+// barrier.  `warp_n` is the caller's buffer of kWarps counts: two calls in
+// a row need two buffers, since a warp may write the second's counts
+// before another has read the first's.
+__device__ __forceinline__ int block_rank(bool pred, int* warp_n, int& total) {
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, pred);
+  if (lane == 0) warp_n[warp] = __popc(ballot);
+  __syncthreads();
+  int base = 0;
+  total = 0;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) {
+    base += k < warp ? warp_n[k] : 0;
+    total += warp_n[k];
+  }
+  return base + __popc(ballot & ((1u << lane) - 1u));
+}
+
+// The culled pass, for query blockIdx.z of the batch: candidates, footprint
+// tests and sampling over the whole scan (see the header).
+template <class Acc>
+__global__ void __launch_bounds__(kThreads, Acc::kMinBlocks)
     pack_scan_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
                      const int* __restrict__ pack_idx, const float* __restrict__ accepts,
                      const unsigned char* __restrict__ finite, const float* __restrict__ gras,
                      const float* __restrict__ gdecs, const typename Acc::Args batch_args,
                      int n_packs, int cap, int h, int w, int q) {
-  __shared__ SlotConst slots[kThreads];   // the chunk's kept slots, in slot order
-  __shared__ int kept[kThreads];          // ... and their offsets in the chunk
-  __shared__ int warp_kept[kWarps];
+  // Candidates waiting for their footprint test, in scan order: fewer than
+  // kThreads carried over plus one round.
+  __shared__ int cand_g[2 * kThreads];     // scan position: the row of pack_idx
+  __shared__ int cand_s[2 * kThreads];     // slot in the pack
+  __shared__ float cand_a[2 * kThreads];   // accept
+  // The slots one footprint round kept, in scan order.
+  __shared__ SlotConst kept[kThreads];
+  __shared__ const float* kept_img[kThreads];
+  __shared__ int kept_g[kThreads];
+  __shared__ int warp_n[2][kWarps];
   __shared__ SubTile sub[kSub];
   __shared__ unsigned chord_bits[kSub];
   const int tid = threadIdx.y * kTileX + threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   // This block's query: its grids, accept rows and output planes.
   const int64_t qq = static_cast<int64_t>(q) * q;
   const float* gra = gras + blockIdx.z * qq;
   const float* gdec = gdecs + blockIdx.z * qq;
   const float* accept = accepts + static_cast<int64_t>(blockIdx.z) * n_packs * cap;
-  const typename Acc::Args args = Acc::query(batch_args, blockIdx.z, qq);
   const PixelSky px = pixel_sky(gra, gdec, q);
-  if (kCull) tile_caps(sub, chord_bits, px, gra, gdec, q);
+  tile_caps(sub, chord_bits, px, gra, gdec, q);
+  const int64_t plane = static_cast<int64_t>(h) * w;
+  Acc acc;
+  if (px.live) acc.load(Acc::query(batch_args, blockIdx.z, qq), px.o);
+  int buf = 0;         // which warp_n the next block_rank takes
+  int n_cand = 0;      // candidates waiting
+  int open_g = -1;     // the scan position whose partial is open, or -1
+  // (g0, s0): the scan position and slot of the round's first slot.
+  for (int g0 = 0, s0 = 0; g0 < n_packs;) {
+    // 1. Candidates: rule (a), no trig.
+    int s = s0 + tid;
+    const int g = g0 + s / cap;
+    s -= (g - g0) * cap;
+    bool cand = false;
+    float a = 0.0f;
+    if (g < n_packs) {
+      a = accept[static_cast<int64_t>(g) * cap + s];
+      cand = !(a == 0.0f && finite != nullptr &&
+               finite[static_cast<int64_t>(pack_idx[g]) * cap + s] != 0);
+    }
+    int total;
+    const int at = n_cand + block_rank(cand, warp_n[buf], total);
+    buf ^= 1;
+    if (cand) {
+      cand_g[at] = g;
+      cand_s[at] = s;
+      cand_a[at] = a;
+    }
+    n_cand += total;
+    s0 += kThreads;
+    g0 += s0 / cap;
+    s0 %= cap;
+    // 2-3. Footprint tests of kThreads candidates, or of the last ones,
+    // then the kept slots sampled.
+    while (n_cand >= kThreads || (g0 >= n_packs && n_cand > 0)) {
+      __syncthreads();  // the candidates are written; the last kept list is no longer read
+      const int n = min(kThreads, n_cand);
+      bool keep = false;
+      SlotConst c;
+      const float* img = nullptr;
+      int cg = 0;
+      if (tid < n) {
+        cg = cand_g[tid];
+        const int64_t slot = static_cast<int64_t>(pack_idx[cg]) * cap + cand_s[tid];
+        const float ca = cand_a[tid];
+        c = make_slot(wcs + slot * 8, ca);
+        // (b): a finite accept times a sample outside the frame adds +-0.
+        keep = !(isfinite(ca) && misses_tile(c, sub, h, w));
+        img = pixels + slot * plane;
+      }
+      int n_kept;
+      const int k_at = block_rank(keep, warp_n[buf], n_kept);
+      buf ^= 1;
+      if (keep) {
+        kept[k_at] = c;
+        kept_img[k_at] = img;
+        kept_g[k_at] = cg;
+      }
+      // The untested candidates move to the front: each thread read its own
+      // entry before block_rank's barrier, and n_cand - n < n here.
+      if (tid < n_cand - n) {
+        cand_g[tid] = cand_g[n + tid];
+        cand_s[tid] = cand_s[n + tid];
+        cand_a[tid] = cand_a[n + tid];
+      }
+      n_cand -= n;
+      __syncthreads();  // the kept list and the moved candidates are written
+      if (px.live) {
+        for (int j = 0; j < n_kept; ++j) {
+          const int gj = kept_g[j];   // block-uniform
+          if (gj != open_g) {
+            if (open_g >= 0) acc.end_pack();
+            acc.begin_pack();
+            open_g = gj;
+          }
+          float vm, m;
+          warp_sample(kept_img[j], h, w, kept[j], px.ra_r, px.sin_dec, px.cos_dec, vm, m);
+          acc.add(vm, m, kept[j].a);
+        }
+      }
+    }
+  }
+  if (px.live) {
+    if (open_g >= 0) acc.end_pack();
+    acc.store(Acc::query(batch_args, blockIdx.z, qq), px.o);
+  }
+}
+
+// The unculled pass (the check form, one query): pack by pack, in chunks
+// of kThreads slots, every slot staged and sampled.
+template <class Acc>
+__global__ void __launch_bounds__(kThreads)
+    pack_scan_unculled_kernel(const float* __restrict__ pixels, const float* __restrict__ wcs,
+                              const int* __restrict__ pack_idx,
+                              const float* __restrict__ accept, const float* __restrict__ gra,
+                              const float* __restrict__ gdec, const typename Acc::Args args,
+                              int n_packs, int cap, int h, int w, int q) {
+  __shared__ SlotConst slots[kThreads];
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const PixelSky px = pixel_sky(gra, gdec, q);
   const int64_t plane = static_cast<int64_t>(h) * w;
   Acc acc;
   if (px.live) acc.load(args, px.o);
@@ -565,42 +725,17 @@ __global__ void __launch_bounds__(kThreads)
     acc.begin_pack();
     for (int s0 = 0; s0 < cap; s0 += kThreads) {
       const int n = min(kThreads, cap - s0);
-      __syncthreads();  // the previous chunk's slots and counts are no longer read
-      bool keep = false;
-      SlotConst c = {};
-      if (tid < n) {
-        const int64_t slot = first_slot + s0 + tid;
-        const float a = accept[static_cast<int64_t>(g) * cap + s0 + tid];
-        // (a): a rejected slot whose samples are all finite adds +-0.
-        keep = !kCull || !(a == 0.0f && finite != nullptr && finite[slot] != 0);
-        if (keep) {
-          c = make_slot(wcs + slot * 8, a);
-          // (b): a finite accept times a sample outside the frame adds +-0.
-          if (kCull && isfinite(a) && misses_tile(c, sub, h, w)) keep = false;
-        }
-      }
-      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-      if (lane == 0) warp_kept[warp] = __popc(ballot);
-      __syncthreads();
-      int base = 0;
-      int total = 0;
-#pragma unroll
-      for (int k = 0; k < kWarps; ++k) {
-        base += k < warp ? warp_kept[k] : 0;
-        total += warp_kept[k];
-      }
-      if (keep) {
-        const int at = base + __popc(ballot & ((1u << lane) - 1u));
-        slots[at] = c;
-        kept[at] = tid;
-      }
+      __syncthreads();  // the previous chunk's slots are no longer read
+      if (tid < n)
+        slots[tid] = make_slot(wcs + (first_slot + s0 + tid) * 8,
+                               accept[static_cast<int64_t>(g) * cap + s0 + tid]);
       __syncthreads();
       if (px.live) {
         const float* img = pixels + (first_slot + s0) * plane;
-        for (int j = 0; j < total; ++j) {
+        for (int j = 0; j < n; ++j) {
           float vm, m;
-          warp_sample(img + kept[j] * plane, h, w, slots[j], px.ra_r, px.sin_dec, px.cos_dec,
-                      vm, m);
+          warp_sample(img + j * plane, h, w, slots[j], px.ra_r, px.sin_dec, px.cos_dec, vm,
+                      m);
           acc.add(vm, m, slots[j].a);
         }
       }
@@ -628,14 +763,20 @@ struct Scan {
   void* stream;
 };
 
-template <class Acc, bool kCull>
-int launch_scan(const Scan& s, const typename Acc::Args& args) {
+// The culled pass over n_queries queries, or the unculled one (one query).
+template <class Acc>
+int launch_scan(const Scan& s, const typename Acc::Args& args, bool culled) {
   cudaError_t err = cudaSetDevice(s.device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pack_scan_kernel<Acc, kCull><<<pixel_grid(s.q, s.n_queries), dim3(kTileX, kTileY), 0,
-                                 static_cast<cudaStream_t>(s.stream)>>>(
-      s.pixels, s.wcs, s.pack_idx, s.accept, s.finite, s.gra, s.gdec, args, s.n_packs, s.cap,
-      s.h, s.w, s.q);
+  const cudaStream_t stream = static_cast<cudaStream_t>(s.stream);
+  if (culled)
+    pack_scan_kernel<Acc><<<pixel_grid(s.q, s.n_queries), dim3(kTileX, kTileY), 0, stream>>>(
+        s.pixels, s.wcs, s.pack_idx, s.accept, s.finite, s.gra, s.gdec, args, s.n_packs, s.cap,
+        s.h, s.w, s.q);
+  else
+    pack_scan_unculled_kernel<Acc><<<pixel_grid(s.q, 1), dim3(kTileX, kTileY), 0, stream>>>(
+        s.pixels, s.wcs, s.pack_idx, s.accept, s.gra, s.gdec, args, s.n_packs, s.cap, s.h, s.w,
+        s.q);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -644,23 +785,22 @@ int launch_scan(const Scan& s, const typename Acc::Args& args) {
 // radius, out0 coadd, out1 depth), 3 coadd_hist (in0 lo, in1 inv_w, out0
 // the (nbins, Q, Q) histogram; nbins 8, 16 or 32).  Each in and out is
 // (n_queries, ...) for a batch.
-template <bool kCull>
 int launch_kind(int kind, int nbins, const Scan& s, const float* in0, const float* in1,
-                float* out0, float* out1, float* out2) {
+                float* out0, float* out1, float* out2, bool culled) {
   const int64_t qq = static_cast<int64_t>(s.q) * s.q;
   switch (kind * 64 + (kind == 3 ? nbins : 0)) {
     case 0:
-      return launch_scan<SumAcc, kCull>(s, {out0, out1});
+      return launch_scan<SumAcc>(s, {out0, out1}, culled);
     case 64:
-      return launch_scan<MomentsAcc, kCull>(s, {out0, out1, out2});
+      return launch_scan<MomentsAcc>(s, {out0, out1, out2}, culled);
     case 128:
-      return launch_scan<ClipAcc, kCull>(s, {in0, in1, out0, out1});
+      return launch_scan<ClipAcc>(s, {in0, in1, out0, out1}, culled);
     case 192 + 8:
-      return launch_scan<HistAcc<8>, kCull>(s, {in0, in1, out0, qq});
+      return launch_scan<HistAcc<8>>(s, {in0, in1, out0, qq}, culled);
     case 192 + 16:
-      return launch_scan<HistAcc<16>, kCull>(s, {in0, in1, out0, qq});
+      return launch_scan<HistAcc<16>>(s, {in0, in1, out0, qq}, culled);
     case 192 + 32:
-      return launch_scan<HistAcc<32>, kCull>(s, {in0, in1, out0, qq});
+      return launch_scan<HistAcc<32>>(s, {in0, in1, out0, qq}, culled);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -711,7 +851,7 @@ extern "C" int pack_scan_unculled_f32(int kind, int nbins, const float* pixels,
                                       int w, int q, int device, void* stream) {
   const Scan s{pixels, wcs, pack_idx, accept, nullptr, gra, gdec, 1, n_packs, cap, h, w, q,
                device, stream};
-  return launch_kind<false>(kind, nbins, s, in0, in1, out0, out1, out2);
+  return launch_kind(kind, nbins, s, in0, in1, out0, out1, out2, false);
 }
 
 // The culled pass of any kind (`kind`, `nbins` and operands as launch_kind)
@@ -731,7 +871,7 @@ extern "C" int pack_scan_f32(int kind, int nbins, const float* pixels, const flo
   if (n_queries < 1 || n_queries > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const Scan s{pixels, wcs, pack_idx, accept, finite, gra, gdec, n_queries, n_packs, cap, h, w,
                q, device, stream};
-  return launch_kind<true>(kind, nbins, s, in0, in1, out0, out1, out2);
+  return launch_kind(kind, nbins, s, in0, in1, out0, out1, out2, true);
 }
 
 extern "C" const char* warp_error_string(int code) {

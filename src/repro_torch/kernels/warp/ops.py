@@ -26,12 +26,15 @@ pair whose footprint misses the tile is written without sampling, the same
 bits as the unculled kernel (``warp_project_unculled_f32``), which only
 ``chip_smoke.py`` launches.
 
-The pack scans launch the culled form of ``pack_scan_kernel`` (the header
-of ``csrc/warp.cu``): it skips a slot in a block whose tile its footprint
-misses, and a rejected slot whose ``finite`` flag is set (a (P, cap) uint8
+The pack scans launch ``pack_scan_kernel`` (the header of
+``csrc/warp.cu``), which culls the whole scan in each block before it
+samples: a rejected slot whose ``finite`` flag is set (a (P, cap) uint8
 tensor, `seqfile.finite_slots`; the PSF scratch's flag is
-`matched_finite`).  Both skips add exact zeros, so the result is bitwise
-the unculled scan's, which only ``chip_smoke.py`` launches.
+`matched_finite`) is no candidate, and a candidate whose footprint misses
+the block's tile is not kept.  The block samples the kept slots in scan
+order and frames only the packs that hold one.  What it skips adds exact
+zeros, so the result is bitwise the unculled scan's
+(``pack_scan_unculled_kernel``), which only ``chip_smoke.py`` launches.
 
 Batches (paper Fig. 5): ``coadd_fused_batch``, ``coadd_moments_batch``,
 ``coadd_clip_batch`` and ``coadd_hist_batch`` run K queries over one pack

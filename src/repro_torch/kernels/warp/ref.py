@@ -290,6 +290,58 @@ def scattered_frames(center_ra, center_dec, npix, fov_deg, n, height, width, see
     return ((ra % 360.0).astype(np.float32), dec.astype(np.float32), wcs.astype(np.float32))
 
 
+def staging_scans(n_queries=3, seed=0):
+    """Scans shaped for the culled pack scan's staging (csrc/warp.cu): name ->
+    (pixels (P, cap, H, W), wcs (P, cap, 8), pack_idx (G,) int32, accepts
+    (K, G, cap), grids_ra (K, Q, Q), grids_dec, flag) numpy, ``flag`` True
+    where the scan takes the layout's finite flag (`seqfile.finite_slots`),
+    False where it takes None.  Frames of 16 x 24 px over a
+    `scattered_frames` sky; K = ``n_queries``, query k's grid the first moved
+    by 0.05 k deg in RA, its accepts random in {0, 0.5, 1}.
+
+    ``cap300``: a pack spans two 256-slot rounds.  ``cap1``, ``cap33``.
+    ``sparse_repeated``: three padding rows repeating pack 0, accepts 0.
+    ``all_rejected``: every slot rejected and flagged.  ``no_flag``: every
+    slot a candidate.  ``wide_cap``: 0.625 deg pixels, so no sub-tile is
+    narrow enough to cull (state 2) and a block keeps most of 12 packs x 33
+    slots.  ``poisoned``: the three rejected slots that cover the first
+    grid most hold NaN, inf and 2**70 frames (their flag clear)."""
+    h, w = 16, 24
+    rng = np.random.default_rng(seed)
+    # name: (packs, cap, pack_idx, npix, fov_deg, share of slots accepted)
+    shapes = {
+        "cap300": (2, 300, [1, 0], 70, 0.5, 0.7),
+        "cap1": (40, 1, list(rng.permutation(40)), 70, 0.5, 0.7),
+        "cap33": (9, 33, list(range(9)), 70, 0.5, 0.7),
+        "sparse_repeated": (6, 16, [4, 1, 3, 0, 0, 0], 70, 0.5, 0.7),
+        "all_rejected": (4, 64, [0, 1, 2, 3], 70, 0.5, 0.0),
+        "no_flag": (4, 64, [0, 1, 2, 3], 70, 0.5, 0.7),
+        "wide_cap": (12, 33, list(range(12)), 64, 40.0, 0.9),
+        "poisoned": (2, 64, [0, 1], 70, 0.5, 0.7),
+    }
+    out = {}
+    for i, (name, (n_packs, cap, idx, npix, fov, share)) in enumerate(shapes.items()):
+        gra, gdec, wcs = scattered_frames(20.0, 30.0, npix, fov, n_packs * cap, h, w, seed + i)
+        pixels = rng.normal(100.0, 10.0, (n_packs, cap, h, w)).astype(np.float32)
+        g = len(idx)
+        accepts = ((rng.random((n_queries, g, cap)) < share)
+                   * rng.choice(np.float32([0.5, 1.0]), (n_queries, g, cap))).astype(np.float32)
+        if name == "sparse_repeated":
+            accepts[:, 3:] = 0.0
+        if name == "poisoned":
+            sx, sy = sky_to_pixel(torch.from_numpy(gra), torch.from_numpy(gdec),
+                                  torch.from_numpy(wcs).T.reshape(8, -1, 1, 1))
+            cover = ((sx >= 0) & (sx <= w - 1) & (sy >= 0) & (sy <= h - 1)).sum((1, 2))
+            for value, slot in zip((np.nan, np.inf, np.float32(2.0 ** 70)),
+                                   cover.argsort(descending=True)[:3].tolist()):
+                pixels.reshape(-1, h, w)[slot] = value
+                accepts[:, idx.index(slot // cap), slot % cap] = 0.0
+        moved = [(gra + np.float32(0.05 * k)) % np.float32(360.0) for k in range(n_queries)]
+        out[name] = (pixels, wcs.reshape(n_packs, cap, 8), np.asarray(idx, np.int32), accepts,
+                     np.stack(moved), np.stack([gdec] * n_queries), name != "no_flag")
+    return out
+
+
 def near_edge(height, width, wcs_vecs, accepts, ra, dec, tol=EDGE_TOL):
     """Bool shaped like ``ra``: sky points where some accepted image's plain
     sx or sy lies within ``tol`` px of that image's edge ([0, W-1] x [0, H-1]).

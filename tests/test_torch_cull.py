@@ -8,6 +8,10 @@ scratch's flag, the plain twin of the footprint test (`ref.footprint_keep`)
 against brute force (no (tile, slot) pair it culls has a sample inside the
 frame), and where NaNs fall on the plain path when a rejected slot holds a
 non-finite pixel, against the JAX package's Pallas kernels in interpret mode.
+The staging shapes of the culled scan body (`ref.staging_scans`: cap 300,
+1 and 33, repeated padding rows, every slot rejected, no flag, sub-tiles
+too wide to cull, a poisoned pack) are checked to be what they say here,
+and held bitwise against the unculled kernel on a card.
 
 ``warp_project_kernel`` is culled by the same footprint test: every (tile,
 image) pair the twin culls must be exactly +-0 in the JAX package's
@@ -23,7 +27,7 @@ import torch
 
 import repro_torch as rt
 from repro.kernels.warp import ops as ref_ops
-from repro_torch.core import psf
+from repro_torch.core import psf, reducer
 from repro_torch.core.geometry import sky_to_pixel
 from repro_torch.core.mapper import query_grid_sky
 from repro_torch.core import seqfile
@@ -402,6 +406,89 @@ def test_cuda_warp_project_is_bitwise_its_check_form(cuda, name):
     assert err == 0
     for a, b in zip((tile, cov), want):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# ----- the staging shapes of the culled scan body --------------------------
+
+STAGING = ref.staging_scans()
+
+
+@pytest.mark.parametrize("name", sorted(STAGING))
+def test_staging_scans_have_their_shapes(name):
+    """Each shape `ref.staging_scans` names is what it says, by the plain
+    twin of the footprint test (the most slots a block of query 0 keeps)."""
+    *arrays, flag = STAGING[name]
+    px, wcs, idx, acc, gr, gd = _t(*arrays)
+    k = acc.shape[0]
+    assert acc.shape == (k, idx.shape[0], px.shape[1]) and gr.shape == gd.shape
+    assert gr.shape == (k,) + gr.shape[1:] and gr.shape[1] == gr.shape[2]
+    fin = finite_slots(px) if flag else None
+    rows = idx.long()
+    keep = ref.footprint_keep(wcs[rows].reshape(-1, 8), acc[0].reshape(-1),
+                              None if fin is None else fin[rows].reshape(-1) != 0,
+                              gr[0], gd[0], *px.shape[-2:])
+    kept = keep.sum(-1)
+    cap = px.shape[1]
+    coadd, _ = ref.coadd_scan_ref(px, wcs, idx, acc[0], gr[0], gd[0])
+    assert bool(coadd.isnan().any()) == (name == "poisoned")
+    assert flag == (name != "no_flag")
+    if name == "cap300":
+        assert cap > 256 and kept.max() > 0
+    elif name in ("cap1", "cap33"):
+        assert cap == int(name[3:]) and kept.max() > 0
+    elif name == "sparse_repeated":
+        assert idx.tolist()[3:] == [0, 0, 0] and not acc[:, 3:].any()
+    elif name == "all_rejected":
+        assert not acc.any() and bool(fin.all()) and kept.max() == 0
+    elif name == "wide_cap":
+        assert kept.min() > 256
+    elif name == "poisoned":
+        bad = (fin == 0).nonzero().tolist()
+        assert len(bad) == 3 and all(not acc[:, idx.tolist().index(p), s].any() for p, s in bad)
+
+
+def _unculled(kind, nbins, scan, fixed, shapes):
+    """The unculled check form (``pack_scan_unculled_f32``) of one query."""
+    from repro_torch.kernels import build
+
+    px, _, idx, _, gr, _ = scan
+    outs = [torch.empty(s, device=px.device) for s in shapes]
+    err = build.library("warp").pack_scan_unculled_f32(
+        kind, nbins, *(t.data_ptr() for t in scan), *[t.data_ptr() for t in fixed],
+        *[None] * (2 - len(fixed)), *[t.data_ptr() for t in outs], *[None] * (3 - len(outs)),
+        idx.shape[0], *px.shape[1:], gr.shape[-1], px.device.index or 0,
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return outs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(STAGING))
+def test_cuda_staging_shapes_are_bitwise_the_unculled_scan(cuda, name):
+    """Every culled accumulator, each query bitwise the unculled kernel, and
+    each batched query bitwise its one-query launch, every word."""
+    *arrays, flag = STAGING[name]
+    scan = [t.to(cuda) for t in _t(*arrays)]
+    fin = finite_slots(scan[0]) if flag else None
+    mom = ops.coadd_moments_batch(*scan, finite=fin)
+    mu, sigma = reducer.clip_stats(*mom)
+    passes = [("coadd_fused", 0, 0, ()), ("coadd_moments", 1, 0, ()),
+              ("coadd_clip", 2, 0, (mu, reducer.clip_threshold(mu, sigma, 3.0)))]
+    passes += [("coadd_hist", 3, nb, reducer.hist_bounds(*mom, nb)[::2]) for nb in ops.HIST_BINS]
+    for fn, kind, nb, fixed in passes:
+        nbins = (nb,) if nb else ()
+        got = getattr(ops, f"{fn}_batch")(*scan, *fixed, *nbins, finite=fin)
+        got = got if isinstance(got, tuple) else (got,)
+        for k in range(scan[3].shape[0]):
+            one_scan = scan[:3] + [t[k] for t in scan[3:]]
+            fixed_k = [t[k] for t in fixed]
+            one = getattr(ops, fn)(*one_scan, *fixed_k, *nbins, finite=fin)
+            one = one if isinstance(one, tuple) else (one,)
+            want = _unculled(kind, nb, one_scan, fixed_k, [t.shape for t in one])
+            torch.cuda.synchronize()
+            for a, b, c in zip(got, one, want):
+                assert torch.equal(a[k].view(torch.int32), b.view(torch.int32)), (fn, k)
+                assert torch.equal(b.view(torch.int32), c.view(torch.int32)), (fn, k)
 
 
 # ----- the engine hands the flag to the kernels -----------------------------
