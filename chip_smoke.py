@@ -2,8 +2,12 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--n-runs 8] [--reps 5]
+    python3 chip_smoke.py --mosaic-only
 
-Phases, in order, each printing its seconds:
+The second form only times the brick mosaic on random tiles at the brick
+window's shape (`mosaic_only`); a copy of the script at the root of an older
+checkout times that checkout's mosaic kernel the same way.  The first form
+runs these phases, in order, each printing its seconds:
 
 1. card: a CUDA device must be present; prints ``nvidia-smi``'s name and
    power limit.
@@ -71,7 +75,11 @@ Phases, in order, each printing its seconds:
    cover (4 x 4 bricks of 256 x 256 into 1024 x 1024), one tile, bh != bw,
    overlapping tiles, offsets past the edges and negative (clamped as the
    reference places them), uncovered pixels, npix 997 (not a multiple of
-   the 32 x 8 block), 700 tiles (more than one 256-tile chunk) and B = 0.
+   the 64 x 64 block), 700 tiles (more than one 256-tile chunk) and B = 0;
+   and the shapes that split the kernel's float4 and scalar paths: clamped
+   columns not a multiple of 4, bw % 4 != 0, npix % 4 != 0, 300
+   overlapping tiles with negative offsets, and aligned and unaligned tiles
+   mixed.
 4. main path: a survey of 2880 frames of 512 x 512 px (the reference
    survey's geometry), one r-band query at npix 1024, all six methods
    through ``CoaddEngine.run`` with the fused kernel, exactly one
@@ -149,6 +157,31 @@ Phases, in order, each printing its seconds:
    1024, every fourth query the whole footprint at npix 2048.  Every
    response bitwise ``engine.run``, coalesce factor above 1, nothing shed,
    at least one batched launch; prints wall, p50, p95 and the counters.
+4. streaming ("4 streaming"): the main survey under a device budget, one
+   engine a layout at a quarter of the layout's device bytes (4x
+   oversubscribed), built only through ``CoaddEngine(...,
+   device_budget_bytes=...)``.  Its first query, timed, pays the layout's
+   one-time costs: packing, the pixel array's registration in place
+   (``cudaHostRegister``, its time printed) and every upload.  Then
+   each method on its layout x three estimators, unmatched and PSF-matched
+   at 2.5 (a chunk matched once after its upload), cold (every chunk
+   re-uploaded) and warm, against the eager kernel path's results above:
+   depth exactly and coadd at atol 5e-2 / rtol 1e-3 (the reference's
+   streaming tolerance), a robust pixel that differs only with a sample
+   within 1e-4 of a decision boundary (counted); exactly one host sync a
+   query (a spy on ``engine._sync``); as many windows a pass as gated
+   chunks, one launch each.  Then the K = 4 batch (``raw_fits``,
+   ``sql_structured``, three estimators) against the eager batches, and the
+   brick window streamed: ``run_window``, then cold, warm and spilled
+   serves, one ``mosaic_bricks`` launch each, bitwise ``run_window``.  Per
+   engine: ``ResidencyManager.peak_bytes`` at most the budget + one chunk +
+   a matched build's transients, and the rise of
+   ``torch.cuda.max_memory_allocated`` at most that peak plus the queries'
+   scratch (``STREAM_SCRATCH_MAPS`` maps of npix^2 a query).  Prints cold
+   and warm ms, windows, uploads, hits, evictions, bytes uploaded and the
+   upload rate against a pinned cudaMemcpy of 1 GiB, a profiled cold dense
+   query's device idle share, and the layout's upload rate straight from
+   the registered array and through a ring of two pinned staging buffers.
 4. zamba2 serving ("4 zamba2 serving", after the coadd main path): the full
    ``zamba2-1.2b`` configuration (38 Mamba-2 layers, d_model 2048, 1.17 B
    parameters from ``LM.init(0)``) through ``LM.prefill`` and 32 decode
@@ -188,7 +221,12 @@ Phases, in order, each printing its seconds:
    The PSF kernels' library call is ``F.conv2d`` depthwise on a
    replicate-padded batch, TF32 off (a yardstick only: the port never
    calls it).  ``mosaic_bricks``'s library call is ``F.fold`` (col2im,
-   kernel and stride 256) of the 16 window tiles, coadd and depth.
+   kernel and stride 256) of the 16 window tiles, coadd and depth; the
+   mosaic is also timed launched alone (its C entry point, no wrapper) and
+   as 100 launches captured in a CUDA graph (the kernel's own time: a host
+   call takes about as long as the kernel), on one set of operands that
+   stays in the L2 (``graph_ms``) and over 8 copies in turn that do not
+   (``graph_hbm_ms``, the time to hold against the HBM byte bound).
    ``flash_attention`` and ``ssd_log`` are timed at the Zamba2 prefill's
    shapes (B 4, H 32, S 2048, D 64 causal bf16; B 4, T 2048, H 64, N 64,
    P 64, bf16 inputs), bounded by bf16 tensor-core products at 989 TFLOP/s
@@ -201,7 +239,7 @@ Phases, in order, each printing its seconds:
    ``-v``); ``warp_project`` the unculled kernel's time; ``psf_match_2d``
    its -fmad=false ceiling (twice the operation bound: no product may fuse
    with its sum); both PSF kernels their time launched alone, without the
-   wrapper's pack-index check (a host sync a call), and the gated
+   wrapper's checks, and the gated
    pre-pass's time alone; ``psf_match_2d`` also its any-width path alone on
    the same bank (``psf_match_2d_any_f32``, held bitwise too); and the dense
    pre-pass (2880 slots) gated, ungated and with every slot skipped (its
@@ -211,8 +249,9 @@ Phases, in order, each printing its seconds:
    the slots any query accepts read once, every query's maps and
    contributing samples); the library time K times the one-query row's.
    Every pack scan is also timed launched alone through ``pack_scan_f32``
-   on the same operands (``alone_ms``; the wrappers' pack-index check syncs
-   the host), its outputs bitwise the wrapper's, and carries its culled
+   on the same operands (``alone_ms``; the wrappers are given the index's
+   host copy, as the engine gives it), its outputs bitwise the wrapper's,
+   and carries its culled
    kernel's registers and spills; ``coadd_moments_batch`` at K = 4 also
    split by its inputs alone: every slot rejected and flagged (the
    skeleton) and every frame accepted over grids moved off the survey
@@ -324,6 +363,27 @@ BRICK_DEG, BRICK_NPIX = 0.25, 256
 BRICK_WINDOW = (3, 7, 2, 6)
 BRICK_DENSE = "raw_fits"
 WARM_REPS = 3
+# Streaming residency (phase "4 streaming"): one budgeted engine a layout,
+# its budget a quarter of the layout's device bytes (4x oversubscribed, as
+# tests/test_streaming.py:36-44), each on the methods planned on it; held
+# against the eager kernel path at the reference's streaming tolerance
+# (tests/test_streaming.py:129), depth exactly.
+STREAM_FRAC = 4
+STREAM_ATOL, STREAM_RTOL = 5e-2, 1e-3
+STREAM_LAYOUTS = {"per_file": ("raw_fits", "raw_fits_prefiltered"),
+                  "unstructured": ("unstructured_seq", "sql_unstructured"),
+                  "structured": ("structured_seq_prefiltered", "sql_structured")}
+# Device bytes a streamed query may allocate beyond the residency manager's
+# peak (chunks, in-flight and transient bytes), in (npix, npix) float32 maps
+# a query: the histogram pass's running sum and a window's output, 2 x
+# NBINS, the median's cumulative histogram, NBINS, and 16 single maps
+# (moments, bounds, centre, radius, grids, outputs).
+STREAM_SCRATCH_MAPS = 3 * NBINS + 16
+H2D_PROBE_BYTES = 1 << 30               # pinned cudaMemcpy H2D yardstick
+# The brick mosaic's own time: launches captured in one CUDA graph, on one
+# set of operands (16.8 MB, L2-resident) and over 8 copies in turn (134 MB,
+# well over the H100's 50 MB L2, so each launch's operands come from HBM).
+MOSAIC_GRAPH_LAUNCHES, MOSAIC_ROTATE, MOSAIC_SEED = 100, 8, 21
 # The reference's detection drill (examples/coadd_stripe82.py:28-31).
 DRILL_CFG = dict(n_runs=3, n_fields=5, n_sources=100, height=20, width=20)
 DRILL_QUERY = dict(band="r", ra_bounds=(37.3, 37.9), dec_bounds=(-0.5, 0.3), npix=48)
@@ -987,11 +1047,412 @@ def zamba2_serving(torch, np, dev, counted):
     return runs, launches
 
 
+def card_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def mosaic_times(torch, build, warp_ops, dev, tiles, covs, offs, q):
+    """The brick mosaic's times on its operands -> {"ms": through the
+    wrapper, "alone_ms": its C entry point from a host loop, "graph_ms":
+    MOSAIC_GRAPH_LAUNCHES launches captured in a CUDA graph (the kernel's
+    own time; a host call takes about as long as the kernel) on one set of
+    operands, which then stays in the L2, "graph_hbm_ms": the same over
+    MOSAIC_ROTATE copies of the operands in turn, so each launch reads its
+    tiles from HBM and writes canvases that no longer sit in the L2,
+    "out": the last launch's coadd and depth}."""
+    lib = build.library("mosaic")
+    n_t, bh, bw = tiles.shape
+    sets = [(tiles, covs)] + [(tiles.clone(), covs.clone()) for _ in range(MOSAIC_ROTATE - 1)]
+    outs = [[torch.empty((q, q), dtype=torch.float32, device=dev) for _ in range(2)]
+            for _ in sets]
+
+    def alone(i=0):
+        (t, c), (o_c, o_d) = sets[i], outs[i]
+        build.check(lib, lib.mosaic_bricks_f32(
+            t.data_ptr(), c.data_ptr(), offs.data_ptr(), o_c.data_ptr(), o_d.data_ptr(),
+            n_t, bh, bw, q, dev.index or 0, torch.cuda.current_stream(dev).cuda_stream),
+            "mosaic_bricks launch")
+
+    times = {"ms": cuda_ms(torch, lambda: warp_ops.mosaic_bricks(tiles, covs, offs, q), 200),
+             "alone_ms": cuda_ms(torch, alone, 200)}
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        alone()
+    torch.cuda.synchronize()
+    for key, rotate in (("graph_ms", 1), ("graph_hbm_ms", MOSAIC_ROTATE)):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(MOSAIC_GRAPH_LAUNCHES):
+                alone(i % rotate)
+        times[key] = cuda_ms(torch, graph.replay, 5) / MOSAIC_GRAPH_LAUNCHES
+        del graph
+    torch.cuda.synchronize()
+    times["out"] = outs[0]
+    return times
+
+
+def mosaic_only(torch, np, dev):
+    """``--mosaic-only``: the brick mosaic alone at the brick window's shape
+    (16 tiles of BRICK_NPIX^2 on the lattice into a 1024^2 canvas, random
+    tiles from MOSAIC_SEED), held bitwise against its plain version, and its
+    times (`mosaic_times`) as one JSON line.  It needs only the mosaic's
+    wrapper, its C entry point and its plain version, so a copy of this
+    script at the root of an older checkout times that checkout's kernel."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.warp import ops as warp_ops
+    from repro_torch.kernels.warp import ref
+
+    side, q = 4, 4 * BRICK_NPIX
+    rng = np.random.default_rng(MOSAIC_SEED)
+    shape = (side * side, BRICK_NPIX, BRICK_NPIX)
+    tiles = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+    covs = torch.from_numpy(rng.integers(0, 9, size=shape).astype(np.float32)).to(dev)
+    offs = torch.tensor([(r * BRICK_NPIX, c * BRICK_NPIX) for r in range(side)
+                         for c in range(side)], dtype=torch.int32, device=dev)
+    times = mosaic_times(torch, build, warp_ops, dev, tiles, covs, offs, q)
+    want = ref.mosaic_bricks_ref(tiles, covs, offs, q)
+    require(all(torch.equal(a, b) for a, b in zip(times.pop("out"), want)),
+            "mosaic: not bitwise its plain version")
+    nbytes = 2 * tiles.numel() * 4 + offs.numel() * 4 + 2 * q * q * 4
+    times["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    print(json.dumps({"mosaic": times}), flush=True)
+
+
+def robust_bounds(warp_ops, reducer, scan, nbins=NBINS):
+    """The decision boundaries of one query's robust passes over ``scan``:
+    {"clipped": clip (centre, radius), "median": clip and the bins}."""
+    mom = warp_ops.coadd_moments(*scan)
+    mu, sigma = reducer.clip_stats(*mom)
+    lo, bw, inv_w = reducer.hist_bounds(*mom, nbins)
+    med = reducer.hist_median(warp_ops.coadd_hist(*scan, lo, inv_w, nbins), mom[0], lo, bw)
+    return {"clipped": dict(clip=(mu, reducer.clip_threshold(mu, sigma, CLIP_K))),
+            "median": dict(clip=(med, reducer.clip_threshold(med, sigma, CLIP_K)),
+                           bins=(lo, bw, inv_w, nbins))}
+
+
+def hold_stream(torch, np, ref, dev, what, red, got, want, flips_at, decision_flips):
+    """A streamed result against the eager one: depth exactly and coadd at
+    the streaming tolerance; for a robust estimator, differing pixels only
+    where a sample lies within 1e-4 (relative) of a clip or bin boundary
+    (``flips_at``: the eager pass's scan and boundaries) -> decision flips."""
+    c, d, c0, d0 = got.coadd, got.depth, want.coadd, want.depth
+    bad = (d != d0) | ~(np.abs(c - c0) <= STREAM_ATOL + STREAM_RTOL * np.abs(c0))
+    if red == "mean" or not bad.any():
+        require(not bad.any(), f"{what}: {int(bad.sum())} pixels differ from the eager run "
+                               f"(max |coadd| {float(np.abs(c - c0).max()):.3g}, depth equal "
+                               f"{bool(np.array_equal(d, d0))})")
+        return 0
+    hscan, hbounds = flips_at
+    near, far = ref.decision_flips(torch.from_numpy(bad).to(dev), *hscan, **hbounds[red])
+    require(not far.any(), f"{what}: {int(far.sum())} pixels differ away from every decision "
+                           "boundary")
+    for p in near.nonzero().tolist():
+        decision_flips.append(("streaming", what) + tuple(p))
+    return int(near.sum())
+
+
+def streaming_phase(torch, np, dev, survey, main_eng, query, bqueries, eager, flips_at,
+                    batch_eager, batch_flips, brick_fresh, counted, decision_flips):
+    """Phase "4 streaming": the main survey under a device budget.
+
+    One engine a layout (budget 1/STREAM_FRAC of the layout's device bytes),
+    built as a user builds it; its first query (the layout's packing, its
+    pixels' registration in place and every upload included), then the
+    layout's methods x three estimators, unmatched and PSF-matched, cold
+    (every chunk re-uploaded) and warm, each held against the eager kernel
+    path (``eager[target, red, method]``); the K = 4 batch of ``bqueries``
+    on the dense and the sparse batch method; the brick window under the
+    budget; checks one host sync a query, the window count, the residency
+    manager's peak against the budget and ``max_memory_allocated`` against
+    that peak.  -> the numbers it printed.
+    """
+    import repro_torch.core.engine as engine_mod
+    from repro_torch import CoaddEngine
+    from repro_torch.core.seqfile import PackedDataset
+    from repro_torch.kernels.warp import ops as warp_ops
+    from repro_torch.kernels.warp import ref
+
+    out = {"queries": []}
+    q = query.npix
+    # The yardstick: a pinned cudaMemcpy H2D of 1 GiB.
+    host = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, pin_memory=True)
+    buf = torch.empty(H2D_PROBE_BYTES, dtype=torch.uint8, device=dev)
+    h2d_ms = cuda_ms(torch, lambda: buf.copy_(host, non_blocking=True), 3)
+    out["h2d_gb_s"] = H2D_PROBE_BYTES / h2d_ms / 1e6
+    del host, buf
+    print(f"  pinned cudaMemcpy H2D of {H2D_PROBE_BYTES} bytes: {h2d_ms:.3f} ms, "
+          f"{out['h2d_gb_s']:.2f} GB/s", flush=True)
+
+    syncs = [0]
+    real_sync = engine_mod._sync
+
+    def counted_sync(tensors):
+        syncs[0] += 1
+        return real_sync(tensors)
+
+    def one_sync(what, fn):
+        """``fn()`` with exactly one `_sync` -> (result, host ms)."""
+        s0 = syncs[0]
+        t0 = time.perf_counter()
+        r = fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        require(syncs[0] - s0 == 1, f"{what}: {syncs[0] - s0} host syncs, expected 1")
+        return r, ms
+
+    pins = []
+    real_pin = PackedDataset.pin
+
+    def timed_pin(ds):
+        seconds = real_pin(ds)
+        pins.append(seconds)
+        return seconds
+
+    for fn in counted.values():
+        fn.launches = 0
+    engine_mod._sync = counted_sync
+    PackedDataset.pin = timed_pin
+    try:
+        for layout, methods in STREAM_LAYOUTS.items():
+            main_ds = main_eng.exec_dataset(layout)[0]
+            budget = main_ds.chunk_nbytes(0, main_ds.n_packs) // STREAM_FRAC
+            eng = CoaddEngine(survey, pack_capacity=64, device=DEVICE, device_budget_bytes=budget,
+                              brick_deg=BRICK_DEG, brick_npix=BRICK_NPIX)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base_alloc = torch.cuda.memory_allocated()
+            # The engine's first query pays the layout's one-time costs.
+            pins.clear()
+            what = f"streaming first {methods[0]}/mean"
+            first, first_ms = one_sync(what, lambda: eng.run(query, methods[0]))
+            hold_stream(torch, np, ref, dev, what, "mean", first, eager[None, "mean", methods[0]],
+                        flips_at[None], decision_flips)
+            exec_ds = eng.exec_dataset(layout)[0]
+            pin_s = max(pins, default=0.0)
+            require(pin_s > 0, f"{what}: the layout was not pinned")
+            print(f"  {layout}: {exec_ds.n_packs} packs, "
+                  f"{exec_ds.chunk_nbytes(0, exec_ds.n_packs)} device bytes, budget {budget}; "
+                  f"first query of a fresh budgeted engine {first_ms:.1f} ms (packing, "
+                  f"{first.stats.chunk_uploads} uploads and cudaHostRegister of "
+                  f"{exec_ds.pixels.nbytes} bytes in {pin_s:.3f} s included)", flush=True)
+            chunks = {}
+            for target in (None, PSF_TARGET):
+                eng.match_psf_sigma = target
+                if target is not None:
+                    t0 = time.perf_counter()
+                    eng.psf_kernel_bank(layout)
+                    print(f"  {layout}: host PSF bank in {time.perf_counter() - t0:.3f} s "
+                          "(once a layout, before the timed queries)", flush=True)
+                chunks[target] = eng._chunk_packs(exec_ds)
+                bank_pack = eng._bank_pack_nbytes(layout)
+                for m in methods:
+                    gated = np.nonzero(eng._exec_gate(eng.plan(query, m)).any(axis=1))[0]
+                    n_chunks = len(np.unique(gated // chunks[target]))
+                    for red in REDUCES:
+                        what = f"streaming {m}/{red}/psf={target}"
+                        eng.residency.clear()   # cold: every chunk uploads again
+                        b0 = eng.residency.bytes_uploaded
+                        cold, cold_ms = one_sync(what, lambda: eng.run(query, m, reduce=red))
+                        up_bytes = eng.residency.bytes_uploaded - b0
+                        warm, warm_ms = one_sync(what, lambda: eng.run(query, m, reduce=red))
+                        flips = 0
+                        for r in (cold, warm):
+                            s = r.stats
+                            require(s.windows == s.reduce_passes * n_chunks
+                                    and (n_chunks <= 1 or s.windows > s.reduce_passes)
+                                    and s.dispatches == s.windows,
+                                    f"{what}: {s.windows} windows, {s.dispatches} launches over "
+                                    f"{n_chunks} gated chunks")
+                            flips = hold_stream(torch, np, ref, dev, what, red, r,
+                                                eager[target, red, m], flips_at[target],
+                                                decision_flips)
+                        require(np.array_equal(cold.coadd.view(np.int32), warm.coadd.view(np.int32))
+                                and np.array_equal(cold.depth, warm.depth),
+                                f"{what}: warm differs from cold")
+                        cs, ws = cold.stats, warm.stats
+                        row = dict(layout=layout, method=m, reduce=red, psf=target,
+                                   cold_ms=cold_ms, warm_ms=warm_ms,
+                                   cold_pass_ms=cs.t_map_reduce_s * 1e3,
+                                   warm_pass_ms=ws.t_map_reduce_s * 1e3, windows=cs.windows,
+                                   chunks=n_chunks, uploads=(cs.chunk_uploads, ws.chunk_uploads),
+                                   hits=(cs.residency_hits, ws.residency_hits),
+                                   evictions=(cs.residency_evictions, ws.residency_evictions),
+                                   matched_builds=(cs.matched_cache_builds,
+                                                   ws.matched_cache_builds),
+                                   bytes_uploaded=up_bytes,
+                                   upload_gb_s=up_bytes / cs.t_map_reduce_s / 1e9,
+                                   flips=flips)
+                        out["queries"].append(row)
+                        print(f"  streaming {m:28s} {red:7s} psf={target} cold_ms={cold_ms:.1f} "
+                              f"warm_ms={warm_ms:.1f} pass_ms={row['cold_pass_ms']:.1f}/"
+                              f"{row['warm_pass_ms']:.1f} windows={cs.windows} "
+                              f"uploads={row['uploads']} hits={row['hits']} "
+                              f"evictions={row['evictions']} matched_builds="
+                              f"{row['matched_builds']} bytes_uploaded={up_bytes} "
+                              f"upload_GB/s={row['upload_gb_s']:.2f} flips={flips}", flush=True)
+            eng.match_psf_sigma = None
+            # The K = 4 batch on the batch path's methods planned here.
+            for m in [m for m in methods if m in BATCH_METHODS]:
+                for red in REDUCES:
+                    what = f"streaming batch {m}/{red}"
+                    res, ms = one_sync(what, lambda: eng.run_batch(bqueries, m, reduce=red))
+                    for k, (r, w) in enumerate(zip(res, batch_eager[m, red])):
+                        hold_stream(torch, np, ref, dev, f"{what} query {k}", red, r, w,
+                                    batch_flips[k], decision_flips)
+                    s0 = res[0].stats
+                    require(s0.dispatches == s0.windows > s0.reduce_passes,
+                            f"{what}: {s0.windows} windows, {s0.dispatches} launches")
+                    print(f"  streaming batch K={len(bqueries)} {m:16s} {red:7s} batch_ms={ms:.1f} "
+                          f"pass_ms={s0.t_map_reduce_s * 1e3:.1f} windows={s0.windows} "
+                          f"uploads={s0.chunk_uploads} hits={s0.residency_hits}", flush=True)
+                    out.setdefault("batch", []).append(dict(method=m, reduce=red, ms=ms,
+                                                            windows=s0.windows))
+            if layout == "structured":
+                out["bricks"] = streamed_bricks(torch, np, eng, one_sync, brick_fresh, counted,
+                                                warp_ops)
+            # The budget held: the manager's peak, and what the allocator saw.
+            c_raw, c_psf = chunks[None], chunks[PSF_TARGET]
+            limit = (budget + exec_ds.chunk_nbytes(0, c_raw)
+                     + (exec_ds.pixels[0].nbytes + bank_pack) * c_psf)
+            peak = eng.residency.peak_bytes
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base_alloc
+            k = len(bqueries) if any(m in BATCH_METHODS for m in methods) else 1
+            slack = k * STREAM_SCRATCH_MAPS * q * q * 4
+            require(peak <= limit, f"{layout}: peak_bytes {peak} above budget + one chunk + "
+                                   f"transients ({limit})")
+            require(rise <= peak + slack, f"{layout}: max_memory_allocated rose {rise} bytes, "
+                                          f"above peak_bytes {peak} + scratch {slack}")
+            print(f"  {layout}: chunks of {c_raw} packs ({c_psf} PSF-matched); peak_bytes {peak} "
+                  f"(budget {budget}, limit {limit}); max_memory_allocated rose {rise} bytes "
+                  f"(peak + scratch {peak + slack})", flush=True)
+            out.setdefault("memory", {})[layout] = dict(budget=budget, peak_bytes=peak, rise=rise,
+                                                        limit=limit, slack=slack, pin_s=pin_s,
+                                                        first_ms=first_ms, chunk_packs=c_raw,
+                                                        chunk_packs_psf=c_psf)
+            if layout == "per_file":
+                # Where a cold dense query's time goes: one under the profiler.
+                eng.residency.clear()
+                torch.cuda.synchronize()
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    t0 = time.perf_counter()
+                    r = eng.run(query, methods[0])
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                out["profile"] = device_breakdown(torch, prof, wall_ms,
+                                                  r.stats.t_map_reduce_s * 1e3)
+                print(f"  streaming {methods[0]} mean cold, profiled: {out['profile']}", flush=True)
+                out.update(staging_rates(torch, np, dev, exec_ds, chunks[None]))
+            eng.residency.clear()
+            del eng
+    finally:
+        engine_mod._sync = real_sync
+        PackedDataset.pin = real_pin
+    launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"  streaming launches: {launches}")
+    for name in ("coadd_fused", "coadd_moments", "coadd_hist", "coadd_clip", "psf_match_2d",
+                 "mosaic_bricks", "coadd_fused_batch", "coadd_moments_batch", "coadd_hist_batch",
+                 "coadd_clip_batch"):
+        require(launches[name] > 0, f"streaming: no {name} launch")
+    out["launches"] = launches
+    return out
+
+
+def staging_rates(torch, np, dev, exec_ds, chunk):
+    """Upload rates of the layout's pixels chunk by chunk on a side stream:
+    straight from the registered array, and through a ring of two pinned
+    staging buffers of one chunk each filled by a host copy (the other way
+    to page-locked memory) -> {"registered_gb_s", "ring_gb_s",
+    "ring_alloc_s"}."""
+    px = exec_ds.pixels
+    n, shape = px.shape[0], px.shape[1:]
+    side = torch.cuda.Stream(dev)
+    dst = [torch.empty((chunk,) + shape, dtype=torch.float32, device=dev) for _ in range(2)]
+    spans = [(c, min(c + chunk, n)) for c in range(0, n, chunk)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (a, b) in enumerate(spans):
+        with torch.cuda.stream(side):
+            dst[i % 2][:b - a].copy_(torch.from_numpy(px[a:b]), non_blocking=True)
+    side.synchronize()
+    reg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stage = [torch.empty((chunk,) + shape, dtype=torch.float32, pin_memory=True)
+             for _ in range(2)]
+    alloc_s = time.perf_counter() - t0
+    done = [None, None]
+    t0 = time.perf_counter()
+    for i, (a, b) in enumerate(spans):
+        k = i % 2
+        if done[k] is not None:
+            done[k].synchronize()            # the buffer's last copy has left it
+        np.copyto(stage[k].numpy()[:b - a], px[a:b])
+        with torch.cuda.stream(side):
+            dst[k][:b - a].copy_(stage[k][:b - a], non_blocking=True)
+            done[k] = torch.cuda.Event()
+            done[k].record(side)
+    side.synchronize()
+    ring_s = time.perf_counter() - t0
+    rates = dict(registered_gb_s=px.nbytes / reg_s / 1e9, ring_gb_s=px.nbytes / ring_s / 1e9,
+                 ring_alloc_s=alloc_s)
+    print(f"  upload of {px.nbytes} pixel bytes in chunks of {chunk} packs on a side stream: "
+          f"registered in place {rates['registered_gb_s']:.2f} GB/s; ring of two pinned staging "
+          f"buffers (host copy, then H2D) {rates['ring_gb_s']:.2f} GB/s, its buffers allocated "
+          f"in {alloc_s:.3f} s", flush=True)
+    del dst, stage
+    return rates
+
+
+def streamed_bricks(torch, np, eng, one_sync, fresh_eager, counted, warp_ops):
+    """The brick window under the budget: the fresh streamed window scan
+    (against the eager one at the streaming tolerance), its 16 bricks
+    materialized by streamed scans, then warm and spilled serves: exactly
+    one ``mosaic_bricks`` launch each, bitwise the streamed ``run_window``."""
+    m = "sql_structured"
+    wq = eng.brick_grid.window_query(*BRICK_WINDOW, "r")
+    fresh, fresh_ms = one_sync("streaming run_window", lambda: eng.run_window(wq, m))
+    require(np.array_equal(fresh.depth, fresh_eager.depth)
+            and np.allclose(fresh.coadd, fresh_eager.coadd, atol=STREAM_ATOL, rtol=STREAM_RTOL),
+            "streaming run_window differs from the eager window")
+    n_b = 16
+    times = {}
+    for tier, tiers in (("cold", (0, n_b, 0)), ("warm", (n_b, 0, 0)), ("spilled", (0, 0, n_b))):
+        if tier == "spilled":
+            require(eng.brick_store.drop_device() == n_b, "drop_device")
+        before = warp_ops.mosaic_bricks.launches
+        t0 = time.perf_counter()
+        r = eng.run(wq, m, use_bricks=True)
+        times[tier] = (time.perf_counter() - t0) * 1e3
+        s = r.stats
+        require((s.bricks_hit, s.bricks_missed, s.bricks_spilled) == tiers
+                and warp_ops.mosaic_bricks.launches - before == 1,
+                f"streaming bricks {tier}: hit/missed/spilled "
+                f"{(s.bricks_hit, s.bricks_missed, s.bricks_spilled)}, "
+                f"{warp_ops.mosaic_bricks.launches - before} mosaic launches")
+        if tier != "cold":
+            require(s.dispatches == 1, f"streaming bricks {tier}: {s.dispatches} launches")
+        require(np.array_equal(r.coadd.view(np.int32), fresh.coadd.view(np.int32))
+                and np.array_equal(r.depth, fresh.depth),
+                f"streaming bricks {tier}: not bitwise run_window")
+    print(f"  streaming bricks {m}: run_window {fresh_ms:.1f} ms ({fresh.stats.windows} windows), "
+          f"cold {times['cold']:.1f} ms (16 materialized by streamed scans), warm "
+          f"{times['warm']:.1f}, spilled {times['spilled']:.1f} ms: one mosaic_bricks launch "
+          f"each, bitwise run_window", flush=True)
+    return dict(fresh_ms=fresh_ms, **{f"{k}_ms": v for k, v in times.items()})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-runs", type=int, default=8,
                     help="survey epochs of the main path (8 = the reference geometry)")
     ap.add_argument("--reps", type=int, default=5, help="warm repeats per timing")
+    ap.add_argument("--mosaic-only", action="store_true",
+                    help="only time the brick mosaic on random tiles and exit (mosaic_only)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1002,6 +1463,10 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.mosaic_only:
+        print(card_line())
+        mosaic_only(torch, np, torch.device(DEVICE))
+        return 0
 
     import torch.nn.functional as F
 
@@ -1036,10 +1501,7 @@ def main(argv=None) -> int:
 
     # ------------------------------------------------------------ 1 card --
     with phase("1 card"):
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-            capture_output=True, text=True, check=True,
-        ).stdout.strip()
+        smi = card_line()
         print(smi)
         print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
               f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
@@ -1913,6 +2375,17 @@ def main(argv=None) -> int:
         mosaic_case("mosaic_npix_997", 16, 249, 249, 997,
                     [(r * 249, c * 249) for r in range(4) for c in range(4)])
         mosaic_case("mosaic_700_tiles", 700, 16, 16, 100, rng.integers(-120, 120, (700, 2)))
+        # The kernel's float4 path (a brick's clamped column and width
+        # multiples of 4) and its scalar path, alone and mixed.
+        mosaic_case("mosaic_column_not_4", 16, 256, 256, 1024,
+                    [(r * 256 + 1, c * 256 + 3) for r in range(4) for c in range(4)])
+        mosaic_case("mosaic_width_not_4", 12, 250, 250, 1000, rng.integers(-300, 800, (12, 2)))
+        mosaic_case("mosaic_npix_not_4", 16, 256, 256, 1030,
+                    [(r * 256, c * 256) for r in range(4) for c in range(4)] [:15] + [(-1, -1)])
+        mosaic_case("mosaic_300_overlap", 300, 32, 32, 256, rng.integers(-300, 300, (300, 2)))
+        mosaic_case("mosaic_mixed", 40, 64, 64, 512,
+                    [(64 * (i % 8), 64 * (i // 8)) for i in range(20)]
+                    + [tuple(v) for v in rng.integers(-64, 512, (20, 2))])
         c_e, d_e = mosaic_case("mosaic_empty", 0, 16, 16, 64, np.zeros((0, 2)))
         require(not c_e.any() and not d_e.any(), "mosaic_empty: B = 0 must give zero canvases")
 
@@ -2214,7 +2687,8 @@ def main(argv=None) -> int:
                 a_m, warp_ops.matched_finite(d_m.finite, i_m, eng._device_psf_kernels(pl.layout)))
             prepass[key] = (sk.numel() - int(sk.sum()), int(sk.sum()))
         gate = warp_ops.psf_match
-        warp_ops.psf_match = lambda pixels, pack_idx, bank, skip=None: gate(pixels, pack_idx, bank)
+        warp_ops.psf_match = lambda pixels, pack_idx, bank, skip=None, **kw: gate(pixels, pack_idx,
+                                                                                 bank, **kw)
         try:
             for measured, m, key in psf_kinds:
                 eng.measured_psf = measured
@@ -2501,10 +2975,14 @@ def main(argv=None) -> int:
         static = detect_sources(*difference_image(eng, wq, use_bricks=True, reduce="clipped"),
                                 nsigma=NSIGMA, device=DEVICE)
         static_s = time.perf_counter() - t0
+        # The transients go into a copy of the frames: the streaming phase
+        # builds its engines from ``survey`` and holds them against ``eng``.
+        sv_t = dataclasses.replace(survey, images=[
+            dataclasses.replace(im, pixels=im.pixels.copy()) for im in survey.images])
         t0 = time.perf_counter()
-        truths = inject_transients(survey, wq, n=N_TRANSIENTS, flux=TRANSIENT_FLUX,
+        truths = inject_transients(sv_t, wq, n=N_TRANSIENTS, flux=TRANSIENT_FLUX,
                                    seed=TRANSIENT_SEED)
-        eng_d = CoaddEngine(survey, pack_capacity=64, device=DEVICE, match_psf_sigma=PSF_TARGET,
+        eng_d = CoaddEngine(sv_t, pack_capacity=64, device=DEVICE, match_psf_sigma=PSF_TARGET,
                             brick_deg=BRICK_DEG, brick_npix=BRICK_NPIX)
         eng_d.device_dataset("structured")
         setup_s = time.perf_counter() - t0
@@ -2545,7 +3023,7 @@ def main(argv=None) -> int:
         print(f"  detection launches: {detect_launches}")
         require(detect_launches["mosaic_bricks"] == 2, "detection: mosaic_bricks launch count")
         eng.match_psf_sigma = None
-        del eng_d, diff
+        del eng_d, diff, sv_t
         torch.cuda.empty_cache()
 
     # ------------------------------------------------------ 4 batch path --
@@ -2662,6 +3140,28 @@ def main(argv=None) -> int:
         print(json.dumps({"service": service}))
         del s_results, serial
 
+    # ------------------------------------------------------ 4 streaming --
+    # The main survey under a device budget (streaming residency): each
+    # layout's methods x three estimators, unmatched and PSF-matched, cold
+    # and warm; the K = 4 batch; the brick window.  Held against the eager
+    # kernel path's results above.  Counted on its own.
+    with phase("4 streaming"):
+        eager = {(None, "mean", m): results[m] for m in METHODS}
+        eager.update({(None, red, m): robust[red, m] for red in ROBUST for m in METHODS})
+        eager.update({(PSF_TARGET, red, m): psf_res[red, m] for red in REDUCES for m in METHODS})
+        batch_flips = []
+        for qq in bqueries:
+            d_k, i_k, a_k = eng._scan_operands(eng.plan(qq, "sql_structured"))
+            scan_k = (d_k.pixels, d_k.wcs, i_k, a_k.float(), *eng._grids(qq))
+            batch_flips.append((scan_k, robust_bounds(warp_ops, reducer, scan_k)))
+        streaming = streaming_phase(
+            torch, np, dev, survey, eng, query, bqueries, eager,
+            {None: (scan, bounds), PSF_TARGET: (pscan, psf_bounds)},
+            {(m, red): batch_res[None, m, red] for m in BATCH_METHODS for red in REDUCES},
+            batch_flips, fresh_mean, counted, decision_flips)
+        del batch_flips
+        print(json.dumps({"streaming": streaming}))
+
     # ---------------------------------------------- 4 zamba2 serving path --
     with phase("4 zamba2 serving"):
         lm_runs, lm_launches = zamba2_serving(torch, np, dev, counted)
@@ -2675,8 +3175,12 @@ def main(argv=None) -> int:
         n_slots = idx.shape[0] * dsv.capacity
         acc_f = accept.float()
         fin = dsv.finite
+        # The wrappers are timed given the host copy of the pack index, as
+        # the engine calls them: the index check then needs no host sync.
+        idx_h = idx.cpu().numpy()
         k_ms = cuda_ms(torch, lambda: warp_ops.coadd_fused(dsv.pixels, dsv.wcs, idx, acc_f,
-                                                           gra, gdec, finite=fin), args.reps)
+                                                           gra, gdec, finite=fin, host_idx=idx_h),
+                       args.reps)
         scan5 = (dsv.pixels, dsv.wcs, idx, acc_f, gra, gdec)
         u_ms = cuda_ms(torch, lambda: unculled("coadd_fused", scan5), args.reps)
         a_ms = alone_ms("coadd_fused", scan5, fin, want=warp_ops.coadd_fused(*scan5, finite=fin))
@@ -2767,13 +3271,15 @@ def main(argv=None) -> int:
         m_errs, m_flips, *_ = robust_kernels("sql_structured_pass", scan)
         center, thresh = bounds["clipped"]["clip"]
         robust_calls = {
-            "coadd_moments": (lambda: warp_ops.coadd_moments(*scan, finite=fin),
+            "coadd_moments": (lambda: warp_ops.coadd_moments(*scan, finite=fin, host_idx=idx_h),
                               lambda: ref.moments_scan_ref(*scan), (), 0,
                               MOMENTS_SAMPLE_OPS, 5, 579),
-            "coadd_hist": (lambda: (warp_ops.coadd_hist(*scan, lo, inv_w, NBINS, finite=fin),),
+            "coadd_hist": (lambda: (warp_ops.coadd_hist(*scan, lo, inv_w, NBINS, finite=fin,
+                                                        host_idx=idx_h),),
                            lambda: ref.hist_scan_ref(*scan, lo, inv_w, NBINS), (lo, inv_w),
                            NBINS, HIST_SAMPLE_OPS, 4 + NBINS, 640),
-            "coadd_clip": (lambda: warp_ops.coadd_clip(*scan, center, thresh, finite=fin),
+            "coadd_clip": (lambda: warp_ops.coadd_clip(*scan, center, thresh, finite=fin,
+                                                       host_idx=idx_h),
                            lambda: ref.clip_scan_ref(*scan, center, thresh), (center, thresh),
                            0, CLIP_SAMPLE_OPS, 6, 606),
         }
@@ -2805,7 +3311,7 @@ def main(argv=None) -> int:
             weight = bank[idx.long()].reshape(n_img, 1, *taps)
 
             def kern(bank=bank):
-                return warp_ops.psf_match(dsv.pixels, idx, bank)
+                return warp_ops.psf_match(dsv.pixels, idx, bank, host_idx=idx_h)
 
             def plain(bank=bank):
                 return ref.psf_match_ref(dsv.pixels, idx, bank)
@@ -2920,7 +3426,10 @@ def main(argv=None) -> int:
         require(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
                 "window mosaic: not bitwise its plain version")
         lib_diff = max(float((a - b).abs().max()) for a, b in zip(out_k, out_l))
-        k_ms = cuda_ms(torch, lambda: warp_ops.mosaic_bricks(tiles, covs, offs, q), 200)
+        mos = mosaic_times(torch, build, warp_ops, dev, tiles, covs, offs, q)
+        require(all(torch.equal(a, b) for a, b in zip(mos.pop("out"), out_k)),
+                "window mosaic launched alone differs from the wrapper's")
+        k_ms = mos["ms"]
         p_ms = cuda_ms(torch, lambda: ref.mosaic_bricks_ref(tiles, covs, offs, q), args.reps)
         l_ms = cuda_ms(torch, fold, 200)
         elems = tiles.numel()
@@ -2931,7 +3440,9 @@ def main(argv=None) -> int:
             launches=brick_launches["mosaic_bricks"], max_abs_err=case_err["mosaic_bricks"],
             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
             library=f"F.fold (col2im, kernel and stride {BRICK_NPIX}) of coadd and depth",
-            library_max_abs_diff=lib_diff, kernel_ms=k_ms,
+            library_max_abs_diff=lib_diff, kernel_ms=k_ms, alone_ms=mos["alone_ms"],
+            graph_ms=mos["graph_ms"], graph_hbm_ms=mos["graph_hbm_ms"],
+            ptxas=ptxas_summary(logs.get("mosaic", ""), "mosaic_bricks_kernel"),
             shape=f"brick window: {n_t} tiles of {BRICK_NPIX}x{BRICK_NPIX} into {q}x{q}",
         ))
         del tiles, covs, cols, out_k, out_p, out_l
@@ -2956,7 +3467,8 @@ def main(argv=None) -> int:
             acc_b = acc_b.float()
             scan_b = (dev_b.pixels, dev_b.wcs, idx_b, acc_b, gra_b, gdec_b)
             fin_b = dev_b.finite
-            s_b = warp_ops.coadd_moments_batch(*scan_b, finite=fin_b)
+            idx_bh = idx_b.cpu().numpy()
+            s_b = warp_ops.coadd_moments_batch(*scan_b, finite=fin_b, host_idx=idx_bh)
             mu_b, sig_b = reducer.clip_stats(*s_b)
             lo_b, _, iw_b = reducer.hist_bounds(*s_b, NBINS)
             th_b = reducer.clip_threshold(mu_b, sig_b, CLIP_K)
@@ -2966,30 +3478,31 @@ def main(argv=None) -> int:
             def one(k):
                 return (dev_b.pixels, dev_b.wcs, idx_b, acc_b[k], gra_b[k], gdec_b[k])
 
+            kw_b = dict(finite=fin_b, host_idx=idx_bh)
             calls = {
                 "coadd_fused_batch": (
-                    lambda: warp_ops.coadd_fused_batch(*scan_b, finite=fin_b),
-                    lambda: [warp_ops.coadd_fused(*one(k), finite=fin_b) for k in range(n_q)],
+                    lambda: warp_ops.coadd_fused_batch(*scan_b, **kw_b),
+                    lambda: [warp_ops.coadd_fused(*one(k), **kw_b) for k in range(n_q)],
                     lambda: ref.coadd_scan_batch_ref(*scan_b), COADD_SAMPLE_OPS, 4, ()),
                 "coadd_moments_batch": (
-                    lambda: warp_ops.coadd_moments_batch(*scan_b, finite=fin_b),
-                    lambda: [warp_ops.coadd_moments(*one(k), finite=fin_b) for k in range(n_q)],
+                    lambda: warp_ops.coadd_moments_batch(*scan_b, **kw_b),
+                    lambda: [warp_ops.coadd_moments(*one(k), **kw_b) for k in range(n_q)],
                     lambda: ref.moments_scan_batch_ref(*scan_b), MOMENTS_SAMPLE_OPS, 5, ()),
                 "coadd_hist_batch": (
-                    lambda: warp_ops.coadd_hist_batch(*scan_b, lo_b, iw_b, NBINS, finite=fin_b),
-                    lambda: [warp_ops.coadd_hist(*one(k), lo_b[k], iw_b[k], NBINS, finite=fin_b)
+                    lambda: warp_ops.coadd_hist_batch(*scan_b, lo_b, iw_b, NBINS, **kw_b),
+                    lambda: [warp_ops.coadd_hist(*one(k), lo_b[k], iw_b[k], NBINS, **kw_b)
                              for k in range(n_q)],
                     lambda: ref.hist_scan_batch_ref(*scan_b, lo_b, iw_b, NBINS),
                     HIST_SAMPLE_OPS, 4 + NBINS, (lo_b, iw_b)),
                 "coadd_clip_batch": (
-                    lambda: warp_ops.coadd_clip_batch(*scan_b, mu_b, th_b, finite=fin_b),
-                    lambda: [warp_ops.coadd_clip(*one(k), mu_b[k], th_b[k], finite=fin_b)
+                    lambda: warp_ops.coadd_clip_batch(*scan_b, mu_b, th_b, **kw_b),
+                    lambda: [warp_ops.coadd_clip(*one(k), mu_b[k], th_b[k], **kw_b)
                              for k in range(n_q)],
                     lambda: ref.clip_scan_batch_ref(*scan_b, mu_b, th_b), CLIP_SAMPLE_OPS, 6,
                     (mu_b, th_b)),
             }
             if n_q == 4:
-                c_k, d_k = warp_ops.coadd_fused_batch(*scan_b, finite=fin_b)
+                c_k, d_k = warp_ops.coadd_fused_batch(*scan_b, **kw_b)
                 c_p, d_p = ref.coadd_scan_batch_ref(*scan_b)
                 torch.cuda.synchronize()
                 err_b = 0.0
@@ -3163,8 +3676,9 @@ def main(argv=None) -> int:
         for m in METHODS:
             m_dev, m_idx, m_acc = eng._scan_operands(eng.plan(query, m))
             m_scan = (m_dev.pixels, m_dev.wcs, m_idx, m_acc.float(), gra, gdec)
-            m_ms = cuda_ms(torch, lambda: warp_ops.coadd_fused(*m_scan, finite=m_dev.finite),
-                           args.reps)
+            m_idx_h = m_idx.cpu().numpy()
+            m_ms = cuda_ms(torch, lambda: warp_ops.coadd_fused(*m_scan, finite=m_dev.finite,
+                                                               host_idx=m_idx_h), args.reps)
             mu_ms = cuda_ms(torch, lambda: unculled("coadd_fused", m_scan), args.reps)
             # Each pass of the method launched alone: fused, moments, and
             # clip about the clipped mean.

@@ -6,7 +6,8 @@ Public API of this slice:
   CoaddResult, JobStats, METHODS, CoaddPlan, SpatialIndex, BrickGrid,
   BrickCover, MaterializeReport, DetectionCatalog, detect_sources,
   difference_image, inject_transients, match_detections, CoaddService,
-  Overloaded, ServiceStats.
+  Overloaded, ServiceStats, ScanWindow, window_schedule, ResidencyManager,
+  BrickStore.
 """
 
 from repro_torch.core.bricks import BrickCover, BrickGrid
@@ -19,9 +20,10 @@ from repro_torch.core.detect import (
 )
 from repro_torch.core.engine import METHODS, CoaddEngine, CoaddResult, JobStats
 from repro_torch.core.jobtracker import MaterializeReport
-from repro_torch.core.plan import CoaddPlan
+from repro_torch.core.plan import CoaddPlan, ScanWindow, window_schedule
 from repro_torch.core.prefilter import SpatialIndex
 from repro_torch.core.query import BANDS, CoaddQuery
+from repro_torch.core.seqfile import BrickStore, ResidencyManager
 from repro_torch.core.serve import CoaddService, Overloaded, ServiceStats
 from repro_torch.core.survey import Survey, SurveyConfig, make_survey
 
@@ -29,6 +31,7 @@ __all__ = [
     "BANDS",
     "BrickCover",
     "BrickGrid",
+    "BrickStore",
     "CoaddEngine",
     "CoaddPlan",
     "CoaddQuery",
@@ -39,6 +42,8 @@ __all__ = [
     "METHODS",
     "MaterializeReport",
     "Overloaded",
+    "ResidencyManager",
+    "ScanWindow",
     "ServiceStats",
     "SpatialIndex",
     "Survey",
@@ -48,4 +53,5 @@ __all__ = [
     "inject_transients",
     "make_survey",
     "match_detections",
+    "window_schedule",
 ]

@@ -56,8 +56,16 @@ plans as one pass a pass over the union of their packs: with
 PSF-matched, and each query's result is bitwise its own ``run`` wherever
 the union adds only finite slots (`result_key`).
 
-Later slices of the port (streaming residency, the fault domain) are not
-here; their arguments raise NotImplementedError.
+Streaming residency (DESIGN.md §6): with ``device_budget_bytes`` set, no
+layout is uploaded whole.  A query's gated packs are partitioned into
+residency-chunk windows (`plan.window_schedule`, chunks of half the budget);
+each window is scanned against its chunk while the next chunk uploads from
+page-locked host memory on a side CUDA stream, the `ResidencyManager` evicts
+cold chunks (and brick tiles) under the budget, and the window partials sum
+on the device until the query's one host sync (`_sync`).  Under a PSF
+bank the chunk is the matched-pixel cache: one ungated ``psf_match`` launch
+over the chunk right after its upload, reused by repeat queries.  The fault
+domain (journals, retries, quarantine) is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -76,12 +84,16 @@ from repro_torch.core.bricks import BrickCover, BrickGrid
 from repro_torch.core.jobtracker import BrickTask, MaterializeReport, MaterializeTracker
 from repro_torch.core.plan import (
     CoaddPlan,
+    ScanWindow,
     SparseScanIndex,
     compact_gate,
     compact_gates,
+    compact_window_gate,
+    compact_window_gates,
     sparse_pack_index,
     stack_plans,
     union_sparse_index,
+    window_schedule,
 )
 from repro_torch.core.prefilter import (
     SpatialIndex,
@@ -91,6 +103,8 @@ from repro_torch.core.prefilter import (
 )
 from repro_torch.core.query import CoaddQuery
 from repro_torch.core.seqfile import (
+    COST_MATCHED_CHUNK,
+    COST_RAW_CHUNK,
     BrickMeta,
     BrickStore,
     DevicePackedDataset,
@@ -133,8 +147,18 @@ class JobStats:
     scan_budget: int = 0           # bucket the pass covers (n_packs if dense)
     reduce: str = "mean"           # estimator: "mean" | "clipped" | "median"
     reduce_passes: int = 1         # passes over the gated packs: 1, 2 or 3
-    # Matched-pixel cache (DESIGN.md §7), plain path only: whole-layout
-    # PSF-matched copies this call built, and those it found resident.
+    # Streaming residency (DESIGN.md §6), under a device budget: windows
+    # scanned (every pass's), chunks uploaded and found resident, LRU
+    # evictions this call forced; and the engine's device high-water mark
+    # (`CoaddEngine._peak_resident_bytes`), set on every path.
+    windows: int = 0
+    chunk_uploads: int = 0
+    residency_hits: int = 0
+    residency_evictions: int = 0
+    peak_resident_bytes: int = 0
+    # Matched-pixel cache (DESIGN.md §7): PSF-matched copies this call
+    # built (whole layouts on the plain path, chunks under a budget), and
+    # those it found resident.
     matched_cache_builds: int = 0
     matched_cache_hits: int = 0
     # Brick serving (DESIGN.md §9), `run(use_bricks=True)`: tiles served
@@ -221,10 +245,39 @@ def _accept_from_meta(ints, floats, qvec):
     return band_ok & valid & ra_ok & dec_ok & t_ok
 
 
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A small host array on ``device`` without a host sync: on a CUDA
+    device a pinned staging copy, then a copy on the current stream that
+    does not block (a copy from pageable memory would wait for the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _sync(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """The streaming executors' ONE host sync, at reduce time (DESIGN.md §6)
+    -> the tensors on the host, as numpy arrays.
+
+    Every window dispatch and chunk upload before it is asynchronous: the
+    device scans window N while chunk N+1 uploads behind it.  On a CUDA
+    device each tensor is copied into pinned host memory on the current
+    stream, which then is waited on once.  Tests monkeypatch this to pin
+    the one-sync contract.
+    """
+    if tensors[0].device.type != "cuda":
+        return [t.numpy() for t in tensors]
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(tensors[0].device).synchronize()
+    return [h.numpy() for h in host]
+
+
 def _query_scan(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
-                grid_ra, grid_dec, use_kernel: bool, psf_kernels=None):
+                grid_ra, grid_dec, use_kernel: bool, psf_kernels=None, host_idx=None):
     """The operands every pass of a query scans -> (scan, bank left to apply,
-    slot flag).
+    slot flag, host copy of the scan's pack index).
 
     With a bank on the kernel path, ONE ``psf_match`` launch writes the
     scanned packs' matched pixels to a (G, cap, H, W) scratch, and every
@@ -233,71 +286,75 @@ def _query_scan(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tenso
     by pack.  The flag lets the kernels skip rejected slots, and the
     pre-pass writes those as zeros without matching them: the same bits in
     every pass.  A batch's (K, G, cap) ``accept`` shares one pre-pass, which
-    skips only the slots every query rejects.
+    skips only the slots every query rejects.  ``host_idx`` is the numpy
+    array ``idx`` was uploaded from: the wrappers check the index on it.
     """
     pixels, wcs, finite = dev.pixels, dev.wcs, dev.finite
     if use_kernel and psf_kernels is not None:
         finite = warp_ops.matched_finite(finite, idx, psf_kernels)
-        pixels, wcs, idx = warp_ops.matched_packs(pixels, wcs, idx, psf_kernels, accept, finite)
+        pixels, wcs, idx = warp_ops.matched_packs(pixels, wcs, idx, psf_kernels, accept, finite,
+                                                  host_idx=host_idx)
+        host_idx = np.arange(idx.shape[0], dtype=np.int32)
         psf_kernels = None
     scan = (pixels, wcs, idx, accept.to(torch.float32), grid_ra, grid_dec)
-    return scan, psf_kernels, finite
+    return scan, psf_kernels, finite, host_idx
 
 
-def _scan_coadd(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
-                grid_ra, grid_dec, use_kernel: bool, psf_kernels=None):
-    """One pass over the packs ``idx`` of the resident layout -> (coadd, depth).
+#: Each pass's kernel wrapper (`warp_ops`) and plain version (`warp_ref`).
+_PASS_FNS = {"fused": ("coadd_fused", "coadd_scan"), "moments": ("coadd_moments", "moments_scan"),
+             "hist": ("coadd_hist", "hist_scan"), "clip": ("coadd_clip", "clip_scan")}
 
-    ``use_kernel`` sends the whole pass through ONE ``coadd_fused`` launch
-    (after one ``psf_match`` launch when a bank is given); otherwise each
-    pack goes through the plain map stage and local reduce (the kernel's
-    plain version, the counterpart of the reference's XLA path).  A batch
-    ((K, G, cap) ``accept``, (K, Q, Q) grids) runs ``coadd_fused_batch``, or
-    the plain version query by query, -> (K, Q, Q) each.
+
+def _pass_fns(batch: bool, use_kernel: bool, finite=None, host_idx=None, bank=None):
+    """The pass functions over one scan, by `_PASS_FNS` name.
+
+    With ``use_kernel`` each is ONE launch of its CUDA kernel (the wrapper,
+    given the slot flag and the pack index's host copy); otherwise the
+    kernel's plain version, which maps and reduces pack by pack, applying
+    ``bank`` pack by pack.  ``batch``: the query-axis forms.
     """
-    scan, bank, finite = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel,
-                                     psf_kernels)
-    batch = "_batch" if accept.dim() == 3 else ""
+    sfx = "_batch" if batch else ""
     if use_kernel:
-        return getattr(warp_ops, f"coadd_fused{batch}")(*scan, finite=finite)
-    return getattr(warp_ref, f"coadd_scan{batch}_ref")(*scan, psf_kernels=bank)
+        return {p: functools.partial(getattr(warp_ops, k + sfx), finite=finite, host_idx=host_idx)
+                for p, (k, _) in _PASS_FNS.items()}
+    return {p: functools.partial(getattr(warp_ref, f"{r}{sfx}_ref"), psf_kernels=bank)
+            for p, (_, r) in _PASS_FNS.items()}
 
 
-def _robust_passes(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
-                   grid_ra, grid_dec, reduce: str, clip_k: float, median_bins: int,
-                   use_kernel: bool, psf_kernels=None):
-    """A robust estimator's passes over the packs ``idx`` -> (coadd, depth).
+def _estimate(reduce: str, clip_k: float, median_bins: int, run_pass):
+    """An estimator's passes -> (passes, (coadd, depth)).
 
-    Moments; then, for the median, the histogram bounds, the histogram pass
-    and its median; then the clip radius and the clip pass.  Centre, radius
-    and bounds are fixed (Q, Q) operands computed between passes in plain
-    torch on the device, as the reference computes them in XLA outside its
-    Pallas kernels.  ``use_kernel`` makes each pass one launch of its CUDA
-    kernel; otherwise each pass is the kernel's plain version, which maps
-    and reduces pack by pack and never holds the query's warped stack.  A
-    bank is applied once for all passes on the kernel path (`_query_scan`).
-    A batch runs each pass's ``_batch`` kernel (or plain version) and keeps
-    the between-pass arithmetic on (K, Q, Q) operands.
+    ``run_pass(name, *fixed)`` runs the pass ``name`` (`_PASS_FNS`) with
+    its fixed operands.  The mean is one fused pass.  A robust estimator
+    runs moments; then, for the median, the histogram bounds, the histogram
+    pass and its median; then the clip radius and the clip pass.  Centre,
+    radius and bounds are fixed (Q, Q) operands ((K, Q, Q) for a batch)
+    computed between passes in plain torch on the device, as the reference
+    computes them in XLA outside its Pallas kernels.
     """
-    scan, bank, finite = _query_scan(dev, idx, accept, grid_ra, grid_dec, use_kernel,
-                                     psf_kernels)
-    batch = "_batch" if accept.dim() == 3 else ""
-    if use_kernel:
-        moments, hist, clip = (
-            functools.partial(getattr(warp_ops, f"coadd_{p}{batch}"), finite=finite)
-            for p in ("moments", "hist", "clip"))
-    else:
-        moments, hist, clip = (
-            functools.partial(getattr(warp_ref, f"{p}_scan{batch}_ref"), psf_kernels=bank)
-            for p in ("moments", "hist", "clip"))
-    s0, s1, s2 = moments(*scan)
+    if reduce == "mean":
+        return 1, run_pass("fused")
+    s0, s1, s2 = run_pass("moments")
     mu, sigma = reducer.clip_stats(s0, s1, s2)
     if reduce == "median":
         lo, w, inv_w = reducer.hist_bounds(s0, s1, s2, median_bins)
-        center = reducer.hist_median(hist(*scan, lo, inv_w, median_bins), s0, lo, w)
+        center = reducer.hist_median(run_pass("hist", lo, inv_w, median_bins), s0, lo, w)
     else:
         center = mu
-    return clip(*scan, center, reducer.clip_threshold(center, sigma, clip_k))
+    return (3 if reduce == "median" else 2,
+            run_pass("clip", center, reducer.clip_threshold(center, sigma, clip_k)))
+
+
+@dataclasses.dataclass
+class _Chunk:
+    """A resident pack chunk under a device budget: its dataset, the bank
+    slice every plain scan of it applies (the plain path without the
+    matched cache), or the bank slice still to match it with, once, before
+    its first scan (a matched chunk)."""
+
+    dev: DevicePackedDataset
+    bank: Optional[torch.Tensor] = None
+    match: Optional[torch.Tensor] = None
 
 
 class CoaddEngine:
@@ -313,8 +370,10 @@ class CoaddEngine:
     survey has them, True: stamps or raise, False: the Gaussian fallback)
     and ``matched_pixel_cache`` whether the plain path convolves each layout
     once and caches it.  ``brick_deg`` and ``brick_npix`` size the brick
-    lattice (DESIGN.md §9).  ``device`` defaults to ``"cuda"``; constructing
-    an engine for a CUDA device on a machine without one raises.
+    lattice (DESIGN.md §9).  ``device_budget_bytes`` turns on streaming
+    residency (DESIGN.md §6): layouts stream through chunks of half the
+    budget.  ``device`` defaults to ``"cuda"``; constructing an engine for
+    a CUDA device on a machine without one raises.
     """
 
     def __init__(
@@ -333,8 +392,6 @@ class CoaddEngine:
         brick_deg: float = 0.25,
         brick_npix: int = 64,
     ):
-        if device_budget_bytes is not None:
-            raise NotImplementedError("streaming residency (a device budget) is not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -355,6 +412,10 @@ class CoaddEngine:
         self.match_psf_sigma = match_psf_sigma
         self.measured_psf = measured_psf
         self.matched_pixel_cache = matched_pixel_cache
+        # Streaming residency (DESIGN.md §6): with a budget no layout is
+        # uploaded whole; chunks stream in on a side stream (made at first use).
+        self.device_budget_bytes = device_budget_bytes
+        self._copy_stream = None
         self.camcol_dec = camcol_dec_table(survey)
         self.sql = SpatialIndex.build(survey)
         self._datasets: Dict[str, PackedDataset] = {}
@@ -364,19 +425,23 @@ class CoaddEngine:
         self._psf_device: Dict[Tuple, torch.Tensor] = {}
         self._matched_cache: Dict[Tuple, DevicePackedDataset] = {}
         self._pack_capacity = pack_capacity
-        self.pack_upload_count = 0   # host->device uploads of whole layouts
-        self.dispatch_count = 0      # executed passes over the gated packs, plus
+        self.pack_upload_count = 0   # host->device uploads of whole layouts or
+                                     #   streamed chunks
+        self.dispatch_count = 0      # executed passes over the gated packs (a
+                                     #   streamed pass counts each window), plus
                                      #   each psf_match pre-pass; a batch counts
                                      #   as one query
-        self.matched_builds = 0      # whole-layout matched copies built
+        self.matched_builds = 0      # matched copies built: whole layouts (plain
+                                     #   path), or matched chunks under a budget
         # Brick tessellation (DESIGN.md §9): the grid is built lazily from the
         # survey footprint; the store's device tier lives in the engine's
-        # ResidencyManager, under no budget (streaming residency, which
-        # would share it with pack chunks, is not ported yet).
+        # ResidencyManager, so under a budget brick tiles compete with pack
+        # chunks (at COST_BRICK) and spill back to their host copy.
         self.brick_deg = brick_deg
         self.brick_npix = brick_npix
         self._brick_grid: Optional[BrickGrid] = None
-        self.residency = ResidencyManager(budget_bytes=None)
+        self.residency = ResidencyManager(device_budget_bytes)
+        self.residency.on_evict = self._chunk_evicted
         self.brick_store = BrickStore(self.residency, self.device)
 
     # ----- dataset layouts (built lazily, cached) -----
@@ -423,13 +488,9 @@ class CoaddEngine:
     @property
     def resident_bytes(self) -> int:
         """Device bytes of every resident layout, kernel bank, matched copy
-        (only its pixels: it shares the layout's WCS and metadata) and brick
-        tile (the residency manager's entries)."""
-        return (sum(d.nbytes for d in self._device_cache.values())
-                + self.residency.bytes_resident
-                + sum(b.numel() * b.element_size() for b in self._psf_device.values())
-                + sum(d.pixels.numel() * d.pixels.element_size()
-                      for d in self._matched_cache.values()))
+        (only its pixels: it shares the layout's WCS and metadata), streamed
+        chunk and brick tile (the residency manager's entries)."""
+        return self._eager_resident_bytes() + self.residency.bytes_resident
 
     # ----- PSF matching: banks solved on the host, cached per PSF state -----
     def _psf_state(self) -> Optional[Tuple]:
@@ -520,15 +581,13 @@ class CoaddEngine:
             )
 
     def _grids(self, query: CoaddQuery):
-        gr, gd = mapper.query_grid_sky(query)
-        return (torch.from_numpy(gr).to(self.device),
-                torch.from_numpy(gd).to(self.device))
+        return tuple(_upload(a, self.device) for a in mapper.query_grid_sky(query))
 
     def _plan_grids(self, plan: CoaddPlan):
         """The plan's output grid: its `grid_sky` override (brick-lattice
         plans, DESIGN.md §9) when present, the query's own TAN grid otherwise."""
         if plan.grid_sky is not None:
-            return tuple(torch.from_numpy(a).to(self.device) for a in plan.grid_sky)
+            return tuple(_upload(a, self.device) for a in plan.grid_sky)
         return self._grids(plan.query)
 
     # ----- planning: the six methods differ ONLY in gate construction -----
@@ -613,33 +672,37 @@ class CoaddEngine:
         return sp if sp.worthwhile else None
 
     # ----- execution: one pass against resident data -----
-    def _operands(self, layout: str, gate: np.ndarray, qvec: np.ndarray):
-        """A pass's operands for an execution-layout gate and query vector.
-
-        Returns the resident layout, the (G,) int32 pack index on the device
-        (``arange(P)`` when dense) and the (G, cap) bool slots the pass
-        accumulates; for a batch's (K, P, cap) gates and (K, 7) vectors the
-        union's index and (K, G, cap) slots.  Acceptance runs as plain torch
-        ops on the gathered metadata (in the reference it is XLA outside the
-        Pallas kernel), ANDed with the gate.
-        """
-        exec_ds, _ = self.exec_dataset(layout)
-        dev = self.device_dataset(layout)
+    def _scan_index(self, layout: str, gate: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """An execution-layout gate -> the (G,) int32 pack index its pass
+        scans (``arange(P)`` when dense) and the (G, cap) gate over those
+        packs; a batch's (K, P, cap) gates -> the union's index and (K, G,
+        cap) gates.  Host numpy."""
         sp = self._sparse_index(gate)
         if sp is None:
-            pack_idx = np.arange(exec_ds.n_packs, dtype=np.int32)
-            scan_gate = gate
-        else:
-            pack_idx = sp.pack_idx
-            scan_gate = compact_gates(gate, sp) if gate.ndim == 3 else compact_gate(gate, sp)
-        idx = torch.from_numpy(pack_idx).to(self.device)
+            return np.arange(self.exec_dataset(layout)[0].n_packs, dtype=np.int32), gate
+        return sp.pack_idx, (compact_gates(gate, sp) if gate.ndim == 3 else compact_gate(gate, sp))
+
+    def _accept(self, dev: DevicePackedDataset, idx: torch.Tensor, scan_gate: np.ndarray,
+                qvec: np.ndarray) -> torch.Tensor:
+        """The (G, cap) bool slots a pass over ``idx`` of ``dev`` accumulates
+        ((K, G, cap) for a batch's gates and (K, 7) vectors): acceptance as
+        plain torch ops on the gathered metadata (in the reference it is XLA
+        outside the Pallas kernel), ANDed with the gate."""
         rows = idx.to(torch.int64)
-        accept = _accept_from_meta(
+        return _accept_from_meta(
             {k: v[rows] for k, v in dev.ints.items()},
             {k: v[rows] for k, v in dev.floats.items()},
-            torch.from_numpy(qvec).to(self.device),
-        ) & torch.from_numpy(scan_gate).to(self.device)
-        return dev, idx, accept
+            _upload(qvec, self.device),
+        ) & _upload(scan_gate, self.device)
+
+    def _operands(self, layout: str, gate: np.ndarray, qvec: np.ndarray):
+        """A pass's operands for an execution-layout gate and query vector:
+        the resident layout, the pack index on the device and the accepted
+        slots (`_scan_index`, `_accept`)."""
+        dev = self.device_dataset(layout)
+        pack_idx, scan_gate = self._scan_index(layout, gate)
+        idx = _upload(pack_idx, self.device)
+        return dev, idx, self._accept(dev, idx, scan_gate, qvec)
 
     def _scan_operands(self, plan: CoaddPlan):
         """The pass's operands for a plan: (resident layout, (G,) pack index,
@@ -647,8 +710,11 @@ class CoaddEngine:
         return self._operands(plan.layout, self._exec_gate(plan), plan.qvec)
 
     def execute(self, plan: CoaddPlan) -> CoaddResult:
-        """Run a plan: device-resident packs + (P, cap) slot gate."""
+        """Run a plan: device-resident packs + (P, cap) slot gate.  Under a
+        device budget the query streams instead (`_execute_streaming`)."""
         self._check_plan_psf(plan)
+        if self.device_budget_bytes is not None:
+            return self._execute_streaming(plan)
         # The one upload, the bank and a matched copy stay out of the timing.
         dev = self.device_dataset(plan.layout)
         bank = self._device_psf_kernels(plan.layout)
@@ -658,13 +724,15 @@ class CoaddEngine:
             bank = None
         grid_ra, grid_dec = self._plan_grids(plan)
         t1 = time.perf_counter()
-        _, idx, accept = self._scan_operands(plan)
+        gate = self._exec_gate(plan)
+        pack_idx, scan_gate = self._scan_index(plan.layout, gate)
+        idx = _upload(pack_idx, self.device)
+        accept = self._accept(dev, idx, scan_gate, plan.qvec)
         passes, (coadd, depth) = self._passes(dev, idx, accept, grid_ra, grid_dec, plan.reduce,
-                                              bank)
+                                              bank, pack_idx)
         contrib = int(accept.sum())
         coadd_h, depth_h = coadd.cpu().numpy(), depth.cpu().numpy()
         t2 = time.perf_counter()
-        gate = self._exec_gate(plan)
         n_scanned = idx.shape[0]
         return CoaddResult(
             coadd_h,
@@ -686,21 +754,23 @@ class CoaddEngine:
                 reduce_passes=passes,
                 matched_cache_builds=self.matched_builds - m_builds0,
                 matched_cache_hits=m_hits,
+                peak_resident_bytes=self._peak_resident_bytes(),
             ),
         )
 
-    def _passes(self, dev, idx, accept, grid_ra, grid_dec, reduce: str, bank):
-        """The estimator's passes over ``idx`` -> (passes, (coadd, depth)):
-        one query, or a batch's (K, G, cap) ``accept`` and (K, Q, Q) grids.
-        Counts the passes, and the pre-pass a bank costs on the kernel path,
-        in ``dispatch_count``: a batch counts as one query."""
-        if reduce == "mean":
-            passes = 1
-            out = _scan_coadd(dev, idx, accept, grid_ra, grid_dec, self.use_kernel, bank)
-        else:
-            passes = 3 if reduce == "median" else 2
-            out = _robust_passes(dev, idx, accept, grid_ra, grid_dec, reduce, self.clip_k,
-                                 self.median_bins, self.use_kernel, bank)
+    def _passes(self, dev, idx, accept, grid_ra, grid_dec, reduce: str, bank, host_idx):
+        """The estimator's passes over ``idx`` (uploaded from ``host_idx``)
+        -> (passes, (coadd, depth)): one query, or a batch's (K, G, cap)
+        ``accept`` and (K, Q, Q) grids.  Each pass is one launch of its
+        kernel with ``use_kernel`` (a bank first runs the one pre-pass,
+        `_query_scan`), else its plain version.  Counts the passes, and the
+        pre-pass a bank costs on the kernel path, in ``dispatch_count``: a
+        batch counts as one query."""
+        scan, left, finite, host_idx = _query_scan(dev, idx, accept, grid_ra, grid_dec,
+                                                   self.use_kernel, bank, host_idx)
+        fns = _pass_fns(accept.dim() == 3, self.use_kernel, finite, host_idx, left)
+        passes, out = _estimate(reduce, self.clip_k, self.median_bins,
+                                lambda name, *fixed: fns[name](*scan, *fixed))
         self.dispatch_count += passes + (self.use_kernel and bank is not None)
         return passes, out
 
@@ -709,15 +779,15 @@ class CoaddEngine:
 
         The plan's value fingerprint (`CoaddPlan.fingerprint`) joined with the
         engine state that also determines the pixels: the live PSF state, the
-        program family (kernel or plain path, sparse gather; their sums
-        differ in order) and, for a robust plan, the clip radius and bin
-        count.  Contract: equal keys => bitwise-equal coadds.  Given a
+        program family (kernel or plain path, sparse gather, the streaming
+        partition; their sums differ in order) and, for a robust plan, the
+        clip radius and bin count.  Contract: equal keys => bitwise-equal coadds.  Given a
         ``result`` of `execute_batch` that may differ from the plan's own run
         (`JobStats.batch_scan`), the digest of that batch's scan joins the
         key, so the result never answers for the plan's own run.
         """
         key = (f"{plan.fingerprint}|{self._psf_state()}"
-               f"|k{int(self.use_kernel)}|s{int(self.sparse)}")
+               f"|k{int(self.use_kernel)}|s{int(self.sparse)}|b{self.device_budget_bytes}")
         if plan.reduce != "mean":
             key += f"|ck{self.clip_k}|mb{self.median_bins}"
         if result is not None and result.stats.batch_scan:
@@ -951,6 +1021,8 @@ class CoaddEngine:
         _, remap = self.exec_dataset(layout)
         if remap is not None:
             gates = np.stack([remap.apply(g) for g in gates])
+        if self.device_budget_bytes is not None:
+            return self._execute_batch_streaming(plans, gates, qvecs)
         # The one upload, the bank, a matched copy and the host grids stay
         # out of the timing, as in `execute`.
         dev = self.device_dataset(layout)
@@ -963,14 +1035,16 @@ class CoaddEngine:
         grids_ra = torch.stack([g[0] for g in grids])
         grids_dec = torch.stack([g[1] for g in grids])
         t1 = time.perf_counter()
-        _, idx, accept = self._operands(layout, gates, qvecs)
+        pack_idx, scan_gates = self._scan_index(layout, gates)
+        idx = _upload(pack_idx, self.device)
+        accept = self._accept(dev, idx, scan_gates, qvecs)
         passes, (coadds, depths) = self._passes(dev, idx, accept, grids_ra, grids_dec,
-                                                plans[0].reduce, bank)
+                                                plans[0].reduce, bank, pack_idx)
         contribs = accept.sum(dim=(1, 2)).tolist()
         coadds_h, depths_h = coadds.cpu().numpy(), depths.cpu().numpy()
         t2 = time.perf_counter()
         n_scanned = idx.shape[0]
-        scans = self._batch_scans(layout, gates, idx)
+        scans = self._batch_scans(layout, gates, pack_idx)
         dispatches = passes + (bank is not None) if self.use_kernel else passes * n_scanned
         results = []
         for i, p in enumerate(plans):
@@ -995,12 +1069,13 @@ class CoaddEngine:
                     reduce_passes=passes,
                     matched_cache_builds=(self.matched_builds - m_builds0) if first else 0,
                     matched_cache_hits=m_hits if first else 0,
+                    peak_resident_bytes=self._peak_resident_bytes(),
                     batch_scan=scans[i],
                 ),
             ))
         return results
 
-    def _batch_scans(self, layout: str, gates: np.ndarray, idx: torch.Tensor) -> List[str]:
+    def _batch_scans(self, layout: str, gates: np.ndarray, batch_packs: np.ndarray) -> List[str]:
         """Per query of a batch: "" when the batch's scan is bitwise its own
         run's, else a digest of the batch's pack index (`JobStats.batch_scan`).
 
@@ -1009,8 +1084,8 @@ class CoaddEngine:
         slot adds exact zeros while its pixels are finite and at most 2^62
         (the finite flag; over a PSF bank, `ops.matched_finite`'s).  A
         rejected NaN adds NaN, as it does in the reference's batches.
+        ``batch_packs`` is the batch's (G,) pack index on the host.
         """
-        batch_packs = idx.cpu().numpy()
         digest = hashlib.sha256(batch_packs.tobytes()).hexdigest()[:16]
         n_packs = self.exec_dataset(layout)[0].n_packs
         flag = None
@@ -1034,3 +1109,282 @@ class CoaddEngine:
             every = torch.arange(dev.n_packs, dtype=torch.int32, device=flag.device)
             flag = warp_ops.matched_finite(flag, every, bank)
         return flag.cpu().numpy() != 0
+
+    # ----- streaming residency (DESIGN.md §6) -----
+    def _eager_resident_bytes(self) -> int:
+        """Device bytes held outside the `ResidencyManager`: whole-layout
+        uploads, kernel banks and the plain path's matched copies (only
+        their pixels: they share the layout's WCS and metadata)."""
+        return (sum(d.nbytes for d in self._device_cache.values())
+                + sum(b.numel() * b.element_size() for b in self._psf_device.values())
+                + sum(d.pixels.numel() * d.pixels.element_size()
+                      for d in self._matched_cache.values()))
+
+    def _peak_resident_bytes(self) -> int:
+        """The `JobStats` high-water mark: the manager's peak (chunks, brick
+        tiles, in-flight and transient bytes) plus the eager residents (none
+        under a budget, where nothing is uploaded whole)."""
+        return self.residency.peak_bytes + self._eager_resident_bytes()
+
+    def _bank_pack_nbytes(self, layout: str) -> int:
+        """Device bytes ONE pack's PSF bank adds (0 when matching is off),
+        charged with the pixels so the budget bounds all a chunk holds."""
+        bank = self.psf_kernel_bank(layout)
+        return 0 if bank is None else int(bank[0].nbytes)
+
+    def _chunk_packs(self, exec_ds: PackedDataset) -> int:
+        """Packs per residency chunk: half the budget, so two chunks (the
+        one being scanned and the one uploading behind it) fit together."""
+        pack_bytes = max(exec_ds.pack_nbytes() + self._bank_pack_nbytes(exec_ds.layout), 1)
+        return max(1, min(int(self.device_budget_bytes // (2 * pack_bytes)), exec_ds.n_packs))
+
+    def _stream_matched(self) -> bool:
+        """Whether a streamed chunk is matched once, on the device (the chunk
+        is the matched-pixel cache): under a bank on the kernel path, and on
+        the plain path with ``matched_pixel_cache``."""
+        return self.match_psf_sigma is not None and (self.use_kernel or self.matched_pixel_cache)
+
+    def _chunk_evicted(self, key, entry) -> None:
+        """The residency manager's eviction seam: the current stream waits
+        on an evicted chunk's upload, so the memory it frees is reused only
+        after its copy, even where no scan of it waited."""
+        if isinstance(entry.payload, _Chunk) and entry.payload.dev.ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(entry.payload.dev.ready)
+
+    def _wait(self, chunk: _Chunk) -> None:
+        """The current stream waits on the chunk's upload (no host sync)."""
+        if chunk.dev.ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(chunk.dev.ready)
+
+    def _resident_chunk(self, layout: str, exec_ds: PackedDataset, start: int,
+                        stop: int) -> _Chunk:
+        """The resident chunk of packs [start, stop), through the LRU.
+
+        A miss uploads it (`PackedDataset.to_device_chunk`, copies on the
+        engine's side stream) with its bank slice.  Under `_stream_matched`
+        the chunk is the matched-pixel cache: its first scan matches it
+        (`_chunk_operands`), and repeat queries hit the matched chunk.  The
+        key carries the PSF state, so a retuned engine misses.  The entry is
+        charged for the chunk and a bank slice that rides with it; a matched
+        build's raw pixels and bank slice are its transient bytes.
+        """
+        matched = self._stream_matched()
+        state = self._psf_state()
+        key = (layout, start, stop, "matched", state) if matched else (layout, start, stop, state)
+        bank = self.psf_kernel_bank(layout)
+        bank_bytes = self._bank_pack_nbytes(layout) * (stop - start)
+
+        def build():
+            if self.device.type == "cuda" and self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            dev = exec_ds.to_device_chunk(start, stop, self.device, self._copy_stream)
+            self.pack_upload_count += 1
+            kern = None if bank is None else _upload(bank[start:stop], self.device)
+            return _Chunk(dev, match=kern) if matched else _Chunk(dev, bank=kern)
+
+        nbytes = exec_ds.chunk_nbytes(start, stop) + (0 if matched else bank_bytes)
+        transient = exec_ds.pixels[0].nbytes * (stop - start) + bank_bytes if matched else 0
+        return self.residency.acquire(key, nbytes, build, transient_bytes=transient,
+                                      cost=COST_MATCHED_CHUNK if matched else COST_RAW_CHUNK)
+
+    def _chunk_operands(self, chunk: _Chunk) -> Tuple[DevicePackedDataset, Optional[torch.Tensor]]:
+        """A resident chunk's scan operands -> (dataset, bank for plain scans).
+
+        A matched chunk is matched on its first scan: ONE ungated
+        ``psf_match`` launch over every slot (the plain version on the plain
+        path) and its flag (`ops.matched_finite`), counted in
+        ``matched_builds``, not as a pass.  The gated pre-pass of the eager
+        path is bitwise the ungated one on every slot a pass reads, so the
+        matched bits are the same.
+        """
+        if chunk.match is not None:
+            dev = chunk.dev
+            every = torch.arange(dev.n_packs, dtype=torch.int32, device=self.device)
+            if self.use_kernel:
+                pixels = warp_ops.psf_match(dev.pixels, every, chunk.match,
+                                            host_idx=np.arange(dev.n_packs, dtype=np.int32))
+            else:
+                pixels = warp_ref.psf_match_ref(dev.pixels, every, chunk.match)
+            finite = warp_ops.matched_finite(dev.finite, every, chunk.match)
+            chunk.dev = dataclasses.replace(dev, pixels=pixels, finite=finite)
+            chunk.match = None
+            self.matched_builds += 1
+        return chunk.dev, chunk.bank
+
+    def _stream_windows(self, exec_ds: PackedDataset, gate_any: np.ndarray) -> List[ScanWindow]:
+        """The chunk-aligned window schedule of a (P,) any-gate (every pack
+        when sparse execution is off: the dense scan streams everything)."""
+        gated = np.nonzero(gate_any)[0] if self.sparse else np.arange(exec_ds.n_packs)
+        return window_schedule(gated, exec_ds.n_packs, self._chunk_packs(exec_ds))
+
+    def _run_stream_windows(self, layout: str, exec_ds: PackedDataset,
+                            windows: List[ScanWindow], dispatch):
+        """Walk a window schedule -> the window partials summed on the device.
+
+        ``dispatch(chunk, window)`` scans one window and gives its partial
+        tuple (fresh tensors: the first window's become the sums, added to
+        in place).  The next chunk is acquired before this window's scan is
+        enqueued, so its upload (on the side stream, after that chunk's
+        allocation) overlaps this scan: the double buffer.  The current
+        stream waits on each chunk's upload just before the scans that read
+        it.  No host sync here.
+        """
+        cur = self._resident_chunk(layout, exec_ds, windows[0].start, windows[0].stop)
+        self._wait(cur)
+        acc = None
+        for i, win in enumerate(windows):
+            nxt = None
+            if i + 1 < len(windows):
+                nxt = self._resident_chunk(layout, exec_ds, windows[i + 1].start,
+                                           windows[i + 1].stop)
+            out = dispatch(cur, win)
+            acc = out if acc is None else tuple(a.add_(b) for a, b in zip(acc, out))
+            del out   # the next window's output is not allocated beside this one
+            if nxt is not None:
+                self._wait(nxt)
+            cur = nxt
+        return acc
+
+    def _stream(self, layout: str, gate: np.ndarray, qvec: np.ndarray, grid_ra, grid_dec,
+                reduce: str):
+        """One query's (P, cap) gate, or a batch's (K, P, cap) gates, streamed
+        -> (coadd, depth, contrib on the host, windows, passes, (uploads,
+        hits, evictions), seconds).
+
+        Each pass of the estimator (`_estimate`) walks the window schedule
+        (`_run_stream_windows`): per window one launch of its kernel (its
+        plain version off the kernel path) over the chunk, with chunk-local
+        indices and the window's compacted gate.  The first pass also sums
+        the accepted slots.  The between-pass operands stay on the device;
+        the query's one host sync is `_sync` at the end.
+        """
+        exec_ds, _ = self.exec_dataset(layout)
+        batch = gate.ndim == 3
+        windows = self._stream_windows(exec_ds, gate.any(axis=(0, 2) if batch else 1))
+        compact = compact_window_gates if batch else compact_window_gate
+        slots = (1, 2) if batch else (0, 1)
+        contrib: List[torch.Tensor] = []
+        counters0 = (self.residency.uploads, self.residency.hits, self.residency.evictions)
+        t1 = time.perf_counter()
+
+        def run_pass(name, *fixed):
+            first = not contrib
+
+            def dispatch(chunk, win):
+                dev, bank = self._chunk_operands(chunk)
+                idx = _upload(win.pack_idx, self.device)
+                accept = self._accept(dev, idx, compact(gate, win), qvec)
+                fns = _pass_fns(batch, self.use_kernel, dev.finite, win.pack_idx, bank)
+                self.dispatch_count += 1
+                out = fns[name](dev.pixels, dev.wcs, idx, accept.to(torch.float32), grid_ra,
+                                grid_dec, *fixed)
+                out = out if isinstance(out, tuple) else (out,)
+                return out + (accept.sum(slots),) if first else out
+
+            acc = self._run_stream_windows(layout, exec_ds, windows, dispatch)
+            if first:
+                contrib.append(acc[-1])
+                acc = acc[:-1]
+            return acc if len(acc) > 1 else acc[0]
+
+        passes, (coadd, depth) = _estimate(reduce, self.clip_k, self.median_bins, run_pass)
+        coadd_h, depth_h, contrib_h = _sync([coadd, depth, contrib[0]])
+        elapsed = time.perf_counter() - t1
+        counters = (self.residency.uploads - counters0[0], self.residency.hits - counters0[1],
+                    self.residency.evictions - counters0[2])
+        return coadd_h, depth_h, contrib_h, windows, passes, counters, elapsed
+
+    def _empty_streaming_result(self, plan: CoaddPlan) -> CoaddResult:
+        """The empty selection under a budget: exact zeros, no window, no
+        upload, no launch (and no window-stat reduction over no windows)."""
+        npix = plan.query.npix
+        stats = JobStats(method=plan.method, files_considered=0, files_contributing=0,
+                         packs_touched=0, t_locate_s=plan.t_locate_s, t_map_reduce_s=0.0,
+                         t_total_s=plan.t_locate_s, dispatches=0, reduce=plan.reduce,
+                         peak_resident_bytes=self._peak_resident_bytes())
+        return CoaddResult(np.zeros((npix, npix), np.float32), np.zeros((npix, npix), np.float32),
+                           stats)
+
+    def _execute_streaming(self, plan: CoaddPlan) -> CoaddResult:
+        """One query under a device budget (any estimator): its gated packs
+        streamed in residency-chunk windows (`_stream`)."""
+        gate = self._exec_gate(plan)
+        if not gate.any():
+            return self._empty_streaming_result(plan)
+        grid_ra, grid_dec = self._plan_grids(plan)
+        m_builds0, d0 = self.matched_builds, self.dispatch_count
+        coadd, depth, contrib, windows, passes, (up, hits, ev), elapsed = self._stream(
+            plan.layout, gate, plan.qvec, grid_ra, grid_dec, plan.reduce)
+        stats = JobStats(
+            method=plan.method,
+            files_considered=int(gate.sum()),
+            files_contributing=int(contrib),
+            packs_touched=plan.packs_touched,
+            t_locate_s=plan.t_locate_s,
+            t_map_reduce_s=elapsed,
+            t_total_s=plan.t_locate_s + elapsed,
+            dispatches=self.dispatch_count - d0,
+            packs_gated=int(gate.any(axis=1).sum()),
+            packs_scanned=passes * sum(w.budget for w in windows),
+            scan_budget=max(w.budget for w in windows),
+            reduce=plan.reduce,
+            reduce_passes=passes,
+            windows=passes * len(windows),
+            chunk_uploads=up,
+            residency_hits=hits,
+            residency_evictions=ev,
+            matched_cache_builds=self.matched_builds - m_builds0,
+            matched_cache_hits=hits if self._stream_matched() else 0,
+            peak_resident_bytes=self._peak_resident_bytes(),
+        )
+        return CoaddResult(coadd, depth, stats)
+
+    def _execute_batch_streaming(self, plans: List[CoaddPlan], gates: np.ndarray,
+                                 qvecs: np.ndarray) -> List[CoaddResult]:
+        """K plans under a device budget (any estimator): the windows of the
+        union of their gates, each window one batched launch a pass for all
+        K queries, one host sync for the batch.  The interval, launches,
+        scanned packs and residency counters go to the first result's
+        stats.  ``batch_scan`` is a digest of the union's packs for a query
+        whose own gated packs differ (its own streamed run sums other
+        windows)."""
+        layout = plans[0].layout
+        if not gates.any():
+            return [self._empty_streaming_result(p) for p in plans]
+        grids = [self._plan_grids(p) for p in plans]
+        grids_ra = torch.stack([g[0] for g in grids])
+        grids_dec = torch.stack([g[1] for g in grids])
+        m_builds0, d0 = self.matched_builds, self.dispatch_count
+        coadds, depths, contribs, windows, passes, (up, hits, ev), elapsed = self._stream(
+            layout, gates, qvecs, grids_ra, grids_dec, plans[0].reduce)
+        union = np.concatenate([w.sel for w in windows]).astype(np.int64)
+        digest = hashlib.sha256(union.tobytes()).hexdigest()[:16]
+        results = []
+        for i, p in enumerate(plans):
+            first = i == 0
+            own = np.nonzero(gates[i].any(axis=1))[0] if self.sparse else union
+            t_mr = elapsed if first else 0.0
+            results.append(CoaddResult(coadds[i], depths[i], JobStats(
+                method=p.method,
+                files_considered=int(gates[i].sum()),
+                files_contributing=int(contribs[i]),
+                packs_touched=p.packs_touched,
+                t_locate_s=p.t_locate_s,
+                t_map_reduce_s=t_mr,
+                t_total_s=p.t_locate_s + t_mr,
+                dispatches=(self.dispatch_count - d0) if first else 0,
+                packs_gated=int(gates[i].any(axis=1).sum()),
+                packs_scanned=passes * sum(w.budget for w in windows) if first else 0,
+                scan_budget=max(w.budget for w in windows),
+                reduce=p.reduce,
+                reduce_passes=passes,
+                windows=passes * len(windows),
+                chunk_uploads=up if first else 0,
+                residency_hits=hits if first else 0,
+                residency_evictions=ev if first else 0,
+                matched_cache_builds=(self.matched_builds - m_builds0) if first else 0,
+                matched_cache_hits=hits if first and self._stream_matched() else 0,
+                peak_resident_bytes=self._peak_resident_bytes(),
+                batch_scan="" if np.array_equal(own, union) else digest,
+            )))
+        return results

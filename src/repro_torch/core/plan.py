@@ -20,6 +20,11 @@ slots within it (`compact_gates`).  `CoaddPlan.coalesce_key` is the
 precondition of one batch as a hashable key, `cost_budget` the scan bucket
 a service classes a plan by, and `fingerprint` the value identity of its
 pixels.
+
+Streaming residency: under a device budget a gate's packs are partitioned
+by residency chunk into `ScanWindow`s (`window_schedule`), each scanned
+with chunk-local indices over its own compacted gate
+(`compact_window_gate`, `compact_window_gates` for a batch).
 """
 
 from __future__ import annotations
@@ -176,6 +181,72 @@ def compact_gates(gates: np.ndarray, sp: SparseScanIndex) -> np.ndarray:
     return g
 
 
+@dataclasses.dataclass
+class ScanWindow:
+    """One streaming-residency window: a chunk of packs plus the scan over it.
+
+    The streaming executor cannot assume the whole layout is
+    device-resident, so a query's gated pack set is partitioned by *chunk*,
+    the contiguous pack range the `ResidencyManager` uploads and evicts.
+    Each window scans one chunk with the same budget-bucketed sparse program
+    as the eager path, with chunk-local indices; window results are
+    additive, so the executor uploads chunk N+1 behind chunk N's scan and
+    syncs with the host once at the end.
+    """
+
+    start: int             # chunk pack range [start, stop) in layout coords
+    stop: int
+    sel: np.ndarray        # (n_gated,) *global* pack indices inside the chunk
+    pack_idx: np.ndarray   # (budget,) chunk-local indices, 0-padded
+    n_gated: int
+    budget: int            # static bucket == len(pack_idx)
+
+    @property
+    def key(self) -> Tuple[int, int, int, int]:
+        """Identity of this window within one query's schedule (windows
+        partition the pack range, so it is unique there)."""
+        return (self.start, self.stop, self.n_gated, self.budget)
+
+
+def window_schedule(gated: np.ndarray, n_packs: int, chunk_packs: int) -> List[ScanWindow]:
+    """Partition a sorted gated-pack vector into chunk-aligned scan windows.
+
+    Chunks with no gated pack produce no window (their bytes never upload);
+    an empty gate still yields one single-pack window, so an executor that
+    scans it keeps the empty-gate contract: an all-False row, exact zeros.
+    """
+    if chunk_packs <= 0:
+        raise ValueError(f"chunk_packs must be positive, got {chunk_packs}")
+    if len(gated) == 0:
+        return [ScanWindow(0, min(chunk_packs, n_packs), np.empty((0,), np.int64),
+                           np.zeros((1,), np.int32), 0, 1)]
+    windows: List[ScanWindow] = []
+    for c in range(0, n_packs, chunk_packs):
+        stop = min(c + chunk_packs, n_packs)
+        sel = gated[(gated >= c) & (gated < stop)]
+        if len(sel) == 0:
+            continue
+        budget = scan_budget(len(sel), stop - c)
+        idx = np.zeros((budget,), np.int32)
+        idx[: len(sel)] = sel - c
+        windows.append(ScanWindow(c, stop, sel, idx, len(sel), budget))
+    return windows
+
+
+def compact_window_gate(gate: np.ndarray, win: ScanWindow) -> np.ndarray:
+    """(P, cap) gate -> (budget, cap) gate over one window's gathered packs."""
+    out = np.zeros((win.budget, gate.shape[-1]), bool)
+    out[: win.n_gated] = gate[win.sel]
+    return out
+
+
+def compact_window_gates(gates: np.ndarray, win: ScanWindow) -> np.ndarray:
+    """(K, P, cap) gates -> (K, budget, cap) over one window's packs."""
+    out = np.zeros((gates.shape[0], win.budget, gates.shape[-1]), bool)
+    out[:, : win.n_gated] = gates[:, win.sel]
+    return out
+
+
 def stack_plans(plans: Sequence[CoaddPlan]) -> Tuple[np.ndarray, np.ndarray]:
     """Stack same-layout plans into (K, P, cap) gates + (K, 7) query vectors.
 
@@ -200,12 +271,16 @@ def stack_plans(plans: Sequence[CoaddPlan]) -> Tuple[np.ndarray, np.ndarray]:
 
 __all__: List[str] = [
     "CoaddPlan",
+    "ScanWindow",
     "SparseScanIndex",
     "compact_gate",
     "compact_gates",
+    "compact_window_gate",
+    "compact_window_gates",
     "grid_digest",
     "scan_budget",
     "sparse_pack_index",
     "stack_plans",
     "union_sparse_index",
+    "window_schedule",
 ]

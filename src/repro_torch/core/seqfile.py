@@ -13,14 +13,18 @@ small files into few large indexed containers.  Two layouts are compared:
 A container is a dense ``(cap, H, W)`` pixel array plus columnar metadata.
 Packing is numpy on the host and bitwise equal to the reference;
 `PackedDataset.to_device` makes one layout resident on a torch device as a
-`DevicePackedDataset`.  `ResidencyManager` (an LRU under a byte budget)
-and `BrickStore` (materialized brick coadds, host and device tiers) are the
+`DevicePackedDataset`, and `PackedDataset.to_device_chunk` one pack range of
+it (streaming residency, DESIGN.md §6: page-locked host memory, copies on a
+side CUDA stream).  `ResidencyManager` (an LRU under a byte budget) and
+`BrickStore` (materialized brick coadds, host and device tiers) are the
 residency hierarchy of DESIGN.md §9.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -41,11 +45,12 @@ FLOAT_COLS = ("t_obs", "ra_min", "ra_max", "dec_min", "dec_max", "psf_sigma")
 
 @dataclasses.dataclass
 class DevicePackedDataset:
-    """Device-resident form of a `PackedDataset`.
+    """Device-resident form of a `PackedDataset`, or of one pack range of it.
 
-    The whole layout lives on the device, uploaded **once** and cached by the
-    engine, so repeated queries never re-transfer pixels.  Shapes mirror
-    `PackedDataset`; arrays are torch tensors on one device.
+    A whole layout lives on the device, uploaded **once** and cached by the
+    engine, so repeated queries never re-transfer pixels; under a device
+    budget the engine holds chunks of it instead (`to_device_chunk`).
+    Shapes mirror `PackedDataset`; arrays are torch tensors on one device.
     """
 
     pixels: torch.Tensor            # (P, cap, H, W) float32
@@ -54,6 +59,10 @@ class DevicePackedDataset:
                                     #   image_id -1 (rejected by acceptance)
     floats: Dict[str, torch.Tensor] # (P, cap) float32 each
     finite: Optional[torch.Tensor] = None   # (P, cap) uint8, `finite_slots`
+    # A chunk's upload event (`to_device_chunk` on a CUDA device): a reader's
+    # stream waits on it before its first use.  None for a whole layout and
+    # on the CPU.
+    ready: Optional[Any] = None
 
     @property
     def n_packs(self) -> int:
@@ -78,21 +87,18 @@ class DevicePackedDataset:
 #: 2**62 * (1 + 2**-21), so vm*vm < 2**125.
 FINITE_LIMIT = 2.0 ** 62
 
-#: Pixels `finite_slots` tests at a time (whole packs, at least one), so its
-#: temporaries stay a few hundred MB on a full-size layout.
-FINITE_CHUNK = 2 ** 26
 
-
-def finite_slots(pixels: torch.Tensor) -> torch.Tensor:
+def finite_slots(pixels: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(P, cap, H, W) pixels -> (P, cap) uint8: 1 where every pixel of the
-    slot is finite with |p| <= `FINITE_LIMIT` (a NaN compares false).  One
-    pass, `FINITE_CHUNK` pixels at a time."""
+    slot is finite with |p| <= `FINITE_LIMIT`.  One reduction pass, each
+    slot's min and max (a NaN propagates through both and compares false),
+    written into ``out`` when given."""
     p, cap = pixels.shape[:2]
-    out = torch.empty((p, cap), dtype=torch.uint8, device=pixels.device)
-    step = max(1, FINITE_CHUNK // max(1, pixels[0].numel()))
-    for p0 in range(0, p, step):
-        blk = pixels[p0:p0 + step]
-        out[p0:p0 + step] = (blk.abs() <= FINITE_LIMIT).flatten(2).all(-1)
+    if out is None:
+        out = torch.empty((p, cap), dtype=torch.uint8, device=pixels.device)
+    if out.numel():
+        lo, hi = torch.aminmax(pixels.flatten(2), dim=-1)
+        out.copy_((lo >= -FINITE_LIMIT) & (hi <= FINITE_LIMIT))
     return out
 
 
@@ -121,9 +127,9 @@ class ResidencyManager:
     The residency contract of DESIGN.md §6 and §9: the engine asks this
     manager for keyed device payloads.  A hit refreshes recency and costs
     nothing; a miss evicts least-recently-used entries until the new one
-    fits, then calls the supplied builder.  In the port only the brick tier
-    (`BrickStore`) holds entries so far, under no budget; streaming pack
-    chunks come with the streaming executors.
+    fits, then calls the supplied build function.  The engine's streaming
+    executors hold pack chunks here (`CoaddEngine(device_budget_bytes=...)`)
+    beside the brick tier (`BrickStore`); with no budget nothing is evicted.
 
     Eviction drops the LRU reference and lets the runtime free the buffers
     once in-flight consumers finish — never an explicit ``delete()``, so a
@@ -460,6 +466,8 @@ class PackedDataset:
     # Measured-PSF calibration column: a (P, cap, S, S) stamp per slot, or
     # None when the survey carries none.  Host-only.
     psf_stamps: Optional[np.ndarray] = None
+    # Whether ``pixels`` is page-locked in place (`pin`, streaming residency).
+    _pinned: bool = dataclasses.field(default=False, init=False, repr=False)
 
     @property
     def n_packs(self) -> int:
@@ -479,9 +487,10 @@ class PackedDataset:
     def to_device(self, device) -> DevicePackedDataset:
         """Upload the whole layout to ``device``, once.
 
-        With no streaming residency (a later slice), this is the only place
-        pack pixels cross host->device; everything downstream indexes and
-        masks the resident tensors on the device.
+        The eager residency contract: with no device budget this is the only
+        place pack pixels cross host->device; everything downstream indexes
+        and masks the resident tensors on the device.  Under a budget the
+        engine uploads `to_device_chunk` windows instead.
         """
         put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
         pixels = put(self.pixels)
@@ -492,6 +501,105 @@ class PackedDataset:
             floats={k: put(v) for k, v in self.floats.items()},
             finite=finite_slots(pixels),
         )
+
+    def pin(self) -> float:
+        """Page-lock ``pixels`` in place (``cudaHostRegister``), once, so
+        `to_device_chunk` copies them asynchronously -> the seconds it took
+        (0.0 when already pinned).
+
+        Raises if the registration fails: a copy from pageable memory would
+        block the host, so there is no fallback to one.  The registration
+        ends when the array is freed.
+        """
+        if self._pinned or self.pixels.nbytes == 0:
+            return 0.0
+        if not self.pixels.flags.c_contiguous:
+            raise ValueError("pixels must be C-contiguous to pin in place")
+        owner = self.pixels
+        while isinstance(owner.base, np.ndarray):
+            owner = owner.base
+        cudart = torch.cuda.cudart()
+        ptr, nbytes = self.pixels.ctypes.data, self.pixels.nbytes
+        t0 = time.perf_counter()
+        err = int(cudart.cudaHostRegister(ptr, nbytes, 0))
+        if err != 0:
+            raise RuntimeError(f"cudaHostRegister of {nbytes} bytes failed: CUDA error {err}")
+        seconds = time.perf_counter() - t0
+        weakref.finalize(owner, cudart.cudaHostUnregister, ptr).atexit = False
+        if not torch.from_numpy(self.pixels[:1]).is_pinned():
+            raise RuntimeError("registered pixels do not read as page-locked")
+        self._pinned = True
+        return seconds
+
+    def to_device_chunk(self, start: int, stop: int, device,
+                        stream=None) -> DevicePackedDataset:
+        """Upload the pack range [start, stop) as its own resident chunk,
+        with its per-slot `finite` flag (`finite_slots` of the uploaded
+        pixels, computed on the device).
+
+        On a CUDA device the tensors are allocated on the current stream and
+        filled by copies issued on ``stream`` (a side stream; the current
+        one when None) after an event recorded right after the allocation,
+        so the copies never overwrite memory a scan enqueued before still
+        reads.  The pixels copy straight from the layout's page-locked array
+        (`pin`), the small columns through pinned staging copies, and the
+        flag follows the pixels on the same stream; the host returns with
+        the work enqueued, and the chunk's ``ready`` event is what a
+        reader's stream waits on before its first use (the double buffer:
+        this upload overlaps the scans already enqueued).  A reader must
+        wait on ``ready`` before the chunk is dropped.  On the CPU the
+        chunk's tensors view the host arrays.
+        """
+        sl = slice(start, stop)
+        arrays = [self.pixels[sl], self.wcs[sl],
+                  *(v[sl] for v in self.ints.values()), *(v[sl] for v in self.floats.values())]
+        device = torch.device(device)
+        ready = None
+        if device.type != "cuda":
+            tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+            finite = finite_slots(tensors[0])
+        else:
+            self.pin()
+            compute = torch.cuda.current_stream(device)
+            side = compute if stream is None else stream
+            srcs = [torch.from_numpy(arrays[0])] + [
+                torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in arrays[1:]]
+            tensors = [torch.empty_like(s, device=device) for s in srcs]
+            finite = torch.empty((stop - start, self.capacity), dtype=torch.uint8, device=device)
+            allocated = torch.cuda.Event()
+            allocated.record(compute)
+            side.wait_event(allocated)
+            with torch.cuda.stream(side):
+                for t, src in zip(tensors, srcs):
+                    t.copy_(src, non_blocking=True)
+                finite_slots(tensors[0], out=finite)
+                ready = torch.cuda.Event()
+                ready.record(side)
+        n_int = len(self.ints)
+        return DevicePackedDataset(
+            pixels=tensors[0],
+            wcs=tensors[1],
+            ints=dict(zip(self.ints, tensors[2:2 + n_int])),
+            floats=dict(zip(self.floats, tensors[2 + n_int:])),
+            finite=finite,
+            ready=ready,
+        )
+
+    def pack_nbytes(self) -> int:
+        """Device bytes of ONE resident pack: pixels, WCS, the metadata
+        columns and its slots' finite flag."""
+        per_pack = (
+            self.pixels[0].nbytes
+            + self.wcs[0].nbytes
+            + sum(v[0].nbytes for v in self.ints.values())
+            + sum(v[0].nbytes for v in self.floats.values())
+            + self.capacity
+        )
+        return int(per_pack)
+
+    def chunk_nbytes(self, start: int, stop: int) -> int:
+        """Device bytes a resident [start, stop) chunk will occupy."""
+        return self.pack_nbytes() * max(stop - start, 0)
 
     def slot_mask(self, image_ids) -> np.ndarray:
         """(P, cap) bool gate selecting exactly `image_ids` (the SQL splits).

@@ -21,6 +21,11 @@ and the scratch's flag, `matched_packs` gives the pre-pass a (G, cap) uint8
 pass reads, are written as zeros and not matched.  The ``psf_match*``
 wrappers take that ``skip`` as it is, or None to match every slot.
 
+The pack index is checked against the layout on a host copy: the pack
+scans and the ``psf_match*`` wrappers take ``host_idx``, the numpy array
+the caller uploaded ``pack_idx`` from, so a launch needs no host sync;
+without it a CPU index is read in place and a CUDA one copied back once.
+
 ``warp_batch`` launches the culled ``warp_project_kernel``: a (tile, image)
 pair whose footprint misses the tile is written without sampling, the same
 bits as the unculled kernel (``warp_project_unculled_f32``), which only
@@ -47,6 +52,7 @@ the slots every query rejects (`prepass_skip` of the (K, G, cap) accept).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -134,13 +140,23 @@ def warp_batch(pixels, wcs_vecs, accepts, grid_ra, grid_dec):
 warp_batch.launches = 0
 
 
-def _check_pack_idx(pack_idx, n_packs):
-    lo, hi = (int(v) for v in torch.aminmax(pack_idx))
+def _check_pack_idx(pack_idx, n_packs, host_idx=None):
+    """Every entry of the (G,) index in [0, n_packs), checked on the host:
+    on ``host_idx`` (the array ``pack_idx`` was uploaded from; its length
+    must match), else on ``pack_idx`` itself on the CPU, else on one copy
+    of it to the host (a sync)."""
+    if host_idx is None:
+        host_idx = pack_idx.cpu()
+    host_idx = np.asarray(host_idx)
+    if host_idx.shape != tuple(pack_idx.shape):
+        raise ValueError(f"host_idx {host_idx.shape} does not match pack_idx "
+                         f"{tuple(pack_idx.shape)}")
+    lo, hi = int(host_idx.min()), int(host_idx.max())
     if lo < 0 or hi >= n_packs:
         raise IndexError(f"pack_idx spans [{lo}, {hi}], layout has {n_packs} packs")
 
 
-def _check_bank(pixels, pack_idx, bank, ndim, skip=None):
+def _check_bank(pixels, pack_idx, bank, ndim, skip=None, host_idx=None):
     """Check a PSF-matching pre-pass's operands -> (g, cap, h, w).
 
     ``bank`` is (P, cap, K) separable rows (``ndim`` 3) or (P, cap, Kh, Kw)
@@ -162,7 +178,7 @@ def _check_bank(pixels, pack_idx, bank, ndim, skip=None):
     if min(n_packs, cap, h, w, g) < 1 or g * cap >= 2**31:
         raise ValueError(f"need a non-empty layout and pack_idx, got pixels "
                          f"{tuple(pixels.shape)} and {g} packs")
-    _check_pack_idx(pack_idx, n_packs)
+    _check_pack_idx(pack_idx, n_packs, host_idx)
     if skip is not None:
         _require(skip, "skip", torch.uint8, 2, dev)
         if tuple(skip.shape) != (g, cap):
@@ -182,7 +198,7 @@ def _launch_psf(entry, pixels, pack_idx, bank, skip, dims, taps):
     return out
 
 
-def psf_match_sep(pixels, pack_idx, psf_kernels, skip=None):
+def psf_match_sep(pixels, pack_idx, psf_kernels, skip=None, *, host_idx=None):
     """(G, cap, H, W) frames of the packs ``pack_idx``, each correlated with its
     slot's (K,) row of the (P, cap, K) bank along W, then along H; zeros
     where the (G, cap) uint8 ``skip`` is set.
@@ -190,7 +206,7 @@ def psf_match_sep(pixels, pack_idx, psf_kernels, skip=None):
     ONE launch of ``psf_match_sep_kernel``; edge-clamped, as
     ``psf.convolve_batch`` (its plain version, via `ref.psf_match_ref`).
     """
-    dims = _check_bank(pixels, pack_idx, psf_kernels, 3, skip)
+    dims = _check_bank(pixels, pack_idx, psf_kernels, 3, skip, host_idx)
     if pixels.device.type == "cpu":
         return ref.psf_match_ref(pixels, pack_idx, psf_kernels, skip)
     out = _launch_psf("psf_match_sep_f32", pixels, pack_idx, psf_kernels, skip, dims,
@@ -202,7 +218,7 @@ def psf_match_sep(pixels, pack_idx, psf_kernels, skip=None):
 psf_match_sep.launches = 0
 
 
-def psf_match_2d(pixels, pack_idx, psf_kernels, skip=None):
+def psf_match_2d(pixels, pack_idx, psf_kernels, skip=None, *, host_idx=None):
     """(G, cap, H, W) frames of the packs ``pack_idx``, each correlated with its
     slot's (Kh, Kw) taps of the (P, cap, Kh, Kw) bank; zeros where the
     (G, cap) uint8 ``skip`` is set.
@@ -210,7 +226,7 @@ def psf_match_2d(pixels, pack_idx, psf_kernels, skip=None):
     ONE launch of ``psf_match_2d_kernel``; edge-clamped, as
     ``psf.convolve_batch`` (its plain version, via `ref.psf_match_ref`).
     """
-    dims = _check_bank(pixels, pack_idx, psf_kernels, 4, skip)
+    dims = _check_bank(pixels, pack_idx, psf_kernels, 4, skip, host_idx)
     if pixels.device.type == "cpu":
         return ref.psf_match_ref(pixels, pack_idx, psf_kernels, skip)
     out = _launch_psf("psf_match_2d_f32", pixels, pack_idx, psf_kernels, skip, dims,
@@ -222,12 +238,12 @@ def psf_match_2d(pixels, pack_idx, psf_kernels, skip=None):
 psf_match_2d.launches = 0
 
 
-def psf_match(pixels, pack_idx, psf_kernels, skip=None):
+def psf_match(pixels, pack_idx, psf_kernels, skip=None, *, host_idx=None):
     """The PSF-matching pre-pass for either bank rank: `psf_match_sep` for a
     (P, cap, K) bank, `psf_match_2d` for a (P, cap, Kh, Kw) one."""
     if isinstance(psf_kernels, torch.Tensor) and psf_kernels.dim() == 4:
-        return psf_match_2d(pixels, pack_idx, psf_kernels, skip)
-    return psf_match_sep(pixels, pack_idx, psf_kernels, skip)
+        return psf_match_2d(pixels, pack_idx, psf_kernels, skip, host_idx=host_idx)
+    return psf_match_sep(pixels, pack_idx, psf_kernels, skip, host_idx=host_idx)
 
 
 #: Largest gain of a slot's PSF-matching kernel (the sum of |taps|; a
@@ -263,7 +279,8 @@ def prepass_skip(accept, matched_flag):
     return (rejected & (matched_flag != 0)).to(torch.uint8)
 
 
-def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels, accept=None, matched_flag=None):
+def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels, accept=None, matched_flag=None, *,
+                  host_idx=None):
     """The scan operands over a query's PSF-matched packs -> (pixels, wcs_vecs,
     pack_idx) for the pack scans.
 
@@ -278,7 +295,7 @@ def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels, accept=None, matched_
     skip = None
     if accept is not None and matched_flag is not None:
         skip = prepass_skip(accept, matched_flag)
-    matched = psf_match(pixels, pack_idx, psf_kernels, skip)
+    matched = psf_match(pixels, pack_idx, psf_kernels, skip, host_idx=host_idx)
     wcs = wcs_vecs[pack_idx.to(torch.int64)]
     idx = torch.arange(pack_idx.shape[0], dtype=torch.int32, device=pack_idx.device)
     return matched, wcs, idx
@@ -288,9 +305,11 @@ def matched_packs(pixels, wcs_vecs, pack_idx, psf_kernels, accept=None, matched_
 MAX_QUERIES = 65535
 
 
-def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, batched=False):
+def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, batched=False,
+                host_idx=None):
     """Check a pack scan's operands -> (g, cap, h, w, q).  ``batched``: a
-    (K, G, cap) accept and (K, Q, Q) grids."""
+    (K, G, cap) accept and (K, Q, Q) grids; ``host_idx`` as
+    `_check_pack_idx`."""
     dev = pixels.device
     _require(pixels, "pixels", torch.float32, 4, dev)
     n_packs, cap, h, w = pixels.shape
@@ -312,16 +331,16 @@ def _check_scan(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, batched=F
     if batched and not 1 <= lead[0] <= MAX_QUERIES:
         raise ValueError(f"a batch takes 1 to {MAX_QUERIES} queries, got {lead[0]}")
     q = _check_grids(grid_ra, grid_dec, dev, lead)
-    _check_pack_idx(pack_idx, n_packs)
+    _check_pack_idx(pack_idx, n_packs, host_idx)
     return g, cap, h, w, q
 
 
-def _prepare_scan(scan, psf_kernels, finite, batched=False, **fixed):
+def _prepare_scan(scan, psf_kernels, finite, batched=False, host_idx=None, **fixed):
     """Check a pass's operands -> (scan, dims, finite); with a bank, the scan
     over the PSF-matched packs (`matched_packs`, gated by the flag) and
     their flag (`matched_finite`).  ``fixed`` are the pass's (Q,Q)
-    operands, (K,Q,Q) when ``batched``."""
-    dims = _check_scan(*scan, batched=batched)
+    operands, (K,Q,Q) when ``batched``; ``host_idx`` as `_check_pack_idx`."""
+    dims = _check_scan(*scan, batched=batched, host_idx=host_idx)
     _check_fixed(dims[-1], scan[0].device, tuple(scan[3].shape[:1]) if batched else (),
                  **fixed)
     if finite is not None:
@@ -332,7 +351,8 @@ def _prepare_scan(scan, psf_kernels, finite, batched=False, **fixed):
     if psf_kernels is not None:
         if finite is not None:
             finite = matched_finite(finite, scan[2], psf_kernels)
-        scan = matched_packs(*scan[:3], psf_kernels, scan[3], finite) + scan[3:]
+        scan = matched_packs(*scan[:3], psf_kernels, scan[3], finite,
+                             host_idx=host_idx) + scan[3:]
     return scan, dims, finite
 
 
@@ -371,7 +391,7 @@ def _empty(shape, like):
 
 
 def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None, *,
-                finite=None):
+                finite=None, host_idx=None):
     """The whole query's map+reduce in ONE launch -> (Q,Q) coadd and depth.
 
     ``pixels`` (P,cap,H,W) and ``wcs_vecs`` (P,cap,8) are the resident
@@ -383,9 +403,12 @@ def coadd_fused(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kerne
     `psf_match` launch, then the scan.  ``finite`` is the layout's (P,cap)
     uint8 slot flag (`seqfile.finite_slots`): with it the kernel also skips
     rejected flagged slots; the result is the same bits either way.
+    ``host_idx`` is the host array ``pack_idx`` was uploaded from: the index
+    is checked there, with no host sync.
     """
     scan, dims, finite = _prepare_scan(
-        (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite)
+        (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite,
+        host_idx=host_idx)
     if pixels.device.type == "cpu":
         return ref.coadd_scan_ref(*scan)
     out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
@@ -398,14 +421,15 @@ coadd_fused.launches = 0
 
 
 def coadd_moments(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, psf_kernels=None,
-                  *, finite=None):
+                  *, finite=None, host_idx=None):
     """Robust pass 1 in ONE launch -> (S0, S1, S2), each (Q,Q).
 
     S0 = Σ a·m, S1 = Σ a·vm, S2 = Σ a·vm²/m (m > 0) over every scanned slot;
     operands as `coadd_fused`.
     """
     scan, dims, finite = _prepare_scan(
-        (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite)
+        (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite,
+        host_idx=host_idx)
     if pixels.device.type == "cpu":
         return ref.moments_scan_ref(*scan)
     out = tuple(_empty(grid_ra.shape, pixels) for _ in range(3))
@@ -418,7 +442,7 @@ coadd_moments.launches = 0
 
 
 def coadd_clip(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, thresh,
-               psf_kernels=None, *, finite=None):
+               psf_kernels=None, *, finite=None, host_idx=None):
     """Robust final pass in ONE launch -> (coadd, depth) of the kept samples.
 
     A sample is kept where m > 0 and |vm - m·center| <= m·thresh; ``center``
@@ -426,7 +450,7 @@ def coadd_clip(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, center, th
     """
     scan, dims, finite = _prepare_scan(
         (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite,
-        center=center, thresh=thresh)
+        host_idx=host_idx, center=center, thresh=thresh)
     if pixels.device.type == "cpu":
         return ref.clip_scan_ref(*scan, center, thresh)
     out = (_empty(grid_ra.shape, pixels), _empty(grid_ra.shape, pixels))
@@ -442,7 +466,7 @@ HIST_BINS = (8, 16, 32)
 
 
 def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w, nbins=16,
-               psf_kernels=None, *, finite=None):
+               psf_kernels=None, *, finite=None, host_idx=None):
     """Median round 1 in ONE launch -> (nbins,Q,Q) coverage-weighted histogram.
 
     Each sample adds a·m to bin clip(floor((vm/m - lo)·inv_w), 0, nbins-1);
@@ -453,7 +477,7 @@ def coadd_hist(pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec, lo, inv_w,
         raise ValueError(f"nbins must be one of {HIST_BINS}, got {nbins}")
     scan, dims, finite = _prepare_scan(
         (pixels, wcs_vecs, pack_idx, accept, grid_ra, grid_dec), psf_kernels, finite,
-        lo=lo, inv_w=inv_w)
+        host_idx=host_idx, lo=lo, inv_w=inv_w)
     if pixels.device.type == "cpu":
         return ref.hist_scan_ref(*scan, lo, inv_w, nbins)
     out = _empty((nbins,) + tuple(grid_ra.shape), pixels)
@@ -466,7 +490,7 @@ coadd_hist.launches = 0
 
 
 def coadd_fused_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
-                      psf_kernels=None, *, finite=None):
+                      psf_kernels=None, *, finite=None, host_idx=None):
     """K queries' map+reduce over one pack index in ONE launch -> (K,Q,Q)
     coadds and depths.
 
@@ -477,7 +501,7 @@ def coadd_fused_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
     """
     scan, dims, finite = _prepare_scan(
         (pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec), psf_kernels, finite,
-        batched=True)
+        batched=True, host_idx=host_idx)
     if pixels.device.type == "cpu":
         return ref.coadd_scan_batch_ref(*scan)
     out = (_empty(grids_ra.shape, pixels), _empty(grids_ra.shape, pixels))
@@ -490,12 +514,12 @@ coadd_fused_batch.launches = 0
 
 
 def coadd_moments_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec,
-                        psf_kernels=None, *, finite=None):
+                        psf_kernels=None, *, finite=None, host_idx=None):
     """Robust pass 1 for K queries in ONE launch -> (S0, S1, S2), each
     (K,Q,Q); operands as `coadd_fused_batch`."""
     scan, dims, finite = _prepare_scan(
         (pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec), psf_kernels, finite,
-        batched=True)
+        batched=True, host_idx=host_idx)
     if pixels.device.type == "cpu":
         return ref.moments_scan_batch_ref(*scan)
     out = tuple(_empty(grids_ra.shape, pixels) for _ in range(3))
@@ -508,13 +532,13 @@ coadd_moments_batch.launches = 0
 
 
 def coadd_clip_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec, centers,
-                     threshs, psf_kernels=None, *, finite=None):
+                     threshs, psf_kernels=None, *, finite=None, host_idx=None):
     """Robust final pass for K queries in ONE launch -> (K,Q,Q) coadds and
     depths of the kept samples; ``centers``/``threshs`` (K,Q,Q) float32, the
     other operands as `coadd_fused_batch`."""
     scan, dims, finite = _prepare_scan(
         (pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec), psf_kernels, finite,
-        batched=True, center=centers, thresh=threshs)
+        batched=True, host_idx=host_idx, center=centers, thresh=threshs)
     if pixels.device.type == "cpu":
         return ref.clip_scan_batch_ref(*scan, centers, threshs)
     out = (_empty(grids_ra.shape, pixels), _empty(grids_ra.shape, pixels))
@@ -527,7 +551,7 @@ coadd_clip_batch.launches = 0
 
 
 def coadd_hist_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec, los, inv_ws,
-                     nbins=16, psf_kernels=None, *, finite=None):
+                     nbins=16, psf_kernels=None, *, finite=None, host_idx=None):
     """Median round 1 for K queries in ONE launch -> (K,nbins,Q,Q)
     histograms; ``los``/``inv_ws`` (K,Q,Q) float32, ``nbins`` one of
     `HIST_BINS`, the other operands as `coadd_fused_batch`."""
@@ -535,7 +559,7 @@ def coadd_hist_batch(pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec, l
         raise ValueError(f"nbins must be one of {HIST_BINS}, got {nbins}")
     scan, dims, finite = _prepare_scan(
         (pixels, wcs_vecs, pack_idx, accepts, grids_ra, grids_dec), psf_kernels, finite,
-        batched=True, lo=los, inv_w=inv_ws)
+        batched=True, host_idx=host_idx, lo=los, inv_w=inv_ws)
     if pixels.device.type == "cpu":
         return ref.hist_scan_batch_ref(*scan, los, inv_ws, nbins)
     k, q = grids_ra.shape[0], grids_ra.shape[-1]

@@ -300,16 +300,16 @@ def test_batch_prepass_skips_only_what_every_query_rejects(scan_batch, monkeypat
     skips = []
     real = ops.psf_match
 
-    def spy(pixels, pack_idx, psf_kernels, skip=None, ungate=False):
+    def spy(pixels, pack_idx, psf_kernels, skip=None, ungate=False, **kw):
         skips.append(skip)
-        return real(pixels, pack_idx, psf_kernels, None if ungate else skip)
+        return real(pixels, pack_idx, psf_kernels, None if ungate else skip, **kw)
 
     monkeypatch.setattr(ops, "psf_match", spy)
     scan = (dev.pixels, dev.wcs, idx, accept, gr, gd)
     gated = _passes(BATCH, scan, psf_kernels=bank, finite=dev.finite)
     assert len(skips) == 6 and all(torch.equal(s, skip) for s in skips)
-    monkeypatch.setattr(ops, "psf_match", lambda pixels, pack_idx, bank, skip=None: spy(
-        pixels, pack_idx, bank, skip, ungate=True))
+    monkeypatch.setattr(ops, "psf_match", lambda pixels, pack_idx, bank, skip=None, **kw: spy(
+        pixels, pack_idx, bank, skip, ungate=True, **kw))
     ungated = _passes(BATCH, scan, psf_kernels=bank, finite=dev.finite)
     for a, b in zip(gated, ungated):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))

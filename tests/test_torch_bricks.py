@@ -213,6 +213,26 @@ def _mosaic_case(name):
         shape, npix = (6, 8, 7), 16
     elif name == "uncovered":
         offsets, shape, npix = [[0, 0], [20, 20]], (2, 8, 8), 37
+    # The CUDA kernel's float4 and scalar paths (bricks whose clamped
+    # column and width are multiples of 4 take the float4 one).
+    elif name == "lattice_vec":
+        offsets = [[r * 64, c * 64] for r in range(4) for c in range(4)]
+        shape, npix = (16, 64, 64), 256
+    elif name == "column_not_4":
+        offsets = [[0, 3], [10, 6], [30, 13], [-5, 70], [64, 0]]
+        shape, npix = (5, 24, 16), 80
+    elif name == "width_not_4":
+        offsets = [[0, 0], [4, 8], [20, 40], [-3, -9]]
+        shape, npix = (4, 20, 10), 68
+    elif name == "npix_not_4":
+        offsets = [[0, 0], [0, 16], [16, 48], [50, 50], [-1, -1]]
+        shape, npix = (5, 16, 16), 66
+    elif name == "many_bricks":
+        offsets = rng.integers(-90, 90, (300, 2))
+        shape, npix = (300, 8, 12), 70
+    elif name == "mixed_overlap":
+        offsets = [[0, 0], [2, 4], [2, 5], [-8, -4], [7, 9], [0, 64], [33, 32]]
+        shape, npix = (7, 32, 32), 96
     offsets = np.asarray(offsets, np.int32)
     tiles = rng.normal(size=shape).astype(np.float32)
     covs = rng.integers(0, 4, size=shape).astype(np.float32)
@@ -220,6 +240,11 @@ def _mosaic_case(name):
 
 
 MOSAIC_CASES = ("lattice", "one_tile", "bh_ne_bw", "overlapping", "clamped", "uncovered")
+#: Shapes that split the CUDA kernel's float4 and scalar paths: a clamped
+#: column not a multiple of 4, bw % 4 != 0, npix % 4 != 0, more than 256
+#: bricks (the filter's chunks), overlaps and negative offsets.
+KERNEL_MOSAIC_CASES = ("lattice_vec", "column_not_4", "width_not_4", "npix_not_4",
+                       "many_bricks", "mixed_overlap")
 
 
 @pytest.mark.parametrize("name", MOSAIC_CASES)
@@ -530,7 +555,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", MOSAIC_CASES)
+@pytest.mark.parametrize("name", MOSAIC_CASES + KERNEL_MOSAIC_CASES)
 def test_cuda_mosaic_bitwise_its_plain_version(cuda, name):
     tiles, covs, offsets, npix = _mosaic_case(name)
     args = [torch.from_numpy(a).to(cuda) for a in (tiles, covs, offsets)]

@@ -30,7 +30,6 @@ from repro.kernels.warp import ops as ref_ops
 from repro_torch.core import psf, reducer
 from repro_torch.core.geometry import sky_to_pixel
 from repro_torch.core.mapper import query_grid_sky
-from repro_torch.core import seqfile
 from repro_torch.core.seqfile import FINITE_LIMIT, finite_slots, pack_structured
 from repro_torch.kernels.warp import ops, ref
 
@@ -56,12 +55,10 @@ PLANTS = {
 
 
 @pytest.mark.parametrize("name", sorted(PLANTS))
-def test_finite_flag_matches_numpy(name, monkeypatch):
+def test_finite_flag_matches_numpy(name):
     value, at = PLANTS[name]
     px = _planted(value, at)
     want = (np.isfinite(px) & (np.abs(px) <= 2.0 ** 62)).all(axis=(2, 3))
-    # Chunks of 3 packs, so the planted pixels fall in several chunks.
-    monkeypatch.setattr(seqfile, "FINITE_CHUNK", 3 * px[0].size + 5)
     got = finite_slots(torch.from_numpy(px))
     np.testing.assert_array_equal(got.numpy(), want.astype(np.uint8))
     assert got.dtype == torch.uint8

@@ -272,8 +272,13 @@ def test_later_slice_arguments_rejected(surveys, engines):
     # Ported: PSF matching is accepted and plans carry its target.
     psf_eng = rt.CoaddEngine(surveys[1], device="cpu", match_psf_sigma=2.0)
     assert psf_eng.plan(rt.CoaddQuery(**QUERIES[0]), "sql_structured").psf_target == 2.0
-    with pytest.raises(NotImplementedError):
-        rt.CoaddEngine(surveys[1], device="cpu", device_budget_bytes=1 << 20)
+    # Ported: a device budget streams the query in residency windows.
+    probe = rt.CoaddEngine(surveys[1], device="cpu")
+    ds = probe.exec_dataset("structured")[0]
+    budget_eng = rt.CoaddEngine(surveys[1], device="cpu",
+                                device_budget_bytes=ds.chunk_nbytes(0, ds.n_packs) // 4)
+    budget_plan = budget_eng.plan(rt.CoaddQuery(**QUERIES[0]), "unstructured_seq")
+    assert budget_eng.execute(budget_plan).stats.windows > 1
     for reduce in ("clipped", "median"):   # ported: robust queries plan and run
         assert port_eng.plan(rt.CoaddQuery(**QUERIES[0]), "sql_structured",
                              reduce=reduce).reduce == reduce

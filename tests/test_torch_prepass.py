@@ -111,9 +111,9 @@ def _psf_match_spy(monkeypatch, ungate=False):
     skips = []
     real = ops.psf_match
 
-    def spy(pixels, pack_idx, psf_kernels, skip=None):
+    def spy(pixels, pack_idx, psf_kernels, skip=None, **kw):
         skips.append(skip)
-        return real(pixels, pack_idx, psf_kernels, None if ungate else skip)
+        return real(pixels, pack_idx, psf_kernels, None if ungate else skip, **kw)
 
     monkeypatch.setattr(ops, "psf_match", spy)
     return skips
