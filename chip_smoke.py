@@ -182,6 +182,32 @@ runs these phases, in order, each printing its seconds:
    upload rate against a pinned cudaMemcpy of 1 GiB, a profiled cold dense
    query's device idle share, and the layout's upload rate straight from
    the registered array and through a ring of two pinned staging buffers.
+   The streaming engines run under the default fault policy
+   (``on_fault="retry"``: every window through the `WindowTracker`).
+4. faults ("4 faults"): the fault domain (DESIGN.md §8) on the streaming
+   phase's per-file and structured engines (``raw_fits`` at 9 windows a
+   pass, ``sql_structured`` at 2), each drill bitwise the same engine's
+   clean streamed kernel-path run: an upload failure, NaN poison that heals
+   (the poisoned chunk dropped and uploaded again), persistent poison under
+   ``on_fault="quarantine"`` (partial, the pack uncovered, depth exactly
+   the run with the pack gated off at plan time, coadd within 1e-5 of it;
+   then ``reverify_quarantined`` restores full coverage), a kill and a
+   resume that replays only the finished windows (mean; median mid-pass
+   and on the pass seam), a straggler speculated (its backup's digest
+   agreeing), a `FaultSchedule.seeded` drill with all of them, the K = 4
+   batch and PSF-matched queries (both bank ranks) under faults, and
+   finite corruption healed under ``verify_digests`` (its cost printed).  Prints
+   the clean path's "retry"/"raise" time ratio cold and warm (interleaved,
+   0 retries, bitwise, one host sync a query), ``journal_dir``'s ratio to
+   the in-memory journal with the journal bytes a query, each heal's ms
+   over the clean query, and the host syncs and event waits a query; holds
+   ``peak_bytes`` and the ``max_memory_allocated`` rise as phase "4
+   streaming" does.  Then the SIGKILL drill: this script as a subprocess
+   (``--crash-child``) streams ``raw_fits`` over a reduced survey
+   (`CRASH_CFG`, 720 frames) with ``journal_dir``, once uninterrupted, once
+   killed by its own SIGKILL after the first window's journal commit, then
+   once more on that journal: it resumes the finished window and is bitwise
+   the uninterrupted run.
 4. zamba2 serving ("4 zamba2 serving", after the coadd main path): the full
    ``zamba2-1.2b`` configuration (38 Mamba-2 layers, d_model 2048, 1.17 B
    parameters from ``LM.init(0)``) through ``LM.prefill`` and 32 decode
@@ -379,6 +405,19 @@ STREAM_LAYOUTS = {"per_file": ("raw_fits", "raw_fits_prefiltered"),
 # NBINS, the median's cumulative histogram, NBINS, and 16 single maps
 # (moments, bounds, centre, radius, grids, outputs).
 STREAM_SCRATCH_MAPS = 3 * NBINS + 16
+# The fault domain (phase "4 faults"), on the streaming phase's per-file and
+# structured engines: the clean path's policies and journals timed in turns
+# (raise, retry, retry, raise); a straggler sleeps FAULT_SLOW_S, speculated
+# past FAULT_STRAGGLER times the median window; the seeded drill's seed (the
+# reference's, tests/test_faults.py).  The SIGKILL drill's reduced survey
+# (a quarter of the main survey's epochs: 720 frames) and its crash stage.
+FAULT_LAYOUTS = ("per_file", "structured")
+FAULT_INTERLEAVE = ("raise", "retry", "retry", "raise")
+FAULT_JOURNAL_INTERLEAVE = ("memory", "disk", "disk", "memory")
+FAULT_SLOW_S, FAULT_STRAGGLER, FAULT_SEED = 0.05, 3.0, 82
+CRASH_CFG = dict(n_runs=2, n_camcols=6, n_bands=5, n_fields=12, height=512, width=512, seed=82)
+CRASH_STAGE = "manifest_done:0"
+CRASH_TIMEOUT_S = 300
 H2D_PROBE_BYTES = 1 << 30               # pinned cudaMemcpy H2D yardstick
 # The brick mosaic's own time: launches captured in one CUDA graph, on one
 # set of operands (16.8 MB, L2-resident) and over 8 copies in turn (134 MB,
@@ -1157,7 +1196,7 @@ def hold_stream(torch, np, ref, dev, what, red, got, want, flips_at, decision_fl
 
 
 def streaming_phase(torch, np, dev, survey, main_eng, query, bqueries, eager, flips_at,
-                    batch_eager, batch_flips, brick_fresh, counted, decision_flips):
+                    batch_eager, batch_flips, brick_fresh, counted, decision_flips, keep):
     """Phase "4 streaming": the main survey under a device budget.
 
     One engine a layout (budget 1/STREAM_FRAC of the layout's device bytes),
@@ -1169,7 +1208,9 @@ def streaming_phase(torch, np, dev, survey, main_eng, query, bqueries, eager, fl
     on the dense and the sparse batch method; the brick window under the
     budget; checks one host sync a query, the window count, the residency
     manager's peak against the budget and ``max_memory_allocated`` against
-    that peak.  -> the numbers it printed.
+    that peak.  The per-file and structured engines go into ``keep`` (by
+    layout, nothing resident) for phase "4 faults".  -> the numbers it
+    printed.
     """
     import repro_torch.core.engine as engine_mod
     from repro_torch import CoaddEngine
@@ -1349,6 +1390,8 @@ def streaming_phase(torch, np, dev, survey, main_eng, query, bqueries, eager, fl
                 print(f"  streaming {methods[0]} mean cold, profiled: {out['profile']}", flush=True)
                 out.update(staging_rates(torch, np, dev, exec_ds, chunks[None]))
             eng.residency.clear()
+            if layout in FAULT_LAYOUTS:
+                keep[layout] = eng
             del eng
     finally:
         engine_mod._sync = real_sync
@@ -1446,6 +1489,502 @@ def streamed_bricks(torch, np, eng, one_sync, fresh_eager, counted, warp_ops):
     return dict(fresh_ms=fresh_ms, **{f"{k}_ms": v for k, v in times.items()})
 
 
+def faults_phase(torch, np, dev, survey, engines, query, bqueries, counted):
+    """Phase "4 faults": the streamed path's fault domain (DESIGN.md §8) on
+    the streaming phase's engines (``engines``: the per-file and structured
+    layouts at a quarter of their device bytes, ``raw_fits`` 9 windows a
+    pass, ``sql_structured`` 2).
+
+    Every drill is held bitwise against the same engine's clean streamed
+    run (default ``on_fault="retry"``), cold (``residency.clear()``): an
+    upload failure, NaN poison that heals (the poisoned chunk dropped and
+    uploaded again), persistent poison under ``"quarantine"`` (partial, the
+    pack uncovered, depth exactly the run with that pack gated off at plan
+    time and coadd within 1e-5 of it, then ``reverify_quarantined``
+    restores full coverage), ``QueryKilled`` then a resume that replays only
+    the finished windows (mean; median mid-pass and on the pass seam), a
+    straggler speculated (its backup's digest agreeing), a
+    `FaultSchedule.seeded` drill with all of these, the K = 4 batch and
+    PSF-matched queries (both bank ranks) under faults.  Times the clean
+    path under ``"retry"`` against ``"raise"`` (cold and warm, interleaved:
+    0 retries, bitwise, one `_sync`), ``journal_dir`` against the in-memory
+    journal (fresh engines; the journal bytes a query), each heal's ms over
+    the clean query, host syncs and event waits a query; then the SIGKILL
+    drill (`crash_drill`).  Checks each engine's ``peak_bytes`` and the
+    ``max_memory_allocated`` rise as phase "4 streaming" does.  -> the
+    numbers it printed.
+    """
+    import shutil
+
+    import repro_torch.core.engine as engine_mod
+    from repro_torch import CoaddEngine
+    from repro_torch.core import durable
+    from repro_torch.core.faults import ChaosInjector, FaultSchedule, PoisonSpec, QueryKilled
+
+    out = {"overhead": [], "heals": [], "durable": []}
+    q = query.npix
+    syncs = [0]
+    real_sync = engine_mod._sync
+
+    def counted_sync(tensors):
+        syncs[0] += 1
+        return real_sync(tensors)
+
+    def run(eng, m, red="mean", cold=True, batch=False):
+        """One query (or the K = 4 batch) -> (result(s), host ms, host syncs,
+        event waits)."""
+        if cold:
+            eng.residency.clear()
+        s0, w0 = syncs[0], eng.event_waits
+        t0 = time.perf_counter()
+        r = eng.run_batch(bqueries, m, reduce=red) if batch else eng.run(query, m, reduce=red)
+        return r, (time.perf_counter() - t0) * 1e3, syncs[0] - s0, eng.event_waits - w0
+
+    def bitwise(what, got, want):
+        for g, w in zip(got if isinstance(got, list) else [got],
+                        want if isinstance(want, list) else [want]):
+            require(np.array_equal(g.coadd.view(np.int32), w.coadd.view(np.int32))
+                    and np.array_equal(g.depth, w.depth), f"{what}: not bitwise the clean run")
+
+    def drill(eng, what, m, sched, red="mean", batch=False, runs=1, **knobs):
+        """``runs`` queries under one injector and the knobs -> ([(result,
+        ms, syncs, waits, error)], injector), the knobs restored."""
+        saved = {k: getattr(eng, k) for k in knobs}
+        inj = ChaosInjector(sched)
+        eng.fault_injector = inj
+        for k, v in knobs.items():
+            setattr(eng, k, v)
+        got = []
+        try:
+            for i in range(runs):
+                t0 = time.perf_counter()
+                try:
+                    got.append(run(eng, m, red, cold=i == 0, batch=batch) + (None,))
+                except QueryKilled as e:
+                    got.append((None, (time.perf_counter() - t0) * 1e3, 0, 0, e))
+        finally:
+            eng.fault_injector = None
+            for k, v in saved.items():
+                setattr(eng, k, v)
+        return got, inj
+
+    def record(what, m, red, heal_ms, clean_ms, stats, inj, extra=""):
+        row = dict(drill=what, method=m, reduce=red, ms=heal_ms, clean_ms=clean_ms,
+                   heal_ms=heal_ms - clean_ms, retries=stats.retries,
+                   speculative=stats.speculative_windows, resumed=stats.resumed_windows,
+                   quarantined=stats.quarantined_packs, uploads=stats.chunk_uploads,
+                   injected=dict(inj.injected))
+        out["heals"].append(row)
+        print(f"  faults {what:32s} {m:16s} {red:6s} {heal_ms:8.1f} ms (clean {clean_ms:.1f}, "
+              f"heal +{heal_ms - clean_ms:.1f}) retries={stats.retries} "
+              f"speculative={stats.speculative_windows} resumed={stats.resumed_windows} "
+              f"quarantined={stats.quarantined_packs} uploads={stats.chunk_uploads} "
+              f"injected={dict(inj.injected)}{extra}", flush=True)
+
+    for fn in counted.values():
+        fn.launches = 0
+    engine_mod._sync = counted_sync
+    jroot = os.path.join(ROOT, "build", "fault_journals")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base_alloc = torch.cuda.memory_allocated()
+        methods = {"per_file": "raw_fits", "structured": "sql_structured"}
+        # Each engine's memory limit, as phase "4 streaming" computes it (its
+        # PSF banks still cached): budget + one chunk + a matched build's
+        # transients.
+        limits, gated, n_win = {}, {}, {}
+        for layout, eng in engines.items():
+            exec_ds = eng.exec_dataset(layout)[0]
+            c_raw = eng._chunk_packs(exec_ds)
+            eng.match_psf_sigma = PSF_TARGET
+            c_psf, bank_pack = eng._chunk_packs(exec_ds), eng._bank_pack_nbytes(layout)
+            eng.match_psf_sigma = None
+            limits[layout] = (eng.device_budget_bytes + exec_ds.chunk_nbytes(0, c_raw)
+                              + (exec_ds.pixels[0].nbytes + bank_pack) * c_psf,
+                              exec_ds.chunk_nbytes(0, c_raw))
+            m = methods[layout]
+            gate_any = eng._exec_gate(eng.plan(query, m)).any(axis=1)
+            gated[m] = np.nonzero(gate_any)[0]
+            n_win[m] = len(eng._stream_windows(exec_ds, gate_any))
+        clean = {}
+        for layout, eng in engines.items():
+            m = methods[layout]
+            eng.residency.clear()
+            for red in ("mean", "median"):
+                r, ms, ns, nw = run(eng, m, red)
+                require(ns == 1 and r.stats.retries == 0 and not r.stats.partial,
+                        f"faults clean {m}/{red}: {ns} syncs, {r.stats.retries} retries")
+                clean[m, red] = (r, ms)
+
+        # The clean path: "retry" (the tracker) against "raise" (the bare
+        # loop), interleaved, cold and then warm.
+        for layout, eng in engines.items():
+            m = methods[layout]
+            for red in ("mean", "median"):
+                for cold in (True, False):
+                    times = {"raise": [], "retry": []}
+                    waits = {}
+                    for pol in FAULT_INTERLEAVE:
+                        eng.on_fault = pol
+                        r, ms, ns, nw = run(eng, m, red, cold=cold)
+                        what = f"faults overhead {m}/{red}/{pol}/{'cold' if cold else 'warm'}"
+                        require(ns == 1, f"{what}: {ns} host syncs, expected 1")
+                        require(r.stats.retries == 0, f"{what}: {r.stats.retries} retries on a "
+                                                      "clean query")
+                        bitwise(what, r, clean[m, red][0])
+                        times[pol].append(ms)
+                        waits[pol] = nw
+                    eng.on_fault = "retry"
+                    ratio = statistics.median(times["retry"]) / statistics.median(times["raise"])
+                    if cold:
+                        # The heals' yardstick: the clean cold query after warm-up.
+                        clean[m, red] = (clean[m, red][0], statistics.median(times["retry"]))
+                    row = dict(method=m, reduce=red, cold=cold, raise_ms=times["raise"],
+                               retry_ms=times["retry"], ratio=ratio, syncs=1,
+                               event_waits_raise=waits["raise"], event_waits_retry=waits["retry"],
+                               windows=r.stats.windows)
+                    out["overhead"].append(row)
+                    print(f"  faults clean path {m:16s} {red:6s} {'cold' if cold else 'warm'}: "
+                          f"retry/raise {ratio:.3f} (retry {times['retry']}, raise "
+                          f"{times['raise']} ms); {r.stats.windows} windows, 1 host sync, event "
+                          f"waits {waits['retry']} (raise {waits['raise']}), 0 retries, bitwise",
+                          flush=True)
+
+        pf, st = engines["per_file"], engines["structured"]
+        spec_chunks = 0
+
+        # Transient faults and poison that heal.
+        for m, eng, red in (("raw_fits", pf, "mean"), ("sql_structured", st, "median")):
+            (res,), inj = drill(eng, "upload", m, FaultSchedule(upload_fail_ordinals=(0,)), red)
+            r, ms = res[0], res[1]
+            require(inj.injected["upload_fail"] == 1 and r.stats.retries >= 1,
+                    f"faults upload {m}: {dict(inj.injected)}, {r.stats.retries} retries")
+            bitwise(f"faults upload {m}/{red}", r, clean[m, red][0])
+            record("upload failure (ordinal 0)", m, red, ms, clean[m, red][1], r.stats, inj)
+        for m, eng, red in (("raw_fits", pf, "mean"), ("sql_structured", st, "mean")):
+            bad = int(gated[m][0])
+            (res,), inj = drill(eng, "poison", m,
+                                FaultSchedule(poison=(PoisonSpec(bad, "nan", 1),)), red)
+            r, ms = res[0], res[1]
+            c = clean[m, red][0]
+            require(inj.injected["poison"] == 1 and r.stats.retries == 1
+                    and r.stats.chunk_uploads == c.stats.chunk_uploads + 1,
+                    f"faults poison {m}: {dict(inj.injected)}, {r.stats.retries} retries, "
+                    f"{r.stats.chunk_uploads} uploads (clean {c.stats.chunk_uploads})")
+            bitwise(f"faults poison {m}", r, c)
+            record("NaN poison, heals (count=1)", m, red, ms, clean[m, red][1], r.stats, inj,
+                   f"; the poisoned chunk dropped and uploaded again, event waits {res[3]}")
+
+        # Persistent poison under quarantine, then re-verification.
+        m = "sql_structured"
+        bad = int(gated[m][0])
+        for red in ("mean", "median"):
+            plan = st.plan(query, m, red)
+            plan.gate[bad] = False
+            st.residency.clear()
+            want = st.execute(plan)
+            (res,), inj = drill(st, "quarantine", m,
+                                FaultSchedule(poison=(PoisonSpec(bad, "nan", None),)), red,
+                                on_fault="quarantine")
+            r, ms = res[0], res[1]
+            what = f"faults quarantine {m}/{red}"
+            require(r.stats.partial and r.stats.uncovered_packs == (bad,)
+                    and r.stats.quarantined_packs == 1,
+                    f"{what}: partial {r.stats.partial}, uncovered {r.stats.uncovered_packs}")
+            require(np.array_equal(r.depth, want.depth), f"{what}: depth differs from the run "
+                                                         "with the pack gated off")
+            require(np.allclose(r.coadd, want.coadd, rtol=1e-5, atol=1e-5),
+                    f"{what}: coadd max |diff| {float(np.abs(r.coadd - want.coadd).max()):.3g}")
+            released = st.reverify_quarantined()
+            require(released == [bad], f"{what}: reverify released {released}")
+            after, _, _, _ = run(st, m, red)
+            require(not after.stats.partial and after.stats.requarantine_released == 1,
+                    f"{what}: after reverify partial {after.stats.partial}")
+            bitwise(f"{what} after reverify", after, clean[m, red][0])
+            record("persistent poison, quarantine", m, red, ms, clean[m, red][1], r.stats, inj,
+                   f"; uncovered {r.stats.uncovered_packs}, depth exactly the gated run, "
+                   f"coadd max |diff| {float(np.abs(r.coadd - want.coadd).max()):.3g}; "
+                   "reverify_quarantined restored full coverage, bitwise")
+
+        # Kill, then resume: only the missing windows run.
+        for m, eng, red, after in (("sql_structured", st, "mean", 1),
+                                   ("raw_fits", pf, "mean", 4),
+                                   ("raw_fits", pf, "median", 5),
+                                   ("raw_fits", pf, "median", n_win["raw_fits"])):
+            got, inj = drill(eng, "kill", m, FaultSchedule(kill_after_windows=after), red, runs=2)
+            (_, kill_ms, _, _, err), (r, ms, ns, nw, err2) = got
+            what = f"faults kill after {after} {m}/{red}"
+            require(err is not None and err2 is None, f"{what}: killed {err}, resume {err2}")
+            require(r.stats.resumed_windows == after
+                    and r.stats.dispatches == r.stats.windows - after and ns == 1,
+                    f"{what}: resumed {r.stats.resumed_windows}, {r.stats.dispatches} launches "
+                    f"of {r.stats.windows} windows, {ns} syncs")
+            require(not eng._journals, f"{what}: a journal left after the resume")
+            bitwise(what, r, clean[m, red][0])
+            seam = " (the pass seam)" if red != "mean" and after == n_win[m] else ""
+            record(f"kill after {after} windows, resume{seam}", m, red, kill_ms + ms,
+                   clean[m, red][1], r.stats, inj,
+                   f"; killed query {kill_ms:.1f} ms, resume {ms:.1f} ms, {nw} event waits")
+
+        # A straggler speculated; then the seeded drill with every fault.
+        m, red = "raw_fits", "mean"
+        (res,), inj = drill(pf, "straggler", m,
+                            FaultSchedule(slow_windows={n_win[m] - 2: FAULT_SLOW_S}), red,
+                            straggler_factor=FAULT_STRAGGLER)
+        r, ms = res[0], res[1]
+        require(inj.injected["slow"] == 1 and r.stats.speculative_windows >= 1,
+                f"faults straggler: {dict(inj.injected)}, {r.stats.speculative_windows} backups")
+        bitwise("faults straggler", r, clean[m, red][0])
+        spec_chunks = max(spec_chunks, r.stats.speculative_windows)
+        record("straggler, speculated", m, red, ms, clean[m, red][1], r.stats, inj,
+               "; backup digest agreed")
+        sched = FaultSchedule.seeded(FAULT_SEED, n_uploads=n_win[m], n_windows=n_win[m],
+                                     gated_packs=gated[m], slow_s=FAULT_SLOW_S)
+        (res,), inj = drill(pf, "seeded", m, sched, red, straggler_factor=FAULT_STRAGGLER)
+        r, ms = res[0], res[1]
+        require(all(inj.injected[k] >= 1 for k in ("upload_fail", "poison", "slow"))
+                and r.stats.retries >= 2,
+                f"faults seeded: {dict(inj.injected)}, {r.stats.retries} retries")
+        bitwise("faults seeded", r, clean[m, red][0])
+        spec_chunks = max(spec_chunks, r.stats.speculative_windows)
+        record(f"seeded {FAULT_SEED}: {sched.upload_fail_ordinals}, "
+               f"{[p.pack for p in sched.poison]}, {sorted(sched.slow_windows)}", m, red, ms,
+               clean[m, red][1], r.stats, inj)
+
+        # The K = 4 batch and PSF-matched queries (both bank ranks) under faults.
+        m = "sql_structured"
+        cb, cb_ms, _, _ = run(st, m, "median", batch=True)
+        (res,), inj = drill(st, "batch", m, FaultSchedule(upload_fail_ordinals=(0,)), "median",
+                            batch=True)
+        require(res[0][0].stats.retries >= 1, "faults batch: no retry")
+        bitwise("faults batch upload", res[0], cb)
+        record(f"K={len(bqueries)} batch, upload failure", m, "median", res[1], cb_ms,
+               res[0][0].stats, inj)
+        for measured, sched in ((None, FaultSchedule(poison=(PoisonSpec(bad, "nan", 1),))),
+                                (False, FaultSchedule(upload_fail_ordinals=(0,)))):
+            st.match_psf_sigma, st.measured_psf = PSF_TARGET, measured
+            want, want_ms, _, _ = run(st, m, "mean")
+            (res,), inj = drill(st, "psf", m, sched, "mean")
+            require(res[0].stats.retries >= 1, f"faults psf measured={measured}: no retry")
+            bitwise(f"faults psf measured={measured}", res[0], want)
+            record(f"PSF {PSF_TARGET} {'2d' if measured is None else 'sep'} bank, "
+                   f"{'poison' if measured is None else 'upload'}", m, "mean", res[1], want_ms,
+                   res[0].stats, inj)
+        st.match_psf_sigma, st.measured_psf = None, None
+
+        # verify_digests: the host hashes every chunk it uploads against the
+        # layout's digests (made once); finite corruption heals.
+        m, red = "raw_fits", "mean"
+        t0 = time.perf_counter()
+        pf.exec_dataset("per_file")[0].pack_digests()
+        digests_s = time.perf_counter() - t0
+        pf.verify_digests = True
+        try:
+            dig, dig_ms, ns, _ = run(pf, m, red)
+            require(ns == 1 and dig.stats.retries == 0, "faults verify_digests: not clean")
+            bitwise("faults verify_digests clean", dig, clean[m, red][0])
+            (res,), inj = drill(pf, "flip", m,
+                                FaultSchedule(poison=(PoisonSpec(int(gated[m][0]), "flip", 1),)),
+                                red)
+        finally:
+            pf.verify_digests = False
+        require(res[0].stats.retries == 1, f"faults flip: {res[0].stats.retries} retries")
+        bitwise("faults flip under verify_digests", res[0], clean[m, red][0])
+        out["verify_digests"] = dict(layout_digests_s=digests_s, clean_ms=dig_ms,
+                                     cost_ms=dig_ms - clean[m, red][1])
+        print(f"  faults verify_digests {m}: the layout's digests in {digests_s:.3f} s (once); "
+              f"a clean cold query {dig_ms:.1f} ms (+{dig_ms - clean[m, red][1]:.1f} over "
+              f"{clean[m, red][1]:.1f}: a sha256 of its 3.02 GB uploads)", flush=True)
+        record("finite corruption (flip), verify_digests", m, red, res[1], dig_ms, res[0].stats,
+               inj)
+
+        # The budget held, as in phase "4 streaming" (a straggler's backup
+        # may hold one more chunk until it ends).  Both engines stay alive
+        # through the phase, each holding its chunks: the allocator's rise
+        # is held to the sum of their peaks.
+        torch.cuda.synchronize()
+        rise = torch.cuda.max_memory_allocated() - base_alloc
+        peaks = 0
+        for layout, eng in engines.items():
+            limit, chunk = limits[layout]
+            limit += spec_chunks * chunk if layout == "per_file" else 0
+            peak = eng.residency.peak_bytes
+            require(peak <= limit, f"faults {layout}: peak_bytes {peak} above {limit}")
+            peaks += peak
+            out.setdefault("memory", {})[layout] = dict(peak_bytes=peak, limit=limit)
+        slack = len(bqueries) * STREAM_SCRATCH_MAPS * q * q * 4
+        require(rise <= peaks + slack, f"faults: max_memory_allocated rose {rise} bytes, above "
+                                       f"the engines' peak_bytes {peaks} + scratch {slack}")
+        out["memory"]["rise"] = rise
+        print(f"  faults memory: peak_bytes {out['memory']}; max_memory_allocated rose {rise} "
+              f"bytes (peak + scratch {peaks + slack})", flush=True)
+
+        # journal_dir against the in-memory journal: fresh engines, one a layout.
+        journal_bytes = [0]
+        real_set = durable.DiskJournal.__setitem__
+
+        def counting_set(journal, key, parts):
+            journal_bytes[0] += sum(int(np.asarray(p).nbytes) for p in parts)
+            return real_set(journal, key, parts)
+
+        durable.DiskJournal.__setitem__ = counting_set
+        try:
+            for layout, eng in engines.items():
+                m = methods[layout]
+                jd = os.path.join(jroot, layout)
+                shutil.rmtree(jd, ignore_errors=True)
+                deng = CoaddEngine(survey, pack_capacity=64, device=DEVICE,
+                                   device_budget_bytes=eng.device_budget_bytes, journal_dir=jd)
+                deng.run(query, m)           # its first query pays the layout's packing
+                for red in ("mean", "median"):
+                    for cold in (True, False):
+                        times = {"memory": [], "disk": []}
+                        for kind in FAULT_JOURNAL_INTERLEAVE:
+                            e = deng if kind == "disk" else eng
+                            journal_bytes[0] = 0
+                            r, ms, ns, nw = run(e, m, red, cold=cold)
+                            what = f"faults journal_dir {m}/{red}/{kind}"
+                            require(ns == 1 and r.stats.retries == 0, f"{what}: {ns} syncs")
+                            bitwise(what, r, clean[m, red][0])
+                            times[kind].append(ms)
+                            if kind == "disk":
+                                jbytes, jwaits = journal_bytes[0], nw
+                        require(not deng.journal_store.jobs(), f"{m}: a disk journal left")
+                        ratio = statistics.median(times["disk"]) / statistics.median(
+                            times["memory"])
+                        out["durable"].append(dict(method=m, reduce=red, cold=cold, ratio=ratio,
+                                                   disk_ms=times["disk"],
+                                                   memory_ms=times["memory"],
+                                                   journal_bytes=jbytes, event_waits=jwaits))
+                        print(f"  faults journal_dir {m:16s} {red:6s} "
+                              f"{'cold' if cold else 'warm'}: disk/memory {ratio:.3f} (disk "
+                              f"{times['disk']}, memory {times['memory']} ms); {jbytes} journal "
+                              f"bytes a query, {jwaits} event waits", flush=True)
+                del deng
+                shutil.rmtree(jd, ignore_errors=True)
+        finally:
+            durable.DiskJournal.__setitem__ = real_set
+    finally:
+        engine_mod._sync = real_sync
+        for eng in engines.values():
+            eng.residency.clear()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    print(f"  faults launches: {launches}")
+    for name in ("coadd_fused", "coadd_moments", "coadd_hist", "coadd_clip", "psf_match_sep",
+                 "psf_match_2d", "coadd_moments_batch", "coadd_hist_batch", "coadd_clip_batch"):
+        require(launches[name] > 0, f"faults: no {name} launch")
+    out["launches"] = launches
+    out["crash"] = crash_drill(np)
+    return out
+
+
+def crash_drill(np):
+    """The SIGKILL drill: this script as a subprocess (``--crash-child``)
+    streams ``raw_fits`` over a reduced survey (`CRASH_CFG`) with
+    ``journal_dir``: once uninterrupted, once killed by its own SIGKILL at
+    `CRASH_STAGE` (`durable.set_crash_hook`), then a fresh process on the
+    killed one's journal, which must resume (``resumed_windows`` > 0, only
+    the missing windows launched, no journal left) bitwise the
+    uninterrupted run.  -> the numbers it printed."""
+    import shutil
+
+    root = os.path.join(ROOT, "build", "crash_drill")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def child(name, crash=None):
+        cmd = [sys.executable, os.path.abspath(__file__), "--crash-child",
+               os.path.join(root, name)]
+        if crash:
+            cmd += ["--crash", crash]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=CRASH_TIMEOUT_S)
+        return proc, time.perf_counter() - t0
+
+    def load(name):
+        path = os.path.join(root, name, "out.npz")
+        with np.load(path) as z:
+            coadd, depth = z["coadd"], z["depth"]
+        with open(path + ".json") as fh:
+            return coadd, depth, json.load(fh)
+
+    clean, clean_s = child("clean")
+    require(clean.returncode == 0, f"crash drill: the clean run exited {clean.returncode}\n"
+                                   f"{clean.stderr[-2000:]}")
+    killed, killed_s = child("drill", CRASH_STAGE)
+    require(killed.returncode == -9, f"crash drill: exited {killed.returncode}, expected "
+                                     f"SIGKILL\n{killed.stderr[-2000:]}")
+    require(not os.path.exists(os.path.join(root, "drill", "out.npz")),
+            "crash drill: the killed run finished")
+    resumed, resumed_s = child("drill")
+    require(resumed.returncode == 0, f"crash drill: the resume exited {resumed.returncode}\n"
+                                     f"{resumed.stderr[-2000:]}")
+    c0, d0, s0 = load("clean")
+    c1, d1, s1 = load("drill")
+    require(s1["resumed_windows"] >= 1
+            and s1["dispatches"] == s1["windows"] - s1["resumed_windows"]
+            and not s1["jobs_left"],
+            f"crash drill: resume stats {s1}")
+    require(np.array_equal(c1.view(np.int32), c0.view(np.int32)) and np.array_equal(d1, d0),
+            "crash drill: the resumed coadd is not bitwise the uninterrupted one")
+    row = dict(stage=CRASH_STAGE, survey=CRASH_CFG, clean=s0, resumed=s1,
+               clean_s=clean_s, killed_s=killed_s, resumed_s=resumed_s)
+    print(f"  faults SIGKILL at {CRASH_STAGE}: {s0['frames']} frames, {s0['windows']} windows; "
+          f"the killed process died mid-query ({killed_s:.1f} s), a fresh one resumed "
+          f"{s1['resumed_windows']} windows and launched {s1['dispatches']} ({resumed_s:.1f} s; "
+          f"uninterrupted {clean_s:.1f} s, query {s0['query_ms']:.1f} ms, resumed query "
+          f"{s1['query_ms']:.1f} ms), bitwise", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    return row
+
+
+def crash_child(out_dir, crash):
+    """``--crash-child``: one durable streamed ``raw_fits`` query over
+    `CRASH_CFG` on the card, its result into ``out_dir``; with ``crash``
+    (``stage:ordinal``) the process SIGKILLs itself at that durable commit."""
+    import signal
+
+    import numpy as np
+    import torch
+
+    from repro_torch import CoaddEngine, CoaddQuery, SurveyConfig, make_survey
+    from repro_torch.core import durable
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    survey = make_survey(SurveyConfig(**CRASH_CFG), processes=os.cpu_count() or 1)
+    probe = CoaddEngine(survey, pack_capacity=64, device=DEVICE).exec_dataset("per_file")[0]
+    budget = probe.chunk_nbytes(0, probe.n_packs) // STREAM_FRAC
+    del probe
+    if crash:
+        stage, ordinal = crash.rsplit(":", 1)
+        seen = [0]
+
+        def hook(s):
+            if s == stage:
+                if seen[0] == int(ordinal):
+                    os.kill(os.getpid(), signal.SIGKILL)
+                seen[0] += 1
+
+        durable.set_crash_hook(hook)
+    os.makedirs(out_dir, exist_ok=True)
+    eng = CoaddEngine(survey, pack_capacity=64, device=DEVICE, device_budget_bytes=budget,
+                      journal_dir=os.path.join(out_dir, "journal"))
+    t0 = time.perf_counter()
+    res = eng.run(CoaddQuery(**MAIN_QUERY), "raw_fits")
+    ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(out_dir, "out.npz")
+    np.savez(path, coadd=res.coadd, depth=res.depth)
+    with open(path + ".json", "w") as fh:
+        json.dump(dict(frames=len(survey), windows=res.stats.windows,
+                       dispatches=res.stats.dispatches,
+                       resumed_windows=res.stats.resumed_windows, query_ms=ms,
+                       jobs_left=eng.journal_store.jobs()), fh)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-runs", type=int, default=8,
@@ -1453,6 +1992,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5, help="warm repeats per timing")
     ap.add_argument("--mosaic-only", action="store_true",
                     help="only time the brick mosaic on random tiles and exit (mosaic_only)")
+    ap.add_argument("--crash-child", metavar="DIR",
+                    help="the SIGKILL drill's subprocess (crash_child); not for direct use")
+    ap.add_argument("--crash", metavar="STAGE:N", help="with --crash-child: SIGKILL there")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1463,6 +2005,8 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.crash_child:
+        return crash_child(args.crash_child, args.crash)
     if args.mosaic_only:
         print(card_line())
         mosaic_only(torch, np, torch.device(DEVICE))
@@ -3154,13 +3698,24 @@ def main(argv=None) -> int:
             d_k, i_k, a_k = eng._scan_operands(eng.plan(qq, "sql_structured"))
             scan_k = (d_k.pixels, d_k.wcs, i_k, a_k.float(), *eng._grids(qq))
             batch_flips.append((scan_k, robust_bounds(warp_ops, reducer, scan_k)))
+        stream_engines = {}
         streaming = streaming_phase(
             torch, np, dev, survey, eng, query, bqueries, eager,
             {None: (scan, bounds), PSF_TARGET: (pscan, psf_bounds)},
             {(m, red): batch_res[None, m, red] for m in BATCH_METHODS for red in REDUCES},
-            batch_flips, fresh_mean, counted, decision_flips)
+            batch_flips, fresh_mean, counted, decision_flips, stream_engines)
         del batch_flips
         print(json.dumps({"streaming": streaming}))
+
+    # --------------------------------------------------------- 4 faults --
+    # The streamed path's fault domain on the streaming phase's engines:
+    # every drill bitwise the engine's clean streamed kernel-path run, the
+    # quarantine drill exact in depth; the clean-path overheads.  Counted on
+    # its own.
+    with phase("4 faults"):
+        faults = faults_phase(torch, np, dev, survey, stream_engines, query, bqueries, counted)
+        stream_engines.clear()
+        print(json.dumps({"faults": faults}))
 
     # ---------------------------------------------- 4 zamba2 serving path --
     with phase("4 zamba2 serving"):

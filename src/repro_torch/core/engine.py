@@ -64,8 +64,21 @@ page-locked host memory on a side CUDA stream, the `ResidencyManager` evicts
 cold chunks (and brick tiles) under the budget, and the window partials sum
 on the device until the query's one host sync (`_sync`).  Under a PSF
 bank the chunk is the matched-pixel cache: one ungated ``psf_match`` launch
-over the chunk right after its upload, reused by repeat queries.  The fault
-domain (journals, retries, quarantine) is a later slice of the port.
+over the chunk right after its upload, reused by repeat queries.
+
+The fault domain (DESIGN.md §8), under a budget: with ``on_fault="retry"``
+(the default) or ``"quarantine"`` every window runs through a
+`WindowTracker`: transient upload failures retry with capped backoff, a
+chunk whose upload holds a NaN or inf (its flags come from the same device
+reduction as the slot flag, read just before the chunk's first scan) is
+dropped and uploaded again, persistent poison is gated out (``partial``,
+``uncovered_packs``), stragglers get a digest-checked backup
+(``straggler_factor``), and each window's partial is journaled as a copy in
+pinned host memory, so a killed query resumes replaying only its missing
+windows; with ``journal_dir`` the journals and the brick store's host tier
+persist on disk (`durable`).  ``on_fault="raise"`` is the bare window loop.
+The tracker changes scheduling, never arithmetic: a clean tracked query is
+bitwise the bare loop's, with the same single host sync.
 """
 
 from __future__ import annotations
@@ -73,15 +86,26 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
+import os
+import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from collections import OrderedDict
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import mapper, psf, reducer
 from repro_torch.core.bricks import BrickCover, BrickGrid
-from repro_torch.core.jobtracker import BrickTask, MaterializeReport, MaterializeTracker
+from repro_torch.core.durable import BrickSpill, DiskJournal, JournalStore
+from repro_torch.core.faults import ChaosInjector, PoisonedChunkError
+from repro_torch.core.jobtracker import (
+    BrickTask,
+    FaultCounters,
+    MaterializeReport,
+    MaterializeTracker,
+    WindowTracker,
+)
 from repro_torch.core.plan import (
     CoaddPlan,
     ScanWindow,
@@ -90,6 +114,7 @@ from repro_torch.core.plan import (
     compact_gates,
     compact_window_gate,
     compact_window_gates,
+    grid_digest,
     sparse_pack_index,
     stack_plans,
     union_sparse_index,
@@ -168,10 +193,19 @@ class JobStats:
     bricks_missed: int = 0
     bricks_spilled: int = 0
     residual_packs_scanned: int = 0
-    # Coverage a quarantine removed (DESIGN.md §8).  The port has no
-    # quarantine yet: always False / (), carried through `BrickMeta`.
-    partial: bool = False
-    uncovered_packs: Tuple[int, ...] = ()
+    # Fault domain (DESIGN.md §8): what the `WindowTracker` did to finish
+    # this streamed query.  Counters are additive (a batch puts them on its
+    # first result); ``partial``/``uncovered_packs`` are descriptive, on
+    # every result of a job, and carried through `BrickMeta`.  All zero on
+    # the eager path and on clean tracked runs.
+    retries: int = 0               # failed attempts that were re-executed
+    speculative_windows: int = 0   # straggler backups launched (digest-checked)
+    quarantined_packs: int = 0     # packs gated out after persistent poison
+    resumed_windows: int = 0       # journal hits replayed instead of re-run
+    partial: bool = False          # True when quarantine removed coverage
+    uncovered_packs: Tuple[int, ...] = ()  # exec-layout packs quarantined out
+    requarantine_released: int = 0 # packs restored by `reverify_quarantined`
+                                   #   since the previous streamed result
     # `execute_batch`: a digest of the batch's pack index when it scans packs
     # this query's own run does not and some of their slots lack the finite
     # flag (so a rejected NaN may reach this result); "" when the result is
@@ -350,11 +384,75 @@ class _Chunk:
     """A resident pack chunk under a device budget: its dataset, the bank
     slice every plain scan of it applies (the plain path without the
     matched cache), or the bank slice still to match it with, once, before
-    its first scan (a matched chunk)."""
+    its first scan (a matched chunk); its `ResidencyManager` key and first
+    pack (the poison check drops a poisoned chunk by its key)."""
 
     dev: DevicePackedDataset
     bank: Optional[torch.Tensor] = None
     match: Optional[torch.Tensor] = None
+    key: Tuple = ()
+    start: int = 0
+
+
+@dataclasses.dataclass
+class _Staged:
+    """A window partial journaled in memory: its copy on the host (pinned on
+    a CUDA device) and the event that copy ends at (None on the host)."""
+
+    host: Tuple[torch.Tensor, ...]
+    ready: Optional[torch.cuda.Event] = None
+
+
+class _DiskWindows:
+    """A `DiskJournal` as the tracker's journal: a commit waits on the
+    staged partial's copy event (not the device) and writes its host
+    arrays; reads give the replayed host arrays."""
+
+    def __init__(self, disk: DiskJournal, host_arrays):
+        self.disk = disk
+        self._host_arrays = host_arrays
+
+    def __contains__(self, key) -> bool:
+        return key in self.disk
+
+    def __getitem__(self, key):
+        return self.disk[key]
+
+    def __setitem__(self, key, staged: _Staged) -> None:
+        self.disk[key] = self._host_arrays(staged)
+
+    def __len__(self) -> int:
+        return len(self.disk)
+
+    def drain(self) -> None:
+        self.disk.drain()
+
+    def close(self) -> None:
+        self.disk.close()
+
+
+@dataclasses.dataclass
+class _Streamed:
+    """What `CoaddEngine._stream` gives back, on the host: the sums, the
+    accepted slots, the files considered (quarantined packs' slots out), the
+    schedule, the passes, the residency counters (uploads, hits,
+    evictions), seconds, the fault counters and the packs quarantined."""
+
+    coadd: np.ndarray
+    depth: np.ndarray
+    contrib: np.ndarray
+    considered: np.ndarray
+    windows: List[ScanWindow]
+    passes: int
+    counters: Tuple[int, int, int]
+    elapsed: float
+    faults: FaultCounters
+    quarantined: Tuple[int, ...]
+
+
+def _accumulate(acc, part):
+    """Add a window's partial into the running sums, in place."""
+    return tuple(a.add_(b) for a, b in zip(acc, part))
 
 
 class CoaddEngine:
@@ -372,8 +470,20 @@ class CoaddEngine:
     once and caches it.  ``brick_deg`` and ``brick_npix`` size the brick
     lattice (DESIGN.md §9).  ``device_budget_bytes`` turns on streaming
     residency (DESIGN.md §6): layouts stream through chunks of half the
-    budget.  ``device`` defaults to ``"cuda"``; constructing an engine for
-    a CUDA device on a machine without one raises.
+    budget.  The fault domain of a streamed query (DESIGN.md §8):
+    ``on_fault`` ("retry", "quarantine" or "raise", the bare loop),
+    ``fault_max_attempts`` and ``fault_backoff_s`` (capped exponential
+    backoff), ``straggler_factor`` (speculate a window slower than that
+    multiple of the median; off by default, it times every window),
+    ``verify_digests`` (off by default: the host hashes every chunk it
+    uploads, a sha256 of every streamed byte, against the layout's digests,
+    made once; it catches finite corruption that the NaN/Inf flags cannot),
+    ``fault_injector`` (a `ChaosInjector` drill), ``journal_dir``
+    (window journals and the brick store's host tier on disk; orphan
+    journals older than ``journal_max_age_s`` are swept here).  The fault
+    knobs and the injector may be changed on a live engine.  ``device``
+    defaults to ``"cuda"``; constructing an engine for a CUDA device on a
+    machine without one raises.
     """
 
     def __init__(
@@ -387,6 +497,14 @@ class CoaddEngine:
         measured_psf: Optional[bool] = None,
         matched_pixel_cache: bool = True,
         device_budget_bytes: Optional[int] = None,
+        on_fault: str = "retry",
+        fault_max_attempts: int = 3,
+        fault_backoff_s: float = 0.05,
+        straggler_factor: Optional[float] = None,
+        verify_digests: bool = False,
+        fault_injector: Optional[ChaosInjector] = None,
+        journal_dir: Optional[str] = None,
+        journal_max_age_s: float = 7 * 86400.0,
         clip_k: float = 3.0,
         median_bins: int = 16,
         brick_deg: float = 0.25,
@@ -416,6 +534,40 @@ class CoaddEngine:
         # uploaded whole; chunks stream in on a side stream (made at first use).
         self.device_budget_bytes = device_budget_bytes
         self._copy_stream = None
+        # Fault policy (DESIGN.md §8) of the streamed executors: "retry"
+        # re-executes transient failures under a WindowTracker, "quarantine"
+        # also gates persistently poisoned packs out (a partial result),
+        # "raise" runs the bare window loop (any fault aborts the query).
+        if on_fault not in ("retry", "quarantine", "raise"):
+            raise ValueError(f"on_fault must be 'retry', 'quarantine', or 'raise'; "
+                             f"got {on_fault!r}")
+        self.on_fault = on_fault
+        self.fault_max_attempts = fault_max_attempts
+        self.fault_backoff_s = fault_backoff_s
+        self.straggler_factor = straggler_factor
+        self.verify_digests = verify_digests
+        self.fault_injector = fault_injector
+        # Window journals of killed queries, by job key, capped: a re-issued
+        # query replays only its missing windows.  With ``journal_dir`` they
+        # are `DiskJournal`s and the brick store's host tier persists.
+        self._journals: "OrderedDict[str, object]" = OrderedDict()
+        self._journal_cap = 16
+        self.journal_dir = journal_dir
+        self.journal_store: Optional[JournalStore] = None
+        brick_spill = None
+        if journal_dir is not None:
+            self.journal_store = JournalStore(os.path.join(journal_dir, "windows"),
+                                              max_age_s=journal_max_age_s)
+            brick_spill = BrickSpill(os.path.join(journal_dir, "bricks"))
+        # Quarantine releases since the last streamed result, reported as
+        # JobStats.requarantine_released by the next one.
+        self._requarantine_pending = 0
+        # A straggler's backup dispatches from a worker thread: the window
+        # launches (engine and wrapper counters, the matched-chunk build)
+        # run one at a time; the waits stay outside.
+        self._dispatch_lock = threading.Lock()
+        self.event_waits = 0         # host waits on a CUDA event (a chunk's
+                                     #   poison flags, a disk journal commit)
         self.camcol_dec = camcol_dec_table(survey)
         self.sql = SpatialIndex.build(survey)
         self._datasets: Dict[str, PackedDataset] = {}
@@ -442,7 +594,8 @@ class CoaddEngine:
         self._brick_grid: Optional[BrickGrid] = None
         self.residency = ResidencyManager(device_budget_bytes)
         self.residency.on_evict = self._chunk_evicted
-        self.brick_store = BrickStore(self.residency, self.device)
+        self.residency.fault_hook = self._upload_fault
+        self.brick_store = BrickStore(self.residency, self.device, spill=brick_spill)
 
     # ----- dataset layouts (built lazily, cached) -----
     def dataset(self, layout: str) -> PackedDataset:
@@ -874,10 +1027,11 @@ class CoaddEngine:
         """Serve a brick-aligned query from the BrickStore, or None.
 
         Fetches every covered tile (device tier first, a host-tier re-upload
-        otherwise), materializes the misses inline (each a normal `execute`,
-        stored for the next query), and merges the tiles in one mosaic
-        launch.  The stats sum the misses' scan work, as far as the port's
-        `JobStats` carries it.
+        otherwise), materializes the misses inline (each a normal `execute`
+        under the fault domain, stored for the next query), and merges the
+        tiles in one mosaic launch.  The stats sum the misses' scan work and
+        fault counters; ``partial`` and ``uncovered_packs`` come from every
+        tile's `BrickMeta`.
         """
         cover = self.brick_grid.decompose(query)
         if cover is None:
@@ -924,8 +1078,16 @@ class CoaddEngine:
             residual.packs_gated += s.packs_gated
             residual.packs_scanned += s.packs_scanned
             residual.scan_budget = max(residual.scan_budget, s.scan_budget)
+            residual.windows += s.windows
+            residual.chunk_uploads += s.chunk_uploads
+            residual.residency_hits += s.residency_hits
+            residual.residency_evictions += s.residency_evictions
             residual.matched_cache_builds += s.matched_cache_builds
             residual.matched_cache_hits += s.matched_cache_hits
+            residual.retries += s.retries
+            residual.speculative_windows += s.speculative_windows
+            residual.quarantined_packs += s.quarantined_packs
+            residual.resumed_windows += s.resumed_windows
             residual.reduce_passes = max(residual.reduce_passes, s.reduce_passes)
         t1 = time.perf_counter()
         self.dispatch_count += 1
@@ -951,8 +1113,16 @@ class CoaddEngine:
                 scan_budget=residual.scan_budget,
                 reduce=reduce,
                 reduce_passes=residual.reduce_passes if missing else 1,
+                windows=residual.windows,
+                chunk_uploads=residual.chunk_uploads,
+                residency_hits=residual.residency_hits,
+                residency_evictions=residual.residency_evictions,
                 matched_cache_builds=residual.matched_cache_builds,
                 matched_cache_hits=residual.matched_cache_hits,
+                retries=residual.retries,
+                speculative_windows=residual.speculative_windows,
+                quarantined_packs=residual.quarantined_packs,
+                resumed_windows=residual.resumed_windows,
                 bricks_hit=hits,
                 bricks_missed=len(missing),
                 bricks_spilled=spills,
@@ -971,10 +1141,12 @@ class CoaddEngine:
     ) -> MaterializeReport:
         """Materialize the (brick, band) lattice into the BrickStore.
 
-        Every cell is one normal planned and executed brick query, journaled
-        by its presence in the store: a job re-issued with the same arguments
-        skips finished bricks.  ``region=(ra_bounds, dec_bounds)`` restricts
-        it to the cells whose nominal box intersects the region.
+        Every cell is one normal planned and executed brick query (under a
+        budget, streamed under the fault domain), journaled by its presence
+        in the store: a killed job re-issued with the same arguments skips
+        finished bricks and resumes the in-flight one from its window
+        journal.  ``region=(ra_bounds, dec_bounds)`` restricts it to the
+        cells whose nominal box intersects the region.
         """
         cells = self.brick_grid.bricks(region)
         tasks = [BrickTask(band=band, row=r, col=c) for band in bands for (r, c) in cells]
@@ -989,8 +1161,12 @@ class CoaddEngine:
                                  res.coadd, res.depth, _brick_meta(res.stats))
             task.status = "partial" if res.stats.partial else "done"
             task.packs_scanned = res.stats.packs_scanned
+            task.retries = res.stats.retries
+            task.resumed_windows = res.stats.resumed_windows
 
-        return MaterializeReport(MaterializeTracker().run(tasks, is_done, run_one))
+        tracker = MaterializeTracker(max_attempts=self.fault_max_attempts,
+                                     backoff_s=self.fault_backoff_s)
+        return MaterializeReport(tracker.run(tasks, is_done, run_one))
 
     # ----- batched multi-query jobs (paper Fig. 5) -----
     def run_batch(self, queries: Sequence[CoaddQuery], method: str,
@@ -1151,13 +1327,62 @@ class CoaddEngine:
         if isinstance(entry.payload, _Chunk) and entry.payload.dev.ready is not None:
             torch.cuda.current_stream(self.device).wait_event(entry.payload.dev.ready)
 
+    def _upload_fault(self, key) -> None:
+        """The residency manager's upload seam (every miss, right where the
+        transfer is issued): a chaos drill's `ChaosInjector.on_upload`."""
+        if self.fault_injector is not None:
+            self.fault_injector.on_upload(key)
+
     def _wait(self, chunk: _Chunk) -> None:
         """The current stream waits on the chunk's upload (no host sync)."""
         if chunk.dev.ready is not None:
             torch.cuda.current_stream(self.device).wait_event(chunk.dev.ready)
 
+    def _wait_event(self, event) -> None:
+        """The host waits on a CUDA event (counted in ``event_waits``)."""
+        self.event_waits += 1
+        event.synchronize()
+
+    @property
+    def _fault_tolerant(self) -> bool:
+        """Whether streamed queries run through the `WindowTracker` (§8)."""
+        return self.on_fault != "raise"
+
+    @property
+    def _verify_chunks(self) -> bool:
+        """Whether chunk builds are verified: whenever faults are handled or
+        injected (with ``on_fault="raise"`` and an injector, poison is still
+        detected; it just aborts the query)."""
+        return self._fault_tolerant or self.fault_injector is not None
+
+    def _staged_chunk_pixels(self, exec_ds: PackedDataset, start: int, stop: int,
+                             drop: FrozenSet[int]) -> Optional[np.ndarray]:
+        """A chunk's host pixels to upload in place of the layout's slice,
+        or None (DESIGN.md §8).
+
+        A chaos drill corrupts a *copy* (`ChaosInjector.corrupt_chunk`): only
+        a chunk the injector changes is staged; every other one uploads from
+        the layout registered in place.  Under ``verify_digests`` every
+        pack's host pixels (the copy or the layout's) are hashed against the
+        layout's digests, and a mismatch raises `PoisonedChunkError` with
+        the global packs; packs in ``drop`` (quarantined) are skipped: they
+        go up as zeros.  The NaN/Inf check is not made here: the upload
+        computes it on the device (`to_device_chunk(poison=True)`).
+        """
+        if not self._verify_chunks:
+            return None
+        src = exec_ds.pixels[start:stop]
+        px = src
+        if self.fault_injector is not None:
+            px = self.fault_injector.corrupt_chunk(start, stop, src)
+        if self.verify_digests:
+            bad = exec_ds.verify_chunk(start, stop, px, skip=drop)
+            if bad:
+                raise PoisonedChunkError(bad, "host pixels differ from the layout's digest")
+        return None if px is src else px
+
     def _resident_chunk(self, layout: str, exec_ds: PackedDataset, start: int,
-                        stop: int) -> _Chunk:
+                        stop: int, drop: FrozenSet[int] = frozenset()) -> _Chunk:
         """The resident chunk of packs [start, stop), through the LRU.
 
         A miss uploads it (`PackedDataset.to_device_chunk`, copies on the
@@ -1167,25 +1392,59 @@ class CoaddEngine:
         key carries the PSF state, so a retuned engine misses.  The entry is
         charged for the chunk and a bank slice that rides with it; a matched
         build's raw pixels and bank slice are its transient bytes.
+
+        ``drop`` lists quarantined global packs (§8): their rows go up as
+        zeros and the key carries them, so a sanitized chunk never aliases
+        the clean one.  A verified build (`_verify_chunks`) stages a chaos
+        drill's corrupted copy, checks digests (`_staged_chunk_pixels`) and
+        brings back the chunk's poison flags (`_check_poison`).
         """
         matched = self._stream_matched()
         state = self._psf_state()
         key = (layout, start, stop, "matched", state) if matched else (layout, start, stop, state)
+        drop_here = tuple(sorted(p for p in drop if start <= p < stop))
+        if drop_here:
+            key = key + ("quarantine", drop_here)
         bank = self.psf_kernel_bank(layout)
         bank_bytes = self._bank_pack_nbytes(layout) * (stop - start)
 
         def build():
             if self.device.type == "cuda" and self._copy_stream is None:
                 self._copy_stream = torch.cuda.Stream(self.device)
-            dev = exec_ds.to_device_chunk(start, stop, self.device, self._copy_stream)
+            staged = self._staged_chunk_pixels(exec_ds, start, stop, drop)
+            dev = exec_ds.to_device_chunk(start, stop, self.device, self._copy_stream,
+                                          pixels=staged, zero_packs=[p - start for p in drop_here],
+                                          poison=self._verify_chunks)
             self.pack_upload_count += 1
             kern = None if bank is None else _upload(bank[start:stop], self.device)
-            return _Chunk(dev, match=kern) if matched else _Chunk(dev, bank=kern)
+            if matched:
+                return _Chunk(dev, match=kern, key=key, start=start)
+            return _Chunk(dev, bank=kern, key=key, start=start)
 
         nbytes = exec_ds.chunk_nbytes(start, stop) + (0 if matched else bank_bytes)
         transient = exec_ds.pixels[0].nbytes * (stop - start) + bank_bytes if matched else 0
         return self.residency.acquire(key, nbytes, build, transient_bytes=transient,
                                       cost=COST_MATCHED_CHUNK if matched else COST_RAW_CHUNK)
+
+    def _check_poison(self, chunk: _Chunk) -> None:
+        """Before a verified chunk's first scan: the host waits on its upload
+        event and reads its poison flags (`to_device_chunk(poison=True)`).
+        A pack holding a NaN or inf drops the chunk from the LRU (so the
+        retry uploads it again instead of hitting it) and raises
+        `PoisonedChunkError` with the global packs.  Read here, not when the
+        chunk is acquired: the next chunk is acquired before this window is
+        dispatched, and waiting there would serialize the double buffer.
+        Quarantined packs went up as zeros, so they never trip it."""
+        dev = chunk.dev
+        if dev.poisoned is None:
+            return
+        if dev.ready is not None:
+            self._wait_event(dev.ready)
+        bad = [chunk.start + int(i) for i in np.nonzero(dev.poisoned.numpy())[0]]
+        if bad:
+            self.residency.drop_matching(lambda k: k == chunk.key)
+            raise PoisonedChunkError(bad, "non-finite pixels in the uploaded chunk")
+        dev.poisoned = None
 
     def _chunk_operands(self, chunk: _Chunk) -> Tuple[DevicePackedDataset, Optional[torch.Tensor]]:
         """A resident chunk's scan operands -> (dataset, bank for plain scans).
@@ -1195,8 +1454,10 @@ class CoaddEngine:
         path) and its flag (`ops.matched_finite`), counted in
         ``matched_builds``, not as a pass.  The gated pre-pass of the eager
         path is bitwise the ungated one on every slot a pass reads, so the
-        matched bits are the same.
+        matched bits are the same.  A verified chunk is checked for poison
+        first (`_check_poison`), on its raw pixels.
         """
+        self._check_poison(chunk)
         if chunk.match is not None:
             dev = chunk.dev
             every = torch.arange(dev.n_packs, dtype=torch.int32, device=self.device)
@@ -1217,46 +1478,215 @@ class CoaddEngine:
         gated = np.nonzero(gate_any)[0] if self.sparse else np.arange(exec_ds.n_packs)
         return window_schedule(gated, exec_ds.n_packs, self._chunk_packs(exec_ds))
 
-    def _run_stream_windows(self, layout: str, exec_ds: PackedDataset,
-                            windows: List[ScanWindow], dispatch):
-        """Walk a window schedule -> the window partials summed on the device.
+    # ----- the fault domain's journals (DESIGN.md §8) -----
+    def _job_key(self, tag: str, layout: str, gates: np.ndarray, qvecs: np.ndarray, npix: int,
+                 windows: List[ScanWindow], grid_tag: str = "") -> str:
+        """Cross-query identity of a streamed job's window journal.
 
-        ``dispatch(chunk, window)`` scans one window and gives its partial
-        tuple (fresh tensors: the first window's become the sums, added to
-        in place).  The next chunk is acquired before this window's scan is
-        enqueued, so its upload (on the side stream, after that chunk's
-        allocation) overlaps this scan: the double buffer.  The current
-        stream waits on each chunk's upload just before the scans that read
-        it.  No host sync here.
+        A digest over everything that determines a window partial's value:
+        the job tag (method, estimator knobs, pass), layout, PSF state and
+        program family (kernel or plain path), the gate and query-vector
+        bytes, the output grid, the window partition itself, and the
+        persistent quarantine set (a pack released between kill and resume
+        changes the partials bitwise, so the resumed job must miss, not
+        replay).  A resumed query replays journaled partials only when they
+        are bitwise-valid for it.
         """
-        cur = self._resident_chunk(layout, exec_ds, windows[0].start, windows[0].stop)
-        self._wait(cur)
-        acc = None
-        for i, win in enumerate(windows):
-            nxt = None
-            if i + 1 < len(windows):
-                nxt = self._resident_chunk(layout, exec_ds, windows[i + 1].start,
-                                           windows[i + 1].stop)
-            out = dispatch(cur, win)
-            acc = out if acc is None else tuple(a.add_(b) for a, b in zip(acc, out))
-            del out   # the next window's output is not allocated beside this one
-            if nxt is not None:
-                self._wait(nxt)
-            cur = nxt
-        return acc
+        quar = tuple(sorted(self.residency.quarantined_packs(layout)))
+        h = hashlib.sha256()
+        h.update(f"{tag}|{layout}|{npix}|{self._psf_state()}|k{int(self.use_kernel)}"
+                 f"|{grid_tag}|q{quar}".encode())
+        h.update(np.ascontiguousarray(gates).tobytes())
+        h.update(np.ascontiguousarray(qvecs, np.float32).tobytes())
+        for w in windows:
+            h.update(np.array([w.start, w.stop, w.n_gated, w.budget], np.int64).tobytes())
+        return h.hexdigest()
+
+    def _reduce_tag(self, method: str, reduce: str, pass_tag: str) -> str:
+        """Journal-identity tag of one robust pass: the method, every knob
+        that changes the pass's partial bytes, and which pass it is (the
+        moments and clip partials of one query never share a journal)."""
+        return f"{method}|reduce={reduce}|k={self.clip_k}|b={self.median_bins}|pass={pass_tag}"
+
+    def _journal_for(self, job_key: str):
+        """The (possibly resumed) window journal of a job, LRU-capped.
+
+        An in-memory dict of staged partials by default; with
+        ``journal_dir`` a `DiskJournal` (behind `_DiskWindows`) that replays
+        any valid on-disk prefix when opened: the resume path of a *fresh
+        process* (the cap then only bounds open handles).
+        """
+        journal = self._journals.get(job_key)
+        if journal is None:
+            if self.journal_store is not None:
+                journal = _DiskWindows(self.journal_store.open(job_key), self._host_partial)
+            else:
+                journal = {}
+            self._journals[job_key] = journal
+            while len(self._journals) > self._journal_cap:
+                _, old = self._journals.popitem(last=False)
+                if hasattr(old, "close"):
+                    old.close()
+        else:
+            self._journals.move_to_end(job_key)
+        return journal
+
+    def _retire_journal(self, job_key: str) -> None:
+        """Drop a completed job's window journal (memory and disk)."""
+        old = self._journals.pop(job_key, None)
+        if hasattr(old, "close"):
+            old.close()
+        if self.journal_store is not None:
+            self.journal_store.remove(job_key)
+
+    def reverify_quarantined(self, layout: Optional[str] = None) -> List[int]:
+        """Re-verify quarantined packs against the host layout (§8).
+
+        For every registered layout (or just ``layout``), re-hash the
+        quarantined packs' *current* host pixels; packs that verify
+        (repaired in place, or never corrupt on the host at all) leave the
+        registry and regain coverage on the next query.  Returns the
+        released global packs; their count also surfaces as
+        ``JobStats.requarantine_released`` on the next streamed result.
+        """
+        layouts = [layout] if layout is not None else list(self.residency.quarantined)
+        released: List[int] = []
+        for lay in layouts:
+            exec_ds, _ = self.exec_dataset(lay)
+            released.extend(self.residency.reverify_quarantined(lay, exec_ds))
+        self._requarantine_pending += len(released)
+        return released
+
+    def _take_requarantine_released(self) -> int:
+        n, self._requarantine_pending = self._requarantine_pending, 0
+        return n
+
+    def _stage_partial(self, part) -> _Staged:
+        """A finished window's partial journaled in memory: on a CUDA device
+        a copy into pinned host memory enqueued on the compute stream (before
+        the in-place sums can change the partial) and its event; on the host
+        a copy."""
+        if self.device.type != "cuda":
+            return _Staged(tuple(t.clone() for t in part))
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in part)
+        for h, t in zip(host, part):
+            h.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return _Staged(host, ready)
+
+    def _host_partial(self, staged: _Staged) -> Tuple[np.ndarray, ...]:
+        """A staged partial's host arrays, once its copy has landed."""
+        if staged.ready is not None:
+            self._wait_event(staged.ready)
+            staged.ready = None
+        return tuple(t.numpy() for t in staged.host)
+
+    def _load_partial(self, value) -> Tuple[torch.Tensor, ...]:
+        """A journal hit as a partial on the device: a staged partial's
+        pinned copy (its copy back was enqueued on the compute stream, so
+        the upload after it needs no host wait), or the host arrays a
+        `DiskJournal` replayed.  Fresh tensors: the sums are made in place."""
+        if isinstance(value, _Staged):
+            host = value.host
+        else:
+            host = tuple(torch.from_numpy(np.asarray(a)) for a in value)
+        if self.device.type != "cuda":
+            return tuple(t.clone() for t in host)
+        return tuple((t if t.is_pinned() else t.pin_memory()).to(self.device, non_blocking=True)
+                     for t in host)
+
+    def _run_stream_windows(self, layout: str, exec_ds: PackedDataset,
+                            windows: List[ScanWindow], dispatch, job_key: str,
+                            keep_journal: bool = False):
+        """Walk a window schedule -> (the window partials summed on the
+        device, `FaultCounters`, packs quarantined).
+
+        ``dispatch(chunk, window, dropped)`` scans one window and gives its
+        partial tuple (fresh tensors: the first window's become the sums,
+        added to in place); ``dropped`` are the quarantined packs it gates
+        out.  No host sync here.
+
+        With ``on_fault="raise"`` this is the bare loop: the next chunk is
+        acquired before this window's scan is enqueued, so its upload (on
+        the side stream, after that chunk's allocation) overlaps this scan,
+        the double buffer; the current stream waits on each chunk's upload
+        just before the scans that read it.  Otherwise a `WindowTracker`
+        runs the same schedule in the same order: journaled under
+        ``job_key`` (a killed query resumes replaying only missing windows),
+        retried on transient faults and poison, optionally speculated, and
+        quarantine-completed on persistent poison.  A robust pass keeps its
+        journal (``keep_journal``) until the query's last pass completes.
+        """
+        if not self._fault_tolerant:
+            cur = self._resident_chunk(layout, exec_ds, windows[0].start, windows[0].stop)
+            self._wait(cur)
+            acc = None
+            for i, win in enumerate(windows):
+                nxt = None
+                if i + 1 < len(windows):
+                    nxt = self._resident_chunk(layout, exec_ds, windows[i + 1].start,
+                                               windows[i + 1].stop)
+                out = dispatch(cur, win, frozenset())
+                acc = out if acc is None else tuple(a.add_(b) for a, b in zip(acc, out))
+                del out   # the next window's output is not allocated beside this one
+                if nxt is not None:
+                    self._wait(nxt)
+                cur = nxt
+            return acc, FaultCounters(), ()
+        pre_quar = self.residency.quarantined_packs(layout)
+        tracker = WindowTracker(policy=self.on_fault, max_attempts=self.fault_max_attempts,
+                                backoff_s=self.fault_backoff_s,
+                                straggler_factor=self.straggler_factor,
+                                injector=self.fault_injector, quarantined=pre_quar)
+
+        def acquire(win, drop):
+            return self._resident_chunk(layout, exec_ds, win.start, win.stop, drop)
+
+        def scan(chunk, win, drop):
+            self._wait(chunk)
+            return dispatch(chunk, win, drop)
+
+        journal = self._journal_for(job_key)
+        try:
+            acc, quarantined = tracker.run(windows, acquire, scan, journal,
+                                           stage=self._stage_partial, load=self._load_partial,
+                                           accumulate=_accumulate)
+        except BaseException:
+            # Durability point: fsync a disk journal so a fatal error (an
+            # injected kill, an OOM about to follow) leaves every finished
+            # window committed for the resume.  A clean run skips it: its
+            # journal is removed below.
+            if hasattr(journal, "drain"):
+                journal.drain()
+            raise
+        finally:
+            # Fresh quarantines persist even when the query dies: later
+            # queries skip the poison without paying the retry storm again
+            # (released only by `reverify_quarantined`).
+            fresh = tracker.quarantined - set(pre_quar)
+            if fresh:
+                self.residency.quarantine_packs(layout, fresh,
+                                                getattr(exec_ds, "_pack_digest_cache", None))
+        # Completed: the journal has served its purpose (a kill raises above
+        # and keeps it: the resume contract).
+        if not keep_journal:
+            self._retire_journal(job_key)
+        return acc, tracker.counters, tuple(quarantined)
 
     def _stream(self, layout: str, gate: np.ndarray, qvec: np.ndarray, grid_ra, grid_dec,
-                reduce: str):
-        """One query's (P, cap) gate, or a batch's (K, P, cap) gates, streamed
-        -> (coadd, depth, contrib on the host, windows, passes, (uploads,
-        hits, evictions), seconds).
+                reduce: str, tag: str, npix: int, grid_tag: str) -> _Streamed:
+        """One query's (P, cap) gate, or a batch's (K, P, cap) gates, streamed.
 
         Each pass of the estimator (`_estimate`) walks the window schedule
         (`_run_stream_windows`): per window one launch of its kernel (its
         plain version off the kernel path) over the chunk, with chunk-local
-        indices and the window's compacted gate.  The first pass also sums
-        the accepted slots.  The between-pass operands stay on the device;
-        the query's one host sync is `_sync` at the end.
+        indices and the window's compacted gate, quarantined packs gated
+        out.  The first pass also sums the accepted slots.  The between-pass
+        operands stay on the device; the query's one host sync is `_sync` at
+        the end.  Each pass journals under its own key (``tag``, and for a
+        robust estimator the pass, `_reduce_tag`); a robust query retires
+        its pass journals together once the last pass completes.
         """
         exec_ds, _ = self.exec_dataset(layout)
         batch = gate.ndim == 3
@@ -1264,35 +1694,66 @@ class CoaddEngine:
         compact = compact_window_gates if batch else compact_window_gate
         slots = (1, 2) if batch else (0, 1)
         contrib: List[torch.Tensor] = []
+        first_quar: List[int] = []
+        faults = FaultCounters()
+        quarantined: set = set()
+        pass_keys: List[str] = []
         counters0 = (self.residency.uploads, self.residency.hits, self.residency.evictions)
         t1 = time.perf_counter()
 
         def run_pass(name, *fixed):
             first = not contrib
 
-            def dispatch(chunk, win):
-                dev, bank = self._chunk_operands(chunk)
-                idx = _upload(win.pack_idx, self.device)
-                accept = self._accept(dev, idx, compact(gate, win), qvec)
-                fns = _pass_fns(batch, self.use_kernel, dev.finite, win.pack_idx, bank)
-                self.dispatch_count += 1
-                out = fns[name](dev.pixels, dev.wcs, idx, accept.to(torch.float32), grid_ra,
-                                grid_dec, *fixed)
-                out = out if isinstance(out, tuple) else (out,)
-                return out + (accept.sum(slots),) if first else out
+            def dispatch(chunk, win, dropped):
+                with self._dispatch_lock:
+                    g = gate
+                    if dropped:
+                        # Quarantined packs (§8) go up as zeros and gate out,
+                        # so depth and files exclude them: the partial=True
+                        # report is the honest answer.
+                        g = gate.copy()
+                        g[(slice(None),) * batch + (sorted(dropped),)] = False
+                    dev, bank = self._chunk_operands(chunk)
+                    idx = _upload(win.pack_idx, self.device)
+                    accept = self._accept(dev, idx, compact(g, win), qvec)
+                    fns = _pass_fns(batch, self.use_kernel, dev.finite, win.pack_idx, bank)
+                    self.dispatch_count += 1
+                    out = fns[name](dev.pixels, dev.wcs, idx, accept.to(torch.float32), grid_ra,
+                                    grid_dec, *fixed)
+                    out = out if isinstance(out, tuple) else (out,)
+                    return out + (accept.sum(slots),) if first else out
 
-            acc = self._run_stream_windows(layout, exec_ds, windows, dispatch)
+            pass_tag = tag if reduce == "mean" else self._reduce_tag(tag, reduce, name)
+            job_key = self._job_key(pass_tag, layout, gate, qvec, npix, windows, grid_tag)
+            pass_keys.append(job_key)
+            acc, pfc, pquar = self._run_stream_windows(layout, exec_ds, windows, dispatch,
+                                                       job_key, keep_journal=reduce != "mean")
+            for f in dataclasses.fields(FaultCounters):
+                setattr(faults, f.name, getattr(faults, f.name) + getattr(pfc, f.name))
+            quarantined.update(pquar)
             if first:
                 contrib.append(acc[-1])
+                first_quar.extend(pquar)
                 acc = acc[:-1]
             return acc if len(acc) > 1 else acc[0]
 
         passes, (coadd, depth) = _estimate(reduce, self.clip_k, self.median_bins, run_pass)
+        if reduce != "mean":
+            # The whole job completed: every pass journal is garbage now.
+            for key in pass_keys:
+                self._retire_journal(key)
         coadd_h, depth_h, contrib_h = _sync([coadd, depth, contrib[0]])
         elapsed = time.perf_counter() - t1
         counters = (self.residency.uploads - counters0[0], self.residency.hits - counters0[1],
                     self.residency.evictions - counters0[2])
-        return coadd_h, depth_h, contrib_h, windows, passes, counters, elapsed
+        # Files considered: the gate's slots, without the packs the first
+        # pass gated out (each pack lies in one window).
+        considered = gate.sum(axis=slots) - gate[..., sorted(first_quar), :].sum(axis=slots)
+        # Coverage honesty: only quarantined packs a gate opens are uncovered.
+        opened = gate.any(axis=(0, 2) if batch else 1)
+        quar = tuple(p for p in sorted(quarantined) if opened[p])
+        return _Streamed(coadd_h, depth_h, contrib_h, considered, windows, passes, counters,
+                         elapsed, faults, quar)
 
     def _empty_streaming_result(self, plan: CoaddPlan) -> CoaddResult:
         """The empty selection under a budget: exact zeros, no window, no
@@ -1313,41 +1774,49 @@ class CoaddEngine:
             return self._empty_streaming_result(plan)
         grid_ra, grid_dec = self._plan_grids(plan)
         m_builds0, d0 = self.matched_builds, self.dispatch_count
-        coadd, depth, contrib, windows, passes, (up, hits, ev), elapsed = self._stream(
-            plan.layout, gate, plan.qvec, grid_ra, grid_dec, plan.reduce)
+        r = self._stream(plan.layout, gate, plan.qvec, grid_ra, grid_dec, plan.reduce,
+                         plan.method, plan.query.npix, grid_digest(plan.grid_sky))
+        up, hits, ev = r.counters
         stats = JobStats(
             method=plan.method,
-            files_considered=int(gate.sum()),
-            files_contributing=int(contrib),
+            files_considered=int(r.considered),
+            files_contributing=int(r.contrib),
             packs_touched=plan.packs_touched,
             t_locate_s=plan.t_locate_s,
-            t_map_reduce_s=elapsed,
-            t_total_s=plan.t_locate_s + elapsed,
+            t_map_reduce_s=r.elapsed,
+            t_total_s=plan.t_locate_s + r.elapsed,
             dispatches=self.dispatch_count - d0,
             packs_gated=int(gate.any(axis=1).sum()),
-            packs_scanned=passes * sum(w.budget for w in windows),
-            scan_budget=max(w.budget for w in windows),
+            packs_scanned=r.passes * sum(w.budget for w in r.windows),
+            scan_budget=max(w.budget for w in r.windows),
             reduce=plan.reduce,
-            reduce_passes=passes,
-            windows=passes * len(windows),
+            reduce_passes=r.passes,
+            windows=r.passes * len(r.windows),
             chunk_uploads=up,
             residency_hits=hits,
             residency_evictions=ev,
             matched_cache_builds=self.matched_builds - m_builds0,
             matched_cache_hits=hits if self._stream_matched() else 0,
             peak_resident_bytes=self._peak_resident_bytes(),
+            retries=r.faults.retries,
+            speculative_windows=r.faults.speculative_windows,
+            quarantined_packs=r.faults.quarantined_packs,
+            resumed_windows=r.faults.resumed_windows,
+            partial=bool(r.quarantined),
+            uncovered_packs=r.quarantined,
+            requarantine_released=self._take_requarantine_released(),
         )
-        return CoaddResult(coadd, depth, stats)
+        return CoaddResult(r.coadd, r.depth, stats)
 
     def _execute_batch_streaming(self, plans: List[CoaddPlan], gates: np.ndarray,
                                  qvecs: np.ndarray) -> List[CoaddResult]:
         """K plans under a device budget (any estimator): the windows of the
         union of their gates, each window one batched launch a pass for all
         K queries, one host sync for the batch.  The interval, launches,
-        scanned packs and residency counters go to the first result's
-        stats.  ``batch_scan`` is a digest of the union's packs for a query
-        whose own gated packs differ (its own streamed run sums other
-        windows)."""
+        scanned packs, residency and fault counters go to the first result's
+        stats; a quarantine's lost coverage to every result.  ``batch_scan``
+        is a digest of the union's packs for a query whose own gated packs
+        differ (its own streamed run sums other windows)."""
         layout = plans[0].layout
         if not gates.any():
             return [self._empty_streaming_result(p) for p in plans]
@@ -1355,36 +1824,47 @@ class CoaddEngine:
         grids_ra = torch.stack([g[0] for g in grids])
         grids_dec = torch.stack([g[1] for g in grids])
         m_builds0, d0 = self.matched_builds, self.dispatch_count
-        coadds, depths, contribs, windows, passes, (up, hits, ev), elapsed = self._stream(
-            layout, gates, qvecs, grids_ra, grids_dec, plans[0].reduce)
+        r = self._stream(layout, gates, qvecs, grids_ra, grids_dec, plans[0].reduce,
+                         "batch:" + plans[0].method, plans[0].npix,
+                         "|".join(grid_digest(p.grid_sky) for p in plans))
+        up, hits, ev = r.counters
+        windows = r.windows
+        released = self._take_requarantine_released()
         union = np.concatenate([w.sel for w in windows]).astype(np.int64)
         digest = hashlib.sha256(union.tobytes()).hexdigest()[:16]
         results = []
         for i, p in enumerate(plans):
             first = i == 0
             own = np.nonzero(gates[i].any(axis=1))[0] if self.sparse else union
-            t_mr = elapsed if first else 0.0
-            results.append(CoaddResult(coadds[i], depths[i], JobStats(
+            t_mr = r.elapsed if first else 0.0
+            results.append(CoaddResult(r.coadd[i], r.depth[i], JobStats(
                 method=p.method,
-                files_considered=int(gates[i].sum()),
-                files_contributing=int(contribs[i]),
+                files_considered=int(r.considered[i]),
+                files_contributing=int(r.contrib[i]),
                 packs_touched=p.packs_touched,
                 t_locate_s=p.t_locate_s,
                 t_map_reduce_s=t_mr,
                 t_total_s=p.t_locate_s + t_mr,
                 dispatches=(self.dispatch_count - d0) if first else 0,
                 packs_gated=int(gates[i].any(axis=1).sum()),
-                packs_scanned=passes * sum(w.budget for w in windows) if first else 0,
+                packs_scanned=r.passes * sum(w.budget for w in windows) if first else 0,
                 scan_budget=max(w.budget for w in windows),
                 reduce=p.reduce,
-                reduce_passes=passes,
-                windows=passes * len(windows),
+                reduce_passes=r.passes,
+                windows=r.passes * len(windows),
                 chunk_uploads=up if first else 0,
                 residency_hits=hits if first else 0,
                 residency_evictions=ev if first else 0,
                 matched_cache_builds=(self.matched_builds - m_builds0) if first else 0,
                 matched_cache_hits=hits if first and self._stream_matched() else 0,
                 peak_resident_bytes=self._peak_resident_bytes(),
+                retries=r.faults.retries if first else 0,
+                speculative_windows=r.faults.speculative_windows if first else 0,
+                quarantined_packs=r.faults.quarantined_packs if first else 0,
+                resumed_windows=r.faults.resumed_windows if first else 0,
+                partial=bool(r.quarantined),
+                uncovered_packs=r.quarantined,
+                requarantine_released=released if first else 0,
                 batch_scan="" if np.array_equal(own, union) else digest,
             )))
         return results

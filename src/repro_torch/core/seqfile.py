@@ -15,18 +15,20 @@ Packing is numpy on the host and bitwise equal to the reference;
 `PackedDataset.to_device` makes one layout resident on a torch device as a
 `DevicePackedDataset`, and `PackedDataset.to_device_chunk` one pack range of
 it (streaming residency, DESIGN.md §6: page-locked host memory, copies on a
-side CUDA stream).  `ResidencyManager` (an LRU under a byte budget) and
-`BrickStore` (materialized brick coadds, host and device tiers) are the
-residency hierarchy of DESIGN.md §9.
+side CUDA stream).  `ResidencyManager` (an LRU under a byte budget, with the
+persistent quarantine registry of DESIGN.md §8) and `BrickStore`
+(materialized brick coadds, host and device tiers, optionally a persistent
+`durable.BrickSpill`) are the residency hierarchy of DESIGN.md §9.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
 import weakref
 from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, FrozenSet, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +65,11 @@ class DevicePackedDataset:
     # stream waits on it before its first use.  None for a whole layout and
     # on the CPU.
     ready: Optional[Any] = None
+    # A chunk's (P,) uint8 poison flags on the host (`to_device_chunk(...,
+    # poison=True)`): 1 where a slot of the pack holds a NaN or an inf.  On
+    # a CUDA device a pinned tensor that a copy fills before ``ready``: read
+    # it only after ``ready`` has completed.
+    poisoned: Optional[torch.Tensor] = None
 
     @property
     def n_packs(self) -> int:
@@ -88,17 +95,24 @@ class DevicePackedDataset:
 FINITE_LIMIT = 2.0 ** 62
 
 
-def finite_slots(pixels: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def finite_slots(pixels: torch.Tensor, out: Optional[torch.Tensor] = None,
+                 poisoned: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(P, cap, H, W) pixels -> (P, cap) uint8: 1 where every pixel of the
     slot is finite with |p| <= `FINITE_LIMIT`.  One reduction pass, each
     slot's min and max (a NaN propagates through both and compares false),
-    written into ``out`` when given."""
+    written into ``out`` when given.  From the same pass, ``poisoned`` (a
+    (P,) uint8 tensor, when given) gets 1 where a slot of the pack holds a
+    NaN or an inf: the reference's chunk verification (`verify_chunk`)."""
     p, cap = pixels.shape[:2]
     if out is None:
         out = torch.empty((p, cap), dtype=torch.uint8, device=pixels.device)
     if out.numel():
         lo, hi = torch.aminmax(pixels.flatten(2), dim=-1)
         out.copy_((lo >= -FINITE_LIMIT) & (hi <= FINITE_LIMIT))
+        if poisoned is not None:
+            poisoned.copy_(~(torch.isfinite(lo) & torch.isfinite(hi)).all(dim=1))
+    elif poisoned is not None:
+        poisoned.zero_()
     return out
 
 
@@ -186,7 +200,72 @@ class ResidencyManager:
         # is a bug, not weather).
         self.on_evict: Optional[Callable[[Tuple, ResidentEntry], None]] = None
         self._last_key: Optional[Tuple] = None  # most recently served entry
+        # Persistent quarantine registry (DESIGN.md §8): packs whose host
+        # data failed verification persistently, per execution layout, each
+        # with the *reference* content digest recorded at detection time
+        # (None when no pre-corruption digest existed).  Queries gate these
+        # out until `reverify_quarantined` proves the host data repaired.
+        self.quarantined: Dict[str, Dict[int, Optional[bytes]]] = {}
+        self.quarantine_released = 0  # packs restored by re-verification
 
+    # ----- persistent quarantine (DESIGN.md §8) -----
+    def quarantine_packs(
+        self,
+        layout: str,
+        packs: Iterable[int],
+        digests: Optional[Sequence[Optional[bytes]]] = None,
+    ) -> None:
+        """Register persistently poisoned packs for ``layout``.
+
+        ``digests`` is the per-pack reference digest list (the host
+        seqfile's `pack_digests` cache) when one predates the corruption;
+        packs without a reference re-verify on the NaN/Inf scan alone.
+        """
+        reg = self.quarantined.setdefault(layout, {})
+        for p in packs:
+            p = int(p)
+            ref = None
+            if digests is not None and p < len(digests):
+                ref = digests[p]
+            reg.setdefault(p, ref)
+
+    def quarantined_packs(self, layout: str) -> FrozenSet[int]:
+        return frozenset(self.quarantined.get(layout, ()))
+
+    def reverify_quarantined(self, layout: str, exec_ds) -> List[int]:
+        """Re-hash quarantined packs against the host seqfile; release matches.
+
+        A pack is released when its *current* host pixels are finite and,
+        when a reference digest was recorded at quarantine time, hash back
+        to that reference: the host data was repaired (or was never bad,
+        only its transfers were).  Released packs leave the registry, their
+        sanitized chunk-cache entries drop (so the next query rebuilds full
+        coverage), and ``quarantine_released`` counts them.
+        """
+        reg = self.quarantined.get(layout)
+        if not reg:
+            return []
+        released: List[int] = []
+        for p, ref in sorted(reg.items()):
+            row = np.ascontiguousarray(exec_ds.pixels[p])
+            if not np.isfinite(row).all():
+                continue  # still poisoned
+            if ref is not None and hashlib.sha256(row.tobytes()).digest() != ref:
+                continue  # finite but still not the ingested bytes
+            released.append(p)
+        for p in released:
+            del reg[p]
+        if not reg:
+            del self.quarantined[layout]
+        if released:
+            # Sanitized chunks (key carries the "quarantine" drop tuple)
+            # are stale now; drop them so coverage rebuilds immediately.
+            self.drop_matching(
+                lambda k: isinstance(k, tuple) and "quarantine" in k
+                and k and k[0] == layout
+            )
+            self.quarantine_released += len(released)
+        return released
 
     @property
     def bytes_resident(self) -> int:
@@ -320,20 +399,26 @@ class BrickStore:
 
     Staleness is carried by the key, never checked here: the engine keys
     bricks on its PSF state, so a retuned engine misses and re-materializes.
-    The persistent host tier (``spill``, the reference's `durable.BrickSpill`)
-    is not ported yet; only ``spill=None`` is accepted.
+
+    With a ``spill`` backend (`durable.BrickSpill`, wired by
+    ``CoaddEngine(journal_dir=...)``) the host tier is *persistent*: every
+    `put` writes an atomically renamed, self-checksummed file, and lookups
+    that miss the in-memory host dict reload (and digest-verify) from disk,
+    so materialized bricks survive process death and `materialize_bricks`
+    in a fresh process skips them.  A reload that fails verification counts
+    a plain miss (the file is dropped) and the brick rematerializes.
     """
 
     def __init__(self, residency: ResidencyManager, device="cpu", spill=None):
-        if spill is not None:
-            raise NotImplementedError("a persistent brick spill is not ported yet")
         self.residency = residency
         self.device = torch.device(device)
+        self.spill = spill
         self._host: Dict[Tuple, Tuple[np.ndarray, np.ndarray, BrickMeta]] = {}
         self.hits = 0         # serves straight from the device tier
         self.spill_loads = 0  # serves that re-uploaded the host copy
         self.misses = 0       # lookups with no materialized brick at all
         self.spilled = 0      # device replicas dropped under LRU pressure
+        self.disk_loads = 0   # host-tier reloads from the persistent spill
         prev = residency.on_evict
 
         def _count_spill(key: Tuple, entry: ResidentEntry) -> None:
@@ -348,17 +433,45 @@ class BrickStore:
         return len(self._host)
 
     def contains(self, key: Tuple) -> bool:
-        """Whether a materialized brick exists: the journal check."""
-        return key in self._host
+        """Whether a verified brick exists (in memory or reloadable).
+
+        The materialization journal check: a disk candidate is loaded and
+        digest-verified *here*, so a corrupted spill file never reports a
+        brick as done; it rematerializes instead.
+        """
+        return key in self._host or self._load_spill(key)
+
+    def _load_spill(self, key: Tuple) -> bool:
+        """Reload ``key`` from the persistent spill into the host tier."""
+        if self.spill is None or key in self._host:
+            return key in self._host
+        got = self.spill.load(key)  # digest-verified; corrupt -> None
+        if got is None:
+            return False
+        coadd, depth, meta = got
+        self._host[key] = (
+            coadd,
+            depth,
+            BrickMeta(
+                partial=bool(meta.get("partial", False)),
+                uncovered_packs=tuple(meta.get("uncovered_packs", ())),
+                files_considered=int(meta.get("files_considered", 0)),
+                files_contributing=int(meta.get("files_contributing", 0)),
+            ),
+        )
+        self.disk_loads += 1
+        return True
 
     def keys(self):
         return self._host.keys()
 
     def meta(self, key: Tuple) -> BrickMeta:
+        self._load_spill(key)
         return self._host[key][2]
 
     def host_arrays(self, key: Tuple) -> Tuple[np.ndarray, np.ndarray]:
         """The host-tier (coadd, depth) copies — test/debug access."""
+        self._load_spill(key)
         coadd, depth, _ = self._host[key]
         return coadd, depth
 
@@ -385,11 +498,26 @@ class BrickStore:
         mosaic immediately without a store lookup (which would miscount a
         fresh insert as a cache hit).
         """
+        m = meta or BrickMeta()
         self._host[key] = (
             np.ascontiguousarray(coadd, np.float32),
             np.ascontiguousarray(depth, np.float32),
-            meta or BrickMeta(),
+            m,
         )
+        if self.spill is not None:
+            # Durable write-through (DESIGN.md §8): the brick survives
+            # process death; a crashed materialization resumes past it.
+            self.spill.save(
+                key,
+                self._host[key][0],
+                self._host[key][1],
+                {
+                    "partial": bool(m.partial),
+                    "uncovered_packs": [int(p) for p in m.uncovered_packs],
+                    "files_considered": int(m.files_considered),
+                    "files_contributing": int(m.files_contributing),
+                },
+            )
         return self._acquire(key)
 
     def fetch(self, key: Tuple):
@@ -397,7 +525,7 @@ class BrickStore:
 
         ``tier`` is ``"device"`` (already resident) or ``"host"`` (the
         spill path: the device replica was evicted; serving re-uploads)."""
-        if key not in self._host:
+        if key not in self._host and not self._load_spill(key):
             self.misses += 1
             return None
         was_resident = self.residency.resident(key)
@@ -416,9 +544,11 @@ class BrickStore:
         )
 
     def clear(self) -> None:
-        """Forget every materialized brick, both tiers."""
+        """Forget every materialized brick, every tier, disk included."""
         self._host.clear()
         self.drop_device()
+        if self.spill is not None:
+            self.spill.clear()
 
 
 @dataclasses.dataclass
@@ -531,11 +661,19 @@ class PackedDataset:
         self._pinned = True
         return seconds
 
-    def to_device_chunk(self, start: int, stop: int, device,
-                        stream=None) -> DevicePackedDataset:
+    def to_device_chunk(self, start: int, stop: int, device, stream=None,
+                        pixels: Optional[np.ndarray] = None, zero_packs: Sequence[int] = (),
+                        poison: bool = False) -> DevicePackedDataset:
         """Upload the pack range [start, stop) as its own resident chunk,
         with its per-slot `finite` flag (`finite_slots` of the uploaded
         pixels, computed on the device).
+
+        The fault-tolerant build path (DESIGN.md §8): ``pixels`` replaces
+        the layout's slice by a host copy (a chaos drill's corrupted copy,
+        staged through pinned memory); ``zero_packs`` (chunk-local indices
+        of quarantined packs) go up as zero rows, zeroed on the device after
+        the copy; ``poison`` also fills the chunk's ``poisoned`` flags from
+        the same reduction as the slot flag.
 
         On a CUDA device the tensors are allocated on the current stream and
         filled by copies issued on ``stream`` (a side stream; the current
@@ -551,28 +689,45 @@ class PackedDataset:
         chunk's tensors view the host arrays.
         """
         sl = slice(start, stop)
-        arrays = [self.pixels[sl], self.wcs[sl],
+        arrays = [self.pixels[sl] if pixels is None else pixels, self.wcs[sl],
                   *(v[sl] for v in self.ints.values()), *(v[sl] for v in self.floats.values())]
         device = torch.device(device)
-        ready = None
+        ready = poisoned = None
         if device.type != "cuda":
             tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
-            finite = finite_slots(tensors[0])
+            if len(zero_packs):
+                tensors[0] = tensors[0].clone()   # the CPU tensor views the host array
+                for i in zero_packs:
+                    tensors[0][i].zero_()
+            poisoned = torch.empty(stop - start, dtype=torch.uint8) if poison else None
+            finite = finite_slots(tensors[0], poisoned=poisoned)
         else:
             self.pin()
             compute = torch.cuda.current_stream(device)
             side = compute if stream is None else stream
-            srcs = [torch.from_numpy(arrays[0])] + [
-                torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in arrays[1:]]
+            srcs = [torch.from_numpy(arrays[0]) if pixels is None
+                    else torch.from_numpy(np.ascontiguousarray(pixels)).pin_memory()]
+            srcs += [torch.from_numpy(np.ascontiguousarray(a)).pin_memory() for a in arrays[1:]]
             tensors = [torch.empty_like(s, device=device) for s in srcs]
             finite = torch.empty((stop - start, self.capacity), dtype=torch.uint8, device=device)
+            if poison:
+                poisoned = torch.empty(stop - start, dtype=torch.uint8, pin_memory=True)
             allocated = torch.cuda.Event()
             allocated.record(compute)
             side.wait_event(allocated)
             with torch.cuda.stream(side):
                 for t, src in zip(tensors, srcs):
                     t.copy_(src, non_blocking=True)
-                finite_slots(tensors[0], out=finite)
+                for i in zero_packs:
+                    tensors[0][i].zero_()
+                # A temporary of the side stream, as the reduction's are: its
+                # memory returns to the side stream's pool, so no later
+                # allocation on the compute stream can take it while the
+                # copy below still reads it.
+                bad = torch.empty(stop - start, dtype=torch.uint8, device=device) if poison else None
+                finite_slots(tensors[0], out=finite, poisoned=bad)
+                if poison:
+                    poisoned.copy_(bad, non_blocking=True)
                 ready = torch.cuda.Event()
                 ready.record(side)
         n_int = len(self.ints)
@@ -583,7 +738,48 @@ class PackedDataset:
             floats=dict(zip(self.floats, tensors[2 + n_int:])),
             finite=finite,
             ready=ready,
+            poisoned=poisoned,
         )
+
+    # ----- chunk verification (DESIGN.md §8) -----
+    def pack_digests(self) -> List[bytes]:
+        """Per-pack content digests of the *host* pixels (the ground truth).
+
+        Built lazily on first use and cached: the host seqfile is immutable
+        once packed, so these digests are what a staged chunk must reproduce
+        for `verify_chunk`'s corruption check.
+        """
+        cache = getattr(self, "_pack_digest_cache", None)
+        if cache is None:
+            cache = [
+                hashlib.sha256(
+                    np.ascontiguousarray(self.pixels[p]).tobytes()
+                ).digest()
+                for p in range(self.n_packs)
+            ]
+            self._pack_digest_cache = cache
+        return cache
+
+    def verify_chunk(
+        self,
+        start: int,
+        stop: int,
+        pixels: np.ndarray,
+        skip: FrozenSet[int] = frozenset(),
+    ) -> List[int]:
+        """Global pack indices in [start, stop) whose host pixels differ from
+        the layout's digests (`pack_digests`): the finite corruption that
+        only a digest catches, at sha256 cost a build.  ``skip`` holds
+        already-quarantined packs, about to go up as zeros.  Non-finite
+        pixels are found on the device instead, from the upload itself
+        (`to_device_chunk(poison=True)`), without reading the host bytes
+        again.
+        """
+        digests = self.pack_digests()
+        return [start + local for local in range(stop - start)
+                if start + local not in skip
+                and hashlib.sha256(np.ascontiguousarray(pixels[local]).tobytes()).digest()
+                != digests[start + local]]
 
     def pack_nbytes(self) -> int:
         """Device bytes of ONE resident pack: pixels, WCS, the metadata

@@ -74,7 +74,8 @@ class Overloaded(RuntimeError):
 class ServiceStats:
     """Serving telemetry: admission (submitted/admitted/shed_*), dispatch
     (dispatches and dispatched_queries, hence the coalesce factor), result
-    cache (hits/misses/merged_inflight), brick routing, and latency
+    cache (hits/misses/merged_inflight), brick routing, faults (the retries
+    the engine's fault domain made in served results), and latency
     (p50/p95/p99 over completed requests, cache hits included)."""
 
     submitted: int = 0
@@ -96,6 +97,7 @@ class ServiceStats:
     brick_routed: int = 0
     bricks_hit: int = 0
     bricks_missed: int = 0
+    retries: int = 0
     queue_depth: int = 0
     queue_depth_peak: int = 0
     latencies_s: List[float] = dataclasses.field(default_factory=list)
@@ -329,6 +331,7 @@ class CoaddService:
         self.stats.brick_routed += 1
         self.stats.bricks_hit += result.stats.bricks_hit
         self.stats.bricks_missed += result.stats.bricks_missed
+        self.stats.retries += result.stats.retries
         self.stats.dispatches += 1
         self.stats.dispatched_queries += 1
         self._cache_put(key, result)
@@ -367,6 +370,7 @@ class CoaddService:
                 self.stats.expensive_dispatches += 1
             self.stats.merged_inflight += len(group) - len(keys)
             for key, res in zip(cache_keys, results):
+                self.stats.retries += res.stats.retries
                 self._cache_put(key, res)
             for p in group:
                 if not p.future.done():

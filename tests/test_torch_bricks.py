@@ -20,14 +20,17 @@ On the reference's own test survey and lattice (tests/test_bricks.py:
 * a `ResidencyManager` + `BrickStore` sequence under a small budget gives
   the reference's counters;
 * `MaterializeTracker` retries a transient fault, lets a fatal one escape,
-  and a rerun skips finished bricks.
-
-The reference's streaming and quarantine brick cases (tests/test_bricks.py
-``test_partial_brick_propagates_into_mosaic`` and
-``test_materialize_survives_kill_and_resume``) need the streaming
-executors and the fault domain, which the port does not have yet.
+  and a rerun skips finished bricks;
+* under a device budget and the fault domain (DESIGN.md §8): a brick
+  materialized around a persistently poisoned pack is partial and its
+  uncovered pack propagates into the mosaic, and a materialization killed
+  mid-brick resumes (finished bricks skip, the killed one replays its
+  window journal) into a store that serves ``run_window`` bitwise; both as
+  the reference does on the same windows (chunks of one pack, a budget of
+  three: tests/test_torch_faults.py).
 """
 import builtins
+import dataclasses
 
 import numpy as np
 import pytest
@@ -459,7 +462,7 @@ def test_residency_and_brick_store_counters_match_reference():
     assert got[2][3] >= 1 and got[1][2] >= 2     # bricks spilled, entries evicted
 
 
-def test_residency_failed_build_and_derived_entries_match_reference():
+def test_residency_failed_build_and_derived_entries_match_reference(tmp_path):
     def run(pkg):
         rm = pkg.ResidencyManager(budget_bytes=1000)
         rm.acquire(("a",), 400, lambda: 1)
@@ -472,8 +475,22 @@ def test_residency_failed_build_and_derived_entries_match_reference():
     assert run(seqfile) == run(rc_seqfile)
     with pytest.raises(ValueError):
         seqfile.ResidencyManager(budget_bytes=0)
-    with pytest.raises(NotImplementedError):
-        seqfile.BrickStore(seqfile.ResidencyManager(), spill=object())
+    # The persistent host tier: a second store over the same spill reloads
+    # the brick from disk, as the reference's store does.
+    from repro.core.durable import BrickSpill as RefBrickSpill
+    from repro_torch.core.durable import BrickSpill
+
+    def spill(pkg, make, root, store_kw):
+        key = ("brick", "r", 0, 1, None)
+        pkg.BrickStore(pkg.ResidencyManager(), spill=make(root), **store_kw).put(
+            key, np.full((8, 8), 2.0, np.float32), np.ones((8, 8), np.float32))
+        store = pkg.BrickStore(pkg.ResidencyManager(), spill=make(root), **store_kw)
+        got = (store.contains(key), store.disk_loads, store.meta(key))
+        return got + (float(store.host_arrays(key)[0].sum()),)
+    got = spill(seqfile, BrickSpill, tmp_path / "port", {"device": "cpu"})
+    want = spill(rc_seqfile, RefBrickSpill, tmp_path / "ref", {})
+    assert got[:2] == want[:2] == (True, 1) and got[3] == want[3] == 128.0
+    assert dataclasses.asdict(got[2]) == dataclasses.asdict(want[2])
 
 
 # ----- the fault taxonomy and the materialization tracker ------------------
@@ -543,6 +560,89 @@ def test_materialize_bricks_retries_a_transient_fault(surveys, monkeypatch):
     monkeypatch.setattr(eng, "execute", real)
     rep = eng.materialize_bricks(region=region)
     assert (rep.skipped, rep.completed) == (4, 2)
+
+
+# ----- streamed bricks under the fault domain (DESIGN.md §8) -----------------
+
+def _streaming(pkg, survey, injector=None, **kw):
+    """A streaming brick engine of either package: chunks of one pack, a
+    budget of three (the reference: ``stream_chunk_packs=1``)."""
+    dev = {} if pkg is rc else {"device": "cpu"}
+    probe = pkg.CoaddEngine(survey, pack_capacity=8, **dev)
+    pack = probe.exec_dataset("structured")[0].pack_nbytes()
+    if pkg is rc:
+        kw["stream_chunk_packs"] = 1
+    return pkg.CoaddEngine(survey, pack_capacity=8, device_budget_bytes=3 * pack,
+                           fault_backoff_s=1e-4, fault_injector=injector, **dev, **LATTICE, **kw)
+
+
+def test_partial_brick_propagates_into_mosaic(surveys):
+    got = []
+    for pkg, survey, flt in ((rc, surveys[0], rc_faults), (rt, surveys[1], faults)):
+        probe = _streaming(pkg, survey)
+        plan = probe._brick_plan("r", 1, 0, "sql_structured")
+        gated = np.nonzero(probe._exec_gate(plan).any(axis=1))[0]
+        assert len(gated) > 0
+        bad = int(gated[0])
+        inj = flt.ChaosInjector(flt.FaultSchedule(
+            poison=(flt.PoisonSpec(pack=bad, mode="nan", count=None),)))  # persistent
+        eng = _streaming(pkg, survey, injector=inj, on_fault="quarantine")
+        rep = eng.materialize_bricks(bands=("r",), region=_region(eng.brick_grid, *WINDOW))
+        assert rep.completed == 4 and rep.partial_bricks >= 1
+        r = eng.run(eng.brick_grid.window_query(*WINDOW, "r"), "sql_structured",
+                    use_bricks=True)
+        assert r.stats.bricks_hit == 4
+        assert r.stats.partial
+        assert bad in r.stats.uncovered_packs
+        got.append((r, rep.partial_bricks, dict(inj.injected)))
+    (want, want_partial, want_inj), (r, partial, injected) = got
+    assert (partial, injected) == (want_partial, want_inj)
+    assert r.stats.uncovered_packs == want.stats.uncovered_packs
+    _close(r, want)
+
+
+def test_materialize_survives_kill_and_resume(surveys):
+    # Aim the kill mid-job: brick 1's second window, so brick 0 finishes and
+    # brick 1 leaves a non-empty window journal behind.
+    served = []
+    for pkg, survey, flt in ((rc, surveys[0], rc_faults), (rt, surveys[1], faults)):
+        probe = _streaming(pkg, survey)
+        cells = probe.brick_grid.bricks(_region(probe.brick_grid, *WINDOW))
+        assert len(cells) == 4
+
+        def n_windows(engine, cell):
+            plan = engine._brick_plan("r", cell[0], cell[1], "sql_structured")
+            exec_ds, _ = engine.exec_dataset(plan.layout)
+            gate = engine._exec_gate(plan)
+            return len(engine._stream_windows(exec_ds, gate.any(axis=1)))
+        assert n_windows(probe, cells[1]) >= 2
+        kill_after = n_windows(probe, cells[0]) + 1
+
+        inj = flt.ChaosInjector(flt.FaultSchedule(kill_after_windows=kill_after))
+        eng = _streaming(pkg, survey, injector=inj)
+        with pytest.raises(flt.QueryKilled):
+            eng.materialize_bricks(bands=("r",), region=_region(eng.brick_grid, *WINDOW))
+        done = len(eng.brick_store)
+        assert 0 < done < len(cells)          # finished bricks persisted
+        assert len(eng._journals) == 1        # in-flight brick's journal kept
+
+        # Re-issue: finished bricks skip, the killed one resumes its journal.
+        rep = eng.materialize_bricks(bands=("r",), region=_region(eng.brick_grid, *WINDOW))
+        assert rep.skipped == done
+        assert rep.completed == len(cells) - done
+        assert any(t.resumed_windows > 0 for t in rep.tasks)
+        assert len(eng.brick_store) == len(cells)
+
+        # The resumed store serves bitwise-correct mosaics.
+        wq = eng.brick_grid.window_query(*WINDOW, "r")
+        fresh = _streaming(pkg, survey).run_window(wq, "sql_structured")
+        warm = eng.run(wq, "sql_structured", use_bricks=True)
+        assert warm.stats.bricks_hit == 4
+        _equal(warm, fresh)
+        served.append((warm, done, [t.resumed_windows for t in rep.tasks]))
+    (want, want_done, want_resumed), (warm, done, resumed) = served
+    assert (done, resumed) == (want_done, want_resumed)
+    _close(warm, want)
 
 
 # ----- the CUDA kernel on a card ---------------------------------------------

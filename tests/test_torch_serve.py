@@ -1,11 +1,12 @@
 """The port's serving layer (`repro_torch.core.serve`), held against the JAX
 package's on the same survey and the same queries.
 
-Ports every drill of tests/test_serve.py but the fault-injection one (the
-port has no fault domain yet): coalescing (K concurrent compatible queries
-= ONE `execute_batch`, one pass a pass), admission QoS (cheap before a
-convoy; typed `Overloaded` at the queue and tenant caps), the result cache
-(bitwise, hit counters), brick routing and the telemetry snapshot.  Every
+Ports every drill of tests/test_serve.py: coalescing (K concurrent
+compatible queries = ONE `execute_batch`, one pass a pass), admission QoS
+(cheap before a convoy; typed `Overloaded` at the queue and tenant caps),
+the result cache (bitwise, hit counters), brick routing, a transient fault
+under load (retried inside a streaming engine, counted in
+``ServiceStats.retries``) and the telemetry snapshot.  Every
 response is bitwise the port's own `engine.run` and agrees with the
 reference's `engine.run` at coadd atol 1e-3 / rtol 1e-4, depth exactly; the
 scheduling counters equal the reference service's on the same burst.  Then
@@ -272,6 +273,45 @@ def test_brick_aligned_queries_route_to_mosaic(surveys):
     assert asyncio.run(unaligned()).stats.brick_routed == 0
 
 
+# ----- chaos under load (DESIGN.md §8) --------------------------------------
+
+def test_transient_fault_under_load_clients_unaffected(surveys):
+    """An injected transient upload failure during a concurrent burst is
+    retried inside the streaming engine; every client still gets clean
+    bitwise pixels and the service counts the retry, as the reference's
+    service does on the same windows (chunks of two packs, a budget of
+    five: tests/test_torch_faults.py)."""
+    def streaming(pkg, survey, injector=None):
+        dev = {} if pkg is rc else {"device": "cpu"}
+        probe = pkg.CoaddEngine(survey, pack_capacity=8, **dev)
+        pack = probe.exec_dataset("structured")[0].pack_nbytes()
+        chunk = {"stream_chunk_packs": 2} if pkg is rc else {}
+        return pkg.CoaddEngine(survey, pack_capacity=8, device_budget_bytes=5 * pack,
+                               fault_backoff_s=1e-4, fault_injector=injector, **chunk, **dev)
+
+    runs = []
+    for pkg, survey in ((rc, surveys[0]), (rt, surveys[1])):
+        queries = [cheap_q(pkg, i) for i in range(4)]
+        clean = [streaming(pkg, survey).run(q, "sql_structured") for q in queries]
+        core = rc if pkg is rc else rt.core
+        inj = core.ChaosInjector(core.FaultSchedule(upload_fail_ordinals=(0,)))
+        svc = pkg.CoaddService(streaming(pkg, survey, injector=inj))
+        results = asyncio.run(_queue_then_start(svc, queries))
+        assert inj.injected["upload_fail"] == 1
+        assert svc.stats.retries >= 1
+        assert svc.stats.failed == 0
+        assert svc.stats.completed == len(queries)
+        for r, c in zip(results, clean):
+            np.testing.assert_array_equal(r.coadd, c.coadd)
+            np.testing.assert_array_equal(r.depth, c.depth)
+        runs.append((svc.stats, results))
+    (want_stats, want), (stats, got) = runs
+    assert (stats.retries, stats.dispatches) == (want_stats.retries, want_stats.dispatches)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.depth, np.asarray(w.depth))
+        np.testing.assert_allclose(g.coadd, np.asarray(w.coadd), atol=ATOL, rtol=RTOL)
+
+
 # ----- telemetry, and the reference's scheduling ---------------------------
 
 def test_service_stats_snapshot_shape(engine):
@@ -372,6 +412,8 @@ def test_service_modules_import_neither_jax_nor_the_reference():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "import repro_torch.core.serve, repro_torch.launch.serve\n"
+            "import repro_torch.core.faults, repro_torch.core.jobtracker\n"
+            "import repro_torch.core.durable\n"
             "bad = [m for m in sys.modules if m == 'repro' or m.startswith('repro.')]\n"
             "assert not bad, bad\n"
             "assert 'jaxlib' not in sys.modules\n")

@@ -3,8 +3,10 @@
 Ports the non-distributed tests of ``tests/test_streaming.py`` onto
 ``repro_torch`` (``device="cpu"``, the plain path; ``use_kernel=True`` on
 the CPU runs the kernels' plain versions), each against ``repro`` built with
-``on_fault="raise"`` so that both packages run the bare window loop (the
-port has no fault domain yet):
+``on_fault="raise"`` (the bare window loop), and again against ``repro``
+under its default fault policy (``on_fault="retry"``, every window through
+its `WindowTracker`), the port under its own default, which a clean query
+runs bitwise as the port's bare loop does:
 
 * the window schedule and its compacted gates bitwise the reference's;
 * the `ResidencyManager`'s LRU, cost-aware eviction and peak accounting;
@@ -64,29 +66,40 @@ def _budget(eng, frac=4):
     return max(ds.chunk_nbytes(0, ds.n_packs) // frac, 1)
 
 
-def _budgeted(surveys, frac=4, **kw):
+def _budgeted(surveys, frac=4, on_fault="raise", **kw):
     """(reference, port) streaming engines, each at 1/frac of its own
-    structured layout; the reference without its fault domain."""
+    structured layout; the reference under ``on_fault`` (by default without
+    its fault domain), the port under its default."""
     kw.setdefault("pack_capacity", 8)
     ref_probe = rc.CoaddEngine(surveys[0], pack_capacity=kw["pack_capacity"])
     port_probe = rt.CoaddEngine(surveys[1], pack_capacity=kw["pack_capacity"], device="cpu")
     return (rc.CoaddEngine(surveys[0], device_budget_bytes=_budget(ref_probe, frac),
-                           on_fault="raise", **kw),
+                           on_fault=on_fault, **kw),
             rt.CoaddEngine(surveys[1], device_budget_bytes=_budget(port_probe, frac),
                            device="cpu", **kw))
 
 
 @pytest.fixture(scope="module")
 def streams(surveys):
-    """Cached 4x-oversubscribed engine pairs, by PSF state."""
+    """Cached 4x-oversubscribed engine pairs, by PSF state and the
+    reference's fault policy."""
     cache = {}
 
-    def get(psf=None, measured=None):
-        if (psf, measured) not in cache:
-            cache[psf, measured] = _budgeted(surveys, match_psf_sigma=psf, measured_psf=measured)
-        return cache[psf, measured]
+    def get(psf=None, measured=None, on_fault="raise"):
+        if (psf, measured, on_fault) not in cache:
+            cache[psf, measured, on_fault] = _budgeted(surveys, on_fault=on_fault,
+                                                       match_psf_sigma=psf,
+                                                       measured_psf=measured)
+        return cache[psf, measured, on_fault]
 
     return get
+
+
+def _no_faults(s):
+    """A clean tracked query's fault counters."""
+    assert (s.retries, s.speculative_windows, s.quarantined_packs, s.resumed_windows) == (
+        0, 0, 0, 0)
+    assert not s.partial and s.uncovered_packs == ()
 
 
 def _close(port, want):
@@ -451,6 +464,95 @@ def test_streamed_materialization_matches_the_eager_bricks(surveys):
         (c, d), (ce, de) = eng.brick_store.host_arrays(key), eager.brick_store.host_arrays(key)
         np.testing.assert_array_equal(d, de)
         np.testing.assert_allclose(c, ce, atol=ATOL, rtol=RTOL)
+
+
+# ----- against the reference under its default fault policy ------------------
+
+@pytest.mark.parametrize("method", rt.METHODS)
+def test_streaming_matches_the_tracked_reference(surveys, streams, method):
+    """The cases of ``test_streaming_matches_eager_4x_oversubscribed`` against
+    the reference's default (``on_fault="retry"``): each clean query as the
+    reference's, no fault counted, and bitwise the port's bare loop."""
+    ref_eng, port = streams(on_fault="retry")
+    bare = rt.CoaddEngine(surveys[1], pack_capacity=8, device="cpu", on_fault="raise",
+                          device_budget_bytes=port.device_budget_bytes)
+    for red in REDUCES:
+        want = ref_eng.run(rc.CoaddQuery(**QUERY), method, reduce=red)
+        got = port.run(rt.CoaddQuery(**QUERY), method, reduce=red)
+        _close(got, want)
+        _same_job(got.stats, want.stats)
+        _no_faults(got.stats)
+        _no_faults(want.stats)
+        np.testing.assert_array_equal(got.coadd, bare.run(rt.CoaddQuery(**QUERY), method,
+                                                          reduce=red).coadd)
+        assert got.stats.dispatches == got.stats.windows
+        assert port.residency.bytes_resident <= port.device_budget_bytes
+
+
+@pytest.mark.parametrize("psf", [None, 2.0], ids=["unmatched", "psf"])
+@pytest.mark.parametrize("red", REDUCES)
+def test_streaming_batch_matches_the_tracked_reference(streams, red, psf):
+    ref_eng, port = streams(psf, on_fault="retry")
+    want = ref_eng.run_batch([rc.CoaddQuery(**QUERY), rc.CoaddQuery(**QUERY2)],
+                             "sql_structured", reduce=red)
+    got = port.run_batch([rt.CoaddQuery(**QUERY), rt.CoaddQuery(**QUERY2)],
+                         "sql_structured", reduce=red)
+    for g, w in zip(got, want):
+        _close(g, w)
+        _same_job(g.stats, w.stats)
+        _no_faults(g.stats)
+
+
+@pytest.mark.parametrize("measured", [False, True], ids=["sep", "2d"])
+def test_psf_matched_streaming_matches_the_tracked_reference(streams, measured):
+    ref_eng, port = streams(2.0, measured, on_fault="retry")
+    for method in ("raw_fits", "sql_structured"):
+        for red in REDUCES:
+            want = ref_eng.run(rc.CoaddQuery(**QUERY), method, reduce=red)
+            got = port.run(rt.CoaddQuery(**QUERY), method, reduce=red)
+            _close(got, want)
+            _same_job(got.stats, want.stats)
+            g, w = got.stats, want.stats
+            assert (g.chunk_uploads, g.residency_hits) == (w.chunk_uploads, w.residency_hits)
+            assert (g.matched_cache_builds, g.matched_cache_hits) == (w.matched_cache_builds,
+                                                                       w.matched_cache_hits)
+
+
+def test_dense_kernel_and_eviction_against_the_tracked_reference(surveys):
+    """The dense scan, the kernel path and the eviction sequence against
+    the reference's default, evictions counted as the reference counts."""
+    ref_eng, port = _budgeted(surveys, on_fault="retry", sparse=False)
+    _close(port.run(rt.CoaddQuery(**QUERY), "sql_structured"),
+           ref_eng.run(rc.CoaddQuery(**QUERY), "sql_structured"))
+    ref_eng, port = _budgeted(surveys, on_fault="retry", use_kernel=True)
+    for q, m in [(QUERY, "sql_structured"), (QUERY2, "unstructured_seq"),
+                 (QUERY, "raw_fits_prefiltered"), (QUERY2, "sql_structured")]:
+        want = ref_eng.run(rc.CoaddQuery(**q), m)
+        got = port.run(rt.CoaddQuery(**q), m)
+        _close(got, want)
+        assert got.stats.residency_evictions == want.stats.residency_evictions
+        _no_faults(got.stats)
+
+
+@pytest.mark.parametrize("red", ["mean", "median"])
+def test_budgeted_bricks_against_the_tracked_reference(surveys, red):
+    """The 1-byte-budget brick drill of
+    ``test_budgeted_bricks_spill_and_reserve_bitwise`` with both packages
+    under their default fault policy."""
+    ref_eng = rc.CoaddEngine(surveys[0], pack_capacity=8, device_budget_bytes=1, **LATTICE)
+    eng = rt.CoaddEngine(surveys[1], pack_capacity=8, device="cpu", device_budget_bytes=1,
+                         **LATTICE)
+    region = _region(eng.brick_grid, 1, 3, 0, 2)
+    rep = eng.materialize_bricks(bands=("r",), region=region, reduce=red)
+    assert rep.completed == 4 and rep.partial_bricks == 0
+    wq = eng.brick_grid.window_query(1, 3, 0, 2, "r")
+    fresh = eng.run_window(wq, "sql_structured", red)
+    warm = eng.run(wq, "sql_structured", use_bricks=True, reduce=red)
+    assert warm.stats.bricks_spilled == 4
+    np.testing.assert_array_equal(warm.coadd, fresh.coadd)
+    np.testing.assert_array_equal(warm.depth, fresh.depth)
+    rwq = ref_eng.brick_grid.window_query(1, 3, 0, 2, "r")
+    _close(warm, ref_eng.run(rwq, "sql_structured", use_bricks=True, reduce=red))
 
 
 # ----- the result key and the engine's arguments ------------------------------
