@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--n-runs 8] [--reps 5]
     python3 chip_smoke.py --mosaic-only
+    python3 chip_smoke.py --distributed-only [--n-runs 8]
 
 The second form only times the brick mosaic on random tiles at the brick
 window's shape (`mosaic_only`); a copy of the script at the root of an older
@@ -208,6 +209,31 @@ runs these phases, in order, each printing its seconds:
    killed by its own SIGKILL after the first window's journal commit, then
    once more on that journal: it resumes the finished window and is bitwise
    the uninterrupted run.
+4. distributed ("4 distributed", after the faults): multi-device jobs,
+   ``CoaddEngine.run_distributed``, in two forms, each through
+   ``repro_torch.launch.mesh.run_ranks`` (spawned ranks meeting through a
+   ``file://`` store under ``build/distributed``, the survey pickled there
+   for them): (a) one NCCL rank on the card, mesh (1, 1), the main survey:
+   the main query and the K = 4 batch as one job each, sparse and dense,
+   eager and streamed at a quarter of the structured layout, unmatched,
+   with the 13 x 13 bank and with the 15-tap fallback; (b) eight gloo
+   ranks sharing the card (NCCL puts no two ranks on one device), meshes
+   (4, 2) ``("data", "model")`` and (2, 2, 2) ``("pod", "data", "model")``
+   over the survey cut to 2 of its 8 epochs (``CRASH_CFG``, 720 frames),
+   the K = 4 batch, sparse and dense, eager and streamed at a quarter of a
+   rank's share.  Each job runs twice counted (exactly one
+   ``warp_project`` launch a query a window a rank, plus one
+   ``psf_match_*`` under a bank, and exactly ``windows`` dispatches), once
+   with a sync after the map and after the collectives (each rank's map
+   and collective ms), and once held (each ``warp_batch`` launch bitwise
+   its check form ``warp_project_unculled_f32``, each ``psf_match_*``
+   launch bitwise its plain version).  Every job within 1e-2 of the
+   single-host ``run(q, "sql_structured")`` on the same engine, depth
+   exactly; sparse within 1e-4 of dense, depth exactly; sparse
+   ``packs_scanned`` below dense; unequal per-shard budgets on (b); every
+   rank's results bitwise rank 0's.  Prints job ms cold and warm, upload
+   ms and GB/s, windows, uploads, launches a window a rank and the
+   budgets; ``--distributed-only`` runs just this phase.
 4. zamba2 serving ("4 zamba2 serving", after the coadd main path): the full
    ``zamba2-1.2b`` configuration (38 Mamba-2 layers, d_model 2048, 1.17 B
    parameters from ``LM.init(0)``) through ``LM.prefill`` and 32 decode
@@ -419,6 +445,24 @@ CRASH_CFG = dict(n_runs=2, n_camcols=6, n_bands=5, n_fields=12, height=512, widt
 CRASH_STAGE = "manifest_done:0"
 CRASH_TIMEOUT_S = 300
 H2D_PROBE_BYTES = 1 << 30               # pinned cudaMemcpy H2D yardstick
+# Multi-device coadd jobs (phase "4 distributed", `distributed_phase`):
+# form (a) one NCCL rank on the card, mesh (1, 1), at full width; form (b)
+# eight gloo ranks sharing the card (NCCL puts no two ranks on one device)
+# over the survey cut to 2 of its 8 epochs (CRASH_CFG's 720 frames: eight
+# ranks each holding the full survey and its layout would need ~56 GB of
+# host memory).  Held against the single-host run at the reference's
+# tolerances: 1e-2 (tests/test_distributed.py:38), sparse vs dense 1e-4
+# (:47), depth exactly.  Form (a) streams at STREAM_FRAC of the structured
+# layout (the streaming cell's budget), form (b) at a quarter of each
+# rank's share of it.  A check-form launch holds DIST_HOLD_IMAGES images.
+DIST_ATOL, DIST_SPARSE_ATOL = 1e-2, 1e-4
+DIST_WORLD_B = 8
+DIST_MESHES = {"1x1": ((1, 1), ("data", "model"), ("data",)),
+               "4x2": ((4, 2), ("data", "model"), ("data",)),
+               "2x2x2": ((2, 2, 2), ("pod", "data", "model"), ("pod", "data"))}
+DIST_PSF = {None: None, "2d": None, "sep": False}   # bank -> measured_psf
+DIST_TIMEOUT_S = 480
+DIST_HOLD_IMAGES = 128
 # The brick mosaic's own time: launches captured in one CUDA graph, on one
 # set of operands (16.8 MB, L2-resident) and over 8 copies in turn (134 MB,
 # well over the H100's 50 MB L2, so each launch's operands come from HBM).
@@ -1985,6 +2029,383 @@ def crash_child(out_dir, crash):
     return 0
 
 
+def dist_rank(rank, world, spec):
+    """One rank of phase "4 distributed" (`distributed_phase`), started by
+    `repro_torch.launch.mesh.run_ranks` -> its rows.
+
+    Loads the pickled survey, builds the meshes of ``spec`` over the group
+    (``spec["backend"]``) and, for each engine setting (sparse or dense,
+    eager or streamed, no bank, the 13 x 13 bank or the 15-tap fallback),
+    each query set and mesh, runs ``run_distributed``: twice counted (the
+    ``warp_project`` and ``psf_match_*`` launches: one each a query a
+    window; exactly ``windows`` dispatches), once timed by stage (the map
+    and the collectives, each closed by a sync), once held (each
+    ``warp_batch`` launch bitwise its check form ``warp_project_unculled_f32``
+    and each ``psf_match_*`` launch bitwise its plain version, in slices of
+    `DIST_HOLD_IMAGES`).  Rank 0 also runs the single-host
+    ``run(q, "sql_structured")`` on the same engine and keeps its results
+    to hold sparse against dense.  Every rank returns the digest of each
+    job's results, which must be rank 0's."""
+    import hashlib
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from repro_torch import CoaddEngine, CoaddQuery
+    from repro_torch.core import reducer
+    from repro_torch.core.seqfile import pack_structured
+    from repro_torch.distributed.sharding import shard_count, shard_local_compaction
+    from repro_torch.kernels import build
+    from repro_torch.kernels.warp import ops as warp_ops
+    from repro_torch.kernels.warp import ref
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    with open(spec["survey"], "rb") as fh:
+        survey = pickle.load(fh)
+    meshes = {name: (make_mesh(DIST_MESHES[name][0], DIST_MESHES[name][1], dev.type,
+                               spec["backend"]), DIST_MESHES[name][2]) for name in spec["meshes"]}
+    qsets = {name: [CoaddQuery(**q) for q in qs] for name, qs in spec["queries"].items()}
+    kernels = {"warp_project": warp_ops.warp_batch, "psf_match_2d": warp_ops.psf_match_2d,
+               "psf_match_sep": warp_ops.psf_match_sep}
+    sync = torch.cuda.synchronize
+    held = {"warp_project": [0, 0], "psf_match": [0, 0]}   # launches held, differing words
+
+    def words_differ(a, b):
+        return int((a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)).sum())
+
+    def held_warp(px, wv, acc, gra, gdec):
+        tile, cov = real["warp_project"](px, wv, acc, gra, gdec)
+        q = gra.shape[0]
+        lib = build.library("warp")
+        for a in range(0, px.shape[0], DIST_HOLD_IMAGES):
+            b = min(a + DIST_HOLD_IMAGES, px.shape[0])
+            outs = [torch.empty((b - a, q, q), device=dev) for _ in range(2)]
+            err = lib.warp_project_unculled_f32(
+                *(t.data_ptr() for t in (px[a:b], wv[a:b], acc[a:b], gra, gdec, *outs)),
+                b - a, px.shape[1], px.shape[2], q, dev.index or 0,
+                torch.cuda.current_stream().cuda_stream)
+            require(err == 0, f"warp_project_unculled_f32: CUDA error {err}")
+            held["warp_project"][1] += words_differ(tile[a:b], outs[0]) + words_differ(
+                cov[a:b], outs[1])
+        held["warp_project"][0] += 1
+        return tile, cov
+
+    def held_psf(name):
+        def launch(pixels, pack_idx, bank, skip=None, *, host_idx=None):
+            out = real[name](pixels, pack_idx, bank, skip, host_idx=host_idx)
+            n = pixels.shape[1]
+            for a in range(0, n, DIST_HOLD_IMAGES):
+                b = min(a + DIST_HOLD_IMAGES, n)
+                want = ref.psf_match_ref(pixels[:, a:b].contiguous(), pack_idx,
+                                         bank[:, a:b].contiguous())
+                held["psf_match"][1] += words_differ(out[:, a:b], want)
+            held["psf_match"][0] += 1
+            return out
+        return launch
+
+    def staged_run(eng, qs, mesh, data_axes):
+        """One run with a sync closing the map and the collectives -> their
+        ms.  The stand-ins are gone when it returns (none keeps ``eng``)."""
+        stage = {"map": 0.0, "collective": 0.0}
+
+        def timed(name, fn):
+            def call(*a, **k):
+                sync()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                sync()
+                stage[name] += (time.perf_counter() - t0) * 1e3
+                return out
+            return call
+
+        real_rc, real_gc = reducer.reduce_collective, reducer.gather_collective
+        eng._map_shard_window = timed("map", eng._map_shard_window)
+        reducer.reduce_collective = timed("collective", real_rc)
+        reducer.gather_collective = timed("collective", real_gc)
+        try:
+            eng.run_distributed(qs, mesh, data_axes=data_axes)
+        finally:
+            del eng._map_shard_window
+            reducer.reduce_collective, reducer.gather_collective = real_rc, real_gc
+        return stage
+
+    real = dict(kernels)
+    rows, keep, pending = [], {}, []
+    # One packed (and page-locked) structured layout for every engine.
+    layout = pack_structured(survey, 64)
+    pin_s = layout.pin() if dev.type == "cuda" else 0.0
+    for cfg in spec["configs"]:
+        kw = dict(pack_capacity=64, device=dev, sparse=cfg["sparse"])
+        if cfg["bank"]:
+            kw.update(match_psf_sigma=PSF_TARGET, measured_psf=DIST_PSF[cfg["bank"]])
+        if cfg["stream"]:
+            kw["device_budget_bytes"] = layout.chunk_nbytes(0, layout.n_packs) // cfg["stream"]
+        eng = CoaddEngine(survey, **kw)
+        eng._datasets["structured"] = layout
+        exec_ds = eng.exec_dataset("structured")[0]
+        for mname, (mesh, data_axes) in meshes.items():
+            axes = tuple(data_axes) + ("model",)
+            up_ms = up_bytes = None
+            if not cfg["stream"]:
+                eng.psf_kernel_bank("structured")   # the host bank solve: not the upload
+                sync()
+                t0 = time.perf_counter()
+                mds = eng.mesh_dataset("structured", mesh, axes)
+                sync()
+                up_ms = (time.perf_counter() - t0) * 1e3
+                up_bytes = sum(t.numel() * t.element_size() for t in (
+                    mds.pixels, mds.wcs, *mds.ints.values(), *mds.floats.values(),
+                    *(() if mds.psf_kernels is None else (mds.psf_kernels,))))
+                del mds
+            for qname, qs in qsets.items():
+                job = dict(cfg, mesh=mname, queries=qname, rank=rank, upload_ms=up_ms,
+                           upload_bytes=up_bytes)
+                times, uploads = [], []
+                for rep in range(2):
+                    before = {k: f.launches for k, f in kernels.items()}
+                    d0 = eng.dispatch_count
+                    sync()
+                    t0 = time.perf_counter()
+                    res = eng.run_distributed(qs, mesh, data_axes=data_axes)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    got = {k: f.launches - before[k] for k, f in kernels.items()}
+                    st = res[0].stats
+                    uploads.append(st.chunk_uploads)
+                    win = st.windows
+                    want = {"warp_project": win * len(qs), "psf_match_2d": 0, "psf_match_sep": 0}
+                    if cfg["bank"]:
+                        want["psf_match_" + cfg["bank"]] = win * len(qs)
+                    require(got == want, f"distributed {job}: launches {got}, expected {want}")
+                    require(st.dispatches == win == eng.dispatch_count - d0
+                            and all(r.stats.dispatches == 0 for r in res[1:]),
+                            f"distributed {job}: {st.dispatches} dispatches, {win} windows")
+                    for k in got:
+                        job.setdefault("launches", {}).setdefault(k, 0)
+                        job["launches"][k] += got[k]
+                digest = hashlib.sha256()
+                for r in res:
+                    digest.update(r.coadd.tobytes() + r.depth.tobytes())
+                job.update(cold_ms=times[0], warm_ms=times[1], windows=st.windows,
+                           packs_scanned=st.packs_scanned, scan_budget=st.scan_budget,
+                           packs_touched=[r.stats.packs_touched for r in res],
+                           chunk_uploads=uploads, residency_hits=st.residency_hits,
+                           peak_resident_bytes=st.peak_resident_bytes,
+                           launches_per_window=len(qs) * (2 if cfg["bank"] else 1),
+                           digest=digest.hexdigest(), t_locate_ms=st.t_locate_s * 1e3,
+                           pass_ms=st.t_map_reduce_s * 1e3)
+                # The stages, each closed by a sync (a breakdown run; the
+                # counted runs above have none).
+                stage = staged_run(eng, qs, mesh, data_axes)
+                job.update(map_ms=stage["map"], collective_ms=stage["collective"])
+                # The held run: every launch against its check form or plain
+                # version.  A wrapper counts its launch on the function its
+                # module binds to its name, so each stand-in carries a count.
+                warp_ops.warp_batch = held_warp
+                warp_ops.psf_match_2d = held_psf("psf_match_2d")
+                warp_ops.psf_match_sep = held_psf("psf_match_sep")
+                for f in (warp_ops.warp_batch, warp_ops.psf_match_2d, warp_ops.psf_match_sep):
+                    f.launches = 0
+                h0 = {k: list(v) for k, v in held.items()}
+                try:
+                    res_h = eng.run_distributed(qs, mesh, data_axes=data_axes)
+                finally:
+                    warp_ops.warp_batch = real["warp_project"]
+                    warp_ops.psf_match_2d = real["psf_match_2d"]
+                    warp_ops.psf_match_sep = real["psf_match_sep"]
+                job["held"] = {k: [held[k][0] - h0[k][0], held[k][1] - h0[k][1]] for k in held}
+                require(all(v[1] == 0 for v in job["held"].values()),
+                        f"distributed {job}: launches differ from their check forms "
+                        f"{job['held']}")
+                require(all(np.array_equal(a.coadd.view(np.int32), b.coadd.view(np.int32))
+                            and np.array_equal(a.depth, b.depth) for a, b in zip(res, res_h)),
+                        f"distributed {job}: the held run differs from the counted run")
+                if rank == 0:
+                    pending.append((job, mesh, axes, qs, res))
+                rows.append(job)
+                del res, res_h
+        # Rank 0 against the single-host run, after the config's jobs: the
+        # layout it uploads is not resident beside a dense map's tiles.
+        for job, mesh, axes, qs, res in pending:
+            n_sh = shard_count(mesh, axes)
+            gates = np.stack([exec_ds.flat_slot_mask(eng.sql.select(q),
+                                                     pad_to=exec_ds.flat_len(n_sh))
+                              for q in qs])
+            job["budgets"] = [int(b) for b in
+                              shard_local_compaction(gates.any(axis=0), n_sh)[3]]
+            dc, dd, cov = [], [], []
+            for q, r in zip(qs, res):
+                single = eng.run(q, "sql_structured")
+                dc.append(float(np.abs(r.coadd - single.coadd).max()))
+                dd.append(int((r.depth != single.depth).sum()))
+                cov.append(int(single.depth.max() > 0))
+            job.update(max_abs_vs_single=dc, depth_differs=dd, covered=cov,
+                       finite=bool(all(np.isfinite(r.coadd).all() for r in res)))
+            keep[(cfg["stream"], cfg["bank"], job["mesh"], job["queries"], cfg["sparse"])] = [
+                (r.coadd, r.depth) for r in res]
+        pending.clear()
+        del eng
+        torch.cuda.empty_cache()
+    sparse_dense = []
+    for key, got in keep.items():
+        if key[-1] and key[:-1] + (False,) in keep:
+            want = keep[key[:-1] + (False,)]
+            sparse_dense.append(dict(
+                stream=key[0], bank=key[1], mesh=key[2], queries=key[3],
+                max_abs=max(float(np.abs(g[0] - w[0]).max()) for g, w in zip(got, want)),
+                depth_differs=sum(int((g[1] != w[1]).sum()) for g, w in zip(got, want))))
+    return dict(rows=rows, sparse_dense=sparse_dense, pin_s=pin_s)
+
+
+def distributed_phase(torch, np, survey, query, bqueries, procs):
+    """Phase "4 distributed": ``run_distributed`` in form (a), one NCCL rank
+    at full width, and form (b), eight gloo ranks sharing the card over the
+    cut survey (`dist_rank` on each, through ``run_ranks``) -> the rows.
+
+    Holds every job within `DIST_ATOL` of the single-host run with depth
+    exactly, sparse within `DIST_SPARSE_ATOL` of dense with depth exactly,
+    every rank's results bitwise rank 0's, sparse ``packs_scanned`` below
+    dense, unequal per-shard budgets on form (b)'s band-gated jobs."""
+    import concurrent.futures
+    import pickle
+    import shutil
+
+    from repro_torch import SurveyConfig, make_survey
+    from repro_torch.launch.mesh import DEFAULT_BACKEND
+
+    root = os.path.join(ROOT, "build", "distributed")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.empty_cache()
+
+    def qdict(q):
+        return dict(band=q.band, ra_bounds=tuple(q.ra_bounds), dec_bounds=tuple(q.dec_bounds),
+                    npix=q.npix)
+
+    queries = {"main": [qdict(query)], "k4": [qdict(q) for q in bqueries]}
+
+    def pickled(form, sv=None):
+        """The form's survey pickled for its ranks -> (path, frames, s)."""
+        t0 = time.perf_counter()
+        if sv is None:
+            sv = make_survey(SurveyConfig(**CRASH_CFG), processes=procs)
+        path = os.path.join(root, f"survey_{form}.pkl")
+        with open(path, "wb") as fh:
+            pickle.dump(sv, fh, protocol=pickle.HIGHEST_PROTOCOL)
+        return path, len(sv), time.perf_counter() - t0
+
+    forms = {}
+    dev_type = torch.device(DEVICE).type
+    # Form (b)'s cut survey renders (in its own process pool) while form
+    # (a)'s rank runs.
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        prepared = {"a": pool.submit(pickled, "a", survey), "b": pool.submit(pickled, "b")}
+        for form, world, backend in (("a", 1, DEFAULT_BACKEND[dev_type]),
+                                     ("b", DIST_WORLD_B, "gloo")):
+            forms[form] = distributed_form(form, world, backend, *prepared[form].result(),
+                                           queries, root)
+    shutil.rmtree(root, ignore_errors=True)
+    return forms
+
+
+def distributed_form(form, world, backend, path, n_frames, prep_s, queries, root):
+    """One form of phase "4 distributed" (`distributed_phase`): its ranks
+    through ``run_ranks``, their rows held and printed -> the form's row."""
+    from repro_torch.launch.mesh import run_ranks
+
+    # Form (a): every bank, streamed at STREAM_FRAC of the layout; form
+    # (b): unmatched, streamed at a quarter of each rank's share.
+    banks = tuple(DIST_PSF) if form == "a" else (None,)
+    frac = STREAM_FRAC * world
+    configs = [dict(sparse=sp, stream=st, bank=bk) for bk in banks for st in (None, frac)
+               for sp in (True, False)]
+    spec = dict(survey=path, device=DEVICE, backend=backend, configs=configs,
+                meshes=["1x1"] if form == "a" else ["4x2", "2x2x2"],
+                queries=queries if form == "a" else {"k4": queries["k4"]})
+    store = os.path.join(root, f"store_{form}")
+    os.makedirs(store)
+    # A dense map's tiles and coverage are 2 x 15 GB a query at full
+    # width; the ranks' allocators grow segments in place rather than
+    # leave the card fragmented between jobs.
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        out = run_ranks(dist_rank, world, store, backend, args=(spec,),
+                        timeout_s=DIST_TIMEOUT_S)
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    wall_s = time.perf_counter() - t0
+    rows0 = out[0]["rows"]
+    for r, o in enumerate(out[1:], 1):
+        for a, b in zip(rows0, o["rows"]):
+            require(a["digest"] == b["digest"],
+                    f"distributed ({form}) rank {r}: results differ from rank 0's "
+                    f"({a['mesh']}, {a['queries']}, sparse={a['sparse']}, "
+                    f"stream={a['stream']}, bank={a['bank']})")
+    for job in rows0:
+        what = (f"({form}) {job['mesh']} {job['queries']} "
+                f"{'sparse' if job['sparse'] else 'dense'} "
+                f"{'streamed' if job['stream'] else 'eager'} bank={job['bank']}")
+        require(job["finite"] and all(job["covered"]), f"distributed {what}: empty or NaN")
+        require(max(job["max_abs_vs_single"]) < DIST_ATOL,
+                f"distributed {what}: coadd {job['max_abs_vs_single']} from single-host")
+        require(not any(job["depth_differs"]),
+                f"distributed {what}: depth differs from single-host at "
+                f"{job['depth_differs']} pixels")
+        ranks = " ".join(f"r{r}:{o['rows'][rows0.index(job)]['map_ms']:.1f}/"
+                         f"{o['rows'][rows0.index(job)]['collective_ms']:.1f}"
+                         for r, o in enumerate(out))
+        up = ("" if job["upload_ms"] is None else
+              f" upload {job['upload_ms']:.1f} ms for {job['upload_bytes']} B a rank "
+              f"({job['upload_bytes'] / job['upload_ms'] / 1e6:.2f} GB/s)")
+        print(f"  distributed {what}: job ms cold {job['cold_ms']:.1f} warm "
+              f"{job['warm_ms']:.1f} (pass {job['pass_ms']:.1f}, locate "
+              f"{job['t_locate_ms']:.1f}); windows {job['windows']}, "
+              f"uploads cold/warm {job['chunk_uploads']}, packs_scanned {job['packs_scanned']}, "
+              f"scan_budget {job['scan_budget']}, budgets {job['budgets']}, "
+              f"launches/window/rank {job['launches_per_window']}; map/collective ms "
+              f"by rank {ranks};{up} max|d single| {max(job['max_abs_vs_single']):.3g}; "
+              f"held {job['held']}", flush=True)
+    for sd in out[0]["sparse_dense"]:
+        require(sd["max_abs"] < DIST_SPARSE_ATOL and sd["depth_differs"] == 0,
+                f"distributed ({form}) sparse vs dense {sd}")
+    for job in rows0:
+        if job["sparse"]:
+            dense = [j for j in rows0 if not j["sparse"] and all(
+                j[k] == job[k] for k in ("stream", "bank", "mesh", "queries"))]
+            require(dense and job["packs_scanned"] < dense[0]["packs_scanned"],
+                    f"distributed ({form}): sparse packs_scanned {job['packs_scanned']} "
+                    f"not below dense")
+            if form == "b":
+                require(min(job["budgets"]) < max(job["budgets"]),
+                        f"distributed (b): budgets {job['budgets']} all equal")
+    launches = {}
+    for o in out:
+        for job in o["rows"]:
+            for k, v in job["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    row = dict(world=world, backend=backend, frames=n_frames, prep_s=prep_s, wall_s=wall_s,
+               launches=launches, sparse_dense=out[0]["sparse_dense"],
+               rows=[{k: v for k, v in j.items() if k != "digest"} for j in rows0],
+               ranks=[[dict(map_ms=j["map_ms"], collective_ms=j["collective_ms"])
+                       for j in o["rows"]] for o in out])
+    print(f"  distributed ({form}): {world} rank(s), {backend}, {n_frames} frames, "
+          f"survey pickled in {prep_s:.1f} s, ranks ran {wall_s:.1f} s (layout pinned in "
+          f"{max(o['pin_s'] for o in out):.2f} s); launches {launches}; "
+          f"every rank bitwise rank 0; sparse vs dense {out[0]['sparse_dense']}", flush=True)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-runs", type=int, default=8,
@@ -1992,6 +2413,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=5, help="warm repeats per timing")
     ap.add_argument("--mosaic-only", action="store_true",
                     help="only time the brick mosaic on random tiles and exit (mosaic_only)")
+    ap.add_argument("--distributed-only", action="store_true",
+                    help="only run phase 4 distributed on the main survey and exit")
     ap.add_argument("--crash-child", metavar="DIR",
                     help="the SIGKILL drill's subprocess (crash_child); not for direct use")
     ap.add_argument("--crash", metavar="STAGE:N", help="with --crash-child: SIGKILL there")
@@ -2010,6 +2433,19 @@ def main(argv=None) -> int:
     if args.mosaic_only:
         print(card_line())
         mosaic_only(torch, np, torch.device(DEVICE))
+        return 0
+    if args.distributed_only:
+        from repro_torch import CoaddQuery, SurveyConfig, make_survey
+        from repro_torch.kernels import build
+
+        print(card_line())
+        build.build_all()
+        survey = make_survey(SurveyConfig(**dict(CRASH_CFG, n_runs=args.n_runs)),
+                             processes=os.cpu_count() or 1)
+        with phase("4 distributed"):
+            print(json.dumps({"distributed": distributed_phase(
+                torch, np, survey, CoaddQuery(**MAIN_QUERY),
+                offset_queries(CoaddQuery, MAIN_QUERY, BATCH_OFFSETS), os.cpu_count() or 1)}))
         return 0
 
     import torch.nn.functional as F
@@ -3717,6 +4153,15 @@ def main(argv=None) -> int:
         stream_engines.clear()
         print(json.dumps({"faults": faults}))
 
+    # ---------------------------------------------------- 4 distributed --
+    # Multi-device coadd jobs: form (a), one NCCL rank at full width, and
+    # form (b), eight gloo ranks sharing the card; each rank maps through
+    # warp_project (and psf_match_* under a bank), every launch held.
+    with phase("4 distributed"):
+        print(f"  card: {card_line()}")
+        distributed = distributed_phase(torch, np, survey, query, bqueries, procs)
+        print(json.dumps({"distributed": distributed}))
+
     # ---------------------------------------------- 4 zamba2 serving path --
     with phase("4 zamba2 serving"):
         lm_runs, lm_launches = zamba2_serving(torch, np, dev, counted)
@@ -3820,6 +4265,8 @@ def main(argv=None) -> int:
             ptxas=ptxas_summary(logs.get("warp", ""), "warp_project_kernel"),
             edge_flips=case_flips["warp_project"] + flips,
             shape=f"one pack: N={px.shape[0]} frames of {h}x{w}, Q={q}",
+            distributed_launches={f: distributed[f]["launches"]["warp_project"]
+                                  for f in distributed},
         ))
         # The robust kernels on the sql_structured pass, with its own fixed
         # operands: held against their plain versions, then timed.
@@ -3905,6 +4352,7 @@ def main(argv=None) -> int:
                 library="F.conv2d depthwise on an F.pad replicate batch, TF32 off",
                 library_max_abs_diff=lib_diff, kernel_ms=k_ms,
                 shape=f"sql_structured pass: {n_img} frames of {h}x{w}, bank {taps}",
+                distributed_launches={f: distributed[f]["launches"][name] for f in distributed},
             )
             if name == "psf_match_2d":
                 # No product may fuse with its sum (-fmad=false): an FMUL and

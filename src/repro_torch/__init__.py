@@ -18,6 +18,7 @@ from repro_torch.core import (
     DetectionCatalog,
     JobStats,
     MaterializeReport,
+    MeshResidentDataset,
     Overloaded,
     ServiceStats,
     SpatialIndex,
@@ -29,6 +30,7 @@ from repro_torch.core import (
     make_survey,
     match_detections,
 )
+from repro_torch.launch.mesh import make_mesh, run_ranks
 
 __all__ = [
     "BANDS",
@@ -43,6 +45,7 @@ __all__ = [
     "JobStats",
     "METHODS",
     "MaterializeReport",
+    "MeshResidentDataset",
     "Overloaded",
     "ServiceStats",
     "SpatialIndex",
@@ -51,6 +54,8 @@ __all__ = [
     "detect_sources",
     "difference_image",
     "inject_transients",
+    "make_mesh",
     "make_survey",
     "match_detections",
+    "run_ranks",
 ]

@@ -10,7 +10,8 @@ Public API of this slice:
   BrickStore, and the fault domain (DESIGN.md §8): ChaosInjector,
   FaultSchedule, PoisonSpec, WindowTracker, JobTracker, FailureInjector,
   FaultCounters, MapTask, BrickTask, BrickMeta, BrickSpill, DiskJournal,
-  JournalStore, the fault classes and classify.
+  JournalStore, the fault classes and classify; multi-device jobs
+  (`CoaddEngine.run_distributed`, DESIGN.md §4): MeshResidentDataset.
 """
 
 from repro_torch.core.bricks import BrickCover, BrickGrid
@@ -47,7 +48,7 @@ from repro_torch.core.jobtracker import (
 from repro_torch.core.plan import CoaddPlan, ScanWindow, window_schedule
 from repro_torch.core.prefilter import SpatialIndex
 from repro_torch.core.query import BANDS, CoaddQuery
-from repro_torch.core.seqfile import BrickMeta, BrickStore, ResidencyManager
+from repro_torch.core.seqfile import BrickMeta, BrickStore, MeshResidentDataset, ResidencyManager
 from repro_torch.core.serve import CoaddService, Overloaded, ServiceStats
 from repro_torch.core.survey import Survey, SurveyConfig, make_survey
 
@@ -79,6 +80,7 @@ __all__ = [
     "METHODS",
     "MapTask",
     "MaterializeReport",
+    "MeshResidentDataset",
     "Overloaded",
     "PoisonSpec",
     "PoisonedChunkError",

@@ -79,6 +79,16 @@ windows; with ``journal_dir`` the journals and the brick store's host tier
 persist on disk (`durable`).  ``on_fault="raise"`` is the bare window loop.
 The tracker changes scheduling, never arithmetic: a clean tracked query is
 bitwise the bare loop's, with the same single host sync.
+
+Multi-device jobs (the paper's production path, DESIGN.md §4):
+``run_distributed(queries, mesh)`` runs SPMD on every rank of a
+``torch.distributed`` `DeviceMesh`.  The structured layout is sharded over
+every mesh axis once (each rank uploads its own slab), each rank maps the
+gated entries of its slab through `mapper.map_batch` (``warp_project``,
+after ``psf_match`` under a bank), and the partials are summed over the data
+axes and reduce-scattered by output rows over the model axis
+(`reducer.reduce_collective`), then gathered, so every rank returns the
+full results; under a budget the flat axis streams in shard-aligned windows.
 """
 
 from __future__ import annotations
@@ -133,6 +143,7 @@ from repro_torch.core.seqfile import (
     BrickMeta,
     BrickStore,
     DevicePackedDataset,
+    MeshResidentDataset,
     PackedDataset,
     ResidencyManager,
     SlotRemap,
@@ -141,6 +152,12 @@ from repro_torch.core.seqfile import (
     pack_unstructured,
 )
 from repro_torch.core.survey import Survey
+from repro_torch.distributed.sharding import (
+    mesh_shape,
+    shard_count,
+    shard_index,
+    shard_local_compaction,
+)
 from repro_torch.kernels.warp import ops as warp_ops
 from repro_torch.kernels.warp import ref as warp_ref
 
@@ -306,6 +323,43 @@ def _sync(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
         h.copy_(t, non_blocking=True)
     torch.cuda.current_stream(tensors[0].device).synchronize()
     return [h.numpy() for h in host]
+
+
+def _mesh_key(mesh) -> Tuple:
+    """A mesh's cache identity: device type, dimension names and the rank
+    at every coordinate (two `DeviceMesh` objects of one layout share it)."""
+    return (mesh.device_type, tuple(mesh.mesh_dim_names), tuple(mesh.mesh.shape),
+            tuple(mesh.mesh.flatten().tolist()))
+
+
+def _ranks_agree(digest: bytes, device) -> None:
+    """Every rank of the default group holds the same job ``digest``, or
+    every rank raises.  A job's windows, budgets and collectives follow
+    from host data; ranks that planned different jobs would otherwise wait
+    in collectives that never match."""
+    import torch.distributed as dist
+
+    mine = torch.from_numpy(np.frombuffer(digest, np.int64).copy()).to(device)
+    every = torch.empty(dist.get_world_size() * mine.numel(), dtype=mine.dtype, device=device)
+    dist.all_gather_into_tensor(every, mine)
+    every = every.cpu().reshape(-1, mine.numel())
+    differ = [r for r in range(every.shape[0]) if not torch.equal(every[r], every[0])]
+    if differ:
+        raise RuntimeError(f"run_distributed: ranks {differ} planned another job than rank 0 "
+                           "(queries, gates, windows or budgets differ)")
+
+
+@dataclasses.dataclass
+class _ShardWindow:
+    """One flat window of a distributed job, as this rank maps it: the slab
+    entries it maps (None: the whole slab, the dense fallback), its
+    per-query gates over them, and the window's scanned entries and budget
+    over all shards (for `JobStats`)."""
+
+    idx: Optional[np.ndarray]
+    gates: np.ndarray
+    scanned: int
+    budget: int
 
 
 def _query_scan(dev: DevicePackedDataset, idx: torch.Tensor, accept: torch.Tensor,
@@ -573,12 +627,15 @@ class CoaddEngine:
         self._datasets: Dict[str, PackedDataset] = {}
         self._exec_cache: Dict[str, Tuple[PackedDataset, Optional[SlotRemap]]] = {}
         self._device_cache: Dict[str, DevicePackedDataset] = {}
+        self._mesh_cache: Dict[Tuple, MeshResidentDataset] = {}
         self._psf_banks: Dict[Tuple, np.ndarray] = {}
         self._psf_device: Dict[Tuple, torch.Tensor] = {}
         self._matched_cache: Dict[Tuple, DevicePackedDataset] = {}
         self._pack_capacity = pack_capacity
         self.pack_upload_count = 0   # host->device uploads of whole layouts or
                                      #   streamed chunks
+        self.mesh_upload_count = 0   # this rank's slab uploads of sharded layouts
+                                     #   or streamed mesh windows
         self.dispatch_count = 0      # executed passes over the gated packs (a
                                      #   streamed pass counts each window), plus
                                      #   each psf_match pre-pass; a batch counts
@@ -637,6 +694,28 @@ class CoaddEngine:
             self._device_cache[layout] = exec_ds.to_device(self.device)
             self.pack_upload_count += 1
         return self._device_cache[layout]
+
+    def mesh_dataset(self, layout: str, mesh, shard_axes: Tuple[str, ...]) -> MeshResidentDataset:
+        """This rank's slab of a layout sharded over ``mesh``; uploaded once
+        per (layout, mesh, shard axes, PSF state), then cached.
+
+        A cache hit means a distributed job moves zero pixel bytes: its only
+        host->device traffic is slot gates, query vectors and output grids.
+        The key carries the PSF state because the slab holds its kernel
+        bank, and the mesh by its rank layout and dimension names
+        (`_mesh_key`), not by the object.
+        """
+        key = (layout, _mesh_key(mesh), tuple(shard_axes), self._psf_state())
+        if key not in self._mesh_cache:
+            # Retune hygiene: one sharded copy per (layout, mesh, axes);
+            # drop the old PSF target's rather than holding every one.
+            for k in [k for k in self._mesh_cache if k[:3] == key[:3]]:
+                del self._mesh_cache[k]
+            exec_ds, _ = self.exec_dataset(layout)
+            self._mesh_cache[key] = exec_ds.to_mesh(
+                mesh, tuple(shard_axes), self.device, psf_kernels=self.psf_kernel_bank(layout))
+            self.mesh_upload_count += 1
+        return self._mesh_cache[key]
 
     @property
     def resident_bytes(self) -> int:
@@ -1324,8 +1403,11 @@ class CoaddEngine:
         """The residency manager's eviction seam: the current stream waits
         on an evicted chunk's upload, so the memory it frees is reused only
         after its copy, even where no scan of it waited."""
-        if isinstance(entry.payload, _Chunk) and entry.payload.dev.ready is not None:
-            torch.cuda.current_stream(self.device).wait_event(entry.payload.dev.ready)
+        payload = entry.payload
+        ready = (payload.dev.ready if isinstance(payload, _Chunk)
+                 else payload.ready if isinstance(payload, MeshResidentDataset) else None)
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
 
     def _upload_fault(self, key) -> None:
         """The residency manager's upload seam (every miss, right where the
@@ -1868,3 +1950,232 @@ class CoaddEngine:
                 batch_scan="" if np.array_equal(own, union) else digest,
             )))
         return results
+
+    # ----- distributed (production) path -----
+    def run_distributed(self, queries: Sequence[CoaddQuery], mesh,
+                        data_axes: Tuple[str, ...] = ("data",),
+                        model_axis: Optional[str] = "model") -> List[CoaddResult]:
+        """Multi-query MapReduce over a device mesh (a `DeviceMesh` with
+        ``mesh_dim_names``; `repro_torch.launch.mesh.make_mesh`).
+
+        SPMD: every rank of the mesh calls this with the same queries.  The
+        structured layout is sharded over every mesh axis, each rank holding
+        its own slab (`mesh_dataset`, cached: repeat jobs move no pixels);
+        each job ships per-query flat slot gates (the exact spatial-index
+        selection, the paper's best method); every rank maps the *gated*
+        entries of its slab (per-shard local compaction, each shard within
+        its own budget; the dense fallback maps the whole slab) through
+        `mapper.map_batch`, one map a query a window (with ``use_kernel`` a
+        ``warp_project`` launch, after a ``psf_match`` launch under a bank),
+        summed in slab order (`reducer.reduce_ordered`); the window partials
+        sum on the device, and `reducer.reduce_collective` reduces them once
+        a job: all-reduce over the data axes, then a reduce-scatter of output
+        rows over the model axis, which `reducer.gather_collective` gathers
+        back.
+        Every rank returns the full results, bitwise the others'.
+
+        Under ``device_budget_bytes`` the flat axis streams through
+        shard-aligned windows through the residency manager, two per-shard
+        slabs to the budget (the next one's upload is queued before this
+        window's map), with one host sync a job.  Before its first
+        collective a job checks that every rank planned the same windows,
+        gates and budgets (`_ranks_agree`).
+        """
+        queries = list(queries)
+        if not queries:
+            return []
+        npix = queries[0].npix
+        if any(q.npix != npix for q in queries):
+            raise ValueError("all queries in one job must share npix")
+        shape = mesh_shape(mesh)
+        model_size = shape[model_axis] if model_axis else 1
+        if npix % max(model_size, 1):
+            raise ValueError(f"npix={npix} must divide by model axis {model_size}")
+
+        # Images are sharded over *every* mesh axis (map work on all ranks);
+        # the reduction sums over the data axes and reduce-scatters over the
+        # model axis.
+        shard_axes = tuple(data_axes) + ((model_axis,) if model_axis else ())
+        ds = self.dataset("structured")
+        t0 = time.perf_counter()
+        id_sets = [self.sql.select(q) for q in queries]
+        nonempty = [i for i in id_sets if len(i)]
+        all_ids = (np.unique(np.concatenate(nonempty)) if nonempty
+                   else np.array([], np.int64))
+        t_locate = time.perf_counter() - t0
+        if len(all_ids) == 0:
+            # Nothing overlaps any query (on every rank alike: the same
+            # queries over the same index): zero coadds, no map, no
+            # collective.
+            return [CoaddResult(np.zeros((npix, npix), np.float32),
+                                np.zeros((npix, npix), np.float32),
+                                JobStats(method="distributed_sql_structured",
+                                         files_considered=0, files_contributing=0,
+                                         packs_touched=0, t_locate_s=t_locate,
+                                         t_map_reduce_s=0.0, t_total_s=t_locate,
+                                         dispatches=0))
+                    for _ in queries]
+
+        n_shards = shard_count(mesh, shard_axes)
+        shard = shard_index(mesh, shard_axes)
+        exec_ds, _ = self.exec_dataset("structured")
+        pad_to = exec_ds.flat_len(n_shards)
+        t0 = time.perf_counter()
+        gates = np.stack([ds.flat_slot_mask(ids, pad_to=pad_to) for ids in id_sets])
+        t_locate += time.perf_counter() - t0
+        grids = np.stack([np.stack(mapper.query_grid_sky(q)) for q in queries])
+        qvecs = np.stack([_query_vec(q) for q in queries])  # (nq, 7)
+        nq = len(queries)
+
+        # Flat-axis residency windows (DESIGN.md §6): with no budget the
+        # whole archive shards once ([0, M) through `mesh_dataset`); under a
+        # per-device budget the flat axis streams in shard-aligned windows
+        # sized so two per-shard slabs fit the budget.  A slab holds no
+        # finite flag (the map stage reads none), so an image is charged
+        # its pixels, WCS, metadata and kernel, as the reference charges it.
+        img_bytes = max(
+            (exec_ds.pack_nbytes() - exec_ds.capacity + self._bank_pack_nbytes("structured"))
+            // max(exec_ds.capacity, 1),
+            1,
+        )
+        if self.device_budget_bytes is None:
+            flat_windows = [(0, pad_to)]
+        else:
+            per_shard = max(1, int(self.device_budget_bytes // (2 * img_bytes)))
+            win_flat = min(pad_to, per_shard * n_shards)
+            flat_windows = [(a, min(a + win_flat, pad_to)) for a in range(0, pad_to, win_flat)]
+            if self.sparse:
+                union = gates.any(axis=0)
+                flat_windows = [(a, b) for a, b in flat_windows
+                                if union[a:b].any()] or flat_windows[:1]
+
+        # Each window's per-shard local compaction (DESIGN.md §5), planned
+        # on the host before anything runs: every rank maps the slab entries
+        # some query selected, within its OWN budget rounded up to whole
+        # tiles (the reference's tile loop, `tile` a power-of-two divisor of
+        # the shared budget, at least a budget / 8); padding entries are
+        # gate-False copies of local slot 0.
+        plan: List[_ShardWindow] = []
+        shards_touched = np.zeros((nq,), np.int64)
+        digest = hashlib.sha256(repr((shard_axes, n_shards, npix, flat_windows)).encode())
+        digest.update(np.packbits(gates).tobytes())
+        digest.update(qvecs.tobytes())
+        for a, b in flat_windows:
+            local_len = (b - a) // n_shards
+            per_shard_gates = gates[:, a:b].reshape(nq, n_shards, local_len)
+            win = _ShardWindow(None, per_shard_gates[:, shard], n_shards * local_len, local_len)
+            if self.sparse:
+                local_idx, pad_mask, budget, budgets = shard_local_compaction(
+                    gates[:, a:b].any(axis=0), n_shards)
+                if budget < local_len:
+                    tile = max(int(budgets.min()), budget // 8)
+                    n_map = -(-int(budgets[shard]) // tile) * tile
+                    exec_gates = (np.take_along_axis(per_shard_gates, local_idx[None], axis=2)
+                                  & pad_mask[None])
+                    win = _ShardWindow(local_idx[shard, :n_map], exec_gates[:, shard, :n_map],
+                                       int(((budgets + tile - 1) // tile * tile).sum()), budget)
+                    digest.update(budgets.tobytes() + np.int64(tile).tobytes())
+            plan.append(win)
+            # Locality stats from the flat gate the mesh executes: pack
+            # identity is lost in the flattened layout, so "containers
+            # opened" counts (window, shard) slabs touched.
+            shards_touched += per_shard_gates.any(axis=2).sum(axis=1)
+        _ranks_agree(digest.digest(), self.device)
+
+        mkey = _mesh_key(mesh)
+
+        def mesh_window(a: int, b: int) -> MeshResidentDataset:
+            if self.device_budget_bytes is None:
+                return self.mesh_dataset("structured", mesh, shard_axes)
+            key = ("mesh", "structured", mkey, shard_axes, a, b, self._psf_state())
+
+            def build():
+                if self.device.type == "cuda" and self._copy_stream is None:
+                    self._copy_stream = torch.cuda.Stream(self.device)
+                self.mesh_upload_count += 1
+                return exec_ds.to_mesh_window(
+                    mesh, shard_axes, a, b, self.device,
+                    psf_kernels=self.psf_kernel_bank("structured"), stream=self._copy_stream)
+
+            # Budget accounting is per device: each rank holds 1/n_shards of
+            # the window.
+            return self.residency.acquire(key, (b - a) // n_shards * img_bytes, build)
+
+        up0, hit0, ev0 = self.residency.uploads, self.residency.hits, self.residency.evictions
+        # Eager residency uploads outside the timed window, as `execute`
+        # leaves `device_dataset` untimed; streamed windows upload inside it.
+        if self.device_budget_bytes is None:
+            mds = mesh_window(*flat_windows[0])
+        t1 = time.perf_counter()
+        if self.device_budget_bytes is not None:
+            mds = mesh_window(*flat_windows[0])
+        grids_t = _upload(grids, self.device)
+        qvecs_t = _upload(qvecs, self.device)
+        acc = None
+        for i, win in enumerate(plan):
+            nxt = (mesh_window(*flat_windows[i + 1])
+                   if self.device_budget_bytes is not None and i + 1 < len(plan) else None)
+            if mds.ready is not None:
+                torch.cuda.current_stream(self.device).wait_event(mds.ready)
+            part = self._map_shard_window(mds, win, qvecs_t, grids_t)
+            acc = part if acc is None else tuple(x.add_(y) for x, y in zip(acc, part))
+            del part
+            self.dispatch_count += 1
+            if nxt is not None:
+                mds = nxt
+        del mds
+        coadds, depths = reducer.gather_collective(
+            *reducer.reduce_collective(*acc, mesh, data_axes, model_axis), mesh, model_axis)
+        coadds, depths = _sync([coadds, depths])
+        t2 = time.perf_counter()
+
+        results = []
+        for qi in range(nq):
+            first = qi == 0
+            results.append(CoaddResult(coadds[qi], depths[qi], JobStats(
+                method="distributed_sql_structured",
+                files_considered=len(all_ids),
+                files_contributing=len(id_sets[qi]),
+                packs_touched=int(shards_touched[qi]),
+                t_locate_s=t_locate,
+                t_map_reduce_s=t2 - t1,
+                t_total_s=t_locate + (t2 - t1),
+                # One windowed job serves the whole multi-query batch; its
+                # dispatches and scan work go to the first result.
+                dispatches=len(plan) if first else 0,
+                packs_gated=int(shards_touched[qi]),
+                packs_scanned=sum(w.scanned for w in plan) if first else 0,
+                scan_budget=max(w.budget for w in plan),
+                windows=len(plan),
+                chunk_uploads=(self.residency.uploads - up0) if first else 0,
+                residency_hits=(self.residency.hits - hit0) if first else 0,
+                residency_evictions=(self.residency.evictions - ev0) if first else 0,
+                peak_resident_bytes=self._peak_resident_bytes(),
+            )))
+        return results
+
+    def _map_shard_window(self, mds: MeshResidentDataset, win: _ShardWindow, qvecs: torch.Tensor,
+                          grids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's map of one window: its gated slab entries (``win.idx``;
+        the whole slab when None), one `mapper.map_batch` a query (PSF-matched
+        first under the slab's bank), summed in slab order
+        (`reducer.reduce_ordered`: the rejected entries a dense map adds
+        change no bit, so sparse and dense agree exactly) -> the (nq, npix,
+        npix) partial coadds and depths."""
+        px, wv, ints, floats, kern = mds.pixels, mds.wcs, mds.ints, mds.floats, mds.psf_kernels
+        if win.idx is not None:
+            idx = _upload(win.idx.astype(np.int64), self.device)
+            px, wv = px[idx], wv[idx]
+            ints = {k: v[idx] for k, v in ints.items()}
+            floats = {k: v[idx] for k, v in floats.items()}
+            kern = None if kern is None else kern[idx]
+        accept = _accept_from_meta(ints, floats, qvecs) & _upload(win.gates, self.device)
+        coadds, depths = [], []
+        for q in range(qvecs.shape[0]):
+            tiles, covs = mapper.map_batch(px, wv, accept[q], grids[q, 0], grids[q, 1],
+                                           use_kernel=self.use_kernel, psf_kernels=kern)
+            c, d = reducer.reduce_ordered(tiles, covs)
+            del tiles, covs
+            coadds.append(c)
+            depths.append(d)
+        return torch.stack(coadds), torch.stack(depths)

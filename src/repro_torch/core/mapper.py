@@ -186,7 +186,7 @@ def map_batch(
         if psf_kernels is not None:
             pixels = warp_ops.psf_match(
                 pixels[None], torch.zeros(1, dtype=torch.int32, device=pixels.device),
-                psf_kernels[None],
+                psf_kernels[None], host_idx=np.zeros(1, np.int32),
             )[0]
         return warp_ops.warp_batch(
             pixels, wcs_vecs, accept.to(torch.float32), grid_ra, grid_dec

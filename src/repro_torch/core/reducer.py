@@ -16,7 +16,7 @@ two packages agree bit for bit where the sums run in the same order.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,6 +35,23 @@ _CLIP_ABS = 1e-12
 def reduce_local(tiles: torch.Tensor, covs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Serial (per-device) accumulation over the image axis."""
     return tiles.sum(dim=0), covs.sum(dim=0)
+
+
+def reduce_ordered(tiles: torch.Tensor, covs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`reduce_local` in one fixed order: image 0, then + image 1, + image 2...
+
+    A rejected image adds exact zeros, which leave every partial sum of
+    this order unchanged, so the sum does not depend on how many rejected
+    images the map covered: a distributed job's sparse map (a shard's gated
+    entries) gives the bits of its dense one (the whole slab).  A
+    non-finite pixel of a rejected image still spreads its NaN * 0, as in
+    `reduce_local`.
+    """
+    coadd, depth = tiles[0].clone(), covs[0].clone()
+    for t, c in zip(tiles[1:], covs[1:]):
+        coadd.add_(t)
+        depth.add_(c)
+    return coadd, depth
 
 
 def normalize(coadd: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
@@ -175,3 +192,63 @@ def mosaic_tiles(tiles: torch.Tensor, covs: torch.Tensor, offsets: torch.Tensor,
         coadd[r:r + bh, c:c + bw] += tiles[b]
         depth[r:r + bh, c:c + bw] += covs[b]
     return coadd, depth
+
+
+# ----- collective reduction over a device mesh (DESIGN.md §4) ---------------
+
+def reduce_collective(local_coadd: torch.Tensor, local_depth: torch.Tensor, mesh,
+                      axis_name=("data",), scatter_axis_name: Optional[str] = "model"):
+    """Cross-rank reduction of per-rank partial coadds over a `DeviceMesh`.
+
+    Counterpart of the reference's ``reduce_collective`` under
+    ``shard_map``; every rank of ``mesh`` calls it with partials of one
+    shape, (..., npix, npix) (the engine's (nq, npix, npix) stack).  First
+    an ``all_reduce`` SUM over each data axis's group in turn, as the
+    reference psums one axis at a time; then, with a model axis, a
+    reduce-scatter of the output ROWS over the model group, so model shard
+    i owns rows [i * npix / m, (i + 1) * npix / m) of every image in the
+    stack (the reference vmaps its reduction over queries: each query gets
+    its own band).  Coadd and depth travel in one buffer.  -> (coadd, depth)
+    fully reduced, or this rank's (..., npix / m, npix) bands of them
+    (`gather_collective` rebuilds the full arrays).
+    """
+    import torch.distributed as dist
+
+    axes = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+    buf = torch.stack([local_coadd, local_depth])
+    for ax in axes:
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.get_group(ax))
+    if scatter_axis_name is None:
+        return buf[0], buf[1]
+    group = mesh.get_group(scatter_axis_name)
+    m = dist.get_world_size(group)
+    npix = buf.shape[-2]
+    if npix % m:
+        raise ValueError(f"npix={npix} must divide by the model axis {m}")
+    # reduce_scatter_tensor splits dim 0: move the rows there first (dim 0
+    # of the stack is coadd/depth, dim 1 the query).
+    rows = buf.movedim(-2, 0).contiguous()
+    band = torch.empty((npix // m,) + tuple(rows.shape[1:]), dtype=rows.dtype,
+                       device=rows.device)
+    dist.reduce_scatter_tensor(band, rows, op=dist.ReduceOp.SUM, group=group)
+    band = band.movedim(0, -2)
+    return band[0], band[1]
+
+
+def gather_collective(coadd_band: torch.Tensor, depth_band: torch.Tensor, mesh,
+                      scatter_axis_name: Optional[str] = "model"):
+    """Every rank's full (..., npix, npix) arrays from the model shards' row
+    bands (`reduce_collective`): an all-gather over the model group, rows
+    in shard order.  Without a model axis the arrays are already whole."""
+    import torch.distributed as dist
+
+    if scatter_axis_name is None:
+        return coadd_band, depth_band
+    group = mesh.get_group(scatter_axis_name)
+    m = dist.get_world_size(group)
+    rows = torch.stack([coadd_band, depth_band]).movedim(-2, 0).contiguous()
+    full = torch.empty((rows.shape[0] * m,) + tuple(rows.shape[1:]), dtype=rows.dtype,
+                       device=rows.device)
+    dist.all_gather_into_tensor(full, rows, group=group)
+    full = full.movedim(0, -2)
+    return full[0], full[1]

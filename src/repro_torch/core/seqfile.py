@@ -88,6 +88,32 @@ class DevicePackedDataset:
         return sum(t.numel() * t.element_size() for t in tensors)
 
 
+@dataclasses.dataclass
+class MeshResidentDataset:
+    """One rank's slab of a layout sharded over a device mesh, reused
+    across jobs (`PackedDataset.to_mesh` / `to_mesh_window`).
+
+    The distributed sibling of `DevicePackedDataset`: containers are
+    flattened to image-major (M, ...) arrays (M padded to a multiple of the
+    shard count), and rank s holds the contiguous slab ``[start, start + L)``
+    of the window, L = ``n_flat`` / shards, on its own device.  The engine
+    caches one per (layout, mesh, shard axes, PSF state), so a job's host
+    traffic is slot gates, query vectors and output grids.
+    """
+
+    pixels: torch.Tensor            # (L, H, W) float32
+    wcs: torch.Tensor               # (L, 8)
+    ints: Dict[str, torch.Tensor]   # (L,) int32 each; padded slots have
+                                    #   image_id -1 (rejected by acceptance)
+    floats: Dict[str, torch.Tensor] # (L,) float32 each
+    psf_kernels: Optional[torch.Tensor]  # (L, K) or (L, Kh, Kw) float32, or None
+    n_flat: int                     # flat length of the whole window, all shards
+    start: int                      # the slab's first entry on the padded flat axis
+    # The upload's event on a CUDA device (as `DevicePackedDataset.ready`):
+    # a reader's stream waits on it before its first use.
+    ready: Optional[Any] = None
+
+
 #: Largest |pixel| of a slot the pack scans may skip when it is rejected:
 #: a rejected sample adds vm * 0 (and vm*vm/m * 0), exactly +-0 only while
 #: vm and vm*vm are finite (csrc/warp.cu).  The bilinear vm is at most
@@ -808,6 +834,118 @@ class PackedDataset:
             p, s = self.index[int(i)]
             mask[p, s] = True
         return mask
+
+    def flat_slot_mask(self, image_ids, pad_to: Optional[int] = None) -> np.ndarray:
+        """(M,) bool gate over the flattened (pack*cap) slot axis.
+
+        The mesh-resident analogue of `slot_mask`: selection stays host-side
+        and metadata-only, and this mask (not pixels) is the only per-job
+        payload `run_distributed` ships to the mesh.
+        """
+        m = self.n_packs * self.capacity
+        mask = np.zeros((pad_to or m,), bool)
+        for i in image_ids:
+            p, s = self.index[int(i)]
+            mask[p * self.capacity + s] = True
+        return mask
+
+    def flat_len(self, n_shards: int) -> int:
+        """Padded image-major flat length M for an ``n_shards``-way split."""
+        m = self.n_packs * self.capacity
+        return int(np.ceil(m / n_shards) * n_shards)
+
+    def to_mesh(self, mesh, shard_axes: Tuple[str, ...], device,
+                psf_kernels: Optional[np.ndarray] = None, stream=None) -> MeshResidentDataset:
+        """This rank's slab of the whole layout sharded onto ``mesh`` over
+        ``shard_axes`` (DESIGN.md §4): `to_mesh_window` over the padded flat
+        axis [0, `flat_len`)."""
+        from repro_torch.distributed.sharding import shard_count
+
+        pad_to = self.flat_len(shard_count(mesh, shard_axes))
+        return self.to_mesh_window(mesh, shard_axes, 0, pad_to, device, psf_kernels, stream)
+
+    def to_mesh_window(self, mesh, shard_axes: Tuple[str, ...], start: int, stop: int, device,
+                       psf_kernels: Optional[np.ndarray] = None,
+                       stream=None) -> MeshResidentDataset:
+        """This rank's slab of the flat-axis window [start, stop) sharded
+        onto ``mesh`` (DESIGN.md §6), uploaded to ``device``.
+
+        The window indexes the *padded* image-major flat axis (`flat_len`);
+        its bounds must be multiples of the shard count so every rank holds
+        an equal slab (`distributed.sharding.image_axis_slab`).  Entries
+        past the layout are padding: image_id -1 (the other int columns -1
+        too), zero pixels, WCS, floats and kernels, which the acceptance
+        test rejects.  ``psf_kernels`` is the layout's (P, cap, ...) bank.
+
+        The upload works as `to_device_chunk`'s: on a CUDA device the
+        tensors are allocated on the current stream, and copies issued on
+        ``stream`` (the current one when None) after an event recorded
+        right after the allocation fill them, the pixels straight from the
+        layout's page-locked array (`pin`), the small columns through
+        pinned staging copies; ``ready`` is the event a reader's stream
+        waits on.  Each rank copies only its own slab.  On the CPU the
+        slab's pixels view the host array.
+        """
+        from repro_torch.distributed.sharding import image_axis_slab, shard_count
+
+        m = self.n_packs * self.capacity
+        n_shards = shard_count(mesh, shard_axes)
+        if (stop - start) % n_shards or start % n_shards:
+            raise ValueError(
+                f"window [{start}, {stop}) must align to {n_shards} shards"
+            )
+        lo, hi = image_axis_slab(mesh, shard_axes, stop - start)
+        a, b = start + lo, start + hi
+        real = max(min(b, m) - a, 0)          # slab entries inside the layout
+
+        def flat(arr: np.ndarray, fill) -> np.ndarray:
+            arr = arr.reshape((m,) + arr.shape[2:])
+            if real == b - a:
+                return arr[a:b]
+            pad = np.full((b - a - real,) + arr.shape[1:], fill, arr.dtype)
+            return np.concatenate([arr[a:a + real], pad])
+
+        small = [flat(self.wcs, 0), *(flat(v, -1) for v in self.ints.values()),
+                 *(flat(v, 0) for v in self.floats.values())]
+        if psf_kernels is not None:
+            small.append(flat(psf_kernels, 0))
+        device = torch.device(device)
+        ready = None
+        pix_shape = (b - a,) + self.pixels.shape[2:]
+        flat_px = self.pixels.reshape((m,) + self.pixels.shape[2:])
+        if device.type != "cuda":
+            pixels = torch.from_numpy(flat(self.pixels, 0)).to(device)
+            tensors = [torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in small]
+        else:
+            self.pin()
+            compute = torch.cuda.current_stream(device)
+            side = compute if stream is None else stream
+            srcs = [torch.from_numpy(np.ascontiguousarray(x)).pin_memory() for x in small]
+            pixels = torch.empty(pix_shape, dtype=torch.float32, device=device)
+            tensors = [torch.empty_like(x, device=device) for x in srcs]
+            allocated = torch.cuda.Event()
+            allocated.record(compute)
+            side.wait_event(allocated)
+            with torch.cuda.stream(side):
+                if real:
+                    pixels[:real].copy_(torch.from_numpy(flat_px[a:a + real]), non_blocking=True)
+                if real < b - a:
+                    pixels[real:].zero_()
+                for t, src in zip(tensors, srcs):
+                    t.copy_(src, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(side)
+        n_int, n_float = len(self.ints), len(self.floats)
+        return MeshResidentDataset(
+            pixels=pixels,
+            wcs=tensors[0],
+            ints=dict(zip(self.ints, tensors[1:1 + n_int])),
+            floats=dict(zip(self.floats, tensors[1 + n_int:1 + n_int + n_float])),
+            psf_kernels=None if psf_kernels is None else tensors[-1],
+            n_flat=stop - start,
+            start=a,
+            ready=ready,
+        )
 
     def reblock(self, capacity: int) -> Tuple["PackedDataset", "SlotRemap"]:
         """Re-pack into dense super-packs of ``capacity`` slots.
