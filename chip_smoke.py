@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--n-runs 8] [--reps 5]
     python3 chip_smoke.py --mosaic-only
     python3 chip_smoke.py --distributed-only [--n-runs 8]
+    python3 chip_smoke.py --lm-only [--reps 5]
 
 The second form only times the brick mosaic on random tiles at the brick
 window's shape (`mosaic_only`); a copy of the script at the root of an older
@@ -256,6 +257,30 @@ runs these phases, in order, each printing its seconds:
    does): relative L2 error at most 1.5 times and max error at most 2
    times the comparator's, each plus one bf16 ulp.  Prints prefill ms,
    ms a decode step, tokens/s and ``max_memory_allocated`` for every run.
+4. lm families ("4 lm families", after the Zamba2 phase): every other LM
+   family at full width and depth (`LM_FAMILIES`: mamba2-130m, qwen2-1.5b,
+   gemma-2b, granite-moe-3b-a800m, whisper-large-v3 with 1500 encoder
+   frames, llama-3.2-vision-11b with 1600 image embeddings; each
+   configuration's parameters freed before the next is drawn), one request
+   of 4 prompts of 2048 tokens, a counted prefill and 32 decode steps in
+   four runs on the same ``LM.init(0)`` weights: bf16 with the kernels
+   (greedy), bf16 with the kernels swapped for their plain versions,
+   float32 with the kernels and float32 on the plain path, fed the first
+   run's tokens.  Each counted prefill launches exactly the table's
+   ``flash_attention`` and ``ssd_log`` kernels (28 / 18 / 32 / 64 / 40
+   flash, 24 SSD), decoding none.  The prefill logits, every prefill cache
+   leaf and the decode logits are held: float32 kernel vs plain within
+   1e-4 of each value's scale; bf16 by the ratio rule against the swapped
+   run, from the float32 kernel run; each kernel call of a bf16 prefill
+   held against its plain version.  The MoE router's choices of the bf16
+   kernel run are replayed into the other runs, whose own choices are
+   counted as routing flips with their margins (bf16 ulps of the router
+   logit); per call (each MoE layer's input also routed with its
+   attention from ``flash_ref``) a flip beyond 1 ulp fails the run.
+   Prints prefill ms, ms a decode step, tokens/s and the
+   ``max_memory_allocated`` rise of every run beside the card's name and
+   power limit; ``--lm-only`` runs phases "3 lm kernels" and "4 lm
+   families" and the families' kernel timings, and exits.
 5. measure: each kernel's time on the card (CUDA events, warm), its plain
    version's, the nearest PyTorch call's (``F.grid_sample`` bilinear over
    the same samples, plus a sum for the coadd; it covers only the
@@ -285,6 +310,12 @@ runs these phases, in order, each printing its seconds:
    and float32 softmax operations (flash), float32 operations at 67 TFLOP/s
    (SSD) or bytes; flash's library call is ``F.scaled_dot_product_attention``
    (``is_causal=True``), and no single PyTorch call computes the SSD scan.
+   Both are also timed at the other families' prefill shapes
+   (``FAMILY_FLASH``, ``FAMILY_SSD``): through the wrapper, launched alone
+   (the C entry point on preallocated outputs), plain, and for flash
+   ``F.scaled_dot_product_attention`` (``enable_gqa`` where the heads are
+   grouped), each with its bound and launches a prefill (the kernels
+   line's ``family_shapes``).
    The kernels redesigned for the card (``flash_fwd_bf16_kernel``,
    ``psf_match_2d_kernel``, ``psf_match_sep_kernel``,
    ``warp_project_kernel``) also print their registers and spills (ptxas
@@ -325,6 +356,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import re
 import statistics
@@ -508,7 +540,22 @@ FLASH_CASES = (
     ("bf16_s129", 2, 4, 2, 129, 64, True, None, "bfloat16", False),
     ("bf16_noncausal_s1000_d128", 1, 8, 4, 1000, 128, False, None, "bfloat16", False),
     ("bf16_noncausal_s129_d256", 2, 4, 2, 129, 256, False, None, "bfloat16", True),
+    # The other families' prefills (phase "4 lm families"), in the model's layout:
+    # gemma-2b (float32: its embed_scale promotes the residual stream), qwen2-1.5b,
+    # granite-moe-3b-a800m, whisper-large-v3's encoder, llama-3.2-vision-11b.
+    ("gemma_mqa8_1_d256_f32", 4, 8, 1, 2048, 256, True, None, "float32", True),
+    ("qwen2_gqa12_2_d128", 4, 12, 2, 2048, 128, True, None, "bfloat16", True),
+    ("granite_gqa24_8_d64", 4, 24, 8, 2048, 64, True, None, "bfloat16", True),
+    ("whisper_encoder_s1500", 4, 20, 20, 1500, 64, False, None, "bfloat16", True),
+    ("llama_vision_gqa32_8_d128", 4, 32, 8, 2048, 128, True, None, "bfloat16", True),
 )
+#: The FLASH_CASES and SSD_CASES that phase 5 times: (case, the configuration
+#: whose prefill gives the shape).
+FAMILY_FLASH = {"gemma_mqa8_1_d256_f32": "gemma-2b", "qwen2_gqa12_2_d128": "qwen2-1.5b",
+                "granite_gqa24_8_d64": "granite-moe-3b-a800m",
+                "whisper_encoder_s1500": "whisper-large-v3",
+                "llama_vision_gqa32_8_d128": "llama-3.2-vision-11b"}
+FAMILY_SSD = {"mamba2_130m_prefill": "mamba2-130m"}
 SSD_CASES = (
     ("zamba2_prefill", 4, 2048, 64, 64, 64, "bfloat16", "strided"),
     ("zamba2_ragged", 1, 1000, 64, 64, 64, "bfloat16", "strided"),
@@ -529,6 +576,10 @@ SSD_CASES = (
     ("b4_h64_f32", 4, 2048, 64, 64, 64, "float32", "log"),
     ("h24_group16", 4, 2112, 24, 64, 64, "float32", "log"),
     ("h20_group16_n128", 4, 2112, 20, 128, 64, "bfloat16", "strided"),
+    # mamba2-130m's prefill (24 heads, N 128, chunk 256; head groups of 8 at
+    # this size), and its heads under groups of 16 (a last group of 8) at N 128.
+    ("mamba2_130m_prefill", 4, 2048, 24, 128, 256, "bfloat16", "strided"),
+    ("h24_group16_n128", 4, 2112, 24, 128, 64, "bfloat16", "strided"),
 )
 # The Zamba2 serving path: the full configuration, random weights from
 # LM.init(LM_SEED), two request batches of (prompts, tokens), greedy decode
@@ -551,6 +602,41 @@ LM_ARCH, LM_SEED, LM_DECODE = "zamba2-1.2b", 0, 32
 LM_BATCHES = ((4, 2048), (1, 1000))
 F32_REL = 1e-4
 BF16_L2, BF16_MAX, BF16_ULP = 1.5, 2.0, 2.0 ** -8
+# The other LM families (phase "4 lm families"): each configuration at full
+# width and depth, random weights from LM.init(LM_SEED) on the card, one
+# FAMILY_BATCH request (whisper's encoder frames and llama-vision's image
+# embeddings drawn from a generator seeded with LM_SEED), a counted prefill
+# and LM_DECODE decode steps, in four runs on the same weights: bf16 with
+# the kernels (greedy), bf16 with the kernels swapped for their plain
+# versions, float32 with the kernels (the bf16 runs' yardstick) and float32
+# on the plain path, the last three fed the first's tokens.  The float32
+# kernel run within F32_REL of the plain run's scale; bf16 by the ratio
+# rule against the swapped run; a bf16 prefill's kernel calls each held
+# against its plain version.  Exact (flash_attention, ssd_log) launches a
+# prefill, none a decode step:
+LM_FAMILIES = {"mamba2-130m": (0, 24), "qwen2-1.5b": (28, 0), "gemma-2b": (18, 0),
+               "granite-moe-3b-a800m": (32, 0), "whisper-large-v3": (64, 0),
+               "llama-3.2-vision-11b": (40, 0)}
+FAMILY_BATCH = (4, 2048)
+# MoE routing.  A run whose activations differ by a rounding can choose
+# another expert where two router logits (bf16 in a bf16 run) are within
+# that rounding of each other, and a token with another expert set moves by
+# a whole expert's output: no tolerance on values covers that.  So the bf16
+# kernel run's expert choices are recorded and replayed into the three
+# other runs, and each run's own choices are counted as routing flips with
+# their margins: the least gap, in that run's router logits, between an
+# expert it chose that the kernel run did not and one the kernel run chose
+# that it did not, in bf16 ulps of the larger logit (0: a tie).  These are
+# reported, as the coadd's decision flips are.  In the bf16 prefill whose
+# kernel calls are held, each MoE layer's input is also routed as it would
+# be with the layer's attention computed by flash_ref on the same operands.
+# Each such flip must be one the two sets of logits imply (the pair it
+# swaps ordered one way by one set and the other way by the other, ties
+# by the lower index): anything else is a fault of the top-k or its tie
+# rule.  Its margin is reported with the count beyond FLIP_ULPS: on the
+# H100, one flash call's rounding moves a router logit by up to 5 ulps.
+FLIP_ULPS = 1.0
+PATH_NAMES = {True: "kernel", False: "plain", "swapped": "swapped"}
 
 
 class SmokeFailure(Exception):
@@ -890,6 +976,85 @@ def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, ssd_heads_per_block
     return worst
 
 
+def family_shapes(torch, F, dev, reps):
+    """The flash and SSD kernels at the other families' prefill shapes
+    (FAMILY_FLASH, FAMILY_SSD): through the wrapper, launched alone (the C
+    entry point on preallocated outputs, no checks), the plain version,
+    flash's F.scaled_dot_product_attention, the bound, the max |diff| from
+    the plain version and the launches a prefill.  -> (flash rows, ssd rows)."""
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.attention.ref import flash_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cases = {c[0]: c for c in FLASH_CASES}
+    flash_out = []
+    for name, arch in FAMILY_FLASH.items():
+        _, b, hq, hkv, s, d, causal, window, dtype, _ = cases[name]
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt).transpose(1, 2)
+                   for h in (hq, hkv, hkv))
+        scale = 1.0 / math.sqrt(d)
+        out = flash_ops.flash_attention(q, k, v, causal, window)
+        err = float((out.float() - flash_ref(q, k, v, causal, window).float()).abs().max())
+        k_ms = cuda_ms(torch, lambda: flash_ops.flash_attention(q, k, v, causal, window), reps)
+        a_ms = cuda_ms(torch, lambda: flash_ops._launch(q, k, v, out, causal, window, scale,
+                                                        q.device.index, stream), reps)
+        p_ms = cuda_ms(torch, lambda: flash_ref(q, k, v, causal, window), 2)
+        l_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=hq != hkv), reps)
+        esize = out.element_size()
+        if dt == torch.bfloat16:
+            b_ms, b_by = flash_bound(b, hq, hkv, s, d, causal, window, esize, BF16_TC_OPS_PER_S)
+        else:   # float32: products and softmax on the CUDA cores
+            pairs = b * hq * attention_pairs(s, causal, window)
+            b_ms, b_by = bound((2 * hq + 2 * hkv) * b * s * d * esize, (4 * d + 5) * pairs)
+        flash_out.append(dict(name=name, arch=arch, ms=k_ms, alone_ms=a_ms, plain_ms=p_ms,
+                              library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                              launches_per_prefill=LM_FAMILIES[arch][0],
+                              shape=f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} "
+                                    f"{dtype}, strided (B,S,H,D)"))
+        del q, k, v, out
+    cases = {c[0]: c for c in SSD_CASES}
+    ssd_out = []
+    for name, arch in FAMILY_SSD.items():
+        _, b, t, h, n, chunk, dtype, _ = cases[name]
+        dt = getattr(torch, dtype)
+        log_a = -torch.rand((b, t, h), generator=g, device=dev) ** 4 * 50.0
+        xbc = torch.randn((b, t, h * SSD_P + 2 * n), generator=g, device=dev).to(dt)
+        ops_in = (log_a, xbc[..., h * SSD_P:h * SSD_P + n], xbc[..., h * SSD_P + n:],
+                  xbc[..., :h * SSD_P].reshape(b, t, h, SSD_P))
+        y, st = ssd_ops.ssd_log(*ops_in, chunk)
+        y_p, st_p = ssd_chunked_ref(*ops_in, chunk)
+        err = max(float((y - y_p).abs().max()), float((st - st_p).abs().max()))
+        tile = min(chunk, ssd_ops.MAX_TILE)
+        nc = -(-t // tile)
+        group = ssd_ops.heads_per_block(b, nc, h,
+                                        torch.cuda.get_device_properties(dev).multi_processor_count)
+        scratch = (torch.empty((b, nc, h, n, SSD_P), device=dev),
+                   torch.empty((b, nc, h, ssd_ops.MAX_TILE), device=dev))
+        k_ms = cuda_ms(torch, lambda: ssd_ops.ssd_log(*ops_in, chunk), reps)
+        a_ms = cuda_ms(torch, lambda: ssd_ops._launch(*ops_in, y, scratch[0], scratch[1], st,
+                                                      tile, group), reps)
+        p_ms = cuda_ms(torch, lambda: ssd_chunked_ref(*ops_in, chunk), 2)
+        b_ms, b_by = ssd_bound(b, t, h, n, SSD_P, chunk, 2 if dt == torch.bfloat16 else 4)
+        ssd_out.append(dict(name=name, arch=arch, ms=k_ms, alone_ms=a_ms, plain_ms=p_ms,
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                            launches_per_prefill=LM_FAMILIES[arch][1], group=group,
+                            shape=f"B={b} T={t} H={h} N={n} P={SSD_P} chunk {chunk}, {dtype} "
+                                  "strided B, C, x"))
+        del log_a, xbc, ops_in, y, st, y_p, st_p, scratch
+    for row in flash_out + ssd_out:
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.3f}"
+        print(f"  {row['name']} ({row['arch']}, {row['shape']}): {row['ms']:.3f} ms "
+              f"(alone {row['alone_ms']:.3f}, plain {row['plain_ms']:.3f}, library {lib}, "
+              f"bound {row['bound_ms']:.4f} by {row['bound_by']}; max |diff| "
+              f"{row['max_abs_err']:.3g}; {row['launches_per_prefill']} a prefill)", flush=True)
+    return flash_out, ssd_out
+
+
 def tree_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -910,21 +1075,26 @@ def l2_rel(got, want):
     return float((got.double() - want).norm() / want.norm().clamp_min(1e-300))
 
 
-def lm_run(torch, model, params, tokens, max_len, fed, counted, want_prefill):
-    """One serving run: a counted prefill, then LM_DECODE counted decode steps.
+def lm_run(torch, model, params, batch, max_len, fed, counted, want_prefill,
+           decoded_cache=True):
+    """One serving run of ``batch`` ({"tokens": (B, S), ...}): a counted
+    prefill, then LM_DECODE counted decode steps.
 
     The steps are greedy when ``fed`` is empty (the tokens are appended to
     it), else they take the tokens of ``fed``.  Returns the prefill logits,
-    a copy of the prefill's cache, the decode logits, the final cache, the
-    timings and the prefill's launch counts.
+    a copy of the prefill's cache, the decode logits, the final cache
+    (unless ``decoded_cache`` is false), the timings and the peak memory
+    and its rise over the memory allocated before the run, and the
+    prefill's launch counts.
     """
-    b, s = tokens.shape
+    b, s = batch["tokens"].shape
     for fn in counted.values():
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_len)
+    logits, cache = model.prefill(params, batch, max_len)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
     prefill_launches = {k: fn.launches for k, fn in counted.items()}
@@ -950,14 +1120,17 @@ def lm_run(torch, model, params, tokens, max_len, fed, counted, want_prefill):
     require(not any(got.values()), f"decode launched kernels: {got}")
     out = {"prefill logits": logits,
            **{f"prefill cache {p}": x for p, x in prefill_cache.items()},
-           "decode logits": torch.stack(dec),
-           **{f"decoded cache {p}": x for p, x in tree_leaves(cache)}}
+           "decode logits": torch.stack(dec)}
+    if decoded_cache:
+        out.update({f"decoded cache {p}": x for p, x in tree_leaves(cache)})
+    del cache
     for what, x in out.items():
         require(bool(torch.isfinite(x.float()).all()), f"{what}: non-finite values")
+    peak = torch.cuda.max_memory_allocated()
     return out, dict(prefill_ms=prefill_ms, prefill_tokens_per_s=b * s / prefill_ms * 1e3,
                      decode_ms_per_token=decode_ms / LM_DECODE,
                      decode_tokens_per_s=b * LM_DECODE / decode_ms * 1e3,
-                     max_memory_allocated=torch.cuda.max_memory_allocated()), prefill_launches
+                     max_memory_allocated=peak, memory_rise=peak - base_mem), prefill_launches
 
 
 @contextlib.contextmanager
@@ -1063,14 +1236,15 @@ def zamba2_serving(torch, np, dev, counted):
         res, stats = {}, {}
         for key in (("bfloat16", True), ("bfloat16", False), ("float32", True),
                     ("float32", False)):
-            res[key], stats[key], got = lm_run(torch, models[key], params, tokens,
+            res[key], stats[key], got = lm_run(torch, models[key], params, {"tokens": tokens},
                                                s + LM_DECODE, fed, counted,
                                                want if key[1] else none)
             for k in counted:
                 launches[k] += got[k]
         with kernels_swapped_for_plain():
             res["bfloat16", "swapped"], _, _ = lm_run(torch, models["bfloat16", True], params,
-                                                      tokens, s + LM_DECODE, fed, counted, none)
+                                                      {"tokens": tokens}, s + LM_DECODE, fed,
+                                                      counted, none)
         # Each kernel call of a bf16 kernel-path prefill against its plain
         # version on the same operands (uncounted: launches made to compare).
         held = dict.fromkeys(("flash_attention_single", "ssd_chunked"), (0, 0.0, 0.0))
@@ -1128,6 +1302,313 @@ def zamba2_serving(torch, np, dev, counted):
     del params, models
     torch.cuda.empty_cache()
     return runs, launches
+
+
+def bf16_ulps(torch, gap, scale):
+    """``gap`` in bf16 ulps of ``scale`` (2**(e - 8) for |scale| in [2**(e-1), 2**e))."""
+    return gap / torch.ldexp(torch.ones_like(scale), torch.frexp(scale.abs()).exponent - 8)
+
+
+def routing_flips(torch, logits, own, forced, forced_logits=None):
+    """The margins (`FLIP_ULPS`'s unit) of the tokens whose top-k set under
+    ``logits`` (chosen: ``own``) is not ``forced``'s; an empty tensor if none.
+
+    With ``forced_logits`` (the logits ``forced`` was chosen from) also each
+    flip's logit change in the same unit, and the check that the flip is
+    one the two sets of logits imply: the margin's pair (the least
+    own-only logit ``lo``, the largest forced-only ``hi``) ordered the
+    other way round by ``forced_logits`` (ties: the lower index first),
+    so margin <= |change of lo| + |change of hi|.  -> (margins, changes,
+    inconsistent flips)."""
+    own_m = torch.zeros(logits.shape, dtype=torch.bool, device=logits.device)
+    own_m.scatter_(-1, own, True)
+    forced_m = torch.zeros_like(own_m).scatter_(-1, forced, True)
+    differ = (own_m != forced_m).any(-1)
+    z, om, fm = logits[differ], own_m[differ], forced_m[differ]
+    lo_v, lo = torch.where(om & ~fm, z, float("inf")).min(-1)
+    hi_v, hi = torch.where(fm & ~om, z, float("-inf")).max(-1)
+    scale = torch.maximum(lo_v.abs(), hi_v.abs())
+    margins = bf16_ulps(torch, lo_v - hi_v, scale)
+    if forced_logits is None:
+        return margins
+    zf = forced_logits[differ]
+    f_lo, f_hi = zf.gather(-1, lo[:, None])[:, 0], zf.gather(-1, hi[:, None])[:, 0]
+    change = (f_lo - lo_v).abs() + (f_hi - hi_v).abs()
+    own_order = (lo_v > hi_v) | ((lo_v == hi_v) & (lo < hi))
+    forced_order = (f_hi > f_lo) | ((f_hi == f_lo) & (hi < lo))
+    bad = int((~(own_order & forced_order)).sum())
+    return margins, bf16_ulps(torch, change, scale), bad
+
+
+def router_logits(params, x):
+    from repro_torch.models.layers import cast
+
+    return (x @ cast(params["router"], x.dtype)).float()
+
+
+@contextlib.contextmanager
+def routing(record=None, replay=None, flips=None):
+    """The MoE router (`repro_torch.models.moe.route`) recording each call's
+    expert choices into ``record``, or taking them from ``replay`` (in call
+    order) and appending the run's own flips from them to ``flips``."""
+    import torch
+
+    from repro_torch.models import moe as moe_mod
+
+    saved = moe_mod.route
+    forced_calls = iter(replay if replay is not None else ())
+
+    def route(params, x, cfg):
+        gates, topv, topi = saved(params, x, cfg)
+        if record is not None:
+            record.append(topi)
+        if replay is None:
+            return gates, topv, topi
+        forced = next(forced_calls)
+        flips.append(routing_flips(torch, router_logits(params, x), topi, forced))
+        topv = gates.gather(-1, forced)
+        return gates, topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9), forced
+
+    moe_mod.route = route
+    try:
+        yield
+    finally:
+        moe_mod.route = saved
+    require(replay is None or next(forced_calls, None) is None,
+            "a replayed run routed fewer times than the recorded one")
+
+
+@contextlib.contextmanager
+def moe_flips_per_call(flips):
+    """Each MoE block also routes its input as it would be had the block's
+    attention been ``flash_ref`` on the same operands; the flips between
+    the two (margins in the plain routing's logits) go to ``flips``."""
+    import torch
+
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.attention.ref import flash_ref
+    from repro_torch.models import attention as attn
+    from repro_torch.models import blocks
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import rmsnorm
+
+    saved = blocks.moe_block_apply
+
+    def apply(params, x, cfg, return_kv=False, use_kernel=True):
+        xn = rmsnorm(params["ln_attn"], x)
+        kernel = flash_ops.flash_attention
+        flash_ops.flash_attention = lambda q, k, v, causal=True, window=None, scale=None: (
+            flash_ref(q, k, v, causal, window, scale))
+        try:
+            h_plain = attn.attend_full(params["attn"], xn, cfg, use_kernel=use_kernel)
+        finally:
+            flash_ops.flash_attention = kernel
+        res = attn.attend_full(params["attn"], xn, cfg, return_kv=return_kv,
+                               use_kernel=use_kernel)
+        h, kv = res if return_kv else (res, None)
+        xp = rmsnorm(params["ln_mlp"], x + h_plain)
+        x = x + h
+        xm = rmsnorm(params["ln_mlp"], x)
+        _, _, topi_p = moe_mod.route(params["moe"], xp, cfg)
+        _, _, topi_k = moe_mod.route(params["moe"], xm, cfg)
+        flips.append(routing_flips(torch, router_logits(params["moe"], xp), topi_p, topi_k,
+                                   router_logits(params["moe"], xm)))
+        out, aux = moe_mod.moe_apply(params["moe"], xm, cfg)
+        x = x + out
+        return (x, aux, kv) if return_kv else (x, aux)
+
+    blocks.moe_block_apply = apply
+    try:
+        yield
+    finally:
+        blocks.moe_block_apply = saved
+
+
+def ulps_histogram(torch, values):
+    """{bf16 ulps rounded to 0.5: tokens} of a list of margin tensors."""
+    m = torch.cat([v.float().cpu() for v in values]) if values else torch.zeros(0)
+    hist = {}
+    for v in (m * 2).round().div(2).tolist():
+        hist[v] = hist.get(v, 0) + 1
+    return dict(sorted(hist.items()))
+
+
+def flip_summary(torch, flips):
+    """(flipped tokens, largest margin, margins as {ulps: tokens}) of a run."""
+    hist = ulps_histogram(torch, flips)
+    return sum(hist.values()), max(hist, default=0.0), hist
+
+
+def lm_families(torch, np, dev, counted, card):
+    """Every other LM family at full width and depth (`LM_FAMILIES`): per
+    configuration four serving runs of one FAMILY_BATCH request (see
+    LM_FAMILIES), a bf16 prefill with each kernel call held against its
+    plain version, and the MoE routing flips.  -> (runs, launches)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import build_model
+
+    runs, launches = [], {k: 0 for k in counted}
+    none = {k: 0 for k in counted}
+    b, s = FAMILY_BATCH
+    for arch, (n_flash, n_ssd) in LM_FAMILIES.items():
+        base = get_config(arch)
+        want = dict(none, flash_attention_single=n_flash, ssd_chunked=n_ssd)
+        models = {(dtype, kern): build_model(dataclasses.replace(base, dtype=dtype), device=dev,
+                                             use_kernels=kern)
+                  for dtype, kern in (("bfloat16", True), ("float32", True), ("float32", False))}
+        n_params = base.param_count()
+        free, total = torch.cuda.mem_get_info(dev)
+        require(4 * n_params < free, f"{arch}: {4 * n_params} bytes of float32 parameters, "
+                                     f"{free} bytes free of {total}")
+        t0 = time.perf_counter()
+        params = models["bfloat16", True].init(LM_SEED)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for _, x in tree_leaves(params))
+        print(f"  {arch} ({base.family}): {base.n_layers} layers"
+              + (f" + {base.n_encoder_layers} encoder layers" if base.n_encoder_layers else "")
+              + f", d_model {base.d_model}, {n_params} float32 parameters "
+              f"({n_params * 4 / 2**30:.2f} GiB of {total / 2**30:.1f}) from "
+              f"LM.init({LM_SEED}) in {time.perf_counter() - t0:.1f} s", flush=True)
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+        rng = np.random.default_rng(LM_SEED + s)
+
+        def request(nb, ns):
+            batch = {"tokens": torch.from_numpy(rng.integers(0, base.vocab_size, (nb, ns))).to(dev)}
+            if base.family == "encdec":
+                batch["enc_frames"] = torch.randn((nb, base.encoder_seq, base.d_model),
+                                                  generator=gen, device=dev)
+            if base.family == "vlm":
+                batch["img_embeds"] = torch.randn((nb, base.n_image_tokens, base.d_model),
+                                                  generator=gen, device=dev)
+            return batch
+
+        warm = request(1, 128)
+        for model in models.values():   # cuBLAS handles, the allocator; uncounted
+            model.prefill(params, warm, 128)
+        del warm
+        batch = request(b, s)
+        fed, recorded, flips = [], [], {}
+        res, stats = {}, {}
+        for key in (("bfloat16", True), ("bfloat16", "swapped"), ("float32", True),
+                    ("float32", False)):
+            model = models["bfloat16", True] if key[1] == "swapped" else models[key]
+            flips[key] = []
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(routing(record=recorded) if key == ("bfloat16", True)
+                                    else routing(replay=recorded, flips=flips[key]))
+                if key[1] == "swapped":
+                    stack.enter_context(kernels_swapped_for_plain())
+                res[key], stats[key], got = lm_run(
+                    torch, model, params, batch, s + LM_DECODE, fed, counted,
+                    want if key[1] is True else none, decoded_cache=False)
+            for k in counted:
+                launches[k] += got[k]
+        # Each kernel call of a bf16 kernel-path prefill against its plain
+        # version on the same operands (uncounted), and the per-call flips.
+        held = dict.fromkeys(("flash_attention_single", "ssd_chunked"), (0, 0.0, 0.0))
+        rows, call_flips = [0.0, 0.0], []
+        with kernels_held_per_call(held, rows), moe_flips_per_call(call_flips):
+            models["bfloat16", True].prefill(params, batch, s + LM_DECODE)
+        torch.cuda.synchronize()
+        print(f"  {arch} {b} x {s} bfloat16 prefill, each kernel call vs its plain version on "
+              f"the same operands (calls, max |diff|, max |diff| over its allowance): "
+              + ", ".join(f"{k} ({n}, {e:.3g}, {o:.3g})" for k, (n, e, o) in held.items())
+              + f"; flash row ulps {rows[0]:.3g}, relative L2 {rows[1]:.3g}", flush=True)
+        for k, (n, _, over) in held.items():
+            require(n == want[k] and over <= 1.0,
+                    f"{arch} bfloat16 {k}: {n} calls held, expected {want[k]}; largest "
+                    f"|diff| {over:.3g} of its allowance")
+        moe_flips = {}
+        if base.family == "moe":
+            n, worst, hist = flip_summary(torch, [m for m, _, _ in call_flips])
+            changes = ulps_histogram(torch, [c for _, c, _ in call_flips])
+            bad = sum(x for _, _, x in call_flips)
+            beyond = sum(v for k, v in hist.items() if k > FLIP_ULPS)
+            moe_flips["per_call"] = dict(tokens=n, max_ulps=worst, ulps=hist,
+                                         beyond_one_ulp=beyond, logit_change_ulps=changes)
+            print(f"  {arch} routing flips per call (each MoE layer's input with its attention "
+                  f"from flash_ref on the same operands; {b * s} tokens x {base.n_layers} "
+                  f"layers): {n} tokens, {beyond} with a margin beyond {FLIP_ULPS} bf16 ulp; "
+                  f"margins in bf16 logit ulps {hist}; the pair's logit change {changes}; "
+                  f"{bad} not implied by the two sets of logits", flush=True)
+            require(bad == 0, f"{arch}: {bad} routing flips per call not implied by the "
+                              f"logits (a top-k or tie-rule fault)")
+            for key in list(flips)[1:]:
+                n, worst, hist = flip_summary(torch, flips[key])
+                name = f"{key[0]} {PATH_NAMES[key[1]]}"
+                moe_flips[name] = dict(tokens=n, max_ulps=worst, ulps=hist)
+                print(f"  {arch} routing flips of the {name} run from the bf16 kernel run "
+                      f"(prefill and {LM_DECODE} decode steps; replayed): {n} tokens, largest "
+                      f"margin {worst:.3g} bf16 ulps, margins {hist}", flush=True)
+        f32 = {w: max_rel(res["float32", True][w], res["float32", False][w])
+               for w in res["float32", False]}
+        worst32 = max(f32, key=f32.get)
+        print(f"  {arch} float32 kernel vs plain, of the scale (limit {F32_REL}): largest "
+              f"{worst32} {f32[worst32]:.3g}; prefill logits {f32['prefill logits']:.3g}, "
+              f"decode logits {f32['decode logits']:.3g}", flush=True)
+        require(f32[worst32] <= F32_REL, f"{arch} float32 {worst32}: kernel vs plain "
+                                         f"{f32[worst32]:.3g} of the scale > {F32_REL}")
+        yard = res["float32", True]
+        worst_ratio = (0.0, "")
+        for w, ref32 in yard.items():
+            (l2_k, mx_k), (l2_c, mx_c) = ((l2_rel(res["bfloat16", p][w], ref32),
+                                           max_rel(res["bfloat16", p][w], ref32))
+                                          for p in (True, "swapped"))
+            require(l2_k <= BF16_L2 * l2_c + BF16_ULP and mx_k <= BF16_MAX * mx_c + BF16_ULP,
+                    f"{arch} bfloat16 {w}: from the float32 kernel run, kernel path L2 "
+                    f"{l2_k:.3g} max {mx_k:.3g}, swapped L2 {l2_c:.3g} max {mx_c:.3g}")
+            ratio = l2_k / max(l2_c, 1e-30)
+            if ratio > worst_ratio[0]:
+                worst_ratio = (ratio, f"{w}: L2 {l2_k:.3g} vs {l2_c:.3g}, max {mx_k:.3g} vs "
+                                      f"{mx_c:.3g}")
+        print(f"  {arch} bfloat16 from the float32 kernel run, kernel vs swapped (largest L2 "
+              f"ratio): {worst_ratio[0]:.3g} ({worst_ratio[1]})", flush=True)
+        for key, st in stats.items():
+            path = PATH_NAMES[key[1]]
+            runs.append(dict(arch=arch, family=base.family, dtype=key[0], path=path, batch=b,
+                             prompt=s, decode_steps=LM_DECODE, card=card, **st,
+                             **({"routing_flips": moe_flips} if moe_flips and path == "kernel"
+                                and key[0] == "bfloat16" else {})))
+            print(f"  {arch} {key[0]} {path} {b} x {s}: prefill {st['prefill_ms']:.1f} ms "
+                  f"({st['prefill_tokens_per_s']:.0f} tokens/s), decode "
+                  f"{st['decode_ms_per_token']:.2f} ms a step ({st['decode_tokens_per_s']:.1f} "
+                  f"tokens/s), max_memory_allocated rise {st['memory_rise'] / 2**30:.2f} GiB "
+                  f"(peak {st['max_memory_allocated'] / 2**30:.2f}); {card}", flush=True)
+        print(f"  {arch} greedy tokens (first 8 of each sequence): "
+              f"{torch.cat(fed, 1)[:, :8].tolist()}", flush=True)
+        del res, params, models, batch, recorded, flips, yard
+        torch.cuda.empty_cache()
+    return runs, launches
+
+
+def lm_only(torch, np, F, reps):
+    """``--lm-only``: phases "3 lm kernels" and "4 lm families", and the
+    families' kernel shapes timed as phase 5 times them."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.attention.ref import flash_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    dev = torch.device(DEVICE)
+    smi = card_line()
+    print(smi)
+    with phase("2 build"):
+        build.build_all()
+    with phase("3 lm kernels"):
+        flash_cases(torch, flash_ops.flash_attention, flash_ref, dev)
+        ssd_cases(torch, ssd_ops.ssd_log, ssd_ops.ssd, ssd_ref.ssd_chunked_ref,
+                  ssd_ref.ssd_batched_ref, ssd_ops.heads_per_block, dev)
+    counted = {"flash_attention_single": flash_ops.flash_attention,
+               "ssd_chunked": ssd_ops.ssd_log}
+    with phase("4 lm families"):
+        runs, launches = lm_families(torch, np, dev, counted, smi)
+        print(json.dumps({"lm_families": runs}))
+    with phase("5 measure"):
+        fam_flash, fam_ssd = family_shapes(torch, F, dev, reps)
+        print(json.dumps({"family_shapes": fam_flash + fam_ssd, "launches": launches}))
+    print(f"card: {smi}")
+    return 0
 
 
 def card_line():
@@ -2415,6 +2896,9 @@ def main(argv=None) -> int:
                     help="only time the brick mosaic on random tiles and exit (mosaic_only)")
     ap.add_argument("--distributed-only", action="store_true",
                     help="only run phase 4 distributed on the main survey and exit")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="only hold the LM kernels (phase 3 lm kernels), run phase 4 lm "
+                         "families and time the families' kernel shapes, and exit")
     ap.add_argument("--crash-child", metavar="DIR",
                     help="the SIGKILL drill's subprocess (crash_child); not for direct use")
     ap.add_argument("--crash", metavar="STAGE:N", help="with --crash-child: SIGKILL there")
@@ -2449,6 +2933,9 @@ def main(argv=None) -> int:
         return 0
 
     import torch.nn.functional as F
+
+    if args.lm_only:
+        return lm_only(torch, np, F, args.reps)
 
     from repro_torch import (CoaddEngine, CoaddQuery, METHODS, SurveyConfig, detect_sources,
                              difference_image, inject_transients, make_survey,
@@ -4166,6 +4653,11 @@ def main(argv=None) -> int:
     with phase("4 zamba2 serving"):
         lm_runs, lm_launches = zamba2_serving(torch, np, dev, counted)
 
+    # ----------------------------------------------- 4 the other LM families --
+    with phase("4 lm families"):
+        family_runs, family_launches = lm_families(torch, np, dev, counted, smi)
+        print(json.dumps({"lm_families": family_runs}))
+
     # --------------------------------------------------------- 5 measure --
     kernels = []
     scanned_bounds = {}   # every-slot bounds (coadd_bound), printed beside the kernels line
@@ -4588,7 +5080,9 @@ def main(argv=None) -> int:
                   f"{r16['singles_ms']:.3f} ms; bound K=4 {r4['bound'][0]:.3f} by "
                   f"{r4['bound'][1]}, K=16 {r16['bound'][0]:.3f} by {r16['bound'][1]}; host "
                   f"grids {r4['grid_ms']:.1f} / {r16['grid_ms']:.1f} ms{split}", flush=True)
-        # The LM kernels at the Zamba2 prefill's shapes (the 4 x 2048 batch):
+        # The LM kernels at the other families' prefill shapes, then at the
+        # Zamba2 prefill's (the 4 x 2048 batch):
+        fam_flash, fam_ssd = family_shapes(torch, F, dev, args.reps)
         # flash beside F.scaled_dot_product_attention; no single PyTorch call
         # computes the SSD scan.
         g = torch.Generator(device=dev).manual_seed(17)
@@ -4615,7 +5109,8 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name="flash_attention_single", route="cuda", source="src/repro_torch/csrc/flash.cu",
             replaces="src/repro/kernels/attention/flash.py:80",
-            launches=lm_launches["flash_attention_single"],
+            launches=lm_launches["flash_attention_single"]
+            + family_launches["flash_attention_single"],
             max_abs_err=max(err, case_err["flash_attention_single"]), ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
             library="F.scaled_dot_product_attention(is_causal=True)",
@@ -4623,6 +5118,7 @@ def main(argv=None) -> int:
             launches_per_prefill=lm_launches["flash_attention_single"] // (2 * len(LM_BATCHES)),
             shape=f"Zamba2 prefill: B={fb} H={fh} S={fs} D={fd} causal bf16, strided (B,S,H,D)",
             ptxas=ptxas_summary(logs.get("flash", ""), "flash_fwd_bf16_kernel"),
+            family_shapes=fam_flash,
         ))
         del qkv
         sb, st, sh, sn = 4, 2048, 64, 64
@@ -4662,7 +5158,8 @@ def main(argv=None) -> int:
               f"operands {ssd_peak} bytes (y, state and the chunk states' scratch)")
         kernels.append(dict(
             name="ssd_chunked", route="cuda", source="src/repro_torch/csrc/ssd.cu",
-            replaces="src/repro/kernels/ssd/ssd.py:68", launches=lm_launches["ssd_chunked"],
+            replaces="src/repro/kernels/ssd/ssd.py:68",
+            launches=lm_launches["ssd_chunked"] + family_launches["ssd_chunked"],
             max_abs_err=max(err, case_err["ssd_chunked"]), ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             library="none: no single PyTorch call computes the SSD scan", kernel_ms=k_ms,
@@ -4674,6 +5171,7 @@ def main(argv=None) -> int:
             ptxas={k: v for part in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel",
                                      "ssd_chunk_scan_kernel")
                    for k, v in ptxas_summary(logs.get("ssd", ""), part).items()},
+            family_shapes=fam_ssd,
         ))
         del la, xbc, ssd_in
         for m in METHODS:
@@ -4741,6 +5239,12 @@ def main(argv=None) -> int:
                   f"{lib_ms}, bound {k['bound_ms']:.3f} by {k['bound_by']}{ceiling}{extra})"
                   f"{ptxas}")
         print(json.dumps({"zamba2_serving": lm_runs}))
+        for r in family_runs:
+            if r["dtype"] == "bfloat16" and r["path"] == "kernel":
+                print(f"  {r['arch']} bf16 kernel 4 x 2048: prefill {r['prefill_ms']:.1f} ms, "
+                      f"decode {r['decode_ms_per_token']:.2f} ms a step "
+                      f"({r['decode_tokens_per_s']:.1f} tokens/s), memory rise "
+                      f"{r['memory_rise'] / 2**30:.2f} GiB")
 
     print(f"edge flips: {len(edge_flips)}; (case, kernel, [image,] row, col) of the first "
           f"100: {edge_flips[:100]}")

@@ -70,9 +70,11 @@ def lm_params_from_reference(params):
     """The port's `LM` parameters, as CPU tensors, from the JAX package's
     ``LM.init`` tree.
 
-    ``params`` is that tree with numpy (or array-like) leaves: the stacked
-    ``blocks`` and ``tail``, ``shared_attn``, ``embed`` and ``ln_f``.  Both
-    packages use the same tree, so every leaf keeps its path, shape and dtype.
+    ``params`` is that tree with numpy (or array-like) leaves, for any
+    family: the stacked ``blocks`` (MoE expert stacks included), ``tail``,
+    ``cross_blocks`` and ``encoder``, ``shared_attn``, ``ln_enc``, ``embed``
+    and ``ln_f``.  Both packages use the same tree, so every leaf keeps its
+    path, shape and dtype.
     A caller that wants the card moves the tree there itself.
     """
     if isinstance(params, dict):

@@ -159,8 +159,11 @@ class JobTracker:
         return [MapTask(i, c) for i, c in enumerate(chunks) if len(c)]
 
     def _attempt(self, task: MapTask, attempt: int, worker: int) -> TaskResult:
-        self.injector.before_run(task.task_id, attempt)
+        # The clock starts before the injector, so an injected "slow" task is
+        # timed as the straggler it models; an injected failure still raises
+        # before any work.
         t0 = time.perf_counter()
+        self.injector.before_run(task.task_id, attempt)
         coadd, depth = self.executor(task.image_ids)
         dt = time.perf_counter() - t0
         res = TaskResult(task.task_id, _host(coadd), _host(depth), "", attempt, worker)

@@ -104,20 +104,27 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
     dstate = torch.empty((b, n_chunks, h, n, p), dtype=torch.float32, device=x.device)
     cums = torch.empty((b, n_chunks, h, MAX_TILE), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
-    lib = build.library("ssd")
-    err = lib.ssd_scan_fwd(
-        log_a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(), y.data_ptr(),
-        dstate.data_ptr(), cums.data_ptr(), state.data_ptr(), log_a.stride(0), log_a.stride(1),
-        Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), x.stride(0), x.stride(1),
-        x.stride(2), b, h, t, n, tile, group, int(x.dtype == torch.bfloat16), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    build.check(lib, err, "ssd_scan launch")
+    _launch(log_a, Bm, Cm, x, y, dstate, cums, state, tile, group)
     ssd_log.launches += 1
     return y, state
 
 
 ssd_log.launches = 0
+
+
+def _launch(log_a, Bm, Cm, x, y, dstate, cums, state, tile: int, group: int) -> None:
+    """Call ``csrc/ssd.cu``'s entry point on checked operands and outputs;
+    raise if it returns an error."""
+    b, t, h = log_a.shape
+    lib = build.library("ssd")
+    err = lib.ssd_scan_fwd(
+        log_a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(), y.data_ptr(),
+        dstate.data_ptr(), cums.data_ptr(), state.data_ptr(), log_a.stride(0), log_a.stride(1),
+        Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), x.stride(0), x.stride(1),
+        x.stride(2), b, h, t, Bm.shape[2], tile, group, int(x.dtype == torch.bfloat16),
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    build.check(lib, err, "ssd_scan launch")
 
 
 def ssd(a, B, C, x, chunk: int = 64):

@@ -1,6 +1,6 @@
-"""Self-attention: MHA/GQA with RoPE, sliding window and a KV cache.
+"""Attention: MHA/GQA/MQA with RoPE, sliding window, a KV cache, cross-attention.
 
-Ports of the JAX package's ``models/attention.py`` (cross-attention waits):
+Ports of the JAX package's ``models/attention.py``:
 
   * ``attend_full``   — prefill / teacher-forced self-attention.  With
     ``use_kernel`` (the default) it runs `kernels.attention.ops.
@@ -11,6 +11,12 @@ Ports of the JAX package's ``models/attention.py`` (cross-attention waits):
   * ``attend_decode`` — one-token decode against the (B, T, Hkv, D) cache,
     plain torch as in the JAX package.  It writes the new key and value into
     the cache in place at ``pos`` (the JAX package returns a new cache).
+  * ``attend_cross``  — decoder -> encoder / text -> image attention, no
+    mask.  Plain torch einsums, as in the JAX package (no TPU kernel
+    computes it; the flash kernel is self-attention, q and kv of one length).
+
+Operands of two dtypes (gemma's float32 residual stream against its bf16
+KV cache) are promoted as JAX promotes them: to the wider dtype.
 """
 
 from __future__ import annotations
@@ -58,11 +64,18 @@ def _project_qkv(params, x, cfg: ModelConfig):
             v.reshape(b, s, cfg.n_kv_heads, dh))
 
 
+def _promoted(a, b):
+    """a and b in the dtype JAX would compute ``a op b`` in."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
 def _gqa_scores(q, k):
-    """q: (B,S,Hq,D), k: (B,T,Hkv,D) -> float32 logits (B,Hkv,G,S,T), from q's dtype."""
+    """q: (B,S,Hq,D), k: (B,T,Hkv,D) -> float32 logits (B,Hkv,G,S,T), from the
+    operands' promoted dtype."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
-    qg = q.reshape(b, s, hkv, hq // hkv, d)
+    qg, k = _promoted(q.reshape(b, s, hkv, hq // hkv, d), k)
     return torch.einsum("bskgd,btkd->bkgst", qg, k).float()
 
 
@@ -130,4 +143,26 @@ def attend_decode(params, x, cache: Dict, pos: int, cfg: ModelConfig) -> Tuple[t
         mask &= ki > pos - cfg.sliding_window
     logits = torch.where(mask, logits, NEG_INF)
     o = _gqa_out(torch.softmax(logits, dim=-1), v, b, 1, cfg.n_heads, dh)
-    return o @ cast(params["w_o"], x.dtype), cache
+    return torch.matmul(*_promoted(o, cast(params["w_o"], x.dtype))), cache
+
+
+def cross_attn_init(init: Init, cfg: ModelConfig) -> Dict:
+    return attn_init(init, cfg)
+
+
+def attend_cross(params, x, context, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B,S,D) queries; context: (B,T,D) keys and values (no masking)."""
+    dt = x.dtype
+    b, s, _ = x.shape
+    t = context.shape[1]
+    dh = cfg.head_dim
+    q = (x @ cast(params["w_q"], dt)).reshape(b, s, cfg.n_heads, dh)
+    k = (context @ cast(params["w_k"], dt)).reshape(b, t, cfg.n_kv_heads, dh)
+    v = (context @ cast(params["w_v"], dt)).reshape(b, t, cfg.n_kv_heads, dh)
+    if cfg.qkv_bias:
+        q = q + cast(params["b_q"], dt).reshape(cfg.n_heads, dh)
+        k = k + cast(params["b_k"], dt).reshape(cfg.n_kv_heads, dh)
+        v = v + cast(params["b_v"], dt).reshape(cfg.n_kv_heads, dh)
+    logits = _gqa_scores(q, k) * (1.0 / math.sqrt(dh))
+    o = _gqa_out(torch.softmax(logits, dim=-1), v, b, s, cfg.n_heads, dh)
+    return o @ cast(params["w_o"], dt)

@@ -1,4 +1,4 @@
-"""Elementary layers: norms, RoPE, MLP variants, embeddings.
+"""Elementary layers: norms, RoPE and sinusoidal positions, MLP variants, embeddings.
 
 Functions over parameter dicts of torch tensors, as in the JAX package's
 ``models/layers.py``: master parameters stay float32 and are cast to the
@@ -49,6 +49,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x2 = x[..., 1::2].float()
     out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Classic transformer sinusoids in float32. positions: (..., S) -> (..., S, D).
+
+    The frequencies are the JAX package's float64 numpy values rounded to float32.
+    """
+    half = d_model // 2
+    freq = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    ang = positions[..., None].float() * torch.tensor(freq, dtype=torch.float32,
+                                                      device=positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ------------------------------------------------------------------- mlp ---

@@ -1,52 +1,66 @@
-"""The language model behind one interface, for the hybrid (Zamba-2) family.
+"""The language model behind one interface, for every family of the configs.
 
 A port of the JAX package's ``models/model.py``.  `LM(cfg, device)` exposes
 
   init(seed)                              -> params (float32 masters)
-  forward(params, batch)                  -> (logits (B,S,V) float32, aux)
+  forward(params, batch)                  -> (logits (B,S,V) float32, aux loss)
   init_cache(batch_size, max_len)         -> zeroed serving cache
   prefill(params, batch, max_len)         -> (last logits (B,V), cache)
   decode_step(params, cache, token, pos)  -> (logits (B,V), cache)
 
-with the JAX package's parameter and cache trees: layer stacks are tensors
-with a leading layer axis, walked by a Python loop (the JAX package scans
-them).  ``batch`` is {"tokens": (B,S) int}.  The serving path runs under
-``torch.inference_mode``; ``decode_step`` updates the cache in place and
-returns it.  With ``use_kernels`` (the default) the prefill's attention and
-SSD scans go through the hand-written kernels' wrappers (on the card, one
-``flash_attention`` launch per shared block and one ``ssd_log`` launch per
-Mamba-2 layer); without, through the JAX package's plain formulations.
-Decoding runs neither kernel, as in the JAX package.  The other families
-raise `NotImplementedError`.
+for the families ``dense``, ``moe``, ``ssm``, ``hybrid`` (Zamba-2),
+``encdec`` (Whisper; conv frontend stubbed) and ``vlm`` (Llama-3.2-Vision;
+vision frontend stubbed), with the JAX package's parameter and cache trees:
+layer stacks are tensors with a leading layer axis, walked by a Python loop
+(the JAX package scans them).  ``batch`` is {"tokens": (B,S) int}, with
+"enc_frames" (B, encoder_seq, D) for ``encdec`` and "img_embeds"
+(B, n_image_tokens, D) for ``vlm``.  ``forward`` returns the MoE layers'
+summed Switch loss as ``aux`` (0 for the other families).
+
+The serving path runs under ``torch.inference_mode``; ``decode_step``
+updates the cache in place and returns it.  With ``use_kernels`` (the
+default) the self-attention of a prefill or forward (the encoder's too)
+goes through `flash_attention` and each Mamba-2 layer's SSD scan through
+`ssd_log`, the hand-written kernels' wrappers (one launch per layer on the
+card); without, through the JAX package's plain formulations.
+Cross-attention, the MoE dispatch and decoding run in plain torch, as in
+the JAX package.
+
+``embed_scale`` (gemma) multiplies the embeddings by a float32 sqrt(d_model)
+as the JAX package does, which promotes the residual stream to float32
+under ``dtype="bfloat16"``: every layer then computes in float32 and only
+the KV cache is stored in bf16.  The port keeps that semantic.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import init_kv_cache
-from repro_torch.models.layers import (Init, embed_apply, embed_init, rmsnorm, rmsnorm_init,
-                                       torch_dtype, unembed_apply)
+from repro_torch.models.layers import (Init, embed_apply, embed_init, mlp_apply, rmsnorm,
+                                       rmsnorm_init, sinusoidal_positions, torch_dtype,
+                                       unembed_apply)
 from repro_torch.models.ssm import init_ssm_state
 
-#: Where each family that is not ported yet stands in ROADMAP.md.
-UNPORTED = {
-    "dense": "ROADMAP queue 1 step 14 (the dense family)",
-    "ssm": "ROADMAP queue 1 step 14 (the ssm family)",
-    "moe": "ROADMAP queue 1 step 14 (MoE, models/moe.py)",
-    "vlm": "ROADMAP queue 1 step 14 (cross-attention: vlm)",
-    "encdec": "ROADMAP queue 1 step 14 (cross-attention: encdec)",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def _stack_init(init_fn, init: Init, n: int) -> Dict:
-    """``n`` layers' parameters stacked on a leading axis."""
-    layers = [init_fn(init) for _ in range(n)]
-    return _tree_map(lambda *xs: torch.stack(xs), *layers)
+    """``n`` layers' parameters stacked on a leading axis, each layer drawn
+    and copied into its slot in turn (at most the stack and one layer live)."""
+    layer = init_fn(init)
+    out = _tree_map(lambda x: x.new_empty((n,) + x.shape), layer)
+    for i in range(n):
+        if i:
+            layer = init_fn(init)
+        _tree_map(lambda dst, src: dst[i].copy_(src), out, layer)
+    return out
 
 
 def _tree_map(fn, tree, *rest):
@@ -62,99 +76,212 @@ def _layer(tree, i: int):
 
 class LM:
     def __init__(self, cfg: ModelConfig, device="cuda", use_kernels: bool = True):
-        if cfg.family != "hybrid":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: {UNPORTED.get(cfg.family, '?')}")
-        if cfg.pos_embed != "rope" or cfg.embed_scale:
-            raise NotImplementedError("the hybrid path takes RoPE and unscaled embeddings")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"unknown family {cfg.family!r}")
+        if cfg.family == "vlm" and cfg.n_layers % cfg.cross_attn_period:
+            raise ValueError("vlm: n_layers must be a multiple of cross_attn_period")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         self.cfg = cfg
         self.use_kernels = use_kernels
         self.dtype = torch_dtype(cfg.dtype)
-        self.groups = cfg.n_layers // cfg.shared_attn_period
-        self.rem = cfg.n_layers - self.groups * cfg.shared_attn_period
+        period = {"hybrid": cfg.shared_attn_period, "vlm": cfg.cross_attn_period}
+        self.per = period.get(cfg.family, 1)
+        self.groups = cfg.n_layers // self.per
+        self.rem = cfg.n_layers - self.groups * self.per
 
     # ------------------------------------------------------------- init ---
     def init(self, seed: int = 0) -> Dict:
         """Random float32 parameters drawn on ``device`` from ``seed``."""
         cfg = self.cfg
+        fam = cfg.family
         init = Init(seed, self.device)
         params = {
             "embed": embed_init(init, cfg.vocab_size, cfg.d_model, cfg.tie_embeddings),
             "ln_f": rmsnorm_init(init, cfg.d_model),
-            "blocks": _stack_init(lambda i: B.mamba_block_init(i, cfg), init,
-                                  self.groups * cfg.shared_attn_period),
         }
-        if self.rem:
-            params["tail"] = _stack_init(lambda i: B.mamba_block_init(i, cfg), init, self.rem)
-        params["shared_attn"] = B.attn_mlp_init(init, cfg)
+        if fam in ("dense", "vlm"):
+            params["blocks"] = _stack_init(lambda i: B.attn_mlp_init(i, cfg), init, cfg.n_layers)
+        elif fam == "moe":
+            params["blocks"] = _stack_init(lambda i: B.moe_block_init(i, cfg), init, cfg.n_layers)
+        elif fam == "ssm":
+            params["blocks"] = _stack_init(lambda i: B.mamba_block_init(i, cfg), init,
+                                           cfg.n_layers)
+        elif fam == "hybrid":
+            params["blocks"] = _stack_init(lambda i: B.mamba_block_init(i, cfg), init,
+                                           self.groups * self.per)
+            if self.rem:
+                params["tail"] = _stack_init(lambda i: B.mamba_block_init(i, cfg), init,
+                                             self.rem)
+            params["shared_attn"] = B.attn_mlp_init(init, cfg)
+        elif fam == "encdec":
+            params["encoder"] = _stack_init(lambda i: B.attn_mlp_init(i, cfg), init,
+                                            cfg.n_encoder_layers)
+            params["ln_enc"] = rmsnorm_init(init, cfg.d_model)
+            params["blocks"] = _stack_init(self._encdec_block_init, init, cfg.n_layers)
+        if fam == "vlm":
+            params["cross_blocks"] = _stack_init(
+                lambda i: B.cross_block_init(i, cfg, with_mlp=False), init, self.groups)
         return params
 
-    # --------------------------------------------------------- layers ---
+    def _encdec_block_init(self, init: Init) -> Dict:
+        p = B.attn_mlp_init(init, self.cfg)
+        p.update(ln_cross=rmsnorm_init(init, self.cfg.d_model),
+                 cross=attn.cross_attn_init(init, self.cfg))
+        return p
+
+    # ---------------------------------------------------------- helpers ---
+    def _embed(self, params, tokens, positions):
+        """Token embeddings (scaled, plus sinusoids, as the config says)."""
+        cfg = self.cfg
+        x = embed_apply(params["embed"], tokens, self.dtype)
+        if cfg.embed_scale:
+            # A float32 factor, as the JAX package's numpy float32: promotes bf16.
+            x = x.float() * float(np.sqrt(cfg.d_model).astype(np.float32))
+        if cfg.pos_embed == "sinusoidal":
+            x = x + sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+        return x
+
+    def _encode(self, params, enc_frames):
+        """The Whisper encoder over stubbed conv-frontend output (B, Tenc, D):
+        non-causal self-attention blocks (through the flash kernel's wrapper)."""
+        cfg = self.cfg
+        x = enc_frames.to(device=self.device, dtype=self.dtype)
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+        for i in range(cfg.n_encoder_layers):
+            x = B.attn_mlp_apply(_layer(params["encoder"], i), x, cfg, causal=False,
+                                 use_kernel=self.use_kernels)
+        return rmsnorm(params["ln_enc"], x)
+
+    def _context(self, params, batch, x):
+        """The cross-attention context of ``batch``: the encoded frames or the
+        image embeddings (None for the families without one)."""
+        if self.cfg.family == "encdec":
+            return self._encode(params, batch["enc_frames"])
+        if self.cfg.family == "vlm":
+            return batch["img_embeds"].to(device=x.device, dtype=x.dtype)
+        return None
+
     def _schedule(self):
-        """The layer order: (stack name, index) of every Mamba-2 layer, and
-        ("shared", g) for the shared block after each full group g."""
-        per = self.cfg.shared_attn_period
+        """The layer order: (kind, index) of every block.  Kinds: "mamba"
+        and "tail" (Mamba-2 layers of the "blocks" and "tail" stacks),
+        "shared" (the hybrid's shared block after group g), "dense", "moe",
+        "encdec" (decoder layers of the "blocks" stack) and "cross" (the vlm's
+        cross block g after each group)."""
+        fam = self.cfg.family
+        if fam in ("dense", "moe", "encdec", "ssm"):
+            kind = "mamba" if fam == "ssm" else fam
+            for i in range(self.cfg.n_layers):
+                yield kind, i
+            return
+        inner, after = ("mamba", "shared") if fam == "hybrid" else ("dense", "cross")
         for g in range(self.groups):
-            for j in range(per):
-                yield "blocks", g * per + j
-            yield "shared", g
+            for j in range(self.per):
+                yield inner, g * self.per + j
+            yield after, g
         for i in range(self.rem):
             yield "tail", i
 
-    def _run(self, params, x, cache=None):
-        """The hybrid stack over x (B,S,D); fills ``cache`` when given."""
+    def _states(self, cache, kind):
+        """The {"conv", "ssm"} stacks a Mamba-2 layer of ``kind`` fills."""
+        if self.cfg.family == "ssm":
+            return cache
+        return cache["mamba" if kind == "mamba" else "tail"]
+
+    def _encdec_block(self, lp, x, ctx, return_kv):
+        """A decoder layer: causal self-attention without RoPE, cross-attention
+        to the encoder, MLP."""
         cfg = self.cfg
+        res = attn.attend_full(lp["attn"], rmsnorm(lp["ln_attn"], x), cfg, causal=True,
+                               use_rope=False, return_kv=return_kv,
+                               use_kernel=self.use_kernels)
+        h, kv = res if return_kv else (res, None)
+        x = B.cross_block_apply({"ln_x": lp["ln_cross"], "cross": lp["cross"]}, x + h, ctx, cfg)
+        x = x + mlp_apply(lp["mlp"], rmsnorm(lp["ln_mlp"], x), cfg.mlp_type)
+        return x, kv
+
+    def _run(self, params, x, ctx=None, cache=None):
+        """Every block over x (B,S,D); fills ``cache`` when given.  -> (x, aux)."""
+        cfg = self.cfg
+        fill = cache is not None
         s = x.shape[1]
-        for stack, i in self._schedule():
-            if stack == "shared":
-                res = B.attn_mlp_apply(params["shared_attn"], x, cfg,
-                                       return_kv=cache is not None, use_kernel=self.use_kernels)
-                if cache is None:
-                    x = res
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for kind, i in self._schedule():
+            if kind in ("mamba", "tail"):
+                lp = _layer(params["blocks" if kind == "mamba" else "tail"], i)
+                if not fill:
+                    x = B.mamba_block_apply(lp, x, cfg, use_kernel=self.use_kernels)
                     continue
-                x, (k, v) = res
-                cache["shared"]["k"][i, :, :s] = k
-                cache["shared"]["v"][i, :, :s] = v
+                x, st = B.mamba_block_apply(lp, x, cfg, return_state=True,
+                                            use_kernel=self.use_kernels)
+                slot = self._states(cache, kind)
+                slot["conv"][i] = st["conv"]
+                slot["ssm"][i] = st["ssm"]
                 continue
-            lp = _layer(params[stack], i)
-            if cache is None:
-                x = B.mamba_block_apply(lp, x, cfg, use_kernel=self.use_kernels)
+            if kind == "cross":
+                cp = _layer(params["cross_blocks"], i)
+                x = B.cross_block_apply(cp, x, ctx, cfg)
+                if fill:
+                    cache["cross_k"][i], cache["cross_v"][i] = B.cross_context_kv(cp, ctx, cfg)
                 continue
-            x, st = B.mamba_block_apply(lp, x, cfg, return_state=True,
-                                        use_kernel=self.use_kernels)
-            slot = cache["mamba" if stack == "blocks" else "tail"]
-            slot["conv"][i] = st["conv"]
-            slot["ssm"][i] = st["ssm"]
-        return x
+            lp = params["shared_attn"] if kind == "shared" else _layer(params["blocks"], i)
+            kv = None
+            if kind == "moe":
+                res = B.moe_block_apply(lp, x, cfg, return_kv=fill, use_kernel=self.use_kernels)
+                x, a = res[:2]
+                aux = aux + a
+                kv = res[2] if fill else None
+            elif kind == "encdec":
+                x, kv = self._encdec_block(lp, x, ctx, fill)
+                if fill:
+                    cache["cross_k"][i], cache["cross_v"][i] = B.cross_context_kv(lp, ctx, cfg)
+            else:
+                res = B.attn_mlp_apply(lp, x, cfg, return_kv=fill, use_kernel=self.use_kernels)
+                x, kv = res if fill else (res, None)
+            if fill:
+                slot = cache["shared"] if kind == "shared" else cache
+                slot["k"][i, :, :s] = kv[0]
+                slot["v"][i, :, :s] = kv[1]
+        return x, aux
 
     # ------------------------------------------------------------ train ---
     def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Teacher-forced forward -> (logits float32 (B,S,V), aux loss 0)."""
-        x = embed_apply(params["embed"], batch["tokens"], self.dtype)
-        x = self._run(params, x)
+        """Teacher-forced forward -> (logits float32 (B,S,V), aux loss)."""
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens, torch.arange(tokens.shape[1], device=tokens.device))
+        x, aux = self._run(params, x, self._context(params, batch, x))
         x = rmsnorm(params["ln_f"], x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return unembed_apply(params["embed"], x, self.cfg.logit_softcap), aux
 
     # ---------------------------------------------------------- serving ---
     def init_cache(self, batch_size: int, max_len: int) -> Dict:
         cfg = self.cfg
-        per = cfg.shared_attn_period
+        fam = cfg.family
 
         def states(n):
             st = init_ssm_state(cfg, batch_size, self.dtype, self.device)
             return {k: v.expand((n,) + v.shape).clone() for k, v in st.items()}
 
+        def stacked(tree, n):
+            return {k: v.expand((n,) + v.shape).clone() for k, v in tree.items()}
+
+        if fam == "ssm":
+            return states(cfg.n_layers)
         kv = init_kv_cache(cfg, batch_size, max_len, self.dtype, self.device)
-        cache = {
-            "mamba": states(self.groups * per),
-            "shared": {k: v.expand((self.groups,) + v.shape).clone() for k, v in kv.items()},
-        }
-        if self.rem:
-            cache["tail"] = states(self.rem)
+        if fam == "hybrid":
+            cache = {"mamba": states(self.groups * self.per), "shared": stacked(kv, self.groups)}
+            if self.rem:
+                cache["tail"] = states(self.rem)
+            return cache
+        cache = stacked(kv, cfg.n_layers)
+        if fam in ("encdec", "vlm"):
+            n, t = ((cfg.n_layers, cfg.encoder_seq) if fam == "encdec"
+                    else (self.groups, cfg.n_image_tokens))
+            shape = (n, batch_size, t, cfg.n_kv_heads, cfg.head_dim)
+            cache["cross_k"] = torch.zeros(shape, dtype=self.dtype, device=self.device)
+            cache["cross_v"] = torch.zeros_like(cache["cross_k"])
         return cache
 
     @torch.inference_mode()
@@ -164,8 +291,8 @@ class LM:
         if tokens.shape[1] > max_len:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds max_len {max_len}")
         cache = self.init_cache(tokens.shape[0], max_len)
-        x = embed_apply(params["embed"], tokens, self.dtype)
-        x = self._run(params, x, cache)
+        x = self._embed(params, tokens, torch.arange(tokens.shape[1], device=tokens.device))
+        x, _ = self._run(params, x, self._context(params, batch, x), cache)
         x = rmsnorm(params["ln_f"], x[:, -1:])
         logits = unembed_apply(params["embed"], x, self.cfg.logit_softcap)
         return logits[:, 0], cache
@@ -176,16 +303,32 @@ class LM:
         the cache updated in place."""
         cfg = self.cfg
         pos = int(pos)
-        x = embed_apply(params["embed"], token, self.dtype)
-        for stack, i in self._schedule():
-            if stack == "shared":
-                kv = {"k": cache["shared"]["k"][i], "v": cache["shared"]["v"][i]}
-                x, _ = B.attn_mlp_decode(params["shared_attn"], x, kv, pos, cfg)
+        x = self._embed(params, token, torch.full((1,), pos, device=token.device))
+        for kind, i in self._schedule():
+            if kind in ("mamba", "tail"):
+                slot = self._states(cache, kind)
+                lp = _layer(params["blocks" if kind == "mamba" else "tail"], i)
+                x, st = B.mamba_block_decode(lp, x, _layer(slot, i), cfg)
+                slot["conv"][i] = st["conv"]
+                slot["ssm"][i] = st["ssm"]
                 continue
-            slot = cache["mamba" if stack == "blocks" else "tail"]
-            x, st = B.mamba_block_decode(_layer(params[stack], i), x, _layer(slot, i), cfg)
-            slot["conv"][i] = st["conv"]
-            slot["ssm"][i] = st["ssm"]
+            if kind == "cross":
+                x = B.cross_block_decode_cached(_layer(params["cross_blocks"], i), x,
+                                                cache["cross_k"][i], cache["cross_v"][i], cfg)
+                continue
+            slot = cache["shared"] if kind == "shared" else cache
+            kv = {"k": slot["k"][i], "v": slot["v"][i]}
+            lp = params["shared_attn"] if kind == "shared" else _layer(params["blocks"], i)
+            if kind == "moe":
+                x, _ = B.moe_block_decode(lp, x, kv, pos, cfg)
+            elif kind == "encdec":
+                h, _ = attn.attend_decode(lp["attn"], rmsnorm(lp["ln_attn"], x), kv, pos, cfg)
+                x = B.cross_block_decode_cached({"ln_x": lp["ln_cross"], "cross": lp["cross"]},
+                                                x + h, cache["cross_k"][i], cache["cross_v"][i],
+                                                cfg)
+                x = x + mlp_apply(lp["mlp"], rmsnorm(lp["ln_mlp"], x), cfg.mlp_type)
+            else:
+                x, _ = B.attn_mlp_decode(lp, x, kv, pos, cfg)
         x = rmsnorm(params["ln_f"], x)
         return unembed_apply(params["embed"], x, cfg.logit_softcap)[:, 0], cache
 

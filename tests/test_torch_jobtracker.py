@@ -141,7 +141,7 @@ def test_speculative_execution_verifies_determinism():
     c, d = t.run(rtc.JobTracker.split(IDS, 2))
     ref_c, _ = port_clean()
     np.testing.assert_allclose(c, ref_c, atol=1e-4)
-    assert any("speculative" in e for e in t.events)
+    assert "speculative task=0" in t.events, t.events
     _as_reference(c, d)
 
 
