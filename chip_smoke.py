@@ -5,6 +5,7 @@
     python3 chip_smoke.py --mosaic-only
     python3 chip_smoke.py --distributed-only [--n-runs 8]
     python3 chip_smoke.py --lm-only [--reps 5]
+    python3 chip_smoke.py --train-only [--reps 5]
 
 The second form only times the brick mosaic on random tiles at the brick
 window's shape (`mosaic_only`); a copy of the script at the root of an older
@@ -143,7 +144,17 @@ runs these phases, in order, each printing its seconds:
    1000 and 2048, chunk 64 and 256, N = 64 and 128, P = 64, log-decay down
    to -50 a step, the model's strided slices, B 4 x H 64 in float32, H 24
    and 20 (head groups of 16 that do not divide H), and the ``a``-form
-   ``ssd`` also against the step-by-step scan.
+   ``ssd`` also against the step-by-step scan.  Then the flash backward
+   (`FLASH_BWD_CASES`: qwen2's 12:2 D 128 at 2 x 4096 in bf16 and float32,
+   granite 24:8 D 64, gemma 8:1 D 256 float32, whisper's non-causal 20
+   heads at S 1500, window 256, a ragged S 1000), q, k, v and dO in the
+   model's strided layout: the forward's O with the LSE written bitwise
+   its O without, the LSE within 1e-5 of the plain one's scale;
+   ``flash_bwd_preprocess_kernel`` (D), ``flash_bwd_dkdv_kernel`` and
+   ``flash_bwd_dq_kernel`` against ``flash_bwd_ref`` on the same operands
+   (float32 within 1e-4 of each gradient's scale; bf16 by the forward's
+   allowance, element by element and row by row); two backward runs
+   bitwise.
 4. batch path ("4 batch path", after the main path): ``run_batch`` of K = 4
    queries (the main box and three moved by +0.25, +0.5 and -0.25 deg in
    RA) for ``raw_fits`` (dense) and ``sql_structured`` (sparse, the union
@@ -279,8 +290,30 @@ runs these phases, in order, each printing its seconds:
    attention from ``flash_ref``) a flip beyond 1 ulp fails the run.
    Prints prefill ms, ms a decode step, tokens/s and the
    ``max_memory_allocated`` rise of every run beside the card's name and
-   power limit; ``--lm-only`` runs phases "3 lm kernels" and "4 lm
-   families" and the families' kernel timings, and exits.
+   power limit; ``--lm-only`` runs phases "3 lm kernels", "4 lm
+   families" and "4 lm training" and the families' and the backward's
+   kernel timings, and exits.
+4. lm training ("4 lm training", after the families; `TRAIN_ARCH`):
+   qwen2-1.5b at full width and depth, float32 masters, bf16 compute,
+   remat on, 2 x 4096 tokens (train_4k's sequence length, the global batch
+   cut from 256 to 2).  (a) One step's loss, grad norm and every gradient
+   leaf on the kernel path against the plain path on the same weights and
+   batch (float32 within 1e-4 of each leaf's scale; bf16 by the ratio rule
+   against the plain path and against the kernel path with its kernels
+   swapped for their plain versions), exactly 2 forward and 1 of each
+   backward kernel launch a layer a step; (b) 10 AdamW steps
+   (``make_train_step``, ``TokenPipeline`` over ``synthetic_corpus``):
+   ms a step, tokens/s, model FLOP/s (a share of the bf16 peak, for
+   information only), ``max_memory_allocated``, and one more step split
+   by CUDA events into forward, backward (the flash backward calls alone)
+   and optimizer; (c) the crash/resume drill through
+   ``launch/train.py``'s loop (qwen2's widths, 2 layers, vocab 512, 12
+   steps of 4 x 256, a checkpoint every 4, crashed after step 6 and
+   resumed: final losses within 1e-6, bitwise or not printed); (d)
+   mamba2-130m and a one-group zamba2-1.2b raise ``NotImplementedError``
+   under grad on the card before any SSD launch.  ``--train-only`` runs the
+   flash backward's cases, this phase and the backward's timings, and
+   exits.
 5. measure: each kernel's time on the card (CUDA events, warm), its plain
    version's, the nearest PyTorch call's (``F.grid_sample`` bilinear over
    the same samples, plus a sum for the coadd; it covers only the
@@ -316,6 +349,13 @@ runs these phases, in order, each printing its seconds:
    ``F.scaled_dot_product_attention`` (``enable_gqa`` where the heads are
    grouped), each with its bound and launches a prefill (the kernels
    line's ``family_shapes``).
+   The three backward kernels at qwen2's training shape (2 x 4096, 12:2,
+   D 128, causal bf16): each launched alone, the three through the
+   wrapper, ``flash_bwd_ref`` (and D in plain torch), and
+   ``F.scaled_dot_product_attention``'s backward (dq, dk and dv together,
+   ``dkdv``'s library time); bounds: bytes, or the products each kernel
+   cannot avoid (dkdv 4, dq 3 a pair; the whole backward 5, 2.5 times the
+   forward's) on the bf16 tensor cores beside 5 float32 operations a pair.
    The kernels redesigned for the card (``flash_fwd_bf16_kernel``,
    ``psf_match_2d_kernel``, ``psf_match_sep_kernel``,
    ``warp_project_kernel``) also print their registers and spills (ptxas
@@ -549,6 +589,29 @@ FLASH_CASES = (
     ("whisper_encoder_s1500", 4, 20, 20, 1500, 64, False, None, "bfloat16", True),
     ("llama_vision_gqa32_8_d128", 4, 32, 8, 2048, 128, True, None, "bfloat16", True),
 )
+# The flash backward kernels (flash_bwd_preprocess_kernel, flash_bwd_dkdv_kernel,
+# flash_bwd_dq_kernel) against flash_bwd_ref on the same operands (q, k, v and
+# dO in the model's strided (B, S, H, D) layout; O and the LSE from the
+# forward kernel): (name, B, Hq, Hkv, S, D, causal, window, dtype).  float32
+# within BWD_F32_REL of each gradient's scale; bfloat16 by the forward's
+# allowance (FLASH_TOL element by element, flash_rows row by row).  The
+# forward's O with the LSE written must be bitwise its O without, and the
+# LSE within LSE_REL of the plain one's scale; two backward runs bitwise.
+FLASH_BWD_CASES = (
+    ("qwen2_train", 2, 12, 2, 4096, 128, True, None, "bfloat16"),
+    ("qwen2_train_f32", 2, 12, 2, 4096, 128, True, None, "float32"),
+    ("granite_gqa24_8_d64", 1, 24, 8, 2048, 64, True, None, "bfloat16"),
+    ("gemma_mqa8_1_d256_f32", 1, 8, 1, 2048, 256, True, None, "float32"),
+    ("whisper_encoder_s1500", 1, 20, 20, 1500, 64, False, None, "bfloat16"),
+    ("window256_s2048", 1, 12, 2, 2048, 128, True, 256, "bfloat16"),
+    ("ragged_s1000", 1, 12, 2, 1000, 128, True, None, "bfloat16"),
+)
+BWD_F32_REL, LSE_REL = 1e-4, 1e-5
+# A gradient row is held in bf16 ulps of the larger of its own scale and
+# BWD_ROW_FLOOR of the gradient's: row 0 of dQ under the causal mask is
+# P (dP - D) with P = 1 and dP = D up to rounding, a sum that cancels to 0 in
+# one order and to 1e-9 in another.
+BWD_ROW_FLOOR = 2.0 ** -10
 #: The FLASH_CASES and SSD_CASES that phase 5 times: (case, the configuration
 #: whose prefill gives the shape).
 FAMILY_FLASH = {"gemma_mqa8_1_d256_f32": "gemma-2b", "qwen2_gqa12_2_d128": "qwen2-1.5b",
@@ -637,6 +700,32 @@ FAMILY_BATCH = (4, 2048)
 # H100, one flash call's rounding moves a router logit by up to 5 ulps.
 FLIP_ULPS = 1.0
 PATH_NAMES = {True: "kernel", False: "plain", "swapped": "swapped"}
+# The LM training path (phase "4 lm training"): TRAIN_ARCH at full width and
+# depth (28 layers, d_model 1536, GQA 12:2, head dim 128, vocab 151936, 1.54 B
+# parameters; its own config file), float32 masters, bf16 compute, remat on,
+# at train_4k's sequence length with the global batch cut from 256 to
+# TRAIN_BATCH[0] so that one card holds a step.  (a) One step's loss, grad
+# norm and every gradient leaf on the kernel path (use_kernels=True) against
+# the model's plain path, on the same weights (LM.init(TRAIN_SEED)) and
+# batch: float32 within F32_REL of each leaf's scale; bf16 by the ratio rule
+# (BF16_L2, BF16_MAX, BF16_ULP) against two comparators, the plain path and
+# the kernel path with its kernels swapped for their plain versions, each
+# measured from the float32 kernel run.  A step of the kernel path launches
+# the forward kernel twice a layer (remat recomputes it) and each backward
+# kernel once a layer.  (b) TRAIN_STEPS AdamW steps (make_train_step) on
+# TokenPipeline batches of synthetic_corpus, then one more step instrumented
+# with CUDA events.  (c) The crash/resume drill through launch/train.py's
+# loop (TRAIN_DRILL: qwen2's widths, 2 layers); final losses within
+# DRILL_TOL (tests/test_distributed.py:93's bound).  (d) The ssm and hybrid
+# families raise NotImplementedError under grad on the card (the SSD
+# backward is not written yet), before any SSD launch.
+TRAIN_ARCH, TRAIN_SEED = "qwen2-1.5b", 0
+TRAIN_BATCH = (2, 4096)
+TRAIN_STEPS = 10
+TRAIN_DRILL = dict(n_layers=2, vocab=512, steps=12, global_batch=4, seq_len=256, ckpt_every=4,
+                   crash_at=6)
+DRILL_TOL = 1e-6
+NO_SSD_BACKWARD = (("mamba2-130m", {}), ("zamba2-1.2b", {"n_layers": 6}))
 
 
 class SmokeFailure(Exception):
@@ -864,13 +953,15 @@ def ssd_bound(b, t, h, n, p, chunk, esize):
     return bound(nbytes, ops)
 
 
-def flash_rows(torch, what, out, plain):
+def flash_rows(torch, what, out, plain, floor=0.0):
     """Hold a bf16 flash output against flash_ref row by row -> (largest
     per-row max |diff| in bf16 ulps of the row's largest |value|, relative L2
-    error)."""
+    error).  ``floor``: the row's scale is at least this share of the whole
+    tensor's (a gradient row can be one exact cancellation: 0 in one sum
+    order, 1e-9 in another)."""
     o, r = out.float(), plain.float()
     err = (o - r).abs().amax(-1)
-    scale = r.abs().amax(-1)
+    scale = torch.clamp_min(r.abs().amax(-1), floor * float(r.abs().max()))
     # bf16 spacing at the row's largest |value|: 2**(e - 8) for one in
     # [2**(e - 1), 2**e); a zero row allows no error at all.
     ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)
@@ -929,6 +1020,73 @@ def flash_cases(torch, flash, flash_ref, dev):
           f"operands off 16 bytes: max |diff| {err:.3g}, row ulps {ulps:.3g}, relative L2 "
           f"{l2:.3g}")
     return max(worst, err)
+
+
+def flash_bwd_cases(torch, dev):
+    """Hold the forward's LSE and the three backward kernels against their
+    plain versions in every FLASH_BWD_CASES case -> {kernel: worst max |diff|}."""
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.attention.ref import flash_bwd_ref, flash_ref
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    worst = dict.fromkeys(flash_ops.BWD_KERNELS, 0.0)
+    for name, b, hq, hkv, s, d, causal, window, dtype in FLASH_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt).transpose(1, 2)
+                       for h in (hq, hkv, hkv, hq))
+        scale = 1.0 / math.sqrt(d)
+        o_plain_fwd = flash_ops._forward(q, k, v, causal, window, scale, with_lse=False)
+        o, lse = flash_ops._forward(q, k, v, causal, window, scale, with_lse=True)
+        _, lse_p = flash_ref(q, k, v, causal, window, scale, return_lse=True)
+        torch.cuda.synchronize()
+        require(torch.equal(o, o_plain_fwd), f"flash bwd {name}: the forward's O with the LSE "
+                                             "written is not bitwise its O without")
+        lse_err = float((lse - lse_p).abs().max())
+        lse_lim = LSE_REL * max(float(lse_p.abs().max()), 1.0)
+        require(lse_err <= lse_lim, f"flash bwd {name}: LSE max |diff| {lse_err:.3g} > "
+                                    f"{lse_lim:.3g}")
+        del o_plain_fwd, lse_p
+        got = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window, scale)
+        again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window, scale)
+        want = flash_bwd_ref(q, k, v, o, lse, do, causal, window, scale)
+        (*_, delta), calls = flash_ops.bwd_launches(q, k, v, o, lse, do, causal, window, scale)
+        calls["flash_bwd_preprocess_kernel"]()   # D alone, uncounted
+        delta_p = (do.float() * o.float()).sum(-1)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, c) for a, c in zip(got, again)),
+                f"flash bwd {name}: two backward runs on the same operands differ")
+        errs = {}
+        for what, x, y in zip(("dq", "dk", "dv"), got, want):
+            require(x.shape == y.shape and x.dtype == y.dtype and x.stride(3) == 1,
+                    f"flash bwd {name} {what}: shape, dtype or layout")
+            require(bool(torch.isfinite(x).all()), f"flash bwd {name} {what}: non-finite")
+            err = float((x.float() - y.float()).abs().max())
+            scale_y = float(y.float().abs().max())
+            if dtype == "float32":
+                require(err <= BWD_F32_REL * scale_y, f"flash bwd {name} {what}: max |diff| "
+                                                      f"{err:.3g} > {BWD_F32_REL} x {scale_y:.3g}")
+                errs[what] = f"{err:.3g} of scale {scale_y:.3g}"
+            else:
+                tol = FLASH_TOL[dtype]
+                bad = (x.float() - y.float()).abs() > tol + tol * y.float().abs()
+                require(not bool(bad.any()), f"flash bwd {name} {what}: max |diff| {err:.3g} "
+                                             f"beyond atol = rtol = {tol}")
+                ulps, l2 = flash_rows(torch, f"bwd {name} {what}", x, y, BWD_ROW_FLOOR)
+                errs[what] = f"{err:.3g} (row ulps {ulps:.3g}, relative L2 {l2:.3g})"
+            kernel = "flash_bwd_dq_kernel" if what == "dq" else "flash_bwd_dkdv_kernel"
+            worst[kernel] = max(worst[kernel], err)
+        d_err = float((delta - delta_p).abs().max())
+        require(d_err <= BWD_F32_REL * max(float(delta_p.abs().max()), 1.0),
+                f"flash bwd {name}: D max |diff| {d_err:.3g}")
+        worst["flash_bwd_preprocess_kernel"] = max(worst["flash_bwd_preprocess_kernel"], d_err)
+        print(f"  flash bwd {name}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} "
+              f"window={window} {dtype} strided: O with the LSE bitwise O without, LSE max "
+              f"|diff| {lse_err:.3g}, D max |diff| {d_err:.3g}, "
+              + ", ".join(f"{w} {e}" for w, e in errs.items())
+              + "; two runs bitwise", flush=True)
+        del q, k, v, do, o, lse, got, again, want, delta, delta_p, calls
+    torch.cuda.empty_cache()
+    return worst
 
 
 def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, ssd_heads_per_block, dev):
@@ -1581,9 +1739,403 @@ def lm_families(torch, np, dev, counted, card):
     return runs, launches
 
 
+def train_grads(torch, model, params, batch):
+    """One forward and backward of ``model.loss`` -> (loss, grad norm,
+    {path: gradient}, ms)."""
+    from repro_torch.optim.adamw import global_norm
+
+    paths, leaves = zip(*tree_leaves(params))
+    for x in leaves:
+        x.requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = dict(zip(paths, grads))
+    return loss.detach(), global_norm(grads), grads, ms
+
+
+def flash_counts(flash_ops):
+    """The forward's and each backward kernel's launch counts."""
+    return {"flash_attention_single": flash_ops.flash_attention.launches,
+            **flash_ops.flash_attention_bwd.kernel_launches}
+
+
+def zero_flash_counts(flash_ops):
+    flash_ops.flash_attention.launches = 0
+    flash_ops.flash_attention_bwd.launches = 0
+    for k in flash_ops.flash_attention_bwd.kernel_launches:
+        flash_ops.flash_attention_bwd.kernel_launches[k] = 0
+
+
+def lm_training(torch, np, dev, card):
+    """Phase "4 lm training" (see TRAIN_ARCH) -> (record, the launches of
+    the TRAIN_STEPS steps)."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.packing import pack_documents, synthetic_corpus
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.specs import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, tree_map
+    from repro_torch.optim.schedule import warmup_cosine
+
+    base = get_config(TRAIN_ARCH)
+    b, s = TRAIN_BATCH
+    tokens = b * s
+    before_phase = torch.cuda.memory_allocated()   # earlier phases' tensors still held
+    n_layers = base.n_layers
+    per_step = {"flash_attention_single": 2 * n_layers,
+                **dict.fromkeys(flash_ops.BWD_KERNELS, n_layers)}
+    models = {(dtype, kern): build_model(dataclasses.replace(base, dtype=dtype), device=dev,
+                                         use_kernels=kern)
+              for dtype in ("float32", "bfloat16") for kern in (True, False)}
+    require(base.remat, f"{TRAIN_ARCH}: remat must be on")
+    t0 = time.perf_counter()
+    params = models["float32", True].init(TRAIN_SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in tree_leaves(params))
+    print(f"  {TRAIN_ARCH}: {n_layers} layers, d_model {base.d_model}, GQA {base.n_heads}:"
+          f"{base.n_kv_heads}, head dim {base.head_dim}, vocab {base.vocab_size}, {n_params} "
+          f"float32 parameters from LM.init({TRAIN_SEED}) in {time.perf_counter() - t0:.1f} s; "
+          f"batch {b} x {s} (train_4k's sequence length, global batch cut from 256)", flush=True)
+    docs, srcs = synthetic_corpus(vocab=base.vocab_size, seed=TRAIN_SEED)
+    pipe = TokenPipeline(pack_documents(docs, srcs, shard_len=4 * s),
+                         PipelineConfig(b, s, seed=TRAIN_SEED))
+
+    def batch_at(step):
+        return {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
+
+    # ---- (a) one step, kernel path against the plain path ----
+    batch = batch_at(0)
+    for model in models.values():   # cuBLAS handles, the allocator; uncounted
+        with torch.no_grad():
+            model.loss(params, {k: v[:1, :256] for k, v in batch.items()})
+    runs = {}
+    zero_flash_counts(flash_ops)
+    loss32, gn32, yard, ms = train_grads(torch, models["float32", True], params, batch)
+    got = flash_counts(flash_ops)
+    require(got == per_step, f"float32 kernel-path step launched {got}, expected {per_step}")
+    runs["float32 kernel"] = dict(loss=float(loss32), grad_norm=float(gn32), ms=ms,
+                                  launches=got)
+    loss_p, gn_p, grads, ms = train_grads(torch, models["float32", False], params, batch)
+    f32 = {"loss": abs(float(loss32 - loss_p)) / abs(float(loss_p)),
+           "grad_norm": abs(float(gn32 - gn_p)) / float(gn_p)}
+    f32.update({path: max_rel(yard[path], g) for path, g in grads.items()})
+    worst32 = max(f32, key=f32.get)
+    runs["float32 plain"] = dict(loss=float(loss_p), grad_norm=float(gn_p), ms=ms)
+    print(f"  float32 kernel vs plain path, of each value's scale (limit {F32_REL}): loss "
+          f"{f32['loss']:.3g}, grad norm {f32['grad_norm']:.3g}, largest {worst32} "
+          f"{f32[worst32]:.3g}", flush=True)
+    require(f32[worst32] <= F32_REL, f"{TRAIN_ARCH} float32 {worst32}: kernel vs plain "
+                                     f"{f32[worst32]:.3g} of its scale > {F32_REL}")
+    del grads
+    torch.cuda.empty_cache()
+
+    def from_yard(loss, gn, grads):
+        """(relative L2, max over scale) of every value from the float32 kernel run."""
+        out = {"loss": (abs(float(loss - loss32)) / abs(float(loss32)),) * 2,
+               "grad_norm": (abs(float(gn - gn32)) / float(gn32),) * 2}
+        out.update({path: (l2_rel(g, yard[path]), max_rel(g, yard[path]))
+                    for path, g in grads.items()})
+        return out
+
+    bf16 = {}
+    for name, key, ctx in (("kernel", ("bfloat16", True), contextlib.nullcontext),
+                           ("plain", ("bfloat16", False), contextlib.nullcontext),
+                           ("swapped", ("bfloat16", True), kernels_swapped_for_plain)):
+        zero_flash_counts(flash_ops)
+        with ctx():
+            loss, gn, grads, ms = train_grads(torch, models[key], params, batch)
+        bf16[name] = from_yard(loss, gn, grads)
+        runs[f"bfloat16 {name}"] = dict(loss=float(loss), grad_norm=float(gn), ms=ms)
+        if name == "kernel":
+            got = flash_counts(flash_ops)
+            require(got == per_step, f"bf16 kernel-path step launched {got}, expected "
+                                     f"{per_step}")
+            runs["bfloat16 kernel"]["launches"] = got
+        del grads
+        torch.cuda.empty_cache()
+    worst = {}
+    for comp in ("plain", "swapped"):
+        ratio, what = 0.0, ""
+        for path, (l2_k, mx_k) in bf16["kernel"].items():
+            l2_c, mx_c = bf16[comp][path]
+            require(l2_k <= BF16_L2 * l2_c + BF16_ULP and mx_k <= BF16_MAX * mx_c + BF16_ULP,
+                    f"{TRAIN_ARCH} bfloat16 {path}: from the float32 kernel run, kernel path "
+                    f"L2 {l2_k:.3g} max {mx_k:.3g}, {comp} L2 {l2_c:.3g} max {mx_c:.3g}")
+            if l2_k / max(l2_c, 1e-30) > ratio:
+                ratio = l2_k / max(l2_c, 1e-30)
+                what = f"{path}: L2 {l2_k:.3g} vs {l2_c:.3g}, max {mx_k:.3g} vs {mx_c:.3g}"
+        worst[comp] = dict(l2_ratio=ratio, at=what)
+        print(f"  bfloat16 from the float32 kernel run, kernel vs {comp} (largest L2 ratio): "
+              f"{ratio:.3g} ({what}); loss kernel {bf16['kernel']['loss'][0]:.3g} vs "
+              f"{bf16[comp]['loss'][0]:.3g}, grad norm {bf16['kernel']['grad_norm'][0]:.3g} "
+              f"vs {bf16[comp]['grad_norm'][0]:.3g}", flush=True)
+    for name, r in runs.items():
+        print(f"  one step {name}: loss {r['loss']:.6f}, grad norm {r['grad_norm']:.6f}, "
+              f"forward + backward {r['ms']:.1f} ms"
+              + (f", launches {r['launches']}" if "launches" in r else ""), flush=True)
+    del yard, bf16
+    torch.cuda.empty_cache()
+
+    # ---- (b) TRAIN_STEPS AdamW steps on the kernel path ----
+    model = models["bfloat16", True]
+    ocfg = AdamWConfig(schedule=warmup_cosine(2, TRAIN_STEPS))
+    step_fn = make_train_step(model, ocfg)
+    opt = adamw_init(params)
+    losses, times = [], []
+    zero_flash_counts(flash_ops)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(TRAIN_STEPS):
+        batch = batch_at(step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    launches = flash_counts(flash_ops)
+    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    require(launches == want, f"{TRAIN_STEPS} steps launched {launches}, expected {want}")
+    require(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
+    # One more step, its parts timed with CUDA events.
+    batch = batch_at(TRAIN_STEPS)
+    paths, leaves = zip(*tree_leaves(params))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    bwd_ev = []
+    plain_bwd = flash_ops.flash_attention_bwd
+
+    def timed_bwd(*args, **kwargs):
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = plain_bwd(*args, **kwargs)
+        pair[1].record()
+        bwd_ev.append(pair)
+        return out
+
+    # The wrapper counts on its module's name: here on the timing wrapper.
+    timed_bwd.launches = 0
+    timed_bwd.kernel_launches = dict(plain_bwd.kernel_launches)
+    flash_ops.flash_attention_bwd = timed_bwd
+    try:
+        ev[0].record()
+        loss = model.loss(params, batch)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        by_leaf = dict(zip(map(id, leaves), grads))
+        adamw_update(tree_map(lambda x: by_leaf[id(x)], params), opt, params, ocfg)
+        ev[3].record()
+        torch.cuda.synchronize()
+    finally:
+        flash_ops.flash_attention_bwd = plain_bwd
+    del grads, by_leaf
+    split = {"forward_ms": ev[0].elapsed_time(ev[1]), "backward_ms": ev[1].elapsed_time(ev[2]),
+             "flash_bwd_kernels_ms": sum(a.elapsed_time(z) for a, z in bwd_ev),
+             "optimizer_ms": ev[2].elapsed_time(ev[3])}
+    require(len(bwd_ev) == n_layers, f"instrumented step: {len(bwd_ev)} flash backward calls")
+    med = statistics.median(times)
+    pairs = b * base.n_heads * attention_pairs(s, True, None)
+    flops = 6 * n_params * tokens + 3 * 4 * base.head_dim * pairs * n_layers
+    record = dict(arch=TRAIN_ARCH, batch=b, seq=s, params=n_params, card=card, runs=runs,
+                  float32_worst=dict(at=worst32, rel=f32[worst32]), bf16_worst=worst,
+                  step_ms=times, step_ms_median=med, step_ms_min=min(times),
+                  step_ms_max=max(times), tokens_per_s=tokens / med * 1e3, losses=losses,
+                  model_flops_per_step=flops,
+                  model_flops_share_of_bf16_peak_info_only=flops / (med * 1e-3) /
+                  BF16_TC_OPS_PER_S,
+                  max_memory_allocated=peak, allocated_before_phase=before_phase,
+                  step_split=split, launches=launches)
+    print(f"  {TRAIN_STEPS} AdamW steps ({TRAIN_ARCH}, {b} x {s}, bf16 compute, float32 "
+          f"masters, remat): {med:.1f} ms a step (median; min {min(times):.1f}, max "
+          f"{max(times):.1f}; first {times[0]:.1f}), {tokens / med * 1e3:.0f} tokens/s, model "
+          f"FLOP/s {flops / (med * 1e-3) / 1e12:.1f} T = "
+          f"{record['model_flops_share_of_bf16_peak_info_only']:.3f} of the dense bf16 peak "
+          f"(information only, not a metric); max_memory_allocated {peak / 2**30:.2f} GiB "
+          f"({before_phase / 2**30:.2f} of it allocated before the phase); "
+          f"losses {[round(x, 4) for x in losses]}; launches {launches}; {card}", flush=True)
+    print(f"  one more step by CUDA events: forward {split['forward_ms']:.1f} ms, backward "
+          f"{split['backward_ms']:.1f} ms (of it the {n_layers} flash backward calls "
+          f"{split['flash_bwd_kernels_ms']:.1f} ms), optimizer {split['optimizer_ms']:.1f} ms",
+          flush=True)
+    del params, opt, models, model, step_fn, batch, leaves, loss
+    torch.cuda.empty_cache()
+
+    # ---- (c) the crash/resume drill through launch/train.py ----
+    d = TRAIN_DRILL
+    cfg_d = dataclasses.replace(base, n_layers=d["n_layers"])
+    root = os.path.join(ROOT, "build", "train_drill")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def drill_args(run, crash=-1):
+        return train_mod.parser().parse_args(
+            ["--vocab", str(d["vocab"]), "--steps", str(d["steps"]), "--global-batch",
+             str(d["global_batch"]), "--seq-len", str(d["seq_len"]), "--ckpt-every",
+             str(d["ckpt_every"]), "--log-every", "100", "--crash-at-step", str(crash),
+             "--run-dir", os.path.join(root, run), "--device", dev.type])
+
+    t0 = time.perf_counter()
+    clean = train_mod.train(drill_args("clean"), cfg_d)
+    crashed = False
+    try:
+        train_mod.train(drill_args("crashed", d["crash_at"]), cfg_d)
+    except SystemExit:
+        crashed = True
+    require(crashed, "the drill's run did not crash")
+    resumed = train_mod.train(drill_args("crashed"), cfg_d)
+    diff = abs(clean["final_loss"] - resumed["final_loss"])
+    bitwise = clean["final_loss"] == resumed["final_loss"]
+    require(diff <= DRILL_TOL, f"crash/resume: final loss {resumed['final_loss']!r} vs "
+                               f"uninterrupted {clean['final_loss']!r}")
+    shutil.rmtree(root, ignore_errors=True)
+    record["drill"] = dict(config=dict(d, arch=TRAIN_ARCH), final_loss=clean["final_loss"],
+                           resumed_final_loss=resumed["final_loss"], diff=diff, bitwise=bitwise,
+                           seconds=time.perf_counter() - t0)
+    print(f"  crash/resume drill ({TRAIN_ARCH} widths, {d['n_layers']} layers, vocab "
+          f"{d['vocab']}, {d['steps']} steps of {d['global_batch']} x {d['seq_len']}, a "
+          f"checkpoint every {d['ckpt_every']}, crashed after step {d['crash_at']}): final "
+          f"loss {clean['final_loss']!r} uninterrupted, {resumed['final_loss']!r} resumed, "
+          f"|diff| {diff:.3g} (limit {DRILL_TOL}), bitwise {bitwise}", flush=True)
+
+    # ---- (d) no SSD backward on the card yet ----
+    for arch, cut in NO_SSD_BACKWARD:
+        cfg = dataclasses.replace(get_config(arch), **cut)
+        model = build_model(cfg, device=dev)
+        p = model.init(TRAIN_SEED)
+        for _, x in tree_leaves(p):
+            x.requires_grad_(True)
+        toks = torch.randint(0, cfg.vocab_size, (1, 256), device=dev)
+        before = ssd_ops.ssd_log.launches
+        raised = ""
+        try:
+            model.loss(p, {"tokens": toks, "labels": toks}).backward()
+        except NotImplementedError as exc:
+            raised = str(exc)
+        require(raised and ssd_ops.ssd_log.launches == before,
+                f"{arch}: LM.loss under grad on the card must raise NotImplementedError before "
+                f"any SSD launch (raised {bool(raised)}, "
+                f"{ssd_ops.ssd_log.launches - before} launches)")
+        print(f"  {arch} ({cfg.family}, {cfg.n_layers} layers) LM.loss under grad on the card: "
+              f"NotImplementedError ({raised}), 0 SSD launches", flush=True)
+        del model, p
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def bwd_bound(b, hq, hkv, s, d, causal, window, esize, products, nbytes):
+    """Bound of a backward kernel: ``products`` D-deep products per unmasked
+    (q, k) pair (2 D flops each; on the bf16 tensor cores, or the float32
+    CUDA cores for 4-byte operands) and 5 float32 operations a pair (exp,
+    two subtractions, two products) on the CUDA cores, against ``nbytes``
+    read and written once."""
+    pairs = b * hq * attention_pairs(s, causal, window)
+    rate = BF16_TC_OPS_PER_S if esize == 2 else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(2 * d * products * pairs / rate, 5 * pairs / FP32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bwd_times(torch, F, dev, reps, launches, case_err):
+    """The backward kernels at every FLASH_BWD_CASES shape: each launched
+    alone, the three through the wrapper, the plain versions,
+    F.scaled_dot_product_attention's backward, the bounds -> the three
+    kernels' rows, at qwen2's training shape (the first case), each
+    carrying every shape's numbers."""
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.attention.ref import flash_bwd_ref
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    shapes = []
+    for name, b, hq, hkv, s, d, causal, window, dtype in FLASH_BWD_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+                       .transpose(1, 2) for h in (hq, hkv, hkv, hq))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = flash_ops._forward(q, k, v, causal, window, scale, with_lse=True)
+        _, calls = flash_ops.bwd_launches(q, k, v, o, lse, do, causal, window, scale)
+        alone = {kern: cuda_ms(torch, call, reps) for kern, call in calls.items()}
+        wrapper_ms = cuda_ms(torch, lambda: flash_ops.flash_attention_bwd(
+            q, k, v, o, lse, do, causal, window, scale), reps)
+        plain_ms = cuda_ms(torch, lambda: flash_bwd_ref(q, k, v, o, lse, do, causal, window,
+                                                        scale), 2)
+        delta_ms = cuda_ms(torch, lambda: (do.float() * o.float()).sum(-1), reps)
+        fwd_ms = cuda_ms(torch, lambda: flash_ops._forward(q, k, v, causal, window, scale, True),
+                         reps)
+        sdpa_ms = None
+        if window is None:   # SDPA takes no sliding window
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                                 enable_gqa=hq != hkv)
+            sdpa_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                                 retain_graph=True), reps)
+            del out, qg, kg, vg
+        esize = q.element_size()
+        act = b * hq * s * d * esize
+        kv = b * hkv * s * d * esize
+        rows = b * hq * s * 4
+        bounds = {
+            "flash_bwd_preprocess_kernel": bound(2 * act + rows, 2 * d * b * hq * s),
+            "flash_bwd_dkdv_kernel": bwd_bound(b, hq, hkv, s, d, causal, window, esize, 4,
+                                               2 * act + 4 * kv + 2 * rows),
+            "flash_bwd_dq_kernel": bwd_bound(b, hq, hkv, s, d, causal, window, esize, 3,
+                                             3 * act + 2 * kv + 2 * rows),
+        }
+        whole = bwd_bound(b, hq, hkv, s, d, causal, window, esize, 5,
+                          4 * act + 4 * kv + rows)
+        shape = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} window={window} "
+                 f"{dtype}, strided (B,S,H,D)")
+        shapes.append(dict(case=name, shape=shape, ms=wrapper_ms, alone_ms=alone,
+                           plain_ms=plain_ms, delta_plain_ms=delta_ms, sdpa_bwd_ms=sdpa_ms,
+                           bound_ms=whole[0], bound_by=whole[1],
+                           kernel_bounds={k: v[0] for k, v in bounds.items()},
+                           forward_with_lse_ms=fwd_ms))
+        sdpa = "none (a window)" if sdpa_ms is None else f"{sdpa_ms:.3f} ms"
+        print(f"  flash backward {name} ({shape}): the three kernels through the wrapper "
+              f"{wrapper_ms:.3f} ms (alone: " + ", ".join(f"{kk} {t:.3f}"
+                                                          for kk, t in alone.items())
+              + f"); plain flash_bwd_ref {plain_ms:.3f} ms; F.scaled_dot_product_attention's "
+              f"backward {sdpa}; bound {whole[0]:.4f} ms by {whole[1]} (2.5 x the forward's "
+              f"products); the forward kernel with the LSE {fwd_ms:.3f} ms", flush=True)
+        if name == FLASH_BWD_CASES[0][0]:
+            main_case = dict(alone=alone, bounds=bounds, plain_ms=plain_ms, delta_ms=delta_ms,
+                             sdpa_ms=sdpa_ms, wrapper_ms=wrapper_ms, whole=whole, shape=shape)
+        del q, k, v, do, o, lse, calls
+        torch.cuda.empty_cache()
+    m = main_case
+    out_rows = []
+    for kern in flash_ops.BWD_KERNELS:
+        b_ms, b_by = m["bounds"][kern]
+        out_rows.append(dict(
+            name=kern, route="cuda", source="src/repro_torch/csrc/flash.cu",
+            replaces="none: the JAX package's backward is XLA through mha_ref "
+                     "(src/repro/kernels/attention/ops.py:48)",
+            launches=launches[kern], max_abs_err=case_err[kern], ms=m["alone"][kern],
+            plain_ms=m["delta_ms"] if kern == "flash_bwd_preprocess_kernel" else m["plain_ms"],
+            plain=("(do * o).sum(-1) in float32" if kern == "flash_bwd_preprocess_kernel"
+                   else "flash_bwd_ref (all three gradients)"),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=m["sdpa_ms"] if kern == "flash_bwd_dkdv_kernel" else None,
+            library=("F.scaled_dot_product_attention's backward (dq, dk and dv together)"
+                     if kern == "flash_bwd_dkdv_kernel" else "none"),
+            backward_wrapper_ms=m["wrapper_ms"], backward_bound_ms=m["whole"][0],
+            shape=f"qwen2-1.5b training: {m['shape']}",
+            **({"bwd_shapes": shapes} if kern == "flash_bwd_dkdv_kernel" else {})))
+    return out_rows
+
+
 def lm_only(torch, np, F, reps):
-    """``--lm-only``: phases "3 lm kernels" and "4 lm families", and the
-    families' kernel shapes timed as phase 5 times them."""
+    """``--lm-only``: phases "3 lm kernels", "4 lm families" and "4 lm
+    training", and the families' kernel shapes and the flash backward timed
+    as phase 5 times them."""
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import ops as flash_ops
     from repro_torch.kernels.attention.ref import flash_ref
@@ -1597,6 +2149,7 @@ def lm_only(torch, np, F, reps):
         build.build_all()
     with phase("3 lm kernels"):
         flash_cases(torch, flash_ops.flash_attention, flash_ref, dev)
+        bwd_err = flash_bwd_cases(torch, dev)
         ssd_cases(torch, ssd_ops.ssd_log, ssd_ops.ssd, ssd_ref.ssd_chunked_ref,
                   ssd_ref.ssd_batched_ref, ssd_ops.heads_per_block, dev)
     counted = {"flash_attention_single": flash_ops.flash_attention,
@@ -1604,9 +2157,36 @@ def lm_only(torch, np, F, reps):
     with phase("4 lm families"):
         runs, launches = lm_families(torch, np, dev, counted, smi)
         print(json.dumps({"lm_families": runs}))
+    with phase("4 lm training"):
+        training, train_launches = lm_training(torch, np, dev, smi)
+        print(json.dumps({"lm_training": training}))
     with phase("5 measure"):
         fam_flash, fam_ssd = family_shapes(torch, F, dev, reps)
         print(json.dumps({"family_shapes": fam_flash + fam_ssd, "launches": launches}))
+        print(json.dumps({"flash_backward": flash_bwd_times(torch, F, dev, reps, train_launches,
+                                                             bwd_err)}))
+    print(f"card: {smi}")
+    return 0
+
+
+def train_only(torch, np, F, reps):
+    """``--train-only``: the flash backward's cases of phase "3 lm kernels",
+    phase "4 lm training" and the backward kernels' times."""
+    from repro_torch.kernels import build
+
+    dev = torch.device(DEVICE)
+    smi = card_line()
+    print(smi)
+    with phase("2 build"):
+        build.build_all()
+    with phase("3 lm kernels"):
+        bwd_err = flash_bwd_cases(torch, dev)
+    with phase("4 lm training"):
+        training, train_launches = lm_training(torch, np, dev, smi)
+        print(json.dumps({"lm_training": training}))
+    with phase("5 measure"):
+        print(json.dumps({"flash_backward": flash_bwd_times(torch, F, dev, reps, train_launches,
+                                                             bwd_err)}))
     print(f"card: {smi}")
     return 0
 
@@ -2897,8 +3477,12 @@ def main(argv=None) -> int:
     ap.add_argument("--distributed-only", action="store_true",
                     help="only run phase 4 distributed on the main survey and exit")
     ap.add_argument("--lm-only", action="store_true",
-                    help="only hold the LM kernels (phase 3 lm kernels), run phase 4 lm "
-                         "families and time the families' kernel shapes, and exit")
+                    help="only hold the LM kernels (phase 3 lm kernels), run phases 4 lm "
+                         "families and 4 lm training, time the families' kernel shapes and "
+                         "the flash backward, and exit")
+    ap.add_argument("--train-only", action="store_true",
+                    help="only hold the flash backward kernels, run phase 4 lm training and "
+                         "time the backward kernels, and exit")
     ap.add_argument("--crash-child", metavar="DIR",
                     help="the SIGKILL drill's subprocess (crash_child); not for direct use")
     ap.add_argument("--crash", metavar="STAGE:N", help="with --crash-child: SIGKILL there")
@@ -2936,6 +3520,8 @@ def main(argv=None) -> int:
 
     if args.lm_only:
         return lm_only(torch, np, F, args.reps)
+    if args.train_only:
+        return train_only(torch, np, F, args.reps)
 
     from repro_torch import (CoaddEngine, CoaddQuery, METHODS, SurveyConfig, detect_sources,
                              difference_image, inject_transients, make_survey,
@@ -3859,6 +4445,7 @@ def main(argv=None) -> int:
     with phase("3 lm kernels"):
         case_err["flash_attention_single"] = flash_cases(torch, flash_ops.flash_attention,
                                                          flash_ref, dev)
+        case_err.update(flash_bwd_cases(torch, dev))
         case_err["ssd_chunked"] = ssd_cases(torch, ssd_ops.ssd_log, ssd_ops.ssd,
                                             ssd_ref.ssd_chunked_ref, ssd_ref.ssd_batched_ref,
                                             ssd_ops.heads_per_block, dev)
@@ -4658,6 +5245,11 @@ def main(argv=None) -> int:
         family_runs, family_launches = lm_families(torch, np, dev, counted, smi)
         print(json.dumps({"lm_families": family_runs}))
 
+    # ------------------------------------------------- 4 lm training path --
+    with phase("4 lm training"):
+        training, train_launches = lm_training(torch, np, dev, smi)
+        print(json.dumps({"lm_training": training}))
+
     # --------------------------------------------------------- 5 measure --
     kernels = []
     scanned_bounds = {}   # every-slot bounds (coadd_bound), printed beside the kernels line
@@ -5110,7 +5702,8 @@ def main(argv=None) -> int:
             name="flash_attention_single", route="cuda", source="src/repro_torch/csrc/flash.cu",
             replaces="src/repro/kernels/attention/flash.py:80",
             launches=lm_launches["flash_attention_single"]
-            + family_launches["flash_attention_single"],
+            + family_launches["flash_attention_single"]
+            + train_launches["flash_attention_single"],
             max_abs_err=max(err, case_err["flash_attention_single"]), ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
             library="F.scaled_dot_product_attention(is_causal=True)",
@@ -5121,6 +5714,7 @@ def main(argv=None) -> int:
             family_shapes=fam_flash,
         ))
         del qkv
+        kernels.extend(flash_bwd_times(torch, F, dev, args.reps, train_launches, case_err))
         sb, st, sh, sn = 4, 2048, 64, 64
         la = -torch.rand((sb, st, sh), generator=g, device=dev) ** 4 * 50.0
         xbc = torch.randn((sb, st, sh * SSD_P + 2 * sn), generator=g, device=dev).bfloat16()

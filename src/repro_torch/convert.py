@@ -80,3 +80,11 @@ def lm_params_from_reference(params):
     if isinstance(params, dict):
         return {k: lm_params_from_reference(v) for k, v in params.items()}
     return torch.from_numpy(np.array(params))
+
+
+def adamw_state_from_reference(state):
+    """The port's AdamW state from the JAX package's ``{"m", "v", "step"}``
+    (numpy or array-like leaves): the moments as `lm_params_from_reference`
+    carries parameters, ``step`` a 0-d int32 tensor.  CPU tensors."""
+    return {"m": lm_params_from_reference(state["m"]), "v": lm_params_from_reference(state["v"]),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)}

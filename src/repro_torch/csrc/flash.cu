@@ -1,4 +1,5 @@
-// Hopper (sm_90a) kernels of forward attention with an online softmax.
+// Hopper (sm_90a) kernels of attention with an online softmax: the forward
+// (below) and its backward (the three flash_bwd_* kernels, further down).
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/attention/flash.py::flash_attention_single (:80, body
@@ -22,7 +23,9 @@
 // Unlike the TPU kernel it takes any sequence length: keys past the end of
 // a ragged last tile get -inf (exactly 0 weight) and rows past it are not
 // stored.  Kv tiles that the masks remove for every row of the q tile are
-// skipped.
+// skipped.  Given an `lse` pointer (training), each row's log-sum-exp of
+// its scaled logits, m + log l in natural units, is also written; O is the
+// same either way.
 //
 // What bounds it on an H100: operations.  Causal attention at S = 2048,
 // D = 64 does 4 * D flops per unmasked (q, k) pair, which on the bf16
@@ -88,9 +91,9 @@ constexpr size_t smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
-                     Strides sv, Strides so, int hq, int group, int seq, float scale,
-                     int causal, int window) {
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so,
+                     int hq, int group, int seq, float scale, int causal, int window) {
   constexpr int QS = D + 1;      // padded row strides of the shared tiles
   constexpr int KS = D + 1;
   constexpr int VS = D;
@@ -228,13 +231,17 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = l[i] == 0.0f ? 1.0f : l[i];
 #pragma unroll
     for (int c = 0; c < NC; ++c) ob[row * so.s + tx + 16 * c] = acc[i][c] / denom;
+    // The row's log-sum-exp of the scaled logits, for the backward pass.
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(blockIdx.y) * seq) + row] =
+          l[i] == 0.0f ? -INFINITY : m[i] + logf(l[i]);
   }
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides sq,
-                   Strides sk, Strides sv, Strides so, int batch, int hq, int hkv, int seq,
-                   float scale, int causal, int window, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   Strides sq, Strides sk, Strides sv, Strides so, int batch, int hq, int hkv,
+                   int seq, float scale, int causal, int window, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<D>;
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err =
@@ -243,13 +250,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides
   const dim3 grid((seq + kBQ - 1) / kBQ, batch * hq);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), sq, sk, sv, so, hq, hq / hkv, seq, scale, causal, window);
+      static_cast<float*>(o), lse, sq, sk, sv, so, hq, hq / hkv, seq, scale, causal, window);
   return cudaGetLastError();
 }
 
 // ---- bfloat16 on the tensor cores ---------------------------------------
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // 2^x on the special-function unit, denormal results flushed to 0.
 __device__ __forceinline__ float ex2(float x) {
@@ -348,8 +356,9 @@ __global__ void __launch_bounds__(kTcThreads)
     flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          Strides sq, Strides sk, Strides sv, Strides so, int hq, int group,
-                          int seq, float scale, int causal, int window, int aligned) {
+                          float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+                          Strides so, int hq, int group, int seq, float scale, int causal,
+                          int window, int aligned) {
   constexpr int BQ = kTcRows;
   constexpr int BK = tc_bk<D>();
   constexpr int NS = BK / 8;       // 8-key column tiles of a warp's S
@@ -529,13 +538,19 @@ __global__ void __launch_bounds__(kTcThreads)
     for (int j = 0; j < ND; ++j)
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
           __floats2bfloat162_rn(acc[j][2 * i] / denom, acc[j][2 * i + 1] / denom);
+    // The row's log-sum-exp of the scaled logits in natural units (m is in
+    // log2 units), for the backward pass.
+    if (lse != nullptr && tq == 0)
+      lse[static_cast<long long>(blockIdx.x) * seq + row] =
+          l[i] == 0.0f ? -INFINITY : (m[i] + log2f(l[i])) * kLn2;
   }
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, Strides sq,
-                        Strides sk, Strides sv, Strides so, int batch, int hq, int hkv, int seq,
-                        float scale, int causal, int window, int aligned, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                        Strides sq, Strides sk, Strides sv, Strides so, int batch, int hq,
+                        int hkv, int seq, float scale, int causal, int window, int aligned,
+                        cudaStream_t stream) {
   auto kernel = flash_fwd_bf16_kernel<D>;
   constexpr size_t bytes = tc_smem_bytes<D>();
   cudaError_t err =
@@ -544,8 +559,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, St
   const dim3 grid(batch * hq, (seq + kTcRows - 1) / kTcRows);   // q tiles last first
   kernel<<<grid, kTcThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, sv, so, hq,
-      hq / hkv, seq, scale, causal, window, aligned);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, sk, sv, so,
+      hq, hq / hkv, seq, scale, causal, window, aligned);
   return cudaGetLastError();
 }
 
@@ -554,6 +569,406 @@ bool rows_aligned(const void* p, Strides st) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st.b % 8 == 0 && st.h % 8 == 0 &&
          st.s % 8 == 0;
 }
+
+// ---- the backward pass ----------------------------------------------------
+//
+// Replaces no TPU kernel: the JAX package differentiates its flash call in
+// XLA (kernels/attention/ops.py::_bwd recomputes through mha_ref under
+// jax.vjp).  These three kernels compute that gradient the FlashAttention-2
+// way from the forward's O and per-row log-sum-exp (LSE), with nothing of
+// size S x S in device memory:
+//
+//   flash_bwd_preprocess_kernel: Di = sum_d dO[i, d] * O[i, d] (float32);
+//   P[i, j] = exp(s[i, j] * scale - LSE[i]) where the mask keeps (i, j),
+//   else 0; dP = dO V^T; dS = P * (dP - Di);
+//   flash_bwd_dkdv_kernel: dV = P^T dO and dK = scale * dS^T Q, summed over
+//     the q heads of the kv head's group;
+//   flash_bwd_dq_kernel: dQ = scale * dS K.
+//
+// Every product is a float32 fmaf on the CUDA cores from operands converted
+// to float32 in shared memory (bf16 or float32 in device memory), every sum
+// float32; each gradient is rounded once, to its operand's dtype, when it
+// is stored.  kernels/attention/ref.py::flash_bwd_ref is the same function
+// densely.  Neither kernel uses atomics: one block owns each output tile
+// and walks its loop in a fixed order, so two runs give the same bits.
+//
+// Blocks: dkdv one per (batch, kv head, BT-key tile): it loads its K and V
+// tile once, then for each q head of the group and each BT-row q tile that
+// the causal/window mask lets reach the tile (the tiles entirely masked are
+// skipped) recomputes S and dP and accumulates dK and dV in registers.  dq
+// one per (batch, q head, BT-row q tile), walking the kv tiles its rows can
+// see, as the forward does.  BT is 64, and 32 at D 256 so that the four
+// float32 tiles (Q, dO, K, V; rows padded to D + 1 floats against bank
+// conflicts) and P and dS fit: 162 KB at D 128, 98 KB at D 64, 137 KB at
+// D 256, of the 227 KB a block may have.  256 threads as 16 x 16: a thread
+// owns BT/16 rows of an S tile (rows ty * BT/16 + i, keys tx + 16 j) and
+// BT/16 rows by D/16 columns (tx + 16 c) of each accumulator, at most 64
+// float32 accumulators a thread.  Rows and keys past S (a ragged last
+// tile) load as zeros, get P = dS = 0 and are not stored.
+//
+// What bounds it on an H100: operations.  The recomputation costs 14 D
+// flops a kept (q, k) pair (S and dP twice, dV, dK, dQ) against the 10 D
+// of the five products, and all run at the CUDA cores' float32 rate: a
+// tensor-core (mma.sync / wgmma) redesign is the next step for this kernel.
+
+constexpr int kBwdThreads = 256;
+
+template <int D>
+__host__ __device__ constexpr int bwd_tile() { return D == 256 ? 32 : 64; }
+
+template <int D>
+constexpr size_t bwd_smem_bytes() {   // Q, dO, K, V; P, dS; LSE and Di of the q rows
+  return sizeof(float) * (4 * bwd_tile<D>() * (D + 1) + 2 * bwd_tile<D>() * (bwd_tile<D>() + 1) +
+                          2 * bwd_tile<D>());
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Rows pos0 .. pos0 + BT - 1 of one (batch, head) slice into a float32
+// shared tile of row stride D + 1; rows at or past seq are zeros.
+template <typename T, int D, int BT>
+__device__ __forceinline__ void load_rows_f32(float* dst, const T* src, long long ld, int pos0,
+                                              int seq, int tid) {
+  for (int e = tid; e < BT * D; e += kBwdThreads) {
+    const int r = e / D;
+    const int c = e % D;
+    const int pos = pos0 + r;
+    dst[r * (D + 1) + c] = pos < seq ? to_f32(src[pos * ld + c]) : 0.0f;
+  }
+}
+
+// Di = sum_d dO[i, d] * O[i, d]: one warp a row, lanes over d, a fixed
+// butterfly order.  delta is contiguous (B, Hq, S) float32.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_preprocess_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                                float* __restrict__ delta, Strides so, Strides sdo, int hq,
+                                int seq, int d, long long rows) {
+  const long long row = static_cast<long long>(blockIdx.x) * (kBwdThreads / 32) +
+                        (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const long long bh = row / seq;
+  const int i = static_cast<int>(row % seq);
+  const int b = static_cast<int>(bh / hq);
+  const int h = static_cast<int>(bh % hq);
+  const T* orow = o + b * so.b + h * so.h + i * so.s;
+  const T* drow = dout + b * sdo.b + h * sdo.h + i * sdo.s;
+  float acc = 0.0f;
+  for (int c = lane; c < d; c += 32) acc = __fmaf_rn(to_f32(drow[c]), to_f32(orow[c]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[row] = acc;
+}
+
+// S = Q K^T and dP = dO V^T for one (q tile, k tile) pair, then P and dS
+// (masked, ragged rows and keys 0) into sP / sdS.  Rows ty * RM + i, keys
+// tx + 16 j of the two tiles.
+template <int D, int BT>
+__device__ __forceinline__ void bwd_scores(const float* sQ, const float* sdO, const float* sK,
+                                           const float* sV, const float* sL, const float* sDl,
+                                           float* sP, float* sdS, int q0, int k0, int seq,
+                                           float scale, int causal, int window, int ty, int tx) {
+  constexpr int LD = D + 1;
+  constexpr int PL = BT + 1;
+  constexpr int RM = BT / 16;
+  float s[RM][RM];
+  float dp[RM][RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RM; ++j) {
+      s[i][j] = 0.0f;
+      dp[i][j] = 0.0f;
+    }
+#pragma unroll 4
+  for (int c = 0; c < D; ++c) {
+    float qv[RM], ov[RM], kv[RM], vv[RM];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      qv[i] = sQ[(ty * RM + i) * LD + c];
+      ov[i] = sdO[(ty * RM + i) * LD + c];
+      kv[i] = sK[(tx + 16 * i) * LD + c];
+      vv[i] = sV[(tx + 16 * i) * LD + c];
+    }
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RM; ++j) {
+        s[i][j] = __fmaf_rn(qv[i], kv[j], s[i][j]);
+        dp[i][j] = __fmaf_rn(ov[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = ty * RM + i;
+    const int qpos = q0 + r;
+#pragma unroll
+    for (int j = 0; j < RM; ++j) {
+      const int kc = tx + 16 * j;
+      const int kpos = k0 + kc;
+      bool keep = qpos < seq && kpos < seq;
+      if (causal) keep = keep && kpos <= qpos;
+      if (window > 0) keep = keep && kpos > qpos - window;
+      const float p = keep ? expf(s[i][j] * scale - sL[r]) : 0.0f;
+      sP[r * PL + kc] = p;
+      sdS[r * PL + kc] = p * (dp[i][j] - sDl[r]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          T* __restrict__ dk, T* __restrict__ dv, Strides sq, Strides sk,
+                          Strides sv, Strides sdo, Strides sdk, Strides sdv, int hq, int hkv,
+                          int seq, float scale, int causal, int window) {
+  constexpr int BT = bwd_tile<D>();
+  constexpr int LD = D + 1;
+  constexpr int PL = BT + 1;
+  constexpr int RM = BT / 16;
+  constexpr int NC = D / 16;
+  extern __shared__ float bwd_smem[];
+  float* sQ = bwd_smem;            // [BT][LD]
+  float* sdO = sQ + BT * LD;       // [BT][LD]
+  float* sK = sdO + BT * LD;       // [BT][LD]
+  float* sV = sK + BT * LD;        // [BT][LD]
+  float* sP = sV + BT * LD;        // [BT][PL]
+  float* sdS = sP + BT * PL;       // [BT][PL]
+  float* sL = sdS + BT * PL;       // [BT]
+  float* sDl = sL + BT;            // [BT]
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const int b = blockIdx.x / hkv;
+  const int hk = blockIdx.x % hkv;
+  const int group = hq / hkv;
+  const int k0 = blockIdx.y * BT;   // the causal tiles with the most q rows start first
+
+  load_rows_f32<T, D, BT>(sK, k + b * sk.b + hk * sk.h, sk.s, k0, seq, tid);
+  load_rows_f32<T, D, BT>(sV, v + b * sv.b + hk * sv.h, sv.s, k0, seq, tid);
+
+  float adk[RM][NC];
+  float adv[RM][NC];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      adk[i][c] = 0.0f;
+      adv[i][c] = 0.0f;
+    }
+
+  // The q rows that may see some key of this tile; q tiles outside are skipped.
+  const int k_last = min(k0 + BT, seq) - 1;
+  const int q_lo = causal ? k0 : 0;
+  const int q_hi = window > 0 ? min(seq - 1, k_last + window - 1) : seq - 1;
+
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = hk * group + hh;
+    const T* qb = q + b * sq.b + h * sq.h;
+    const T* dob = dout + b * sdo.b + h * sdo.h;
+    const long long rb = (static_cast<long long>(b) * hq + h) * seq;
+    for (int t = q_lo / BT; t <= q_hi / BT; ++t) {
+      const int q0 = t * BT;
+      __syncthreads();   // the previous tile's readers are done
+      load_rows_f32<T, D, BT>(sQ, qb, sq.s, q0, seq, tid);
+      load_rows_f32<T, D, BT>(sdO, dob, sdo.s, q0, seq, tid);
+      if (tid < BT) {
+        const bool in = q0 + tid < seq;
+        sL[tid] = in ? lse[rb + q0 + tid] : 0.0f;
+        sDl[tid] = in ? delta[rb + q0 + tid] : 0.0f;
+      }
+      __syncthreads();
+      bwd_scores<D, BT>(sQ, sdO, sK, sV, sL, sDl, sP, sdS, q0, k0, seq, scale, causal, window,
+                        ty, tx);
+      __syncthreads();   // P and dS are complete
+      // dV += P^T dO, dK += dS^T Q: keys ty * RM + i, columns tx + 16 c.
+#pragma unroll 2
+      for (int r = 0; r < BT; ++r) {
+        float pv[RM], sv_[RM], ov[NC], qv[NC];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          pv[i] = sP[r * PL + ty * RM + i];
+          sv_[i] = sdS[r * PL + ty * RM + i];
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          ov[c] = sdO[r * LD + tx + 16 * c];
+          qv[c] = sQ[r * LD + tx + 16 * c];
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            adv[i][c] = __fmaf_rn(pv[i], ov[c], adv[i][c]);
+            adk[i][c] = __fmaf_rn(sv_[i], qv[c], adk[i][c]);
+          }
+      }
+    }
+  }
+
+  T* dkb = dk + b * sdk.b + hk * sdk.h;
+  T* dvb = dv + b * sdv.b + hk * sdv.h;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = k0 + ty * RM + i;
+    if (row >= seq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      dkb[row * sdk.s + tx + 16 * c] = from_f32<T>(adk[i][c] * scale);
+      dvb[row * sdv.s + tx + 16 * c] = from_f32<T>(adv[i][c]);
+    }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        T* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
+                        Strides sdq, int hq, int hkv, int seq, float scale, int causal,
+                        int window) {
+  constexpr int BT = bwd_tile<D>();
+  constexpr int LD = D + 1;
+  constexpr int PL = BT + 1;
+  constexpr int RM = BT / 16;
+  constexpr int NC = D / 16;
+  extern __shared__ float bwd_smem[];
+  float* sQ = bwd_smem;
+  float* sdO = sQ + BT * LD;
+  float* sK = sdO + BT * LD;
+  float* sV = sK + BT * LD;
+  float* sP = sV + BT * LD;
+  float* sdS = sP + BT * PL;
+  float* sL = sdS + BT * PL;
+  float* sDl = sL + BT;
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4;
+  const int tx = tid & 15;
+  const int b = blockIdx.x / hq;
+  const int h = blockIdx.x % hq;
+  const int hk = h / (hq / hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BT;   // q tiles last first
+  const long long rb = (static_cast<long long>(b) * hq + h) * seq;
+  const T* kb = k + b * sk.b + hk * sk.h;
+  const T* vb = v + b * sv.b + hk * sv.h;
+
+  load_rows_f32<T, D, BT>(sQ, q + b * sq.b + h * sq.h, sq.s, q0, seq, tid);
+  load_rows_f32<T, D, BT>(sdO, dout + b * sdo.b + h * sdo.h, sdo.s, q0, seq, tid);
+  if (tid < BT) {
+    const bool in = q0 + tid < seq;
+    sL[tid] = in ? lse[rb + q0 + tid] : 0.0f;
+    sDl[tid] = in ? delta[rb + q0 + tid] : 0.0f;
+  }
+
+  float adq[RM][NC];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) adq[i][c] = 0.0f;
+
+  // The keys some row of this q tile may see, as in the forward.
+  const int q_last = min(q0 + BT, seq) - 1;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? q_last : seq - 1;
+
+  for (int t = k_lo / BT; t <= k_hi / BT; ++t) {
+    const int k0 = t * BT;
+    __syncthreads();   // the previous tile's readers are done
+    load_rows_f32<T, D, BT>(sK, kb, sk.s, k0, seq, tid);
+    load_rows_f32<T, D, BT>(sV, vb, sv.s, k0, seq, tid);
+    __syncthreads();
+    bwd_scores<D, BT>(sQ, sdO, sK, sV, sL, sDl, sP, sdS, q0, k0, seq, scale, causal, window, ty,
+                      tx);
+    __syncthreads();   // dS is complete
+    // dQ += dS K: rows ty * RM + i, columns tx + 16 c.
+#pragma unroll 2
+    for (int kk = 0; kk < BT; ++kk) {
+      float sv_[RM], kv[NC];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) sv_[i] = sdS[(ty * RM + i) * PL + kk];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) kv[c] = sK[kk * LD + tx + 16 * c];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) adq[i][c] = __fmaf_rn(sv_[i], kv[c], adq[i][c]);
+    }
+  }
+
+  T* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int row = q0 + ty * RM + i;
+    if (row >= seq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) dqb[row * sdq.s + tx + 16 * c] = from_f32<T>(adq[i][c] * scale);
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd_preprocess(const void* o, const void* dout, float* delta, Strides so,
+                                  Strides sdo, int batch, int hq, int seq, int d,
+                                  cudaStream_t stream) {
+  const long long rows = static_cast<long long>(batch) * hq * seq;
+  const long long blocks = (rows + kBwdThreads / 32 - 1) / (kBwdThreads / 32);
+  flash_bwd_preprocess_kernel<T><<<static_cast<unsigned>(blocks), kBwdThreads, 0, stream>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), delta, so, sdo, hq, seq, d, rows);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
+                            const float* lse, const float* delta, void* dk, void* dv,
+                            Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+                            Strides sdv, int batch, int hq, int hkv, int seq, float scale,
+                            int causal, int window, cudaStream_t stream) {
+  auto kernel = flash_bwd_dkdv_kernel<T, D>;
+  constexpr size_t bytes = bwd_smem_bytes<D>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * hkv, (seq + bwd_tile<D>() - 1) / bwd_tile<D>());
+  kernel<<<grid, kBwdThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, sk,
+      sv, sdo, sdk, sdv, hq, hkv, seq, scale, causal, window);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dq, Strides sq,
+                          Strides sk, Strides sv, Strides sdo, Strides sdq, int batch, int hq,
+                          int hkv, int seq, float scale, int causal, int window,
+                          cudaStream_t stream) {
+  auto kernel = flash_bwd_dq_kernel<T, D>;
+  constexpr size_t bytes = bwd_smem_bytes<D>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(batch * hq, (seq + bwd_tile<D>() - 1) / bwd_tile<D>());
+  kernel<<<grid, kBwdThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), sq, sk, sv, sdo, sdq, hq,
+      hkv, seq, scale, causal, window);
+  return cudaGetLastError();
+}
+
 
 }  // namespace
 
@@ -567,29 +982,33 @@ bool rows_aligned(const void* p, Strides st) {
 // divides hq; window <= 0 means none.
 
 #define FLASH_ARGS                                                                        \
-  const void *q, const void *k, const void *v, void *o, long long sqb, long long sqh,     \
-      long long sqs, long long skb, long long skh, long long sks, long long svb,          \
-      long long svh, long long svs, long long sob, long long soh, long long sos, int batch, \
-      int hq, int hkv, int seq, int d, int causal, int window, float scale, int device,    \
-      void *stream
+  const void *q, const void *k, const void *v, void *o, void *lse, long long sqb,         \
+      long long sqh, long long sqs, long long skb, long long skh, long long sks,          \
+      long long svb, long long svh, long long svs, long long sob, long long soh,          \
+      long long sos, int batch, int hq, int hkv, int seq, int d, int causal, int window,  \
+      float scale, int device, void *stream
 
+// `lse` is null (serving: O alone, bitwise what it was before the LSE
+// existed) or a contiguous (B, Hq, S) float32 tensor that receives each
+// row's log-sum-exp of its scaled logits (training: the backward's input).
 extern "C" int flash_attention_fwd_f32(FLASH_ARGS) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs}, so{sob, soh, sos};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (d) {
     case 64:
-      err = launch<64>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
-                              window, s);
+      err = launch<64>(q, k, v, o, l, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
+                       window, s);
       break;
     case 128:
-      err = launch<128>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
-                               window, s);
+      err = launch<128>(q, k, v, o, l, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
+                        window, s);
       break;
     case 256:
-      err = launch<256>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
-                               window, s);
+      err = launch<256>(q, k, v, o, l, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
+                        window, s);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -603,18 +1022,19 @@ extern "C" int flash_attention_fwd_bf16(FLASH_ARGS) {
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs}, so{sob, soh, sos};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int aligned = rows_aligned(q, sq) && rows_aligned(k, sk) && rows_aligned(v, sv);
+  float* l = static_cast<float*>(lse);
   switch (d) {
     case 64:
-      err = launch_bf16<64>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
+      err = launch_bf16<64>(q, k, v, o, l, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
                             window, aligned, s);
       break;
     case 128:
-      err = launch_bf16<128>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
-                             window, aligned, s);
+      err = launch_bf16<128>(q, k, v, o, l, sq, sk, sv, so, batch, hq, hkv, seq, scale,
+                             causal, window, aligned, s);
       break;
     case 256:
-      err = launch_bf16<256>(q, k, v, o, sq, sk, sv, so, batch, hq, hkv, seq, scale, causal,
-                             window, aligned, s);
+      err = launch_bf16<256>(q, k, v, o, l, sq, sk, sv, so, batch, hq, hkv, seq, scale,
+                             causal, window, aligned, s);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -626,4 +1046,115 @@ extern "C" int flash_attention_fwd_bf16(FLASH_ARGS) {
 
 extern "C" const char* flash_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The backward's entry points, one per kernel (the wrapper,
+// kernels/attention/ops.py::flash_attention_bwd, calls the three in order on
+// one stream and counts each launch).  is_bf16 picks the operands' dtype
+// (bfloat16, else float32); q, k, v, o, dout and the gradients are given by
+// their (b, h, s) element strides with D contiguous; lse and delta are
+// contiguous (B, Hq, S) float32.  Each returns the cudaError_t of its launch.
+
+namespace {
+
+template <typename T>
+cudaError_t dispatch_dkdv(int d, const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* dk, void* dv, Strides sq,
+                          Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                          int batch, int hq, int hkv, int seq, float scale, int causal,
+                          int window, cudaStream_t s) {
+  switch (d) {
+    case 64:
+      return launch_bwd_dkdv<T, 64>(q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk,
+                                    sdv, batch, hq, hkv, seq, scale, causal, window, s);
+    case 128:
+      return launch_bwd_dkdv<T, 128>(q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk,
+                                     sdv, batch, hq, hkv, seq, scale, causal, window, s);
+    case 256:
+      return launch_bwd_dkdv<T, 256>(q, k, v, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk,
+                                     sdv, batch, hq, hkv, seq, scale, causal, window, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_dq(int d, const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, void* dq, Strides sq, Strides sk,
+                        Strides sv, Strides sdo, Strides sdq, int batch, int hq, int hkv,
+                        int seq, float scale, int causal, int window, cudaStream_t s) {
+  switch (d) {
+    case 64:
+      return launch_bwd_dq<T, 64>(q, k, v, dout, lse, delta, dq, sq, sk, sv, sdo, sdq, batch,
+                                  hq, hkv, seq, scale, causal, window, s);
+    case 128:
+      return launch_bwd_dq<T, 128>(q, k, v, dout, lse, delta, dq, sq, sk, sv, sdo, sdq, batch,
+                                   hq, hkv, seq, scale, causal, window, s);
+    case 256:
+      return launch_bwd_dq<T, 256>(q, k, v, dout, lse, delta, dq, sq, sk, sv, sdo, sdq, batch,
+                                   hq, hkv, seq, scale, causal, window, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" int flash_attention_bwd_preprocess(const void* o, const void* dout, void* delta,
+                                              long long sob, long long soh, long long sos,
+                                              long long sdob, long long sdoh, long long sdos,
+                                              int batch, int hq, int seq, int d, int is_bf16,
+                                              int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides so{sob, soh, sos}, sdo{sdob, sdoh, sdos};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* dl = static_cast<float*>(delta);
+  err = is_bf16 ? launch_bwd_preprocess<__nv_bfloat16>(o, dout, dl, so, sdo, batch, hq, seq, d, s)
+                : launch_bwd_preprocess<float>(o, dout, dl, so, sdo, batch, hq, seq, d, s);
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_attention_bwd_dkdv(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, void* dk, void* dv, long long sqb, long long sqh, long long sqs,
+    long long skb, long long skh, long long sks, long long svb, long long svh, long long svs,
+    long long sdob, long long sdoh, long long sdos, long long sdkb, long long sdkh,
+    long long sdks, long long sdvb, long long sdvh, long long sdvs, int batch, int hq, int hkv,
+    int seq, int d, int causal, int window, float scale, int is_bf16, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs},
+      sdo{sdob, sdoh, sdos}, sdk{sdkb, sdkh, sdks}, sdv{sdvb, sdvh, sdvs};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  err = is_bf16 ? dispatch_dkdv<__nv_bfloat16>(d, q, k, v, dout, l, dl, dk, dv, sq, sk, sv, sdo,
+                                               sdk, sdv, batch, hq, hkv, seq, scale, causal,
+                                               window, s)
+                : dispatch_dkdv<float>(d, q, k, v, dout, l, dl, dk, dv, sq, sk, sv, sdo, sdk,
+                                       sdv, batch, hq, hkv, seq, scale, causal, window, s);
+  return static_cast<int>(err);
+}
+
+extern "C" int flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout, const void* lse,
+    const void* delta, void* dq, long long sqb, long long sqh, long long sqs, long long skb,
+    long long skh, long long sks, long long svb, long long svh, long long svs, long long sdob,
+    long long sdoh, long long sdos, long long sdqb, long long sdqh, long long sdqs, int batch,
+    int hq, int hkv, int seq, int d, int causal, int window, float scale, int is_bf16,
+    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs},
+      sdo{sdob, sdoh, sdos}, sdq{sdqb, sdqh, sdqs};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  err = is_bf16 ? dispatch_dq<__nv_bfloat16>(d, q, k, v, dout, l, dl, dq, sq, sk, sv, sdo, sdq,
+                                             batch, hq, hkv, seq, scale, causal, window, s)
+                : dispatch_dq<float>(d, q, k, v, dout, l, dl, dq, sq, sk, sv, sdo, sdq, batch,
+                                     hq, hkv, seq, scale, causal, window, s);
+  return static_cast<int>(err);
 }

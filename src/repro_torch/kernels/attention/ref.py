@@ -8,7 +8,17 @@
   ``flash_attention_single`` before it), densely: float32 logits, the mask
   at -1e30, P = exp(logits - rowmax) rounded to v's dtype *before*
   normalising, P.V accumulated in float32, then divided by the row sum
-  (1 where it is 0).  Kv head = q head // group, gathered by index.
+  (1 where it is 0).  Kv head = q head // group, gathered by index.  With
+  ``return_lse`` it also returns each row's log-sum-exp of the scaled,
+  masked logits, (B, Hq, S): the forward kernels' second output in training.
+* `flash_bwd_ref` is the function of the backward kernels
+  (``flash_bwd_preprocess_kernel``, ``flash_bwd_dkdv_kernel``,
+  ``flash_bwd_dq_kernel``), densely, the FlashAttention-2 way: P recomputed
+  from the LSE, D = rowsum(dO * O), dS = P * (dP - D); dK and dV summed over
+  each kv head's q-head group.
+
+Both accumulate in float32 (float64 operands stay float64, so that
+``torch.autograd.gradcheck`` can hold the autograd Function built on them).
 """
 
 from __future__ import annotations
@@ -47,16 +57,60 @@ def mha_ref(q, k, v, *, causal=True, window=None, scale=None):
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 
-def flash_ref(q, k, v, causal=True, window=None, scale=None):
-    """The flash kernel's function, densely.  q: (B, Hq, S, D); k/v: (B, Hkv, S, D)."""
+def _acc(dtype) -> torch.dtype:
+    """The accumulation dtype: float32, or float64 for float64 operands."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def flash_ref(q, k, v, causal=True, window=None, scale=None, return_lse=False):
+    """The flash kernel's function, densely.  q: (B, Hq, S, D); k/v: (B, Hkv, S, D).
+
+    -> o (B, Hq, S, D) in q's dtype; with ``return_lse`` (o, lse (B, Hq, S)
+    float32).
+    """
     hq, s, d = q.shape[1], q.shape[2], q.shape[3]
+    acc = _acc(q.dtype)
     kv_idx = torch.arange(hq, device=q.device) // (hq // k.shape[1])
     scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
-    kf = k[:, kv_idx].float()
+    kf = k[:, kv_idx].to(acc)
     vf = v[:, kv_idx]
-    logits = (q.float() @ kf.transpose(-1, -2)) * scale
+    logits = (q.to(acc) @ kf.transpose(-1, -2)) * scale
     logits = torch.where(_mask(s, causal, window, q.device), logits, NEG_INF)
-    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    mx = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - mx)
     l = p.sum(-1, keepdim=True)
-    acc = p.to(v.dtype).float() @ vf.float()
-    return (acc / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+    out = p.to(v.dtype).to(acc) @ vf.to(acc)
+    o = (out / torch.where(l == 0, torch.ones_like(l), l)).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, (mx + torch.log(l))[..., 0]
+
+
+def flash_bwd_ref(q, k, v, o, lse, do, causal=True, window=None, scale=None):
+    """The backward kernels' function, densely -> (dq, dk, dv), each in its
+    operand's dtype.
+
+    q, o, do: (B, Hq, S, D); k, v: (B, Hkv, S, D); lse: (B, Hq, S), the
+    forward's per-row log-sum-exp of the scaled logits.  P = exp(logits *
+    scale - lse) where the mask keeps the pair (0 elsewhere), D = rowsum(dO *
+    O), dP = dO V^T, dS = P (dP - D); dQ = scale dS K, dK = scale dS^T Q and
+    dV = P^T dO, the last two summed over the q heads that share a kv head.
+    """
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    acc = _acc(q.dtype)
+    kv_idx = torch.arange(hq, device=q.device) // group
+    scale = float(scale if scale is not None else 1.0 / math.sqrt(d))
+    qf, of, dof = q.to(acc), o.to(acc), do.to(acc)
+    kf, vf = k[:, kv_idx].to(acc), v[:, kv_idx].to(acc)
+    logits = (qf @ kf.transpose(-1, -2)) * scale
+    p = torch.where(_mask(s, causal, window, q.device),
+                    torch.exp(logits - lse.to(acc)[..., None]), torch.zeros((), dtype=acc,
+                                                                            device=q.device))
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf).reshape(b, hkv, group, s, d).sum(2) * scale
+    dv = (p.transpose(-1, -2) @ dof).reshape(b, hkv, group, s, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -59,12 +59,22 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "psf_error_string": ((_I,), ctypes.c_char_p),
     },
     "flash": {
-        # q, k, v, o, (b, h, s) element strides of q, k, v, o, batch, hq, hkv,
-        # seq, d, causal, window, scale, device, stream
+        # q, k, v, o, lse (or null), (b, h, s) element strides of q, k, v, o,
+        # batch, hq, hkv, seq, d, causal, window, scale, device, stream
         "flash_attention_fwd_f32": (
-            (_VP,) * 4 + (_LL,) * 12 + (_I,) * 7 + (ctypes.c_float, _I, _VP), _I),
+            (_VP,) * 5 + (_LL,) * 12 + (_I,) * 7 + (ctypes.c_float, _I, _VP), _I),
         "flash_attention_fwd_bf16": (
-            (_VP,) * 4 + (_LL,) * 12 + (_I,) * 7 + (ctypes.c_float, _I, _VP), _I),
+            (_VP,) * 5 + (_LL,) * 12 + (_I,) * 7 + (ctypes.c_float, _I, _VP), _I),
+        # o, dout, delta, strides of o and dout, batch, hq, seq, d, is_bf16,
+        # device, stream
+        "flash_attention_bwd_preprocess": ((_VP,) * 3 + (_LL,) * 6 + (_I,) * 6 + (_VP,), _I),
+        # q, k, v, dout, lse, delta, dk, dv, strides of q, k, v, dout, dk, dv,
+        # batch, hq, hkv, seq, d, causal, window, scale, is_bf16, device, stream
+        "flash_attention_bwd_dkdv": (
+            (_VP,) * 8 + (_LL,) * 18 + (_I,) * 7 + (ctypes.c_float, _I, _I, _VP), _I),
+        # q, k, v, dout, lse, delta, dq, strides of q, k, v, dout, dq, ...
+        "flash_attention_bwd_dq": (
+            (_VP,) * 7 + (_LL,) * 15 + (_I,) * 7 + (ctypes.c_float, _I, _I, _VP), _I),
         "flash_error_string": ((_I,), ctypes.c_char_p),
     },
     "ssd": {

@@ -11,6 +11,12 @@
 
 Only a successful call adds one to ``ssd_log.launches``.  `ssd` is the
 JAX package's ``a``-form interface over the same kernels.
+
+Under grad (grad enabled and an operand that requires it) `ssd_log` goes
+through `SSDScan`, an autograd Function: on the CPU its backward runs
+autograd through `ref.ssd_chunked_ref`; on a card it raises
+`NotImplementedError` before anything is launched (the SSD backward
+kernels are not written yet) and never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -81,6 +87,12 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
     (B, n_chunks, H, 64).
     """
     _check(log_a, Bm, Cm, x, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (log_a, Bm, Cm, x)):
+        if x.device.type != "cpu":
+            raise NotImplementedError(
+                "ssd_log has no backward kernel on a card yet (the SSD backward slice, ROADMAP "
+                "queue 1 item 5a): ssm and hybrid models train on the CPU only")
+        return SSDScan.apply(log_a, Bm, Cm, x, chunk, intra_dtype)
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
     if x.device.type != "cuda":
@@ -110,6 +122,26 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
 
 
 ssd_log.launches = 0
+
+
+class SSDScan(torch.autograd.Function):
+    """`ssd_log` with its gradient, on the CPU: the forward is the plain
+    version; the backward recomputes it under autograd and differentiates."""
+
+    @staticmethod
+    def forward(ctx, log_a, Bm, Cm, x, chunk, intra_dtype):
+        ctx.save_for_backward(log_a, Bm, Cm, x)
+        ctx.args = (chunk, intra_dtype)
+        return ref.ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        inputs = [t.detach().requires_grad_(t.requires_grad) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, state = ref.ssd_chunked_ref(*inputs, *ctx.args)
+        wrt = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad((y, state), wrt, (dy, dstate), allow_unused=True))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
 
 
 def _launch(log_a, Bm, Cm, x, y, dstate, cums, state, tile: int, group: int) -> None:

@@ -5,9 +5,10 @@ Ports of the JAX package's ``models/attention.py``:
   * ``attend_full``   — prefill / teacher-forced self-attention.  With
     ``use_kernel`` (the default) it runs `kernels.attention.ops.
     flash_attention`, which launches ``csrc/flash.cu`` on the card and its
-    plain version on the CPU; without, it runs the JAX package's dense path
-    (bf16 einsum logits, softmax), the plain path the card's run is held
-    against.
+    plain version on the CPU (under grad, its autograd Function: the
+    forward kernel with the LSE and the three backward kernels); without,
+    it runs the JAX package's dense path (bf16 einsum logits, softmax), the
+    plain path the card's run is held against.
   * ``attend_decode`` — one-token decode against the (B, T, Hkv, D) cache,
     plain torch as in the JAX package.  It writes the new key and value into
     the cache in place at ``pos`` (the JAX package returns a new cache).

@@ -4,6 +4,7 @@ A port of the JAX package's ``models/model.py``.  `LM(cfg, device)` exposes
 
   init(seed)                              -> params (float32 masters)
   forward(params, batch)                  -> (logits (B,S,V) float32, aux loss)
+  loss(params, batch)                     -> scalar train loss
   init_cache(batch_size, max_len)         -> zeroed serving cache
   prefill(params, batch, max_len)         -> (last logits (B,V), cache)
   decode_step(params, cache, token, pos)  -> (logits (B,V), cache)
@@ -18,7 +19,14 @@ layer stacks are tensors with a leading layer axis, walked by a Python loop
 summed Switch loss as ``aux`` (0 for the other families).
 
 The serving path runs under ``torch.inference_mode``; ``decode_step``
-updates the cache in place and returns it.  With ``use_kernels`` (the
+updates the cache in place and returns it.  ``forward`` and ``loss`` are
+differentiable: the stacked layers are walked through one ``unbind`` a
+stack, and under grad with ``cfg.remat`` each of the JAX package's remat
+units (a block; a hybrid or vlm group) runs under
+``torch.utils.checkpoint`` (`_units`).  Under grad the flash kernel's
+wrapper takes its autograd path (the forward kernel with the LSE, the
+three backward kernels); the SSD kernel has no backward yet, so ``ssm``
+and ``hybrid`` models train on the CPU only.  With ``use_kernels`` (the
 default) the self-attention of a prefill or forward (the encoder's too)
 goes through `flash_attention` and each Mamba-2 layer's SSD scan through
 `ssd_log`, the hand-written kernels' wrappers (one launch per layer on the
@@ -38,6 +46,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -49,6 +58,9 @@ from repro_torch.models.layers import (Init, embed_apply, embed_init, mlp_apply,
 from repro_torch.models.ssm import init_ssm_state
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+AUX_LOSS_WEIGHT = 0.01
+#: The stacked layer trees `_run` walks.
+STACKS = ("blocks", "tail", "cross_blocks")
 
 
 def _stack_init(init_fn, init: Init, n: int) -> Dict:
@@ -72,6 +84,18 @@ def _tree_map(fn, tree, *rest):
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked parameter or state tree (views, no copies)."""
     return _tree_map(lambda x: x[i], tree)
+
+
+def _unbind(tree):
+    """Every layer of a stacked tree, each a tree of views, from one
+    ``unbind(0)`` a leaf.  Under grad, indexing a stack layer by layer would
+    give each layer's backward a zeros tensor the size of the whole stack;
+    ``unbind``'s backward stacks the layers' gradients once."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: parts[k][i] for k in parts} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 class LM:
@@ -150,9 +174,10 @@ class LM:
         x = enc_frames.to(device=self.device, dtype=self.dtype)
         pos = torch.arange(x.shape[1], device=x.device)
         x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
-        for i in range(cfg.n_encoder_layers):
-            x = B.attn_mlp_apply(_layer(params["encoder"], i), x, cfg, causal=False,
-                                 use_kernel=self.use_kernels)
+        remat = self._remat()
+        for lp in _unbind(params["encoder"]):
+            x = self._maybe_remat(remat, B.attn_mlp_apply, lp, x, cfg, causal=False,
+                                  use_kernel=self.use_kernels)
         return rmsnorm(params["ln_enc"], x)
 
     def _context(self, params, batch, x):
@@ -202,48 +227,104 @@ class LM:
         x = x + mlp_apply(lp["mlp"], rmsnorm(lp["ln_mlp"], x), cfg.mlp_type)
         return x, kv
 
-    def _run(self, params, x, ctx=None, cache=None):
-        """Every block over x (B,S,D); fills ``cache`` when given.  -> (x, aux)."""
+    def _remat(self) -> bool:
+        """Recompute each remat unit in the backward: ``cfg.remat`` under grad."""
+        return self.cfg.remat and torch.is_grad_enabled()
+
+    @staticmethod
+    def _maybe_remat(remat, fn, *args, **kwargs):
+        """fn(*args) as it is, or under `torch.utils.checkpoint.checkpoint`
+        (non-reentrant; nothing random to replay)."""
+        if not remat:
+            return fn(*args, **kwargs)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
+
+    def _units(self):
+        """The blocks of `_schedule` grouped as the JAX package remats them
+        (its ``_maybe_remat`` sites) -> [(blocks, remat)]: one block a unit,
+        except a hybrid or vlm group (its layers and the shared or cross
+        block after them), and the hybrid's tail blocks, which are not
+        rematted."""
+        units, cur = [], []
+        for kind, i in self._schedule():
+            if kind == "tail":
+                units.append(([(kind, i)], False))
+                continue
+            cur.append((kind, i))
+            if self.per == 1 or kind in ("shared", "cross"):
+                units.append((cur, True))
+                cur = []
+        return units
+
+    def _block(self, kind, i, lp, x, ctx, cache):
+        """One block of kind ``kind`` with parameters ``lp``; fills layer
+        ``i`` of ``cache`` when given.  -> (x, the MoE aux loss or None)."""
         cfg = self.cfg
         fill = cache is not None
         s = x.shape[1]
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for kind, i in self._schedule():
-            if kind in ("mamba", "tail"):
-                lp = _layer(params["blocks" if kind == "mamba" else "tail"], i)
-                if not fill:
-                    x = B.mamba_block_apply(lp, x, cfg, use_kernel=self.use_kernels)
-                    continue
-                x, st = B.mamba_block_apply(lp, x, cfg, return_state=True,
-                                            use_kernel=self.use_kernels)
-                slot = self._states(cache, kind)
-                slot["conv"][i] = st["conv"]
-                slot["ssm"][i] = st["ssm"]
-                continue
-            if kind == "cross":
-                cp = _layer(params["cross_blocks"], i)
-                x = B.cross_block_apply(cp, x, ctx, cfg)
-                if fill:
-                    cache["cross_k"][i], cache["cross_v"][i] = B.cross_context_kv(cp, ctx, cfg)
-                continue
-            lp = params["shared_attn"] if kind == "shared" else _layer(params["blocks"], i)
-            kv = None
-            if kind == "moe":
-                res = B.moe_block_apply(lp, x, cfg, return_kv=fill, use_kernel=self.use_kernels)
-                x, a = res[:2]
-                aux = aux + a
-                kv = res[2] if fill else None
-            elif kind == "encdec":
-                x, kv = self._encdec_block(lp, x, ctx, fill)
-                if fill:
-                    cache["cross_k"][i], cache["cross_v"][i] = B.cross_context_kv(lp, ctx, cfg)
-            else:
-                res = B.attn_mlp_apply(lp, x, cfg, return_kv=fill, use_kernel=self.use_kernels)
-                x, kv = res if fill else (res, None)
+        if kind in ("mamba", "tail"):
+            if not fill:
+                return B.mamba_block_apply(lp, x, cfg, use_kernel=self.use_kernels), None
+            x, st = B.mamba_block_apply(lp, x, cfg, return_state=True,
+                                        use_kernel=self.use_kernels)
+            slot = self._states(cache, kind)
+            slot["conv"][i] = st["conv"]
+            slot["ssm"][i] = st["ssm"]
+            return x, None
+        if kind == "cross":
+            x = B.cross_block_apply(lp, x, ctx, cfg)
             if fill:
-                slot = cache["shared"] if kind == "shared" else cache
-                slot["k"][i, :, :s] = kv[0]
-                slot["v"][i, :, :s] = kv[1]
+                cache["cross_k"][i], cache["cross_v"][i] = B.cross_context_kv(lp, ctx, cfg)
+            return x, None
+        kv, aux = None, None
+        if kind == "moe":
+            res = B.moe_block_apply(lp, x, cfg, return_kv=fill, use_kernel=self.use_kernels)
+            x, aux = res[:2]
+            kv = res[2] if fill else None
+        elif kind == "encdec":
+            x, kv = self._encdec_block(lp, x, ctx, fill)
+            if fill:
+                cache["cross_k"][i], cache["cross_v"][i] = B.cross_context_kv(lp, ctx, cfg)
+        else:
+            res = B.attn_mlp_apply(lp, x, cfg, return_kv=fill, use_kernel=self.use_kernels)
+            x, kv = res if fill else (res, None)
+        if fill:
+            slot = cache["shared"] if kind == "shared" else cache
+            slot["k"][i, :, :s] = kv[0]
+            slot["v"][i, :, :s] = kv[1]
+        return x, aux
+
+    def _unit(self, blocks, layers, x, ctx, cache=None):
+        """The blocks of one remat unit in order -> (x, their summed aux or None)."""
+        aux = None
+        for kind, i in blocks:
+            x, a = self._block(kind, i, layers[kind][i], x, ctx, cache)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
+
+    def _run(self, params, x, ctx=None, cache=None):
+        """Every block over x (B,S,D); fills ``cache`` when given.  -> (x, aux).
+
+        The stacked layers are walked through one ``unbind`` a stack; under
+        grad with ``cfg.remat`` each unit of `_units` runs under
+        `torch.utils.checkpoint.checkpoint`, so the backward keeps only the
+        units' inputs and recomputes the rest.
+        """
+        stacks = {name: _unbind(params[name]) for name in STACKS if name in params}
+        layers = {"mamba": stacks.get("blocks"), "tail": stacks.get("tail"),
+                  "cross": stacks.get("cross_blocks")}
+        for kind in ("dense", "moe", "encdec"):
+            layers[kind] = stacks.get("blocks")
+        if "shared_attn" in params:
+            layers["shared"] = [params["shared_attn"]] * self.groups
+        remat = cache is None and self._remat()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blocks, unit_remat in self._units():
+            x, a = self._maybe_remat(remat and unit_remat, self._unit, blocks, layers, x, ctx,
+                                     cache)
+            if a is not None:
+                aux = aux + a
         return x, aux
 
     # ------------------------------------------------------------ train ---
@@ -254,6 +335,19 @@ class LM:
         x, aux = self._run(params, x, self._context(params, batch, x))
         x = rmsnorm(params["ln_f"], x)
         return unembed_apply(params["embed"], x, self.cfg.logit_softcap), aux
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """The training loss, the JAX package's ``LM.loss``: the mean next-token
+        NLL over the positions whose label is >= 0 (``log_softmax`` of the
+        float32 logits), plus ``AUX_LOSS_WEIGHT`` times the MoE aux loss."""
+        logits, aux = self.forward(params, batch)
+        labels = batch["labels"].long()
+        logp = torch.log_softmax(logits, dim=-1)
+        del logits
+        nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).float()
+        loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+        return loss + AUX_LOSS_WEIGHT * aux
 
     # ---------------------------------------------------------- serving ---
     def init_cache(self, batch_size: int, max_len: int) -> Dict:

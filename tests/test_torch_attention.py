@@ -161,11 +161,12 @@ def test_launch_calls_the_entry_point_of_its_dtype(monkeypatch, dtype, entry):
     ops._launch(q, k, v, o, True, 16, 0.125, 0, 1234)
     assert [name for name, _ in stub.calls] == [entry]
     args = stub.calls[0][1]
-    assert args[:4] == tuple(t.data_ptr() for t in (q, k, v, o))
+    # q, k, v, o, then the LSE output: none on the serving path.
+    assert args[:5] == tuple(t.data_ptr() for t in (q, k, v, o)) + (None,)
     # The same strides, shapes and scale whichever the dtype.
-    assert args[4:16] == (40 * 4 * 64, 64, 4 * 64, 40 * 2 * 64, 64, 2 * 64,
+    assert args[5:17] == (40 * 4 * 64, 64, 4 * 64, 40 * 2 * 64, 64, 2 * 64,
                           40 * 2 * 64, 64, 2 * 64, 40 * 4 * 64, 64, 4 * 64)
-    assert args[16:] == (2, 4, 2, 40, 64, 1, 16, 0.125, 0, 1234)
+    assert args[17:] == (2, 4, 2, 40, 64, 1, 16, 0.125, 0, 1234)
 
 
 @pytest.mark.parametrize("dtype,entry", [(torch.bfloat16, "flash_attention_fwd_bf16"),
