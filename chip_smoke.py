@@ -146,15 +146,22 @@ runs these phases, in order, each printing its seconds:
    and 20 (head groups of 16 that do not divide H), and the ``a``-form
    ``ssd`` also against the step-by-step scan.  Then the flash backward
    (`FLASH_BWD_CASES`: qwen2's 12:2 D 128 at 2 x 4096 in bf16 and float32,
-   granite 24:8 D 64, gemma 8:1 D 256 float32, whisper's non-causal 20
-   heads at S 1500, window 256, a ragged S 1000), q, k, v and dO in the
-   model's strided layout: the forward's O with the LSE written bitwise
-   its O without, the LSE within 1e-5 of the plain one's scale;
-   ``flash_bwd_preprocess_kernel`` (D), ``flash_bwd_dkdv_kernel`` and
-   ``flash_bwd_dq_kernel`` against ``flash_bwd_ref`` on the same operands
-   (float32 within 1e-4 of each gradient's scale; bf16 by the forward's
-   allowance, element by element and row by row); two backward runs
-   bitwise.
+   granite 24:8 D 64, gemma 8:1 D 256 float32 on the split grid, whisper's
+   non-causal 20 heads at S 1500, window 256, a ragged S 1000, MQA 8:1 D
+   128 at S 1000, S 63, 65 and 129 at D 64 and D 256 in bf16 at S 129,
+   and off the split grid with the GQA group summed inside a dkdv block:
+   qwen2 at batch 5 in bf16 and granite at batch 3 in float32), q, k, v and
+   dO in the model's strided layout: the forward's O with the LSE
+   written bitwise its O without, the LSE within 1e-5 of the plain one's
+   scale; ``flash_bwd_preprocess_kernel`` (D), ``flash_bwd_dkdv_kernel``
+   and ``flash_bwd_dq_kernel`` against ``flash_bwd_ref`` on the same
+   operands (float32 within 1e-4 of each gradient's scale; bf16 by the
+   forward's allowance, element by element and row by row), and on the
+   split grid ``flash_bwd_dkdv_reduce_kernel`` bitwise against
+   ``dkdv_reduce_ref`` on the dkdv kernel's partials; two backward runs
+   bitwise.  Each bf16 case's gradients are held by the ratio rule against
+   the unrounded float32 gradient: relative L2 at most 1.5 x SDPA's
+   backward's + 2^-8.  Each dtype has a GQA case on each grid.
 4. batch path ("4 batch path", after the main path): ``run_batch`` of K = 4
    queries (the main box and three moved by +0.25, +0.5 and -0.25 deg in
    RA) for ``raw_fits`` (dense) and ``sql_structured`` (sparse, the union
@@ -301,7 +308,10 @@ runs these phases, in order, each printing its seconds:
    batch (float32 within 1e-4 of each leaf's scale; bf16 by the ratio rule
    against the plain path and against the kernel path with its kernels
    swapped for their plain versions), exactly 2 forward and 1 of each
-   backward kernel launch a layer a step; (b) 10 AdamW steps
+   backward kernel launch a layer a step (the split grid's reduction in
+   bf16, where qwen2's 2 x 2 kv heads of 32 key tiles are under one and a
+   half waves; none in float32, 64 key tiles);
+   (b) 10 AdamW steps
    (``make_train_step``, ``TokenPipeline`` over ``synthetic_corpus``):
    ms a step, tokens/s, model FLOP/s (a share of the bf16 peak, for
    information only), ``max_memory_allocated``, and one more step split
@@ -349,13 +359,14 @@ runs these phases, in order, each printing its seconds:
    ``F.scaled_dot_product_attention`` (``enable_gqa`` where the heads are
    grouped), each with its bound and launches a prefill (the kernels
    line's ``family_shapes``).
-   The three backward kernels at qwen2's training shape (2 x 4096, 12:2,
-   D 128, causal bf16): each launched alone, the three through the
-   wrapper, ``flash_bwd_ref`` (and D in plain torch), and
+   The backward kernels at qwen2's training shape (2 x 4096, 12:2, D 128,
+   causal bf16, the split grid): each launched alone, all through the
+   wrapper, ``flash_bwd_ref`` (D in plain torch, ``dkdv_reduce_ref``), and
    ``F.scaled_dot_product_attention``'s backward (dq, dk and dv together,
-   ``dkdv``'s library time); bounds: bytes, or the products each kernel
-   cannot avoid (dkdv 4, dq 3 a pair; the whole backward 5, 2.5 times the
-   forward's) on the bf16 tensor cores beside 5 float32 operations a pair.
+   ``dkdv``'s library time; under a window with its boolean ``attn_mask``);
+   bounds: bytes, or the products each kernel cannot avoid (dkdv 4, dq 3 a
+   pair; the whole backward 5, 2.5 times the forward's) on the bf16 tensor
+   cores beside 5 float32 operations a pair; the reduction by bytes.
    The kernels redesigned for the card (``flash_fwd_bf16_kernel``,
    ``psf_match_2d_kernel``, ``psf_match_sep_kernel``,
    ``warp_project_kernel``) also print their registers and spills (ptxas
@@ -597,6 +608,8 @@ FLASH_CASES = (
 # allowance (FLASH_TOL element by element, flash_rows row by row).  The
 # forward's O with the LSE written must be bitwise its O without, and the
 # LSE within LSE_REL of the plain one's scale; two backward runs bitwise.
+# bfloat16 also by the ratio rule (BF16_L2, BF16_ULP) against the float32
+# gradient, SDPA's backward the comparator.
 FLASH_BWD_CASES = (
     ("qwen2_train", 2, 12, 2, 4096, 128, True, None, "bfloat16"),
     ("qwen2_train_f32", 2, 12, 2, 4096, 128, True, None, "float32"),
@@ -605,8 +618,27 @@ FLASH_BWD_CASES = (
     ("whisper_encoder_s1500", 1, 20, 20, 1500, 64, False, None, "bfloat16"),
     ("window256_s2048", 1, 12, 2, 2048, 128, True, 256, "bfloat16"),
     ("ragged_s1000", 1, 12, 2, 1000, 128, True, None, "bfloat16"),
+    # the split grid at MQA, ragged edges of the 128-key dkdv tile, D 256 bf16
+    ("mqa8_1_d128_s1000", 1, 8, 1, 1000, 128, True, None, "bfloat16"),
+    ("bf16_s63_d64", 2, 4, 2, 63, 64, True, None, "bfloat16"),
+    ("bf16_s65_d64", 2, 4, 2, 65, 64, True, None, "bfloat16"),
+    ("bf16_s129_d64", 2, 4, 2, 129, 64, True, None, "bfloat16"),
+    ("bf16_d256_s129", 2, 4, 2, 129, 256, True, None, "bfloat16"),
+    # off the split grid, the group summed inside a dkdv block: 5 x 2 x 32
+    # blocks and 3 x 8 x 32, both over one and a half waves
+    ("qwen2_b5_nosplit", 5, 12, 2, 4096, 128, True, None, "bfloat16"),
+    ("granite_b3_f32_nosplit", 3, 24, 8, 2048, 64, True, None, "float32"),
 )
 BWD_F32_REL, LSE_REL = 1e-4, 1e-5
+# flash_bwd_times: the wrapper, SDPA's backward and the two dkdv grids (the
+# shape's and the other, forced) timed in turn over BWD_WINDOWS windows of
+# `reps` calls each; the median and the spread are kept.
+BWD_WINDOWS = 5
+# The split rule's sweep (bwd_grid_sweep): qwen2's 12:2 D 128 S 4096 causal
+# at batch 1-5 in bf16 (64-320 kv-head blocks of 128 keys) and 1-3 in
+# float32 (128-384 of 64), the kernels on each dkdv grid timed in turn.
+BWD_GRID_SWEEP = (tuple((b, "bfloat16") for b in range(1, 6))
+                  + tuple((b, "float32") for b in range(1, 4)))
 # A gradient row is held in bf16 ulps of the larger of its own scale and
 # BWD_ROW_FLOOR of the gradient's: row 0 of dQ under the causal mask is
 # P (dP - D) with P = 1 and dP = D up to rounding, a sum that cancels to 0 in
@@ -706,18 +738,19 @@ PATH_NAMES = {True: "kernel", False: "plain", "swapped": "swapped"}
 # at train_4k's sequence length with the global batch cut from 256 to
 # TRAIN_BATCH[0] so that one card holds a step.  (a) One step's loss, grad
 # norm and every gradient leaf on the kernel path (use_kernels=True) against
-# the model's plain path, on the same weights (LM.init(TRAIN_SEED)) and
-# batch: float32 within F32_REL of each leaf's scale; bf16 by the ratio rule
+# the model's plain path, on the same weights (LM.init(TRAIN_SEED)) and batch:
+# float32 within F32_REL of each leaf's scale; bf16 by the ratio rule
 # (BF16_L2, BF16_MAX, BF16_ULP) against two comparators, the plain path and
 # the kernel path with its kernels swapped for their plain versions, each
 # measured from the float32 kernel run.  A step of the kernel path launches
 # the forward kernel twice a layer (remat recomputes it) and each backward
-# kernel once a layer.  (b) TRAIN_STEPS AdamW steps (make_train_step) on
-# TokenPipeline batches of synthetic_corpus, then one more step instrumented
-# with CUDA events.  (c) The crash/resume drill through launch/train.py's
-# loop (TRAIN_DRILL: qwen2's widths, 2 layers); final losses within
-# DRILL_TOL (tests/test_distributed.py:93's bound).  (d) The ssm and hybrid
-# families raise NotImplementedError under grad on the card (the SSD
+# kernel once a layer (flash_bwd_dkdv_reduce_kernel where ops.bwd_split picks
+# the split grid, as it does at this shape).  (b) TRAIN_STEPS AdamW steps
+# (make_train_step) on TokenPipeline batches of synthetic_corpus, then one
+# more step instrumented with CUDA events.  (c) The crash/resume drill through
+# launch/train.py's loop (TRAIN_DRILL: qwen2's widths, 2 layers); final losses
+# within DRILL_TOL (tests/test_distributed.py:93's bound).  (d) The ssm and
+# hybrid families raise NotImplementedError under grad on the card (the SSD
 # backward is not written yet), before any SSD launch.
 TRAIN_ARCH, TRAIN_SEED = "qwen2-1.5b", 0
 TRAIN_BATCH = (2, 4096)
@@ -1022,14 +1055,33 @@ def flash_cases(torch, flash, flash_ref, dev):
     return max(worst, err)
 
 
+def sdpa_backward(torch, F, q, k, v, do, causal, window):
+    """A function that runs F.scaled_dot_product_attention's backward at
+    (q, k, v) with output gradient ``do`` -> (dq, dk, dv); the forward runs
+    once, here.  A window is a boolean attn_mask (with the causal mask)."""
+    from repro_torch.kernels.attention.ref import _mask
+
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    gqa = q.shape[1] != k.shape[1]
+    if window is None:
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal, enable_gqa=gqa)
+    else:
+        out = F.scaled_dot_product_attention(qg, kg, vg, enable_gqa=gqa,
+                                             attn_mask=_mask(q.shape[2], causal, window, q.device))
+    return lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+
+
 def flash_bwd_cases(torch, dev):
-    """Hold the forward's LSE and the three backward kernels against their
-    plain versions in every FLASH_BWD_CASES case -> {kernel: worst max |diff|}."""
+    """Hold the forward's LSE and the backward kernels against their plain
+    versions in every FLASH_BWD_CASES case -> {kernel: worst max |diff|}."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.attention import ops as flash_ops
-    from repro_torch.kernels.attention.ref import flash_bwd_ref, flash_ref
+    from repro_torch.kernels.attention.ref import dkdv_reduce_ref, flash_bwd_ref, flash_ref
 
     g = torch.Generator(device=dev).manual_seed(25)
     worst = dict.fromkeys(flash_ops.BWD_KERNELS, 0.0)
+    grids = set()   # (dtype, split grid) of the GQA cases
     for name, b, hq, hkv, s, d, causal, window, dtype in FLASH_BWD_CASES:
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt).transpose(1, 2)
@@ -1049,12 +1101,27 @@ def flash_bwd_cases(torch, dev):
         got = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window, scale)
         again = flash_ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window, scale)
         want = flash_bwd_ref(q, k, v, o, lse, do, causal, window, scale)
-        (*_, delta), calls = flash_ops.bwd_launches(q, k, v, o, lse, do, causal, window, scale)
-        calls["flash_bwd_preprocess_kernel"]()   # D alone, uncounted
+        (*alone, delta, part), calls = flash_ops.bwd_launches(q, k, v, o, lse, do, causal,
+                                                              window, scale)
+        for call in calls.values():   # each kernel alone, uncounted
+            call()
         delta_p = (do.float() * o.float()).sum(-1)
         torch.cuda.synchronize()
-        require(all(torch.equal(a, c) for a, c in zip(got, again)),
+        require(all(torch.equal(a, c) for a, c in zip(got, again)) and
+                all(torch.equal(a, c) for a, c in zip(got, alone)),
                 f"flash bwd {name}: two backward runs on the same operands differ")
+        split = part is not None
+        require(split == ("flash_bwd_dkdv_reduce_kernel" in calls)
+                == flash_ops.bwd_split(b, hq, hkv, s, flash_ops.bwd_key_tile(d, dt)),
+                f"flash bwd {name}: the split grid's launches")
+        if hq > hkv:
+            grids.add((dtype, split))
+        if split:   # the reduction on the dkdv kernel's partials, bitwise its plain version
+            red = dkdv_reduce_ref(part, hkv, scale, dt)
+            require(torch.equal(red[0], alone[1]) and torch.equal(red[1], alone[2]),
+                    f"flash bwd {name}: flash_bwd_dkdv_reduce_kernel is not bitwise "
+                    "dkdv_reduce_ref")
+            del red
         errs = {}
         for what, x, y in zip(("dq", "dk", "dv"), got, want):
             require(x.shape == y.shape and x.dtype == y.dtype and x.stride(3) == 1,
@@ -1079,13 +1146,30 @@ def flash_bwd_cases(torch, dev):
         require(d_err <= BWD_F32_REL * max(float(delta_p.abs().max()), 1.0),
                 f"flash bwd {name}: D max |diff| {d_err:.3g}")
         worst["flash_bwd_preprocess_kernel"] = max(worst["flash_bwd_preprocess_kernel"], d_err)
+        info = ""
+        if dtype == "bfloat16":   # the ratio rule, both from the unrounded float32 gradient
+            f32 = [t.float() for t in (q, k, v, do)]
+            o32, lse32 = flash_ref(*f32[:3], causal, window, scale, return_lse=True)
+            exact = flash_bwd_ref(*f32[:3], o32, lse32, f32[3], causal, window, scale)
+            lib = sdpa_backward(torch, F, q, k, v, do, causal, window)()
+            for w, x, y, e in zip(("dq", "dk", "dv"), got, lib, exact):
+                mine, theirs = l2_rel(x, e), l2_rel(y, e)
+                require(mine <= BF16_L2 * theirs + BF16_ULP,
+                        f"flash bwd {name} {w}: relative L2 {mine:.3g} from the float32 "
+                        f"gradient > {BF16_L2} x SDPA's {theirs:.3g} + {BF16_ULP:.3g}")
+                info += f"{', ' if info else ''}{w} {mine:.3g} / {theirs:.3g}"
+            info = "; relative L2 from the float32 gradient, kernels / SDPA: " + info
+            del f32, o32, lse32, exact, lib
         print(f"  flash bwd {name}: B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} "
-              f"window={window} {dtype} strided: O with the LSE bitwise O without, LSE max "
-              f"|diff| {lse_err:.3g}, D max |diff| {d_err:.3g}, "
+              f"window={window} {dtype} strided{', split grid' if split else ''}: O with the "
+              f"LSE bitwise O without, LSE max |diff| {lse_err:.3g}, D max |diff| {d_err:.3g}, "
               + ", ".join(f"{w} {e}" for w, e in errs.items())
-              + "; two runs bitwise", flush=True)
-        del q, k, v, do, o, lse, got, again, want, delta, delta_p, calls
+              + ("; the reduction bitwise dkdv_reduce_ref" if split else "")
+              + "; two runs bitwise" + info, flush=True)
+        del q, k, v, do, o, lse, got, again, want, delta, delta_p, calls, alone, part
     torch.cuda.empty_cache()
+    require(grids == {(t, sp) for t in ("bfloat16", "float32") for sp in (False, True)},
+            f"flash bwd: a GQA case on each grid in each dtype, got {sorted(grids)}")
     return worst
 
 
@@ -1791,8 +1875,14 @@ def lm_training(torch, np, dev, card):
     tokens = b * s
     before_phase = torch.cuda.memory_allocated()   # earlier phases' tensors still held
     n_layers = base.n_layers
-    per_step = {"flash_attention_single": 2 * n_layers,
-                **dict.fromkeys(flash_ops.BWD_KERNELS, n_layers)}
+
+    def per_step(dtype):   # the reduction launches on the split grid only
+        split = flash_ops.bwd_split(b, base.n_heads, base.n_kv_heads, s,
+                                    flash_ops.bwd_key_tile(base.head_dim, getattr(torch, dtype)))
+        return {"flash_attention_single": 2 * n_layers,
+                **{k: n_layers * (split or k != "flash_bwd_dkdv_reduce_kernel")
+                   for k in flash_ops.BWD_KERNELS}}
+
     models = {(dtype, kern): build_model(dataclasses.replace(base, dtype=dtype), device=dev,
                                          use_kernels=kern)
               for dtype in ("float32", "bfloat16") for kern in (True, False)}
@@ -1821,7 +1911,8 @@ def lm_training(torch, np, dev, card):
     zero_flash_counts(flash_ops)
     loss32, gn32, yard, ms = train_grads(torch, models["float32", True], params, batch)
     got = flash_counts(flash_ops)
-    require(got == per_step, f"float32 kernel-path step launched {got}, expected {per_step}")
+    require(got == per_step("float32"), f"float32 kernel-path step launched {got}, expected "
+                                        f"{per_step('float32')}")
     runs["float32 kernel"] = dict(loss=float(loss32), grad_norm=float(gn32), ms=ms,
                                   launches=got)
     loss_p, gn_p, grads, ms = train_grads(torch, models["float32", False], params, batch)
@@ -1857,8 +1948,8 @@ def lm_training(torch, np, dev, card):
         runs[f"bfloat16 {name}"] = dict(loss=float(loss), grad_norm=float(gn), ms=ms)
         if name == "kernel":
             got = flash_counts(flash_ops)
-            require(got == per_step, f"bf16 kernel-path step launched {got}, expected "
-                                     f"{per_step}")
+            require(got == per_step("bfloat16"), f"bf16 kernel-path step launched {got}, "
+                                                 f"expected {per_step('bfloat16')}")
             runs["bfloat16 kernel"]["launches"] = got
         del grads
         torch.cuda.empty_cache()
@@ -1904,7 +1995,7 @@ def lm_training(torch, np, dev, card):
         losses.append(float(metrics["loss"]))
     peak = torch.cuda.max_memory_allocated()
     launches = flash_counts(flash_ops)
-    want = {k: TRAIN_STEPS * n for k, n in per_step.items()}
+    want = {k: TRAIN_STEPS * n for k, n in per_step("bfloat16").items()}
     require(launches == want, f"{TRAIN_STEPS} steps launched {launches}, expected {want}")
     require(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
     # One more step, its parts timed with CUDA events.
@@ -2044,14 +2135,59 @@ def bwd_bound(b, hq, hkv, s, d, causal, window, esize, products, nbytes):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_bwd_times(torch, F, dev, reps, launches, case_err):
-    """The backward kernels at every FLASH_BWD_CASES shape: each launched
-    alone, the three through the wrapper, the plain versions,
-    F.scaled_dot_product_attention's backward, the bounds -> the three
-    kernels' rows, at qwen2's training shape (the first case), each
-    carrying every shape's numbers."""
+def bwd_grid_sweep(torch, dev, reps):
+    """The split rule's A/B over BWD_GRID_SWEEP: the backward's kernels on
+    the split grid and on the kv-head grid, each forced, timed in turn ->
+    one row a shape (medians and spreads of BWD_WINDOWS windows, the
+    kv-head grid's blocks and the grid the rule picks)."""
     from repro_torch.kernels.attention import ops as flash_ops
-    from repro_torch.kernels.attention.ref import flash_bwd_ref
+
+    g = torch.Generator(device=dev).manual_seed(27)
+    hq, hkv, s, d = 12, 2, 4096, 128
+    rows = []
+    for b, dtype in BWD_GRID_SWEEP:
+        dt = getattr(torch, dtype)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt)
+                       .transpose(1, 2) for h in (hq, hkv, hkv, hq))
+        scale = 1.0 / math.sqrt(d)
+        o, lse = flash_ops._forward(q, k, v, True, None, scale, with_lse=True)
+        grids = {split: flash_ops.bwd_launches(q, k, v, o, lse, do, True, None, scale,
+                                               split=split)[1] for split in (True, False)}
+        wins = {split: [] for split in grids}
+        for _ in range(BWD_WINDOWS):
+            for split, calls in grids.items():
+                wins[split].append(cuda_ms(torch, lambda: [c() for c in calls.values()], reps))
+        tile = flash_ops.bwd_key_tile(d, dt)
+        row = dict(batch=b, dtype=dtype, kv_head_blocks=b * hkv * -(-s // tile),
+                   split_ms=statistics.median(wins[True]),
+                   split_range=(min(wins[True]), max(wins[True])),
+                   kv_head_ms=statistics.median(wins[False]),
+                   kv_head_range=(min(wins[False]), max(wins[False])),
+                   rule_splits=flash_ops.bwd_split(b, hq, hkv, s, tile))
+        rows.append(row)
+        print(f"  flash backward grid sweep B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal "
+              f"{dtype} ({row['kv_head_blocks']} kv-head blocks): split grid "
+              f"{row['split_ms']:.4f} ms ({row['split_range'][0]:.4f}-"
+              f"{row['split_range'][1]:.4f}), kv-head grid {row['kv_head_ms']:.4f} ms "
+              f"({row['kv_head_range'][0]:.4f}-{row['kv_head_range'][1]:.4f}); the rule "
+              f"picks the {'split' if row['rule_splits'] else 'kv-head'} grid", flush=True)
+        del q, k, v, do, o, lse, grids
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flash_bwd_times(torch, F, dev, reps, launches, case_err, logs):
+    """The backward kernels at every FLASH_BWD_CASES shape: each launched
+    alone, all through the wrapper, the plain versions,
+    F.scaled_dot_product_attention's backward, the bounds -> the kernels'
+    rows, at qwen2's training shape (the first case, on the split grid),
+    dkdv's carrying every shape's numbers; ``logs``: build_all's compiler
+    output (each kernel's registers and spills).  The wrapper, SDPA and,
+    at a GQA shape, the kernels on the shape's grid and on the other grid
+    (forced: the split rule's A/B) are timed in turn, BWD_WINDOWS windows,
+    median and spread."""
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.attention.ref import dkdv_reduce_ref, flash_bwd_ref
 
     g = torch.Generator(device=dev).manual_seed(26)
     shapes = []
@@ -2061,23 +2197,32 @@ def flash_bwd_times(torch, F, dev, reps, launches, case_err):
                        .transpose(1, 2) for h in (hq, hkv, hkv, hq))
         scale = 1.0 / math.sqrt(d)
         o, lse = flash_ops._forward(q, k, v, causal, window, scale, with_lse=True)
-        _, calls = flash_ops.bwd_launches(q, k, v, o, lse, do, causal, window, scale)
+        (*_, part), calls = flash_ops.bwd_launches(q, k, v, o, lse, do, causal, window, scale)
         alone = {kern: cuda_ms(torch, call, reps) for kern, call in calls.items()}
-        wrapper_ms = cuda_ms(torch, lambda: flash_ops.flash_attention_bwd(
-            q, k, v, o, lse, do, causal, window, scale), reps)
+        reduce_plain_ms = None if part is None else cuda_ms(
+            torch, lambda: dkdv_reduce_ref(part, hkv, scale, dt), reps)
+        timed = {"wrapper": lambda: flash_ops.flash_attention_bwd(
+                     q, k, v, o, lse, do, causal, window, scale),
+                 "sdpa": sdpa_backward(torch, F, q, k, v, do, causal, window),
+                 "grid": lambda: [call() for call in calls.values()]}
+        other = {}
+        if hq > hkv:
+            _, other = flash_ops.bwd_launches(q, k, v, o, lse, do, causal, window, scale,
+                                              split=part is None)
+            timed["other grid"] = lambda: [call() for call in other.values()]
+        wins = {key: [] for key in timed}
+        for _ in range(BWD_WINDOWS):
+            for key, fn in timed.items():
+                wins[key].append(cuda_ms(torch, fn, reps))
+        med = {key: statistics.median(ts) for key, ts in wins.items()}
+        spread = {key: (min(ts), max(ts)) for key, ts in wins.items()}
+        wrapper_ms, sdpa_ms = med["wrapper"], med["sdpa"]
         plain_ms = cuda_ms(torch, lambda: flash_bwd_ref(q, k, v, o, lse, do, causal, window,
                                                         scale), 2)
         delta_ms = cuda_ms(torch, lambda: (do.float() * o.float()).sum(-1), reps)
         fwd_ms = cuda_ms(torch, lambda: flash_ops._forward(q, k, v, causal, window, scale, True),
                          reps)
-        sdpa_ms = None
-        if window is None:   # SDPA takes no sliding window
-            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-            out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
-                                                 enable_gqa=hq != hkv)
-            sdpa_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, (qg, kg, vg), do,
-                                                                 retain_graph=True), reps)
-            del out, qg, kg, vg
+        del timed
         esize = q.element_size()
         act = b * hq * s * d * esize
         kv = b * hkv * s * d * esize
@@ -2089,46 +2234,69 @@ def flash_bwd_times(torch, F, dev, reps, launches, case_err):
             "flash_bwd_dq_kernel": bwd_bound(b, hq, hkv, s, d, causal, window, esize, 3,
                                              3 * act + 2 * kv + 2 * rows),
         }
+        if part is not None:   # the partials read once, dK and dV written once
+            bounds["flash_bwd_dkdv_reduce_kernel"] = bound(part.numel() * 4 + 2 * kv,
+                                                           part.numel() + b * hkv * s * d)
         whole = bwd_bound(b, hq, hkv, s, d, causal, window, esize, 5,
                           4 * act + 4 * kv + rows)
         shape = (f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal={causal} window={window} "
                  f"{dtype}, strided (B,S,H,D)")
-        shapes.append(dict(case=name, shape=shape, ms=wrapper_ms, alone_ms=alone,
-                           plain_ms=plain_ms, delta_plain_ms=delta_ms, sdpa_bwd_ms=sdpa_ms,
+        grid = "split" if part is not None else "kv-head"
+        ab = ({} if hq == hkv else {f"{grid} grid": med["grid"],
+                                    f"{'kv-head' if part is not None else 'split'} grid forced":
+                                    med["other grid"]})
+        sdpa_kind = "boolean attn_mask, not the flash backend" if window else "is_causal"
+        shapes.append(dict(case=name, shape=shape, ms=wrapper_ms, ms_range=spread["wrapper"],
+                           alone_ms=alone, plain_ms=plain_ms, delta_plain_ms=delta_ms,
+                           reduce_plain_ms=reduce_plain_ms, sdpa_bwd_ms=sdpa_ms,
+                           sdpa_bwd_ms_range=spread["sdpa"], sdpa=sdpa_kind,
+                           grid_ab_ms=ab, grid_ab_ranges={k: spread[w] for k, w in zip(
+                               ab, ("grid", "other grid"))},
                            bound_ms=whole[0], bound_by=whole[1],
                            kernel_bounds={k: v[0] for k, v in bounds.items()},
                            forward_with_lse_ms=fwd_ms))
-        sdpa = "none (a window)" if sdpa_ms is None else f"{sdpa_ms:.3f} ms"
-        print(f"  flash backward {name} ({shape}): the three kernels through the wrapper "
-              f"{wrapper_ms:.3f} ms (alone: " + ", ".join(f"{kk} {t:.3f}"
-                                                          for kk, t in alone.items())
-              + f"); plain flash_bwd_ref {plain_ms:.3f} ms; F.scaled_dot_product_attention's "
-              f"backward {sdpa}; bound {whole[0]:.4f} ms by {whole[1]} (2.5 x the forward's "
-              f"products); the forward kernel with the LSE {fwd_ms:.3f} ms", flush=True)
+
+        def rng(key):
+            return f"{med[key]:.4f} ms ({spread[key][0]:.4f}-{spread[key][1]:.4f})"
+        print(f"  flash backward {name} ({shape}, {grid} grid), medians of {BWD_WINDOWS} "
+              f"windows (min-max): the kernels through the wrapper {rng('wrapper')} (alone: "
+              + ", ".join(f"{kk} {t:.3f}" for kk, t in alone.items())
+              + f"); F.scaled_dot_product_attention's backward ({sdpa_kind}) {rng('sdpa')}"
+              + ("" if hq == hkv else f"; the kernels on the {grid} grid {rng('grid')}, on the "
+                 f"other grid (forced) {rng('other grid')}")
+              + f"; plain flash_bwd_ref {plain_ms:.3f} ms; bound {whole[0]:.4f} ms by "
+              f"{whole[1]} (2.5 x the forward's products); the forward kernel with the LSE "
+              f"{fwd_ms:.3f} ms", flush=True)
         if name == FLASH_BWD_CASES[0][0]:
+            require(part is not None, f"{name}: expected the split grid")
             main_case = dict(alone=alone, bounds=bounds, plain_ms=plain_ms, delta_ms=delta_ms,
-                             sdpa_ms=sdpa_ms, wrapper_ms=wrapper_ms, whole=whole, shape=shape)
-        del q, k, v, do, o, lse, calls
+                             reduce_plain_ms=reduce_plain_ms, sdpa_ms=sdpa_ms,
+                             wrapper_ms=wrapper_ms, whole=whole, shape=shape)
+        del q, k, v, do, o, lse, calls, part, other
         torch.cuda.empty_cache()
+    sweep = bwd_grid_sweep(torch, dev, reps)
     m = main_case
+    plains = {"flash_bwd_preprocess_kernel": (m["delta_ms"], "(do * o).sum(-1) in float32"),
+              "flash_bwd_dkdv_reduce_kernel": (m["reduce_plain_ms"],
+                                               "dkdv_reduce_ref (the group's partials added)")}
     out_rows = []
     for kern in flash_ops.BWD_KERNELS:
         b_ms, b_by = m["bounds"][kern]
+        plain_ms, plain = plains.get(kern, (m["plain_ms"], "flash_bwd_ref (all three gradients)"))
         out_rows.append(dict(
             name=kern, route="cuda", source="src/repro_torch/csrc/flash.cu",
             replaces="none: the JAX package's backward is XLA through mha_ref "
                      "(src/repro/kernels/attention/ops.py:48)",
             launches=launches[kern], max_abs_err=case_err[kern], ms=m["alone"][kern],
-            plain_ms=m["delta_ms"] if kern == "flash_bwd_preprocess_kernel" else m["plain_ms"],
-            plain=("(do * o).sum(-1) in float32" if kern == "flash_bwd_preprocess_kernel"
-                   else "flash_bwd_ref (all three gradients)"),
-            bound_ms=b_ms, bound_by=b_by,
+            plain_ms=plain_ms, plain=plain, bound_ms=b_ms, bound_by=b_by,
             library_ms=m["sdpa_ms"] if kern == "flash_bwd_dkdv_kernel" else None,
             library=("F.scaled_dot_product_attention's backward (dq, dk and dv together)"
                      if kern == "flash_bwd_dkdv_kernel" else "none"),
             backward_wrapper_ms=m["wrapper_ms"], backward_bound_ms=m["whole"][0],
             shape=f"qwen2-1.5b training: {m['shape']}",
-            **({"bwd_shapes": shapes} if kern == "flash_bwd_dkdv_kernel" else {})))
+            ptxas=ptxas_summary(logs.get("flash", ""), kern),
+            **({"bwd_shapes": shapes, "grid_sweep": sweep}
+               if kern == "flash_bwd_dkdv_kernel" else {})))
     return out_rows
 
 
@@ -2146,7 +2314,7 @@ def lm_only(torch, np, F, reps):
     smi = card_line()
     print(smi)
     with phase("2 build"):
-        build.build_all()
+        logs = build.build_all()
     with phase("3 lm kernels"):
         flash_cases(torch, flash_ops.flash_attention, flash_ref, dev)
         bwd_err = flash_bwd_cases(torch, dev)
@@ -2164,7 +2332,7 @@ def lm_only(torch, np, F, reps):
         fam_flash, fam_ssd = family_shapes(torch, F, dev, reps)
         print(json.dumps({"family_shapes": fam_flash + fam_ssd, "launches": launches}))
         print(json.dumps({"flash_backward": flash_bwd_times(torch, F, dev, reps, train_launches,
-                                                             bwd_err)}))
+                                                             bwd_err, logs)}))
     print(f"card: {smi}")
     return 0
 
@@ -2178,7 +2346,7 @@ def train_only(torch, np, F, reps):
     smi = card_line()
     print(smi)
     with phase("2 build"):
-        build.build_all()
+        logs = build.build_all()
     with phase("3 lm kernels"):
         bwd_err = flash_bwd_cases(torch, dev)
     with phase("4 lm training"):
@@ -2186,7 +2354,7 @@ def train_only(torch, np, F, reps):
         print(json.dumps({"lm_training": training}))
     with phase("5 measure"):
         print(json.dumps({"flash_backward": flash_bwd_times(torch, F, dev, reps, train_launches,
-                                                             bwd_err)}))
+                                                             bwd_err, logs)}))
     print(f"card: {smi}")
     return 0
 
@@ -5714,7 +5882,7 @@ def main(argv=None) -> int:
             family_shapes=fam_flash,
         ))
         del qkv
-        kernels.extend(flash_bwd_times(torch, F, dev, args.reps, train_launches, case_err))
+        kernels.extend(flash_bwd_times(torch, F, dev, args.reps, train_launches, case_err, logs))
         sb, st, sh, sn = 4, 2048, 64, 64
         la = -torch.rand((sb, st, sh), generator=g, device=dev) ** 4 * 50.0
         xbc = torch.randn((sb, st, sh * SSD_P + 2 * sn), generator=g, device=dev).bfloat16()

@@ -17,12 +17,15 @@ same kernel with the per-row log-sum-exp written too and saves q, k, v, o
 and the LSE; its backward is `flash_attention_bwd`, which launches
 ``flash_bwd_preprocess_kernel``, ``flash_bwd_dkdv_kernel`` and
 ``flash_bwd_dq_kernel`` in that order on the current stream (plain
-`ref.flash_bwd_ref` on the CPU).  Under ``torch.inference_mode`` (serving)
-the forward launches without the LSE, as before.
+`ref.flash_bwd_ref` on the CPU); on the split grid (`bwd_split`: a
+small batch x kv heads with a group larger than 1) a fourth,
+``flash_bwd_dkdv_reduce_kernel``, runs after dkdv and adds its blocks'
+per-q-head partials.  Under ``torch.inference_mode`` (serving) the forward launches
+without the LSE, as before.
 
 Only a successful launch adds one to ``flash_attention.launches`` (forward)
 or to ``flash_attention_bwd.launches`` and its kernel's entry of
-``flash_attention_bwd.kernel_launches`` (backward: three a call).
+``flash_attention_bwd.kernel_launches`` (backward: three or four a call).
 """
 
 from __future__ import annotations
@@ -130,7 +133,7 @@ flash_attention.launches = 0
 
 class FlashAttention(torch.autograd.Function):
     """`flash_attention` with its gradient: the forward kernel with the LSE,
-    the three backward kernels (their plain versions on the CPU)."""
+    the backward kernels (their plain version on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
@@ -146,10 +149,36 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
-#: The backward's kernels, in launch order, and their C entry points.
+#: The backward's kernels, in launch order, and their C entry points; the
+#: reduction launches on the split grid only.
 BWD_KERNELS = {"flash_bwd_preprocess_kernel": "flash_attention_bwd_preprocess",
                "flash_bwd_dkdv_kernel": "flash_attention_bwd_dkdv",
+               "flash_bwd_dkdv_reduce_kernel": "flash_attention_bwd_dkdv_reduce",
                "flash_bwd_dq_kernel": "flash_attention_bwd_dq"}
+#: Streaming multiprocessors of an H100 SXM: the split grid's yardstick
+#: (one dkdv block an SM at every D and dtype).
+SM_COUNT = 132
+
+
+def bwd_key_tile(d: int, dtype: torch.dtype) -> int:
+    """Keys a ``flash_bwd_dkdv_kernel`` block owns at head dim ``d``, as the
+    built library says (``csrc/flash.cu``: ``flash_attention_bwd_key_tile``);
+    a card only."""
+    tile = build.library("flash").flash_attention_bwd_key_tile(d, int(dtype == torch.bfloat16))
+    if tile <= 0:
+        raise ValueError(f"no flash backward kernel for head dim {d}")
+    return tile
+
+
+def bwd_split(b: int, hq: int, hkv: int, s: int, key_tile: int) -> bool:
+    """Whether the backward runs the split grid: one dkdv block per (batch,
+    q head, key tile), partials summed by ``flash_bwd_dkdv_reduce_kernel``,
+    where one block per (batch, kv head, key tile) of ``key_tile`` keys
+    would be under one and a half waves of `SM_COUNT` blocks and the group
+    is larger than 1 (where the split grid paid on an H100 at qwen2's 12:2
+    D 128 S 4096: PERF.md).  A function of the shape alone, so that two
+    runs give the same bits."""
+    return hq > hkv and 2 * b * hkv * -(-s // key_tile) < 3 * SM_COUNT
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
@@ -164,7 +193,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     scale = _scale(q.shape[3], scale)
     if q.device.type == "cpu":
         return ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window, scale=scale)
-    (dq, dk, dv, _), calls = bwd_launches(q, k, v, o, lse, do, causal, window, scale)
+    (dq, dk, dv, _, _), calls = bwd_launches(q, k, v, o, lse, do, causal, window, scale)
     for kernel, call in calls.items():
         call()
         flash_attention_bwd.launches += 1
@@ -172,11 +201,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     return dq, dk, dv
 
 
-def bwd_launches(q, k, v, o, lse, do, causal, window, scale):
+def bwd_launches(q, k, v, o, lse, do, causal, window, scale, split: Optional[bool] = None):
     """Check the backward's operands on a card and allocate its outputs ->
-    ((dq, dk, dv, delta), {kernel: a function that launches it and raises
-    if the launch fails}), the kernels in `BWD_KERNELS` order.  Nothing is
-    launched or counted here."""
+    ((dq, dk, dv, delta, part), {kernel: a function that launches it and
+    raises if the launch fails}), the kernels in `BWD_KERNELS` order (the
+    reduction only on the split grid, where ``part`` is its (2, B, Hq, S,
+    D) float32 scratch of dK and dV partials; else None).  ``split`` None
+    takes the grid `bwd_split` picks; True or False forces one (to time
+    the two against each other).  Nothing is launched or counted here."""
     _check_card(q, k, v)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do {tuple(do.shape)} must match q "
@@ -192,11 +224,14 @@ def bwd_launches(q, k, v, o, lse, do, causal, window, scale):
         do = do.contiguous()
     dq, dk, dv = _like(q), _like(k), _like(v)
     delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    hkv = k.shape[1]
     lib = build.library("flash")
+    if split is None:
+        split = bwd_split(b, hq, hkv, s, bwd_key_tile(d, q.dtype))
+    part = torch.empty((2, b, hq, s, d), dtype=torch.float32, device=q.device) if split else None
     tail = (int(q.dtype == torch.bfloat16), q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     mask = (int(causal), 0 if window is None else int(window), scale)
-    hkv = k.shape[1]
 
     def strides(*ts):
         return [st for t in ts for st in (t.stride(0), t.stride(1), t.stride(2))]
@@ -205,7 +240,8 @@ def bwd_launches(q, k, v, o, lse, do, causal, window, scale):
         entry = BWD_KERNELS[kernel]
 
         def call():   # keeps its tensors (do's copy too) alive as long as it lives
-            err = getattr(lib, entry)(*(t.data_ptr() for t in tensors), *rest)
+            err = getattr(lib, entry)(*(None if t is None else t.data_ptr() for t in tensors),
+                                      *rest)
             build.check(lib, err, f"{entry} launch")
         return call
 
@@ -213,13 +249,17 @@ def bwd_launches(q, k, v, o, lse, do, causal, window, scale):
         "flash_bwd_preprocess_kernel": launcher(
             "flash_bwd_preprocess_kernel", (o, do, delta), *strides(o, do), b, hq, s, d, *tail),
         "flash_bwd_dkdv_kernel": launcher(
-            "flash_bwd_dkdv_kernel", (q, k, v, do, lse, delta, dk, dv),
+            "flash_bwd_dkdv_kernel", (q, k, v, do, lse, delta, dk, dv, part),
             *strides(q, k, v, do, dk, dv), b, hq, hkv, s, d, *mask, *tail),
-        "flash_bwd_dq_kernel": launcher(
-            "flash_bwd_dq_kernel", (q, k, v, do, lse, delta, dq), *strides(q, k, v, do, dq), b,
-            hq, hkv, s, d, *mask, *tail),
     }
-    return (dq, dk, dv, delta), calls
+    if part is not None:
+        calls["flash_bwd_dkdv_reduce_kernel"] = launcher(
+            "flash_bwd_dkdv_reduce_kernel", (part, dk, dv), *strides(dk, dv), b, hq, hkv, s, d,
+            scale, *tail)
+    calls["flash_bwd_dq_kernel"] = launcher(
+        "flash_bwd_dq_kernel", (q, k, v, do, lse, delta, dq), *strides(q, k, v, do, dq), b, hq,
+        hkv, s, d, *mask, *tail)
+    return (dq, dk, dv, delta, part), calls
 
 
 flash_attention_bwd.launches = 0

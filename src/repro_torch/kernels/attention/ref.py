@@ -15,7 +15,12 @@
   (``flash_bwd_preprocess_kernel``, ``flash_bwd_dkdv_kernel``,
   ``flash_bwd_dq_kernel``), densely, the FlashAttention-2 way: P recomputed
   from the LSE, D = rowsum(dO * O), dS = P * (dP - D); dK and dV summed over
-  each kv head's q-head group.
+  each kv head's q-head group.  It rounds where the kernels round: P to v's
+  dtype before P^T dO, dS to q's dtype before dS K and dS^T Q (the identity
+  in float32 and float64).
+* `dkdv_reduce_ref` is ``flash_bwd_dkdv_reduce_kernel``'s function: the
+  split grid's per-q-head dK and dV partials added over each group in
+  q-head order.
 
 Both accumulate in float32 (float64 operands stay float64, so that
 ``torch.autograd.gradcheck`` can hold the autograd Function built on them).
@@ -95,6 +100,10 @@ def flash_bwd_ref(q, k, v, o, lse, do, causal=True, window=None, scale=None):
     scale - lse) where the mask keeps the pair (0 elsewhere), D = rowsum(dO *
     O), dP = dO V^T, dS = P (dP - D); dQ = scale dS K, dK = scale dS^T Q and
     dV = P^T dO, the last two summed over the q heads that share a kv head.
+    As the kernels do (and FlashAttention-2 and SDPA), P is rounded to v's
+    dtype before P^T dO and dS to q's dtype before dS K and dS^T Q, each
+    product accumulated in float32: in bf16 that is where the tensor cores
+    take their operands; in float32 (and float64) it changes nothing.
     """
     b, hq, s, d = q.shape
     hkv = k.shape[1]
@@ -109,8 +118,23 @@ def flash_bwd_ref(q, k, v, o, lse, do, causal=True, window=None, scale=None):
                     torch.exp(logits - lse.to(acc)[..., None]), torch.zeros((), dtype=acc,
                                                                             device=q.device))
     delta = (dof * of).sum(-1, keepdim=True)
-    ds = p * (dof @ vf.transpose(-1, -2) - delta)
+    ds = (p * (dof @ vf.transpose(-1, -2) - delta)).to(q.dtype).to(acc)
+    p = p.to(v.dtype).to(acc)
     dq = (ds @ kf) * scale
     dk = (ds.transpose(-1, -2) @ qf).reshape(b, hkv, group, s, d).sum(2) * scale
     dv = (p.transpose(-1, -2) @ dof).reshape(b, hkv, group, s, d).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def dkdv_reduce_ref(part, hkv, scale, dtype):
+    """part: (2, B, Hq, S, D) float32, the split grid's unscaled per-q-head
+    dK (part[0]) and dV (part[1]) sums -> (dk, dv) (B, Hkv, S, D) in
+    ``dtype``: each group added in q-head order from its first head, dK
+    then scaled."""
+    _, b, hq, s, d = part.shape
+    group = hq // hkv
+    pk, pv = (x.reshape(b, hkv, group, s, d) for x in part)
+    dk, dv = pk[:, :, 0], pv[:, :, 0]
+    for i in range(1, group):
+        dk, dv = dk + pk[:, :, i], dv + pv[:, :, i]
+    return (dk * scale).to(dtype), dv.to(dtype)

@@ -68,13 +68,20 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # o, dout, delta, strides of o and dout, batch, hq, seq, d, is_bf16,
         # device, stream
         "flash_attention_bwd_preprocess": ((_VP,) * 3 + (_LL,) * 6 + (_I,) * 6 + (_VP,), _I),
-        # q, k, v, dout, lse, delta, dk, dv, strides of q, k, v, dout, dk, dv,
-        # batch, hq, hkv, seq, d, causal, window, scale, is_bf16, device, stream
+        # q, k, v, dout, lse, delta, dk, dv, part (or null), strides of q, k,
+        # v, dout, dk, dv, batch, hq, hkv, seq, d, causal, window, scale,
+        # is_bf16, device, stream
         "flash_attention_bwd_dkdv": (
-            (_VP,) * 8 + (_LL,) * 18 + (_I,) * 7 + (ctypes.c_float, _I, _I, _VP), _I),
+            (_VP,) * 9 + (_LL,) * 18 + (_I,) * 7 + (ctypes.c_float, _I, _I, _VP), _I),
+        # part, dk, dv, strides of dk, dv, batch, hq, hkv, seq, d, scale,
+        # is_bf16, device, stream
+        "flash_attention_bwd_dkdv_reduce": (
+            (_VP,) * 3 + (_LL,) * 6 + (_I,) * 5 + (ctypes.c_float, _I, _I, _VP), _I),
         # q, k, v, dout, lse, delta, dq, strides of q, k, v, dout, dq, ...
         "flash_attention_bwd_dq": (
             (_VP,) * 7 + (_LL,) * 15 + (_I,) * 7 + (ctypes.c_float, _I, _I, _VP), _I),
+        # d, is_bf16 -> keys a dkdv block owns (-1: no kernel for d)
+        "flash_attention_bwd_key_tile": ((_I, _I), _I),
         "flash_error_string": ((_I,), ctypes.c_char_p),
     },
     "ssd": {

@@ -6,7 +6,7 @@ Ports of the JAX package's ``models/attention.py``:
     ``use_kernel`` (the default) it runs `kernels.attention.ops.
     flash_attention`, which launches ``csrc/flash.cu`` on the card and its
     plain version on the CPU (under grad, its autograd Function: the
-    forward kernel with the LSE and the three backward kernels); without,
+    forward kernel with the LSE and the backward kernels); without,
     it runs the JAX package's dense path (bf16 einsum logits, softmax), the
     plain path the card's run is held against.
   * ``attend_decode`` — one-token decode against the (B, T, Hkv, D) cache,

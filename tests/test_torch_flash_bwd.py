@@ -7,14 +7,21 @@
 interpret mode forward, XLA through ``mha_ref`` backward), on the same
 numpy-seeded operands: GQA 4:2 and MQA 4:1, head dims 16 and 64, S 64 and
 100, causal, non-causal and window 8; float32 at atol 5e-5 / rtol 1e-4.
+In bf16 the plain version rounds where the kernels round (P before
+P^T dO, dS before dS K and dS^T Q): it is held against that computation
+spelled out in numpy, and by the ratio rule against ``jax.grad`` of the
+JAX package's float32 ``mha_ref`` (no farther than 1.5 times ``jax.grad``
+through its bf16 ``mha_ref``, plus 2^-8).  The split grid's rule
+(`ops.bwd_split`) and its reduction's plain version (`ref.dkdv_reduce_ref`)
+are checked on the shapes that decide them.
 The Pallas kernel takes S only in multiples of its block and no window
 without the causal mask: those cases are held against ``jax.grad`` through
 the JAX package's ``mha_ref`` instead.  `ops.FlashAttention` passes
 ``torch.autograd.gradcheck`` in float64, the forward's LSE is
 ``logsumexp`` of the masked, scaled logits, and the wrapper keeps the
 serving path (no LSE) under ``inference_mode``.  The kernels themselves run
-only on a card: the ``gpu`` cases hold them against the plain version and
-run them twice for the same bits.
+only on a card: ``tests/test_torch_flash_bwd_gpu.py`` (no JAX, so that a
+card can collect it) holds them against the plain version.
 """
 import itertools
 
@@ -68,6 +75,117 @@ def test_bwd_ref_matches_autograd_and_jax(heads, d, s, mask):
         assert g.shape == a.shape and g.dtype == torch.float32, name
         np.testing.assert_allclose(g.numpy(), a.numpy(), atol=ATOL, rtol=RTOL, err_msg=name)
         np.testing.assert_allclose(g.numpy(), w, atol=ATOL, rtol=RTOL, err_msg=name)
+
+
+def _bf16_round(x):
+    """float32 -> float32 values rounded to bf16 (to nearest, ties to even)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _bf16_operands(hq, hkv, s, d):
+    return [_bf16_round(x) for x in _operands(hq, hkv, s, d)]
+
+
+@pytest.mark.parametrize("heads,d,s,mask", CASES)
+def test_bf16_bwd_ref_rounds_p_and_ds_where_the_kernels_do(heads, d, s, mask):
+    """bf16 `flash_bwd_ref` against the float32 computation spelled out in
+    numpy (float64 products) with P and dS rounded to bf16 before their
+    products and each gradient once at the end: at most 1 % of the values
+    differ (a P or dS on a rounding tie), by at most 2^-7 of the
+    gradient's scale; without those two roundings ~40 % differ."""
+    hq, hkv = heads
+    causal, window = mask
+    q, k, v, do = _bf16_operands(hq, hkv, s, d)
+    qb, kb, vb, dob = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    o, lse = ref.flash_ref(qb, kb, vb, causal, window, return_lse=True)
+    got = [x.float().numpy() for x in ref.flash_bwd_ref(qb, kb, vb, o, lse, dob, causal, window)]
+    b, group, scale = q.shape[0], hq // hkv, 1.0 / np.sqrt(d)
+    qf, dof = q.astype(np.float64), do.astype(np.float64)
+    of = o.float().numpy().astype(np.float64)
+    kf, vf = (np.repeat(x, group, axis=1).astype(np.float64) for x in (k, v))
+    keep = ref._mask(s, causal, window, "cpu").numpy()
+    logits = qf @ kf.swapaxes(-1, -2) * scale
+    p = np.where(keep, np.exp(logits - lse.numpy().astype(np.float64)[..., None]), 0.0)
+    ds = p * (dof @ vf.swapaxes(-1, -2) - (dof * of).sum(-1, keepdims=True))
+
+    def grads(p_, ds_):
+        dq = ds_ @ kf * scale
+        dk = (ds_.swapaxes(-1, -2) @ qf).reshape(b, hkv, group, s, d).sum(2) * scale
+        dv = (p_.swapaxes(-1, -2) @ dof).reshape(b, hkv, group, s, d).sum(2)
+        return [_bf16_round(x.astype(np.float32)) for x in (dq, dk, dv)]
+
+    rounded = grads(*(_bf16_round(x.astype(np.float32)).astype(np.float64) for x in (p, ds)))
+    unrounded = grads(p, ds)
+    for name, g, r, u in zip(("dq", "dk", "dv"), got, rounded, unrounded):
+        assert np.mean(g != r) <= 0.01, name
+        assert np.abs(g - r).max() <= 2.0 ** -7 * np.abs(r).max(), name
+        assert np.mean(g != u) >= 0.2, name
+
+
+@pytest.mark.parametrize("heads,d,s,mask", CASES)
+def test_bf16_bwd_ref_ratio_rule_against_jax(heads, d, s, mask):
+    """The bf16 `flash_bwd_ref` gradients' relative L2 error against
+    ``jax.grad`` of the JAX package's float32 ``mha_ref`` is at most 1.5
+    times that of ``jax.grad`` through its bf16 ``mha_ref``, plus 2^-8."""
+    hq, hkv = heads
+    causal, window = mask
+    q, k, v, do = _bf16_operands(hq, hkv, s, d)
+    qb, kb, vb, dob = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    o, lse = ref.flash_ref(qb, kb, vb, causal, window, return_lse=True)
+    got = [x.float().numpy() for x in ref.flash_bwd_ref(qb, kb, vb, o, lse, dob, causal, window)]
+
+    def jax_grads(dtype):
+        args = [jnp.asarray(x, dtype) for x in (q, k, v)]
+        cot = jnp.asarray(do, dtype)
+        fn = lambda q, k, v: jnp.sum(  # noqa: E731
+            (jax_mha_ref(q, k, v, causal=causal, window=window) * cot).astype(jnp.float32))
+        return [np.asarray(x, np.float32) for x in jax.grad(fn, argnums=(0, 1, 2))(*args)]
+
+    want, theirs = jax_grads(jnp.float32), jax_grads(jnp.bfloat16)
+
+    def rel(x, w):
+        return float(np.linalg.norm(x - w)) / float(np.linalg.norm(w))
+
+    for name, g, t, w in zip(("dq", "dk", "dv"), got, theirs, want):
+        assert rel(g, w) <= 1.5 * rel(t, w) + 2.0 ** -8, name
+
+
+# The dkdv key tiles of csrc/flash.cu (flash_attention_bwd_key_tile): bf16
+# 128 keys (64 at D 256), float32 64 (32 at D 256).
+@pytest.mark.parametrize("shape,key_tile,split", [
+    ((2, 12, 2, 4096), 128, True),   # qwen2 bf16 training: 2 x 2 x 32 blocks
+    ((3, 12, 2, 4096), 128, True),   # 192 < 198 = 1.5 x 132
+    ((4, 12, 2, 4096), 128, False),  # 256
+    ((2, 12, 2, 4096), 64, False),   # its float32: 2 x 2 x 64 = 256
+    ((1, 12, 2, 4096), 64, True),    # 128
+    ((1, 8, 1, 2048), 32, True),     # gemma float32 D 256: 64 blocks -> 512
+    ((1, 12, 2, 1000), 128, True),   # ragged S 1000: 16 -> 96
+    ((1, 20, 20, 1500), 128, False),  # whisper's encoder: group 1
+    ((4, 12, 2, 4096), 64, False),   # 512 blocks
+    ((9, 12, 2, 4096), 128, False),  # 9 x 2 x 32 = 576
+])
+def test_bwd_split_rule(shape, key_tile, split):
+    assert ops.bwd_split(*shape, key_tile) is split
+
+
+@pytest.mark.parametrize("heads,d,s,mask", CASES[:6])
+def test_dkdv_reduce_ref_sums_per_head_partials_to_the_group_gradient(heads, d, s, mask):
+    """The split grid's per-q-head dK (unscaled) and dV, added by
+    `ref.dkdv_reduce_ref`, are `flash_bwd_ref`'s GQA dK and dV."""
+    hq, hkv = heads
+    causal, window = mask
+    q, k, v, do = (torch.from_numpy(x) for x in _operands(hq, hkv, s, d))
+    group, scale = hq // hkv, d ** -0.5
+    o, lse = ref.flash_ref(q, k, v, causal, window, return_lse=True)
+    kr, vr = (x.repeat_interleave(group, dim=1) for x in (k, v))
+    _, dk_h, dv_h = ref.flash_bwd_ref(q, kr, vr, o, lse, do, causal, window)
+    part = torch.stack((dk_h / scale, dv_h))
+    dk, dv = ref.dkdv_reduce_ref(part, hkv, scale, torch.float32)
+    _, dk_w, dv_w = ref.flash_bwd_ref(q, k, v, o, lse, do, causal, window)
+    torch.testing.assert_close(dk, dk_w, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(dv, dv_w, atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 3),
@@ -132,30 +250,45 @@ class _StubFlash:
             raise AttributeError(name)
         return lambda *args: self.calls.append((name, args)) or 0
 
+    @staticmethod
+    def flash_attention_bwd_key_tile(d, is_bf16):   # csrc/flash.cu's, not recorded
+        return {(64, 1): 128, (128, 1): 128, (256, 1): 64, (64, 0): 64, (128, 0): 64,
+                (256, 0): 32}[d, is_bf16]
 
-def test_bwd_launches_pass_each_entry_point_its_signature(monkeypatch):
-    """The three C entry points get, in order, their pointers, the (b, h, s)
-    strides of the model's strided layout, the shapes, mask, scale, dtype
-    flag, device and stream, as ``build.SIGNATURES`` declares them."""
+
+def _stub_card(monkeypatch):
     stub = _StubFlash()
     monkeypatch.setattr(ops.build, "library", lambda name: stub)
     monkeypatch.setattr(ops, "_check_card", lambda q, k, v: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: type("S", (), {"cuda_stream": 77})())
+    return stub
+
+
+def test_bwd_launches_pass_each_entry_point_its_signature(monkeypatch):
+    """The four C entry points of the split grid (this shape's 2 x 2 kv
+    heads of one key tile) get, in order, their pointers (dkdv and the
+    reduction the float32 scratch of partials), the (b, h, s) strides of
+    the model's strided layout, the shapes, mask, scale, dtype flag, device
+    and stream, as ``build.SIGNATURES`` declares them."""
+    stub = _stub_card(monkeypatch)
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16).transpose(1, 2).contiguous()
                    .transpose(1, 2) for x in _operands(4, 2, 40, 64))
     o, lse = torch.empty_like(q), torch.zeros((2, 4, 40))
-    (dq, dk, dv, delta), calls = ops.bwd_launches(q, k, v, o, lse, do, True, 16, 0.125)
+    (dq, dk, dv, delta, part), calls = ops.bwd_launches(q, k, v, o, lse, do, True, 16, 0.125)
+    assert part.shape == (2, 2, 4, 40, 64) and part.dtype == torch.float32
     assert list(calls) == list(ops.BWD_KERNELS) and not stub.calls
     for call in calls.values():
         call()
     assert [n for n, _ in stub.calls] == list(ops.BWD_KERNELS.values())
     act, kv = (40 * 4 * 64, 64, 4 * 64), (40 * 2 * 64, 64, 2 * 64)
+    mask_tail = (2, 4, 2, 40, 64, 1, 16, 0.125, 1, None, 77)   # CPU stand-ins: no index
     for (name, args), ptrs, strides, tail in zip(stub.calls, (
-            (o, do, delta), (q, k, v, do, lse, delta, dk, dv), (q, k, v, do, lse, delta, dq)),
-            (act * 2, act + kv * 2 + act + kv * 2, act + kv * 2 + act * 2),
-            ((2, 4, 40, 64, 1, None, 77), (2, 4, 2, 40, 64, 1, 16, 0.125, 1, None, 77),
-             (2, 4, 2, 40, 64, 1, 16, 0.125, 1, None, 77))):   # CPU stand-ins: no index
+            (o, do, delta), (q, k, v, do, lse, delta, dk, dv, part), (part, dk, dv),
+            (q, k, v, do, lse, delta, dq)),
+            (act * 2, act + kv * 2 + act + kv * 2, kv * 2, act + kv * 2 + act * 2),
+            ((2, 4, 40, 64, 1, None, 77), mask_tail, (2, 4, 2, 40, 64, 0.125, 1, None, 77),
+             mask_tail)):
         assert len(args) == len(ops.build.SIGNATURES["flash"][name][0]), name
         assert args[:len(ptrs)] == tuple(t.data_ptr() for t in ptrs), name
         assert args[len(ptrs):len(ptrs) + len(strides)] == strides, name
@@ -164,36 +297,19 @@ def test_bwd_launches_pass_each_entry_point_its_signature(monkeypatch):
         assert g.stride() == t.stride() and g.dtype == t.dtype
 
 
-# ----- the CUDA kernels on a card ------------------------------------------
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device; run python3 chip_smoke.py on the card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("hq,hkv,s,d,causal,window,dtype", [
-    (4, 2, 200, 64, True, None, "float32"),
-    (4, 1, 129, 128, False, None, "bfloat16"),
-    (4, 2, 300, 128, True, 64, "bfloat16"),
-    (2, 1, 65, 256, True, None, "float32"),
-    (2, 2, 1, 64, True, None, "bfloat16"),
-])
-def test_cuda_bwd_kernels_match_plain_and_repeat(cuda, hq, hkv, s, d, causal, window, dtype):
-    dt = getattr(torch, dtype)
-    q, k, v, do = (torch.from_numpy(x).to(cuda, dt) for x in _operands(hq, hkv, s, d))
-    o, lse = ops._forward(q, k, v, causal, window, d ** -0.5, with_lse=True)
-    before = ops.flash_attention_bwd.launches
-    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
-    again = ops.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
-    want = ref.flash_bwd_ref(q, k, v, o, lse, do, causal, window)
-    torch.cuda.synchronize()
-    assert ops.flash_attention_bwd.launches == before + 2 * len(ops.BWD_KERNELS)
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    for g, a, w in zip(got, again, want):
-        assert torch.equal(g, a)
-        torch.testing.assert_close(g.float(), w.float(), atol=tol * float(w.abs().max()),
-                                   rtol=tol)
+@pytest.mark.parametrize("hq,hkv,b", [(4, 4, 2), (12, 2, 132)])
+def test_bwd_launches_off_the_split_grid_skip_the_reduction(monkeypatch, hq, hkv, b):
+    """A group of 1, or two waves of kv-head blocks (132 x 2 x one key
+    tile): three launches, dkdv given no scratch (a null pointer)."""
+    stub = _stub_card(monkeypatch)
+    s, d = 128, 128
+    q, do = (torch.empty((b, hq, s, d), dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.empty((b, hkv, s, d), dtype=torch.bfloat16) for _ in range(2))
+    lse = torch.zeros((b, hq, s))
+    (*_, part), calls = ops.bwd_launches(q, k, v, torch.empty_like(q), lse, do, True, None,
+                                         0.125)
+    assert part is None
+    assert list(calls) == [kk for kk in ops.BWD_KERNELS if kk != "flash_bwd_dkdv_reduce_kernel"]
+    calls["flash_bwd_dkdv_kernel"]()
+    (name, args), = stub.calls
+    assert name == "flash_attention_bwd_dkdv" and args[8] is None
