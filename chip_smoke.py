@@ -161,7 +161,20 @@ runs these phases, in order, each printing its seconds:
    ``dkdv_reduce_ref`` on the dkdv kernel's partials; two backward runs
    bitwise.  Each bf16 case's gradients are held by the ratio rule against
    the unrounded float32 gradient: relative L2 at most 1.5 x SDPA's
-   backward's + 2^-8.  Each dtype has a GQA case on each grid.
+   backward's + 2^-8.  Each dtype has a GQA case on each grid.  Then the
+   SSD backward (`SSD_BWD_CASES`: T = 1, 50, 641, 1000, 1025, 2048 and
+   2112, chunk 64 and 256, N 64 and 128, H 24 and 20 under head groups of
+   16, a 64-head ragged call, mamba2-130m's and Zamba2's training shapes
+   at 2 x 4096 in bf16 and float32, the model's strided slices, a random
+   final-state cotangent or none): ``ssd_bwd_chunk_dstate_kernel``,
+   ``ssd_bwd_state_pass_kernel``, ``ssd_bwd_chunk_scan_kernel`` and
+   ``ssd_bwd_reduce_kernel`` on the forward kernels' scratch against
+   ``ssd_chunked_bwd_ref`` (float32 within 1e-4 of each gradient's scale;
+   bf16 dB, dC and dx also within one bf16 ulp, and by the ratio rule
+   against the plain version from the float32 gradient; the first two
+   kernels on their own output, each chunk's sum_i exp(cum_i) C_i dy_i^T
+   and the state gradients dS', within 1e-4 of the scale); two calls and
+   the kernels launched alone bitwise; exactly four launches a call.
 4. batch path ("4 batch path", after the main path): ``run_batch`` of K = 4
    queries (the main box and three moved by +0.25, +0.5 and -0.25 deg in
    RA) for ``raw_fits`` (dense) and ``sql_structured`` (sparse, the union
@@ -300,30 +313,34 @@ runs these phases, in order, each printing its seconds:
    power limit; ``--lm-only`` runs phases "3 lm kernels", "4 lm
    families" and "4 lm training" and the families' and the backward's
    kernel timings, and exits.
-4. lm training ("4 lm training", after the families; `TRAIN_ARCH`):
-   qwen2-1.5b at full width and depth, float32 masters, bf16 compute,
-   remat on, 2 x 4096 tokens (train_4k's sequence length, the global batch
-   cut from 256 to 2).  (a) One step's loss, grad norm and every gradient
-   leaf on the kernel path against the plain path on the same weights and
-   batch (float32 within 1e-4 of each leaf's scale; bf16 by the ratio rule
-   against the plain path and against the kernel path with its kernels
-   swapped for their plain versions), exactly 2 forward and 1 of each
-   backward kernel launch a layer a step (the split grid's reduction in
-   bf16, where qwen2's 2 x 2 kv heads of 32 key tiles are under one and a
-   half waves; none in float32, 64 key tiles);
-   (b) 10 AdamW steps
-   (``make_train_step``, ``TokenPipeline`` over ``synthetic_corpus``):
-   ms a step, tokens/s, model FLOP/s (a share of the bf16 peak, for
-   information only), ``max_memory_allocated``, and one more step split
-   by CUDA events into forward, backward (the flash backward calls alone)
-   and optimizer; (c) the crash/resume drill through
+4. lm training ("4 lm training", after the families; `TRAIN_CELLS`):
+   qwen2-1.5b, mamba2-130m and zamba2-1.2b at full width and depth,
+   float32 masters, bf16 compute, remat on, 2 x 4096 tokens (train_4k's
+   sequence length, the global batch cut from 256 to 2).  For each: (a)
+   one step's loss, grad norm and every gradient leaf on the kernel path
+   against the plain path on the same weights and batch (float32 within
+   1e-4 of each leaf's scale; mamba2, whose 256-step chunks the float32
+   plain form rounds ~1.7e-4 off the exact gradient, against the plain
+   path run in float64; bf16 by the ratio rule against the plain path and
+   against the kernel path with its kernels swapped for their plain
+   versions), exactly the launches of `step_launches` a step (from the
+   config alone; the model's remat units must agree): qwen2 2
+   forward and 1 of each backward flash kernel a layer (the split grid's
+   reduction in bf16, where its 2 x 2 kv heads of 32 key tiles are under
+   one and a half waves; none in float32, 64 key tiles), mamba2 48
+   ``ssd_log`` and 24 of each SSD backward kernel, Zamba2 74 and 38 with
+   12 flash forward and 6 of each flash backward kernel (its two tail
+   layers are not rematted); (b) 10 AdamW steps (``make_train_step``,
+   ``TokenPipeline`` over ``synthetic_corpus``): ms a step, tokens/s,
+   model FLOP/s (a share of the bf16 peak, for information only),
+   ``max_memory_allocated``, and one more step split by CUDA events into
+   forward, backward (the flash and the SSD backward calls alone) and
+   optimizer.  Then (c) the crash/resume drill through
    ``launch/train.py``'s loop (qwen2's widths, 2 layers, vocab 512, 12
    steps of 4 x 256, a checkpoint every 4, crashed after step 6 and
-   resumed: final losses within 1e-6, bitwise or not printed); (d)
-   mamba2-130m and a one-group zamba2-1.2b raise ``NotImplementedError``
-   under grad on the card before any SSD launch.  ``--train-only`` runs the
-   flash backward's cases, this phase and the backward's timings, and
-   exits.
+   resumed: final losses within 1e-6, bitwise or not printed).
+   ``--train-only`` runs the flash and SSD backward's cases, this phase
+   and the backward's timings, and exits.
 5. measure: each kernel's time on the card (CUDA events, warm), its plain
    version's, the nearest PyTorch call's (``F.grid_sample`` bilinear over
    the same samples, plus a sum for the coadd; it covers only the
@@ -367,6 +384,13 @@ runs these phases, in order, each printing its seconds:
    bounds: bytes, or the products each kernel cannot avoid (dkdv 4, dq 3 a
    pair; the whole backward 5, 2.5 times the forward's) on the bf16 tensor
    cores beside 5 float32 operations a pair; the reduction by bytes.
+   The SSD backward at Zamba2's and mamba2-130m's training shapes
+   (`SSD_BWD_TIMED`, bf16 strided, no final-state cotangent): through the
+   wrapper, each kernel launched alone (its C entry point on preallocated
+   outputs), ``ssd_chunked_bwd_ref`` and the forward kernels; bounds by
+   float32 operations in the kernels' 64-step sub-chunks (the causal half
+   of each (L, L) product, the three state products and the chunk sums) or
+   bytes (`ssd_bwd_bound`); no PyTorch call computes it (library none).
    The kernels redesigned for the card (``flash_fwd_bf16_kernel``,
    ``psf_match_2d_kernel``, ``psf_match_sep_kernel``,
    ``warp_project_kernel``) also print their registers and spills (ptxas
@@ -676,6 +700,41 @@ SSD_CASES = (
     ("mamba2_130m_prefill", 4, 2048, 24, 128, 256, "bfloat16", "strided"),
     ("h24_group16_n128", 4, 2112, 24, 128, 64, "bfloat16", "strided"),
 )
+# The SSD backward kernels (ssd_bwd_chunk_dstate_kernel, ssd_bwd_state_pass_kernel,
+# ssd_bwd_chunk_scan_kernel, ssd_bwd_reduce_kernel) against ssd_chunked_bwd_ref
+# on the same operands (the forward kernels' scratch, a random dy and, where
+# the last field says so, a random final-state cotangent; else none, as in
+# training): (name, B, T, H, N, chunk, dtype, form, final).  float32 within
+# BWD_F32_REL of each gradient's scale; bfloat16 dB, dC and dx (each one
+# float32 sum rounded once, on both sides) also within SSD_BWD_BF16_RTOL
+# (one bf16 ulp) of the value, and by the ratio rule (BF16_L2, BF16_ULP)
+# against the plain version from the float32 gradient; two runs and each
+# kernel launched alone bitwise.  The first two kernels are held on what they
+# leave in the dS' scratch, launched alone (STAGES): each chunk's
+# sum_i exp(cum_i) C_i dy_i^T, then the gradient dS' of the state leaving
+# each chunk, against ssd_chunked_bwd_ref's (states=True), float32 within
+# BWD_F32_REL of the scale in both dtypes.
+STAGES = {"ssd_bwd_chunk_dstate_kernel": "chunk sums", "ssd_bwd_state_pass_kernel": "dS'"}
+SSD_BWD_CASES = (
+    ("t1", 2, 1, 4, 64, 64, "float32", "log", True),
+    ("t50_one_chunk", 2, 50, 8, 64, 64, "float32", "log", True),
+    ("t641_64k_plus_1", 2, 641, 8, 64, 64, "float32", "log", False),
+    ("t1000_chunk256_n64", 2, 1000, 8, 64, 256, "bfloat16", "log", True),
+    ("t2048_chunk256_n128", 2, 2048, 8, 128, 256, "float32", "log", True),
+    ("t1025_chunk256_n128", 2, 1025, 8, 128, 256, "bfloat16", "log", False),
+    ("t1_n128_strided", 3, 1, 8, 128, 64, "bfloat16", "strided", True),
+    ("h24_group16", 4, 2112, 24, 64, 64, "float32", "log", True),
+    ("h20_group16_n128", 4, 2112, 20, 128, 64, "bfloat16", "strided", True),
+    ("zamba2_ragged", 1, 1000, 64, 64, 64, "bfloat16", "strided", True),
+    # the training shapes (phase "4 lm training", 2 x 4096)
+    ("mamba2_130m_train", 2, 4096, 24, 128, 256, "bfloat16", "strided", False),
+    ("mamba2_130m_train_f32", 2, 4096, 24, 128, 256, "float32", "strided", False),
+    ("zamba2_train", 2, 4096, 64, 64, 64, "bfloat16", "strided", False),
+    ("zamba2_train_f32", 2, 4096, 64, 64, 64, "float32", "strided", False),
+)
+SSD_BWD_BF16_RTOL = 2.0 ** -7
+# Phase 5 times the SSD backward at these training shapes: (B, T, H, N, chunk).
+SSD_BWD_TIMED = {"zamba2-1.2b": (2, 4096, 64, 64, 64), "mamba2-130m": (2, 4096, 24, 128, 256)}
 # The Zamba2 serving path: the full configuration, random weights from
 # LM.init(LM_SEED), two request batches of (prompts, tokens), greedy decode
 # steps.  Kernel vs plain path: float32 within F32_REL of each value's scale
@@ -732,33 +791,46 @@ FAMILY_BATCH = (4, 2048)
 # H100, one flash call's rounding moves a router logit by up to 5 ulps.
 FLIP_ULPS = 1.0
 PATH_NAMES = {True: "kernel", False: "plain", "swapped": "swapped"}
-# The LM training path (phase "4 lm training"): TRAIN_ARCH at full width and
-# depth (28 layers, d_model 1536, GQA 12:2, head dim 128, vocab 151936, 1.54 B
-# parameters; its own config file), float32 masters, bf16 compute, remat on,
-# at train_4k's sequence length with the global batch cut from 256 to
-# TRAIN_BATCH[0] so that one card holds a step.  (a) One step's loss, grad
-# norm and every gradient leaf on the kernel path (use_kernels=True) against
-# the model's plain path, on the same weights (LM.init(TRAIN_SEED)) and batch:
-# float32 within F32_REL of each leaf's scale; bf16 by the ratio rule
-# (BF16_L2, BF16_MAX, BF16_ULP) against two comparators, the plain path and
-# the kernel path with its kernels swapped for their plain versions, each
-# measured from the float32 kernel run.  A step of the kernel path launches
-# the forward kernel twice a layer (remat recomputes it) and each backward
-# kernel once a layer (flash_bwd_dkdv_reduce_kernel where ops.bwd_split picks
-# the split grid, as it does at this shape).  (b) TRAIN_STEPS AdamW steps
+# The LM training path (phase "4 lm training"): each of TRAIN_CELLS at full
+# width (TRAIN_ARCH, qwen2-1.5b: 28 layers, d_model 1536, GQA 12:2, head dim
+# 128, vocab 151936, 1.54 B parameters; mamba2-130m: 24 Mamba-2 layers, d_model
+# 768, 24 SSD heads, N 128, chunk 256; zamba2-1.2b: 38 Mamba-2 layers, d_model
+# 2048, 64 SSD heads, N 64, and a shared attention block of 32 heads after
+# every 6; each its own config file) and depth unless the cell cuts it,
+# float32 masters, bf16 compute, remat on, at train_4k's sequence length with
+# the global batch cut from 256 to TRAIN_BATCH[0] so that one card holds a
+# step.  (a) One step's loss, grad norm and every gradient leaf on the kernel
+# path (use_kernels=True) against the model's plain path, on the same weights
+# (LM.init(TRAIN_SEED)) and batch: float32 within F32_REL of each leaf's
+# scale; bf16 by the ratio rule (BF16_L2, BF16_MAX, BF16_ULP) against two
+# comparators, the plain path and the kernel path with its kernels swapped
+# for their plain versions, each measured from the float32 kernel run.  A
+# step launches exactly `step_launches`, worked out from the config alone
+# and cross-checked against the model's remat units (`unit_launches`):
+# each forward kernel twice a layer
+# under remat (once in the hybrid's tail layers) and each backward kernel
+# once a layer (flash_bwd_dkdv_reduce_kernel where ops.bwd_split picks the
+# split grid, as it does at qwen2's bf16 shape): mamba2 48 SSD forward and 24
+# of each SSD backward kernel, Zamba2 74 and 38 with 12 flash forward and 6
+# of each flash backward kernel.  (b) TRAIN_STEPS AdamW steps
 # (make_train_step) on TokenPipeline batches of synthetic_corpus, then one
-# more step instrumented with CUDA events.  (c) The crash/resume drill through
-# launch/train.py's loop (TRAIN_DRILL: qwen2's widths, 2 layers); final losses
-# within DRILL_TOL (tests/test_distributed.py:93's bound).  (d) The ssm and
-# hybrid families raise NotImplementedError under grad on the card (the SSD
-# backward is not written yet), before any SSD launch.
+# more step instrumented with CUDA events (the flash and SSD backward calls
+# each timed).  (c) The crash/resume drill through launch/train.py's loop
+# (TRAIN_DRILL: qwen2's widths, 2 layers); final losses within DRILL_TOL
+# (tests/test_distributed.py:93's bound).
 TRAIN_ARCH, TRAIN_SEED = "qwen2-1.5b", 0
+TRAIN_CELLS = ((TRAIN_ARCH, {}), ("mamba2-130m", {}), ("zamba2-1.2b", {}))
+# A configuration whose SSD chunks are longer than the kernels' 64-step
+# sub-chunks (mamba2-130m: 256) holds its float32 kernel path against the
+# plain path run in float64: the float32 plain form rounds its decay sums at
+# |cum| in the thousands there, and on the H100 its own A_log gradient lies
+# 1.7e-4 of the scale from the float64 one (the kernel path's 4.3e-5).
+SSD_FAMILIES = ("ssm", "hybrid")
 TRAIN_BATCH = (2, 4096)
 TRAIN_STEPS = 10
 TRAIN_DRILL = dict(n_layers=2, vocab=512, steps=12, global_batch=4, seq_len=256, ckpt_every=4,
                    crash_at=6)
 DRILL_TOL = 1e-6
-NO_SSD_BACKWARD = (("mamba2-130m", {}), ("zamba2-1.2b", {"n_layers": 6}))
 
 
 class SmokeFailure(Exception):
@@ -1178,18 +1250,7 @@ def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, ssd_heads_per_block
     g = torch.Generator(device=dev).manual_seed(16)
     worst = 0.0
     for name, b, t, h, n, chunk, dtype, form in SSD_CASES:
-        dt = getattr(torch, dtype)
-        # Log-decay spread over [-50, 0] a step (exp underflows float32 below -87).
-        log_a = -torch.rand((b, t, h), generator=g, device=dev) ** 4 * 50.0
-        if form == "a":
-            log_a = torch.log(torch.rand((b, t, h), generator=g, device=dev) * 0.95 + 0.02)
-        if form == "strided":   # B, C and x as the model slices its conv output
-            xbc = torch.randn((b, t, h * SSD_P + 2 * n), generator=g, device=dev).to(dt)
-            x = xbc[..., :h * SSD_P].reshape(b, t, h, SSD_P)
-            Bm, Cm = xbc[..., h * SSD_P:h * SSD_P + n], xbc[..., h * SSD_P + n:]
-        else:
-            Bm, Cm = (torch.randn((b, t, n), generator=g, device=dev).to(dt) for _ in range(2))
-            x = torch.randn((b, t, h, SSD_P), generator=g, device=dev).to(dt)
+        log_a, Bm, Cm, x = ssd_operands(torch, g, dev, b, t, h, n, dtype, form)
         y_p, s_p = chunked_ref(log_a, Bm, Cm, x, chunk)
         if form == "a":
             a = torch.exp(log_a)
@@ -1216,6 +1277,200 @@ def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, ssd_heads_per_block
                           f"{float((got.float() - want.float()).abs().max()):.3g}"
                           for what, got, want in holds))
     return worst
+
+
+def ssd_operands(torch, g, dev, b, t, h, n, dtype, form):
+    """An SSD call's operands: log-decay spread over [-50, 0] a step (exp
+    underflows float32 below -87), for ``a`` then redrawn as the log of a
+    decay in [0.02, 0.97]; B, C and x as views of one (B, T, H P + 2 N)
+    tensor (the model's slices of its conv output) for ``strided``, else
+    contiguous."""
+    dt = getattr(torch, dtype)
+    log_a = -torch.rand((b, t, h), generator=g, device=dev) ** 4 * 50.0
+    if form == "a":
+        log_a = torch.log(torch.rand((b, t, h), generator=g, device=dev) * 0.95 + 0.02)
+    if form == "strided":
+        xbc = torch.randn((b, t, h * SSD_P + 2 * n), generator=g, device=dev).to(dt)
+        return (log_a, xbc[..., h * SSD_P:h * SSD_P + n], xbc[..., h * SSD_P + n:],
+                xbc[..., :h * SSD_P].reshape(b, t, h, SSD_P))
+    Bm, Cm = (torch.randn((b, t, n), generator=g, device=dev).to(dt) for _ in range(2))
+    return log_a, Bm, Cm, torch.randn((b, t, h, SSD_P), generator=g, device=dev).to(dt)
+
+
+def ssd_bwd_cases(torch, dev):
+    """Hold the SSD backward kernels against ssd_chunked_bwd_ref in every
+    SSD_BWD_CASES case -> {kernel: worst max |diff| of what it writes}."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
+
+    g = torch.Generator(device=dev).manual_seed(27)
+    worst = dict.fromkeys(ssd_ops.BWD_KERNELS, 0.0)
+    names = ("dlog_a", "dB", "dC", "dx")
+    for name, b, t, h, n, chunk, dtype, form, final in SSD_BWD_CASES:
+        ops_in = ssd_operands(torch, g, dev, b, t, h, n, dtype, form)
+        dy = torch.randn((b, t, h, SSD_P), generator=g, device=dev)
+        ds = torch.randn((b, h, n, SSD_P), generator=g, device=dev) if final else None
+        _, _, scratch = ssd_ops._forward(*ops_in, chunk, "float32")
+        before = dict(ssd_ops.ssd_log_bwd.kernel_launches)
+        got = ssd_ops.ssd_log_bwd(*ops_in, dy, ds, chunk, scratch)
+        again = ssd_ops.ssd_log_bwd(*ops_in, dy, ds, chunk, scratch)
+        outs, calls = ssd_ops.bwd_launches(*ops_in, dy, ds, chunk, scratch)
+        staged = {}
+        for kernel, call in calls.items():   # each kernel alone, uncounted
+            call()
+            if kernel in STAGES:   # what it leaves in the dS' scratch
+                staged[kernel] = outs[4].clone()
+        *want, q_sum, ds_out = ssd_chunked_bwd_ref(*ops_in, dy, ds, chunk, states=True)
+        torch.cuda.synchronize()
+        counts = {k: v - before[k] for k, v in ssd_ops.ssd_log_bwd.kernel_launches.items()}
+        require(counts == dict.fromkeys(ssd_ops.BWD_KERNELS, 2),
+                f"ssd bwd {name}: two calls launched {counts}")
+        require(all(torch.equal(a, c) and torch.equal(a, d)
+                    for a, c, d in zip(got, again, outs[:4])),
+                f"ssd bwd {name}: two backward runs on the same operands differ")
+        errs = {}
+        for (kernel, what), x, y in zip(STAGES.items(), staged.values(), (q_sum, ds_out)):
+            err = float((x - y).abs().max())
+            scale_y = float(y.abs().max())
+            require(err <= BWD_F32_REL * scale_y, f"ssd bwd {name} {what} ({kernel}): max "
+                                                  f"|diff| {err:.3g} > {BWD_F32_REL} x "
+                                                  f"{scale_y:.3g}")
+            errs[what] = f"{err:.3g} of scale {scale_y:.3g}"
+            worst[kernel] = max(worst[kernel], err)
+        for what, x, y in zip(names, got, want):
+            require(x.shape == y.shape and x.dtype == y.dtype, f"ssd bwd {name} {what}: shape "
+                                                               "or dtype")
+            require(bool(torch.isfinite(x).all()), f"ssd bwd {name} {what}: non-finite")
+            err = float((x.float() - y.float()).abs().max())
+            scale_y = float(y.float().abs().max())
+            if x.dtype == torch.float32:
+                require(err <= BWD_F32_REL * scale_y, f"ssd bwd {name} {what}: max |diff| "
+                                                      f"{err:.3g} > {BWD_F32_REL} x {scale_y:.3g}")
+            else:   # both sides round one float32 sum to bf16: one ulp of the value
+                bad = ((x.float() - y.float()).abs()
+                       > BWD_F32_REL * scale_y + SSD_BWD_BF16_RTOL * y.float().abs())
+                require(not bool(bad.any()), f"ssd bwd {name} {what}: max |diff| {err:.3g} "
+                                             f"beyond {BWD_F32_REL} x {scale_y:.3g} + one bf16 "
+                                             "ulp")
+            errs[what] = f"{err:.3g} of scale {scale_y:.3g}"
+            kernel = ("ssd_bwd_reduce_kernel" if what in ("dB", "dC")
+                      else "ssd_bwd_chunk_scan_kernel")
+            worst[kernel] = max(worst[kernel], err)
+        info = ""
+        if dtype == "bfloat16":   # the ratio rule, both from the float32 gradient
+            exact = ssd_chunked_bwd_ref(ops_in[0], *(v.float() for v in ops_in[1:]), dy, ds,
+                                        chunk)
+            for what, x, y, e in zip(names[1:], got[1:], want[1:], exact[1:]):
+                mine, theirs = l2_rel(x, e), l2_rel(y, e)
+                require(mine <= BF16_L2 * theirs + BF16_ULP,
+                        f"ssd bwd {name} {what}: relative L2 {mine:.3g} from the float32 "
+                        f"gradient > {BF16_L2} x the plain version's {theirs:.3g} + "
+                        f"{BF16_ULP:.3g}")
+                info += f"{', ' if info else ''}{what} {mine:.3g} / {theirs:.3g}"
+            info = "; relative L2 from the float32 gradient, kernels / plain: " + info
+            del exact
+        tile = min(chunk, ssd_ops.MAX_TILE)
+        group = ssd_ops.heads_per_block(b, -(-t // tile), h,
+                                        torch.cuda.get_device_properties(dev).multi_processor_count)
+        print(f"  ssd bwd {name}: B={b} T={t} H={h} N={n} P={SSD_P} chunk={chunk} {dtype} "
+              f"{form} group={group} final-state cotangent {'random' if final else 'none'}: "
+              + ", ".join(f"{w} {e}" for w, e in errs.items())
+              + "; two runs and the kernels alone bitwise" + info, flush=True)
+        del ops_in, dy, ds, scratch, got, again, outs, calls, want, q_sum, ds_out, staged
+    torch.cuda.empty_cache()
+    return worst
+
+
+def ssd_bwd_bound(b, t, h, n, p, chunk, esize, n_groups):
+    """Bounds of one ssd_log_bwd call in the kernels' decomposition
+    (sub-chunks of min(chunk, 64)) -> {kernel or "call": (ms, by)}.  float32
+    operations on the CUDA cores, the causal half of every (L, L) product:
+    per (batch, sub-chunk) C B^T; per (head, sub-chunk) D = dy x^T, A^T dy,
+    W B and W^T C (2 P, 2 P, 2 N, 2 N a pair), the mask and the products A,
+    W and A o D (5 a pair), the chunk sum and the three state products (2 L
+    N P each), the reverse pass (2 N P); each input read and each output
+    written once (the call: log_a, B, C, x, dy in; d log_a, dB, dC, dx out;
+    a kernel: its own operands, the scratch included)."""
+    tile = min(chunk, 64)
+    sizes = [tile] * (t // tile) + ([t % tile] if t % tile else [])
+    pairs = sum(r * (r + 1) // 2 for r in sizes)
+    nc = len(sizes)
+    state = 4 * b * nc * h * n * p          # one (B, n_chunks, H, N, P) float32 scratch
+    cums = 4 * b * nc * h * 64
+    ops_in, ops_dy, ops_bc = b * t * h * p * esize, 4 * b * t * h * p, b * t * n * esize
+    part = 4 * 2 * b * nc * n_groups * 64 * n
+    scan_ops = b * (2 * n * pairs + h * (pairs * (4 * p + 4 * n + 5) + 6 * n * p * t))
+    parts = {
+        "ssd_bwd_chunk_dstate_kernel": bound(ops_bc + ops_dy + cums + state,
+                                             b * h * 2 * n * p * t),
+        "ssd_bwd_state_pass_kernel": bound(2 * state + 4 * b * nc * h, 2 * b * nc * h * n * p),
+        "ssd_bwd_chunk_scan_kernel": bound(2 * ops_bc + ops_in + ops_dy + 2 * state + cums
+                                           + 4 * b * t * h + ops_in + part, scan_ops),
+        "ssd_bwd_reduce_kernel": bound(part + 2 * ops_bc, part // 4),
+    }
+    parts["call"] = bound(8 * b * t * h + 4 * ops_bc + 2 * ops_in + ops_dy,
+                          scan_ops + b * h * (2 * n * p * t + 2 * nc * n * p))
+    return parts
+
+
+def ssd_bwd_times(torch, dev, reps, launches, case_err, logs):
+    """The SSD backward at each training shape of SSD_BWD_TIMED: through the
+    wrapper, each kernel launched alone (CUDA events, warm), the plain
+    version, the bounds -> the kernels' rows (the first shape's numbers,
+    every shape's in ``bwd_shapes``)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
+
+    g = torch.Generator(device=dev).manual_seed(28)
+    shapes = []
+    for arch, (b, t, h, n, chunk) in SSD_BWD_TIMED.items():
+        ops_in = ssd_operands(torch, g, dev, b, t, h, n, "bfloat16", "strided")
+        dy = torch.randn((b, t, h, SSD_P), generator=g, device=dev)
+        _, _, scratch = ssd_ops._forward(*ops_in, chunk, "float32")
+        outs, calls = ssd_ops.bwd_launches(*ops_in, dy, None, chunk, scratch)
+        n_groups = outs[5].shape[3]
+        wrapper_ms = cuda_ms(torch, lambda: ssd_ops.ssd_log_bwd(*ops_in, dy, None, chunk,
+                                                                scratch), reps)
+        alone = {k: cuda_ms(torch, call, reps) for k, call in calls.items()}
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        ssd_ops.ssd_log_bwd(*ops_in, dy, None, chunk, scratch)
+        call_bytes = torch.cuda.max_memory_allocated() - base_mem
+        plain_ms = cuda_ms(torch, lambda: ssd_chunked_bwd_ref(*ops_in, dy, None, chunk), 2)
+        fwd_ms = cuda_ms(torch, lambda: ssd_ops._forward(*ops_in, chunk, "float32"), reps)
+        bounds = ssd_bwd_bound(b, t, h, n, SSD_P, chunk, 2, n_groups)
+        shape = (f"{arch} training: B={b} T={t} H={h} N={n} P={SSD_P} chunk {chunk} (sub-chunks "
+                 f"of {min(chunk, 64)}), bf16 strided B, C, x, no final-state cotangent, "
+                 f"{n_groups} head groups")
+        shapes.append(dict(arch=arch, shape=shape, ms=wrapper_ms, alone_ms=alone,
+                           plain_ms=plain_ms, forward_ms=fwd_ms, call_bytes=call_bytes,
+                           bound_ms=bounds["call"][0], bound_by=bounds["call"][1],
+                           kernel_bounds={k: v[0] for k, v in bounds.items()},
+                           kernel_bound_by={k: v[1] for k, v in bounds.items()}))
+        print(f"  ssd backward at {shape}: through the wrapper {wrapper_ms:.3f} ms (alone: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in alone.items())
+              + f"); bound {bounds['call'][0]:.4f} ms by {bounds['call'][1]} ("
+              + ", ".join(f"{k} {v[0]:.4f} by {v[1]}" for k, v in bounds.items() if k != "call")
+              + f"); plain ssd_chunked_bwd_ref {plain_ms:.3f} ms; the forward kernels "
+              f"{fwd_ms:.3f} ms; memory a call allocates {call_bytes} bytes; library: none",
+              flush=True)
+        del ops_in, dy, scratch, outs, calls
+        torch.cuda.empty_cache()
+    m = shapes[0]
+    rows = []
+    for kern in ssd_ops.BWD_KERNELS:
+        rows.append(dict(
+            name=kern, route="cuda", source="src/repro_torch/csrc/ssd.cu",
+            replaces="none: the JAX package differentiates row 10's function in XLA "
+                     "(src/repro/models/ssm.py:70, _ssd_chunked)",
+            launches=launches[kern], max_abs_err=case_err[kern], ms=m["alone_ms"][kern],
+            plain_ms=m["plain_ms"], plain="ssd_chunked_bwd_ref (all four gradients)",
+            bound_ms=m["kernel_bounds"][kern], bound_by=m["kernel_bound_by"][kern],
+            library_ms=None, library="none: no PyTorch call computes the SSD's gradient",
+            backward_wrapper_ms=m["ms"], backward_bound_ms=m["bound_ms"], shape=m["shape"],
+            ptxas=ptxas_summary(logs.get("ssd", ""), kern),
+            **({"bwd_shapes": shapes} if kern == "ssd_bwd_chunk_scan_kernel" else {})))
+    return rows
 
 
 def family_shapes(torch, F, dev, reps):
@@ -1306,9 +1561,9 @@ def tree_leaves(tree, prefix=""):
 
 
 def max_rel(got, want):
-    """max |got - want| over max |want|."""
-    scale = max(float(want.float().abs().max()), 1e-30)
-    return float((got.float() - want.float()).abs().max()) / scale
+    """max |got - want| over max |want| (in float64)."""
+    scale = max(float(want.double().abs().max()), 1e-30)
+    return float((got.double() - want.double()).abs().max()) / scale
 
 
 def l2_rel(got, want):
@@ -1841,60 +2096,123 @@ def train_grads(torch, model, params, batch):
     return loss.detach(), global_norm(grads), grads, ms
 
 
-def flash_counts(flash_ops):
-    """The forward's and each backward kernel's launch counts."""
+def lm_counts():
+    """Every LM kernel's launch count: the flash forward and each backward
+    kernel, the SSD forward (``ssd_chunked``) and each SSD backward kernel."""
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
     return {"flash_attention_single": flash_ops.flash_attention.launches,
-            **flash_ops.flash_attention_bwd.kernel_launches}
+            **flash_ops.flash_attention_bwd.kernel_launches,
+            "ssd_chunked": ssd_ops.ssd_log.launches, **ssd_ops.ssd_log_bwd.kernel_launches}
 
 
-def zero_flash_counts(flash_ops):
-    flash_ops.flash_attention.launches = 0
-    flash_ops.flash_attention_bwd.launches = 0
-    for k in flash_ops.flash_attention_bwd.kernel_launches:
-        flash_ops.flash_attention_bwd.kernel_launches[k] = 0
+def zero_lm_counts():
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    flash_ops.flash_attention.launches = ssd_ops.ssd_log.launches = 0
+    flash_ops.flash_attention_bwd.launches = ssd_ops.ssd_log_bwd.launches = 0
+    for counts in (flash_ops.flash_attention_bwd.kernel_launches,
+                   ssd_ops.ssd_log_bwd.kernel_launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def step_launches(torch, cfg, b, s, dtype):
+    """The launches one remat training step of a dense, ssm or hybrid
+    configuration must make, from its config alone: each layer's forward
+    kernel twice (the recompute), except the hybrid's n_layers %
+    shared_attn_period tail layers, which are not rematted, once; each
+    backward kernel once a layer (the flash reduction on the split grid
+    only).  The hybrid's shared attention block after every
+    shared_attn_period layers counts as a layer of attention."""
+    from repro_torch.kernels.attention import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    n_attn, n_ssd, tail = {
+        "dense": (cfg.n_layers, 0, 0), "ssm": (0, cfg.n_layers, 0),
+        "hybrid": (cfg.n_layers // cfg.shared_attn_period, cfg.n_layers,
+                   cfg.n_layers % cfg.shared_attn_period)}[cfg.family]
+    split = n_attn and flash_ops.bwd_split(
+        b, cfg.n_heads, cfg.n_kv_heads, s,
+        flash_ops.bwd_key_tile(cfg.head_dim, getattr(torch, dtype)))
+    return {"flash_attention_single": 2 * n_attn,
+            **{k: n_attn * bool(split or k != "flash_bwd_dkdv_reduce_kernel")
+               for k in flash_ops.BWD_KERNELS},
+            "ssd_chunked": 2 * n_ssd - tail, **dict.fromkeys(ssd_ops.BWD_KERNELS, n_ssd)}
+
+
+def unit_launches(model):
+    """(attention forwards, SSD forwards, attention layers, SSD layers) of
+    one step by the model's own remat units: a cross-check of
+    `step_launches`."""
+    out = [0, 0, 0, 0]
+    for blocks, remat in model._units():
+        for kind, _ in blocks:
+            ssd = kind in ("mamba", "tail")
+            out[ssd] += 2 if remat else 1
+            out[2 + ssd] += 1
+    return tuple(out)
+
+
+def describe_lm(cfg):
+    """A configuration's widths, as phase 4's lines print them."""
+    out = f"{cfg.family}, {cfg.n_layers} layers, d_model {cfg.d_model}"
+    if cfg.n_heads:
+        out += (f", attention {cfg.n_heads}:{cfg.n_kv_heads} heads of {cfg.head_dim}"
+                + (f" (shared, after every {cfg.shared_attn_period} layers)"
+                   if cfg.family == "hybrid" else ""))
+    if cfg.family in ("ssm", "hybrid"):
+        out += (f", SSD {cfg.n_ssm_heads} heads of {cfg.ssm_head_dim}, N {cfg.ssm_state}, "
+                f"chunk {cfg.ssm_chunk}")
+    return out + f", vocab {cfg.vocab_size}"
 
 
 def lm_training(torch, np, dev, card):
-    """Phase "4 lm training" (see TRAIN_ARCH) -> (record, the launches of
-    the TRAIN_STEPS steps)."""
-    import shutil
+    """Phase "4 lm training" (see TRAIN_CELLS) -> (record, the launches of
+    every configuration's TRAIN_STEPS steps)."""
+    record, launches = {}, {}
+    for arch, cut in TRAIN_CELLS:
+        record[arch], got = train_cell(torch, dev, card, arch, cut)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    record["drill"] = train_drill(torch, dev)
+    return record, launches
 
+
+def train_cell(torch, dev, card, arch, cut):
+    """One configuration of phase "4 lm training" -> (record, the launches
+    of its TRAIN_STEPS steps)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.packing import pack_documents, synthetic_corpus
     from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
     from repro_torch.kernels.attention import ops as flash_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.launch import train as train_mod
     from repro_torch.launch.specs import make_train_step
     from repro_torch.models.model import build_model
     from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update, tree_map
     from repro_torch.optim.schedule import warmup_cosine
 
-    base = get_config(TRAIN_ARCH)
+    full = get_config(arch)
+    base = dataclasses.replace(full, **cut)
     b, s = TRAIN_BATCH
     tokens = b * s
     before_phase = torch.cuda.memory_allocated()   # earlier phases' tensors still held
-    n_layers = base.n_layers
-
-    def per_step(dtype):   # the reduction launches on the split grid only
-        split = flash_ops.bwd_split(b, base.n_heads, base.n_kv_heads, s,
-                                    flash_ops.bwd_key_tile(base.head_dim, getattr(torch, dtype)))
-        return {"flash_attention_single": 2 * n_layers,
-                **{k: n_layers * (split or k != "flash_bwd_dkdv_reduce_kernel")
-                   for k in flash_ops.BWD_KERNELS}}
-
     models = {(dtype, kern): build_model(dataclasses.replace(base, dtype=dtype), device=dev,
                                          use_kernels=kern)
               for dtype in ("float32", "bfloat16") for kern in (True, False)}
-    require(base.remat, f"{TRAIN_ARCH}: remat must be on")
+    require(base.remat, f"{arch}: remat must be on")
     t0 = time.perf_counter()
     params = models["float32", True].init(TRAIN_SEED)
     torch.cuda.synchronize()
     n_params = sum(x.numel() for _, x in tree_leaves(params))
-    print(f"  {TRAIN_ARCH}: {n_layers} layers, d_model {base.d_model}, GQA {base.n_heads}:"
-          f"{base.n_kv_heads}, head dim {base.head_dim}, vocab {base.vocab_size}, {n_params} "
-          f"float32 parameters from LM.init({TRAIN_SEED}) in {time.perf_counter() - t0:.1f} s; "
-          f"batch {b} x {s} (train_4k's sequence length, global batch cut from 256)", flush=True)
+    depth = ("" if not cut else
+             f"; depth cut from {full.n_layers} to {base.n_layers} layers so that the script "
+             "keeps to its time")
+    print(f"  {arch}: {describe_lm(base)}; {n_params} float32 parameters from "
+          f"LM.init({TRAIN_SEED}) in {time.perf_counter() - t0:.1f} s; batch {b} x {s} "
+          f"(train_4k's sequence length, global batch cut from 256){depth}", flush=True)
     docs, srcs = synthetic_corpus(vocab=base.vocab_size, seed=TRAIN_SEED)
     pipe = TokenPipeline(pack_documents(docs, srcs, shard_len=4 * s),
                          PipelineConfig(b, s, seed=TRAIN_SEED))
@@ -1902,30 +2220,67 @@ def lm_training(torch, np, dev, card):
     def batch_at(step):
         return {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
 
+    def per_step(dtype):
+        return step_launches(torch, base, b, s, dtype)
+
+    want = per_step("float32")
+    units = unit_launches(models["float32", True])
+    require(units == tuple(want[k] for k in ("flash_attention_single", "ssd_chunked",
+                                             "flash_bwd_dq_kernel", "ssd_bwd_chunk_scan_kernel")),
+            f"{arch}: the model's remat units make {units} (attention and SSD forwards, "
+            f"attention and SSD layers) a step, its config {want}")
+
     # ---- (a) one step, kernel path against the plain path ----
     batch = batch_at(0)
     for model in models.values():   # cuBLAS handles, the allocator; uncounted
         with torch.no_grad():
             model.loss(params, {k: v[:1, :256] for k, v in batch.items()})
     runs = {}
-    zero_flash_counts(flash_ops)
+    zero_lm_counts()
     loss32, gn32, yard, ms = train_grads(torch, models["float32", True], params, batch)
-    got = flash_counts(flash_ops)
-    require(got == per_step("float32"), f"float32 kernel-path step launched {got}, expected "
-                                        f"{per_step('float32')}")
+    got = lm_counts()
+    require(got == per_step("float32"), f"{arch} float32 kernel-path step launched {got}, "
+                                        f"expected {per_step('float32')}")
     runs["float32 kernel"] = dict(loss=float(loss32), grad_norm=float(gn32), ms=ms,
                                   launches=got)
+    def rel(loss, gn, grads, loss_w, gn_w, grads_w):
+        """Each value's max |diff| over the scale of the second run's."""
+        out = {"loss": abs(float(loss) - float(loss_w)) / abs(float(loss_w)),
+               "grad_norm": abs(float(gn) - float(gn_w)) / float(gn_w)}
+        out.update({path: max_rel(grads[path], g) for path, g in grads_w.items()})
+        return out
+
+    long_chunks = base.family in SSD_FAMILIES and base.ssm_chunk > ssd_ops.MAX_TILE
     loss_p, gn_p, grads, ms = train_grads(torch, models["float32", False], params, batch)
-    f32 = {"loss": abs(float(loss32 - loss_p)) / abs(float(loss_p)),
-           "grad_norm": abs(float(gn32 - gn_p)) / float(gn_p)}
-    f32.update({path: max_rel(yard[path], g) for path, g in grads.items()})
+    f32 = rel(loss32, gn32, yard, loss_p, gn_p, grads)
     worst32 = max(f32, key=f32.get)
     runs["float32 plain"] = dict(loss=float(loss_p), grad_norm=float(gn_p), ms=ms)
-    print(f"  float32 kernel vs plain path, of each value's scale (limit {F32_REL}): loss "
+    print(f"  float32 kernel vs plain path, of each value's scale (limit {F32_REL}"
+          f"{': held against float64 below' if long_chunks else ''}): loss "
           f"{f32['loss']:.3g}, grad norm {f32['grad_norm']:.3g}, largest {worst32} "
           f"{f32[worst32]:.3g}", flush=True)
-    require(f32[worst32] <= F32_REL, f"{TRAIN_ARCH} float32 {worst32}: kernel vs plain "
-                                     f"{f32[worst32]:.3g} of its scale > {F32_REL}")
+    held32 = dict(against="float32 plain", at=worst32, rel=f32[worst32])
+    if long_chunks:   # the plain path in float64 (see SSD_FAMILIES)
+        model64 = build_model(dataclasses.replace(base, dtype="float64"), device=dev,
+                              use_kernels=False)
+        params64 = tree_map(lambda x: x.detach().double(), params)
+        loss64, gn64, grads64, ms = train_grads(torch, model64, params64, batch)
+        f64 = rel(loss32, gn32, yard, loss64, gn64, grads64)
+        own = rel(loss_p, gn_p, grads, loss64, gn64, grads64)
+        worst64, worst_own = max(f64, key=f64.get), max(own, key=own.get)
+        runs["float64 plain"] = dict(loss=float(loss64), grad_norm=float(gn64), ms=ms)
+        print(f"  float32 kernel vs the float64 plain path, of each value's scale (limit "
+              f"{F32_REL}): loss {f64['loss']:.3g}, grad norm {f64['grad_norm']:.3g}, largest "
+              f"{worst64} {f64[worst64]:.3g}; the float32 plain path's own: largest "
+              f"{worst_own} {own[worst_own]:.3g}", flush=True)
+        held32 = dict(against="float64 plain", at=worst64, rel=f64[worst64],
+                      float32_plain_vs_float64=dict(at=worst_own, rel=own[worst_own]),
+                      kernel_vs_float32_plain=dict(at=worst32, rel=f32[worst32]))
+        worst32, f32 = worst64, f64
+        del model64, params64, grads64
+    require(f32[worst32] <= F32_REL, f"{arch} float32 {worst32}: kernel vs "
+                                     f"{held32['against']} {f32[worst32]:.3g} of its scale > "
+                                     f"{F32_REL}")
     del grads
     torch.cuda.empty_cache()
 
@@ -1941,15 +2296,15 @@ def lm_training(torch, np, dev, card):
     for name, key, ctx in (("kernel", ("bfloat16", True), contextlib.nullcontext),
                            ("plain", ("bfloat16", False), contextlib.nullcontext),
                            ("swapped", ("bfloat16", True), kernels_swapped_for_plain)):
-        zero_flash_counts(flash_ops)
+        zero_lm_counts()
         with ctx():
             loss, gn, grads, ms = train_grads(torch, models[key], params, batch)
         bf16[name] = from_yard(loss, gn, grads)
         runs[f"bfloat16 {name}"] = dict(loss=float(loss), grad_norm=float(gn), ms=ms)
         if name == "kernel":
-            got = flash_counts(flash_ops)
-            require(got == per_step("bfloat16"), f"bf16 kernel-path step launched {got}, "
-                                                 f"expected {per_step('bfloat16')}")
+            got = lm_counts()
+            require(got == per_step("bfloat16"), f"{arch} bf16 kernel-path step launched "
+                                                 f"{got}, expected {per_step('bfloat16')}")
             runs["bfloat16 kernel"]["launches"] = got
         del grads
         torch.cuda.empty_cache()
@@ -1959,7 +2314,7 @@ def lm_training(torch, np, dev, card):
         for path, (l2_k, mx_k) in bf16["kernel"].items():
             l2_c, mx_c = bf16[comp][path]
             require(l2_k <= BF16_L2 * l2_c + BF16_ULP and mx_k <= BF16_MAX * mx_c + BF16_ULP,
-                    f"{TRAIN_ARCH} bfloat16 {path}: from the float32 kernel run, kernel path "
+                    f"{arch} bfloat16 {path}: from the float32 kernel run, kernel path "
                     f"L2 {l2_k:.3g} max {mx_k:.3g}, {comp} L2 {l2_c:.3g} max {mx_c:.3g}")
             if l2_k / max(l2_c, 1e-30) > ratio:
                 ratio = l2_k / max(l2_c, 1e-30)
@@ -1982,7 +2337,7 @@ def lm_training(torch, np, dev, card):
     step_fn = make_train_step(model, ocfg)
     opt = adamw_init(params)
     losses, times = [], []
-    zero_flash_counts(flash_ops)
+    zero_lm_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for step in range(TRAIN_STEPS):
@@ -1994,29 +2349,34 @@ def lm_training(torch, np, dev, card):
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(metrics["loss"]))
     peak = torch.cuda.max_memory_allocated()
-    launches = flash_counts(flash_ops)
+    launches = lm_counts()
     want = {k: TRAIN_STEPS * n for k, n in per_step("bfloat16").items()}
-    require(launches == want, f"{TRAIN_STEPS} steps launched {launches}, expected {want}")
-    require(all(math.isfinite(x) for x in losses), f"non-finite losses {losses}")
-    # One more step, its parts timed with CUDA events.
+    require(launches == want, f"{arch}: {TRAIN_STEPS} steps launched {launches}, expected {want}")
+    require(all(math.isfinite(x) for x in losses), f"{arch}: non-finite losses {losses}")
+    # One more step, its parts timed with CUDA events, the backward kernels'
+    # calls (flash and SSD) each between two events of their own.
     batch = batch_at(TRAIN_STEPS)
     paths, leaves = zip(*tree_leaves(params))
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    bwd_ev = []
-    plain_bwd = flash_ops.flash_attention_bwd
+    bwd_ev = {"flash": [], "ssd": []}
+    plain = {"flash": (flash_ops, "flash_attention_bwd"), "ssd": (ssd_ops, "ssd_log_bwd")}
+    saved = {key: getattr(mod, name) for key, (mod, name) in plain.items()}
 
-    def timed_bwd(*args, **kwargs):
-        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-        pair[0].record()
-        out = plain_bwd(*args, **kwargs)
-        pair[1].record()
-        bwd_ev.append(pair)
-        return out
+    def timed(key):
+        def call(*args, **kwargs):
+            pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = saved[key](*args, **kwargs)
+            pair[1].record()
+            bwd_ev[key].append(pair)
+            return out
+        # The wrappers count on their module's name: here on the timing wrapper.
+        call.launches = 0
+        call.kernel_launches = dict(saved[key].kernel_launches)
+        return call
 
-    # The wrapper counts on its module's name: here on the timing wrapper.
-    timed_bwd.launches = 0
-    timed_bwd.kernel_launches = dict(plain_bwd.kernel_launches)
-    flash_ops.flash_attention_bwd = timed_bwd
+    for key, (mod, name) in plain.items():
+        setattr(mod, name, timed(key))
     try:
         ev[0].record()
         loss = model.loss(params, batch)
@@ -2028,42 +2388,60 @@ def lm_training(torch, np, dev, card):
         ev[3].record()
         torch.cuda.synchronize()
     finally:
-        flash_ops.flash_attention_bwd = plain_bwd
+        for key, (mod, name) in plain.items():
+            setattr(mod, name, saved[key])
     del grads, by_leaf
+    want_one = per_step("bfloat16")
     split = {"forward_ms": ev[0].elapsed_time(ev[1]), "backward_ms": ev[1].elapsed_time(ev[2]),
-             "flash_bwd_kernels_ms": sum(a.elapsed_time(z) for a, z in bwd_ev),
+             "flash_bwd_kernels_ms": sum(a.elapsed_time(z) for a, z in bwd_ev["flash"]),
+             "ssd_bwd_kernels_ms": sum(a.elapsed_time(z) for a, z in bwd_ev["ssd"]),
              "optimizer_ms": ev[2].elapsed_time(ev[3])}
-    require(len(bwd_ev) == n_layers, f"instrumented step: {len(bwd_ev)} flash backward calls")
+    n_calls = {k: len(v) for k, v in bwd_ev.items()}
+    require(n_calls == {"flash": want_one["flash_bwd_dq_kernel"],
+                        "ssd": want_one["ssd_bwd_chunk_scan_kernel"]},
+            f"{arch} instrumented step: backward calls {n_calls}")
     med = statistics.median(times)
-    pairs = b * base.n_heads * attention_pairs(s, True, None)
-    flops = 6 * n_params * tokens + 3 * 4 * base.head_dim * pairs * n_layers
-    record = dict(arch=TRAIN_ARCH, batch=b, seq=s, params=n_params, card=card, runs=runs,
-                  float32_worst=dict(at=worst32, rel=f32[worst32]), bf16_worst=worst,
-                  step_ms=times, step_ms_median=med, step_ms_min=min(times),
-                  step_ms_max=max(times), tokens_per_s=tokens / med * 1e3, losses=losses,
-                  model_flops_per_step=flops,
-                  model_flops_share_of_bf16_peak_info_only=flops / (med * 1e-3) /
-                  BF16_TC_OPS_PER_S,
-                  max_memory_allocated=peak, allocated_before_phase=before_phase,
-                  step_split=split, launches=launches)
-    print(f"  {TRAIN_STEPS} AdamW steps ({TRAIN_ARCH}, {b} x {s}, bf16 compute, float32 "
+    n_attn = want_one["flash_bwd_dq_kernel"]
+    pairs = b * base.n_heads * attention_pairs(s, True, None) if n_attn else 0
+    flops = 6 * n_params * tokens + 3 * 4 * base.head_dim * pairs * n_attn
+    rec = dict(arch=arch, layers=base.n_layers, cut=cut, batch=b, seq=s, params=n_params,
+               card=card, runs=runs, float32_worst=held32,
+               bf16_worst=worst, step_ms=times, step_ms_median=med, step_ms_min=min(times),
+               step_ms_max=max(times), tokens_per_s=tokens / med * 1e3, losses=losses,
+               model_flops_per_step=flops,
+               model_flops_share_of_bf16_peak_info_only=flops / (med * 1e-3) /
+               BF16_TC_OPS_PER_S,
+               max_memory_allocated=peak, allocated_before_phase=before_phase,
+               step_split=split, backward_calls=n_calls, launches=launches)
+    print(f"  {TRAIN_STEPS} AdamW steps ({arch}, {b} x {s}, bf16 compute, float32 "
           f"masters, remat): {med:.1f} ms a step (median; min {min(times):.1f}, max "
           f"{max(times):.1f}; first {times[0]:.1f}), {tokens / med * 1e3:.0f} tokens/s, model "
           f"FLOP/s {flops / (med * 1e-3) / 1e12:.1f} T = "
-          f"{record['model_flops_share_of_bf16_peak_info_only']:.3f} of the dense bf16 peak "
-          f"(information only, not a metric); max_memory_allocated {peak / 2**30:.2f} GiB "
-          f"({before_phase / 2**30:.2f} of it allocated before the phase); "
-          f"losses {[round(x, 4) for x in losses]}; launches {launches}; {card}", flush=True)
+          f"{rec['model_flops_share_of_bf16_peak_info_only']:.3f} of the dense bf16 peak "
+          f"(6 N T plus attention; information only, not a metric); max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB ({before_phase / 2**30:.2f} of it allocated before the "
+          f"phase); losses {[round(x, 4) for x in losses]}; launches {launches}; {card}",
+          flush=True)
     print(f"  one more step by CUDA events: forward {split['forward_ms']:.1f} ms, backward "
-          f"{split['backward_ms']:.1f} ms (of it the {n_layers} flash backward calls "
-          f"{split['flash_bwd_kernels_ms']:.1f} ms), optimizer {split['optimizer_ms']:.1f} ms",
+          f"{split['backward_ms']:.1f} ms (of it the {n_calls['flash']} flash backward calls "
+          f"{split['flash_bwd_kernels_ms']:.1f} ms, the {n_calls['ssd']} SSD backward calls "
+          f"{split['ssd_bwd_kernels_ms']:.1f} ms), optimizer {split['optimizer_ms']:.1f} ms",
           flush=True)
     del params, opt, models, model, step_fn, batch, leaves, loss
     torch.cuda.empty_cache()
+    return rec, launches
 
-    # ---- (c) the crash/resume drill through launch/train.py ----
+
+def train_drill(torch, dev):
+    """Phase "4 lm training" (c): the crash/resume drill through
+    launch/train.py's loop (TRAIN_DRILL, TRAIN_ARCH's widths)."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as train_mod
+
     d = TRAIN_DRILL
-    cfg_d = dataclasses.replace(base, n_layers=d["n_layers"])
+    cfg_d = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=d["n_layers"])
     root = os.path.join(ROOT, "build", "train_drill")
     shutil.rmtree(root, ignore_errors=True)
 
@@ -2088,38 +2466,14 @@ def lm_training(torch, np, dev, card):
     require(diff <= DRILL_TOL, f"crash/resume: final loss {resumed['final_loss']!r} vs "
                                f"uninterrupted {clean['final_loss']!r}")
     shutil.rmtree(root, ignore_errors=True)
-    record["drill"] = dict(config=dict(d, arch=TRAIN_ARCH), final_loss=clean["final_loss"],
-                           resumed_final_loss=resumed["final_loss"], diff=diff, bitwise=bitwise,
-                           seconds=time.perf_counter() - t0)
     print(f"  crash/resume drill ({TRAIN_ARCH} widths, {d['n_layers']} layers, vocab "
           f"{d['vocab']}, {d['steps']} steps of {d['global_batch']} x {d['seq_len']}, a "
           f"checkpoint every {d['ckpt_every']}, crashed after step {d['crash_at']}): final "
           f"loss {clean['final_loss']!r} uninterrupted, {resumed['final_loss']!r} resumed, "
           f"|diff| {diff:.3g} (limit {DRILL_TOL}), bitwise {bitwise}", flush=True)
-
-    # ---- (d) no SSD backward on the card yet ----
-    for arch, cut in NO_SSD_BACKWARD:
-        cfg = dataclasses.replace(get_config(arch), **cut)
-        model = build_model(cfg, device=dev)
-        p = model.init(TRAIN_SEED)
-        for _, x in tree_leaves(p):
-            x.requires_grad_(True)
-        toks = torch.randint(0, cfg.vocab_size, (1, 256), device=dev)
-        before = ssd_ops.ssd_log.launches
-        raised = ""
-        try:
-            model.loss(p, {"tokens": toks, "labels": toks}).backward()
-        except NotImplementedError as exc:
-            raised = str(exc)
-        require(raised and ssd_ops.ssd_log.launches == before,
-                f"{arch}: LM.loss under grad on the card must raise NotImplementedError before "
-                f"any SSD launch (raised {bool(raised)}, "
-                f"{ssd_ops.ssd_log.launches - before} launches)")
-        print(f"  {arch} ({cfg.family}, {cfg.n_layers} layers) LM.loss under grad on the card: "
-              f"NotImplementedError ({raised}), 0 SSD launches", flush=True)
-        del model, p
-    torch.cuda.empty_cache()
-    return record, launches
+    return dict(config=dict(d, arch=TRAIN_ARCH), final_loss=clean["final_loss"],
+                resumed_final_loss=resumed["final_loss"], diff=diff, bitwise=bitwise,
+                seconds=time.perf_counter() - t0)
 
 
 def bwd_bound(b, hq, hkv, s, d, causal, window, esize, products, nbytes):
@@ -2317,7 +2671,7 @@ def lm_only(torch, np, F, reps):
         logs = build.build_all()
     with phase("3 lm kernels"):
         flash_cases(torch, flash_ops.flash_attention, flash_ref, dev)
-        bwd_err = flash_bwd_cases(torch, dev)
+        bwd_err = {**flash_bwd_cases(torch, dev), **ssd_bwd_cases(torch, dev)}
         ssd_cases(torch, ssd_ops.ssd_log, ssd_ops.ssd, ssd_ref.ssd_chunked_ref,
                   ssd_ref.ssd_batched_ref, ssd_ops.heads_per_block, dev)
     counted = {"flash_attention_single": flash_ops.flash_attention,
@@ -2333,13 +2687,15 @@ def lm_only(torch, np, F, reps):
         print(json.dumps({"family_shapes": fam_flash + fam_ssd, "launches": launches}))
         print(json.dumps({"flash_backward": flash_bwd_times(torch, F, dev, reps, train_launches,
                                                              bwd_err, logs)}))
+        print(json.dumps({"ssd_backward": ssd_bwd_times(torch, dev, reps, train_launches,
+                                                         bwd_err, logs)}))
     print(f"card: {smi}")
     return 0
 
 
 def train_only(torch, np, F, reps):
-    """``--train-only``: the flash backward's cases of phase "3 lm kernels",
-    phase "4 lm training" and the backward kernels' times."""
+    """``--train-only``: the flash and SSD backward's cases of phase "3 lm
+    kernels", phase "4 lm training" and the backward kernels' times."""
     from repro_torch.kernels import build
 
     dev = torch.device(DEVICE)
@@ -2348,13 +2704,15 @@ def train_only(torch, np, F, reps):
     with phase("2 build"):
         logs = build.build_all()
     with phase("3 lm kernels"):
-        bwd_err = flash_bwd_cases(torch, dev)
+        bwd_err = {**flash_bwd_cases(torch, dev), **ssd_bwd_cases(torch, dev)}
     with phase("4 lm training"):
         training, train_launches = lm_training(torch, np, dev, smi)
         print(json.dumps({"lm_training": training}))
     with phase("5 measure"):
         print(json.dumps({"flash_backward": flash_bwd_times(torch, F, dev, reps, train_launches,
                                                              bwd_err, logs)}))
+        print(json.dumps({"ssd_backward": ssd_bwd_times(torch, dev, reps, train_launches,
+                                                         bwd_err, logs)}))
     print(f"card: {smi}")
     return 0
 
@@ -4614,6 +4972,7 @@ def main(argv=None) -> int:
         case_err["flash_attention_single"] = flash_cases(torch, flash_ops.flash_attention,
                                                          flash_ref, dev)
         case_err.update(flash_bwd_cases(torch, dev))
+        case_err.update(ssd_bwd_cases(torch, dev))
         case_err["ssd_chunked"] = ssd_cases(torch, ssd_ops.ssd_log, ssd_ops.ssd,
                                             ssd_ref.ssd_chunked_ref, ssd_ref.ssd_batched_ref,
                                             ssd_ops.heads_per_block, dev)
@@ -5883,6 +6242,7 @@ def main(argv=None) -> int:
         ))
         del qkv
         kernels.extend(flash_bwd_times(torch, F, dev, args.reps, train_launches, case_err, logs))
+        kernels.extend(ssd_bwd_times(torch, dev, args.reps, train_launches, case_err, logs))
         sb, st, sh, sn = 4, 2048, 64, 64
         la = -torch.rand((sb, st, sh), generator=g, device=dev) ** 4 * 50.0
         xbc = torch.randn((sb, st, sh * SSD_P + 2 * sn), generator=g, device=dev).bfloat16()
@@ -5921,7 +6281,8 @@ def main(argv=None) -> int:
         kernels.append(dict(
             name="ssd_chunked", route="cuda", source="src/repro_torch/csrc/ssd.cu",
             replaces="src/repro/kernels/ssd/ssd.py:68",
-            launches=lm_launches["ssd_chunked"] + family_launches["ssd_chunked"],
+            launches=lm_launches["ssd_chunked"] + family_launches["ssd_chunked"]
+            + train_launches["ssd_chunked"],
             max_abs_err=max(err, case_err["ssd_chunked"]), ms=k_ms, plain_ms=p_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None,
             library="none: no single PyTorch call computes the SSD scan", kernel_ms=k_ms,

@@ -13,10 +13,18 @@ Only a successful call adds one to ``ssd_log.launches``.  `ssd` is the
 JAX package's ``a``-form interface over the same kernels.
 
 Under grad (grad enabled and an operand that requires it) `ssd_log` goes
-through `SSDScan`, an autograd Function: on the CPU its backward runs
-autograd through `ref.ssd_chunked_ref`; on a card it raises
-`NotImplementedError` before anything is launched (the SSD backward
-kernels are not written yet) and never falls back to the plain version.
+through `SSDScan`, an autograd Function.  On a card its forward launches the
+same three kernels and keeps their scratch for the backward: the states
+entering each chunk, (B, n_chunks, H, N, P), and the decays, (B, n_chunks,
+H, 64), both float32.  Its backward is `ssd_log_bwd`, which launches
+``ssd_bwd_chunk_dstate_kernel``, ``ssd_bwd_state_pass_kernel``,
+``ssd_bwd_chunk_scan_kernel`` and ``ssd_bwd_reduce_kernel`` in that order
+(`BWD_KERNELS`), with no fallback; on the CPU the forward is the plain
+version and the backward autograd through it.  A successful backward on a
+card adds one to ``ssd_log_bwd.launches`` and one to each kernel's entry
+of ``ssd_log_bwd.kernel_launches``.  ``ref.ssd_chunked_bwd_ref`` is the
+backward kernels' function in their own decomposition, which the tests
+and ``chip_smoke.py`` hold them against.
 """
 
 from __future__ import annotations
@@ -65,8 +73,10 @@ def _check(log_a, Bm, Cm, x, chunk):
     if Cm.shape != Bm.shape or Bm.shape[:2] != (b, t) or x.shape[:3] != (b, t, h):
         raise ValueError(f"shapes disagree: log_a {tuple(log_a.shape)}, B {tuple(Bm.shape)}, "
                          f"C {tuple(Cm.shape)}, x {tuple(x.shape)}")
-    if log_a.dtype != torch.float32:
-        raise ValueError(f"log_a must be float32, got {log_a.dtype}")
+    if log_a.dtype != torch.float32 and not (log_a.dtype == x.dtype == torch.float64
+                                             and x.device.type == "cpu"):
+        raise ValueError(f"log_a must be float32 (float64 with float64 operands on the CPU, "
+                         f"where the plain versions run), got {log_a.dtype}")
     if Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise ValueError(f"B, C and x must share a dtype, got {Bm.dtype}, {Cm.dtype}, {x.dtype}")
     if min(b, t, h) < 1 or chunk < 1:
@@ -88,16 +98,20 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
     """
     _check(log_a, Bm, Cm, x, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (log_a, Bm, Cm, x)):
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "ssd_log has no backward kernel on a card yet (the SSD backward slice, ROADMAP "
-                "queue 1 item 5a): ssm and hybrid models train on the CPU only")
         return SSDScan.apply(log_a, Bm, Cm, x, chunk, intra_dtype)
     if x.device.type == "cpu":
         return ref.ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
+    y, state, _ = _forward(log_a, Bm, Cm, x, chunk, intra_dtype)
+    return y, state
+
+
+ssd_log.launches = 0
+
+
+def _check_card(log_a, Bm, Cm, x, intra_dtype):
+    """Raise on what the kernels do not take."""
     if x.device.type != "cuda":
         raise ValueError(f"no ssd kernel for device {x.device}")
-    b, t, h = log_a.shape
     n, p = Bm.shape[2], x.shape[3]
     if intra_dtype != "float32":
         raise ValueError(f"the ssd kernel computes in float32, got intra_dtype {intra_dtype}")
@@ -108,45 +122,162 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
                          f"got N = {n}, P = {p}")
     if log_a.stride(2) != 1 or Bm.stride(2) != 1 or Cm.stride(2) != 1 or x.stride(3) != 1:
         raise ValueError("log_a, B, C and x must have a contiguous last axis")
+
+
+def _grid(log_a, chunk, device):
+    """(sub-chunk length, sub-chunks, heads a block) of a call on a card."""
+    b, t, h = log_a.shape
     tile = min(chunk, MAX_TILE)
     n_chunks = -(-t // tile)
-    group = heads_per_block(b, n_chunks, h,
-                            torch.cuda.get_device_properties(x.device).multi_processor_count)
+    sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return tile, n_chunks, heads_per_block(b, n_chunks, h, sm)
+
+
+def _forward(log_a, Bm, Cm, x, chunk, intra_dtype):
+    """The forward kernels on a card -> (y, state, (chunk states, decays)):
+    the scratch `ssd_log_bwd` reads."""
+    _check_card(log_a, Bm, Cm, x, intra_dtype)
+    b, t, h = log_a.shape
+    n, p = Bm.shape[2], x.shape[3]
+    tile, n_chunks, group = _grid(log_a, chunk, x.device)
     y = torch.empty((b, t, h, p), dtype=torch.float32, device=x.device)
     dstate = torch.empty((b, n_chunks, h, n, p), dtype=torch.float32, device=x.device)
     cums = torch.empty((b, n_chunks, h, MAX_TILE), dtype=torch.float32, device=x.device)
     state = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     _launch(log_a, Bm, Cm, x, y, dstate, cums, state, tile, group)
     ssd_log.launches += 1
-    return y, state
-
-
-ssd_log.launches = 0
+    return y, state, (dstate, cums)
 
 
 class SSDScan(torch.autograd.Function):
-    """`ssd_log` with its gradient, on the CPU: the forward is the plain
-    version; the backward recomputes it under autograd and differentiates."""
+    """`ssd_log` with its gradient: on a card the forward kernels, keeping
+    their scratch, and the backward kernels (`ssd_log_bwd`); on the CPU the
+    plain versions."""
 
     @staticmethod
     def forward(ctx, log_a, Bm, Cm, x, chunk, intra_dtype):
-        ctx.save_for_backward(log_a, Bm, Cm, x)
         ctx.args = (chunk, intra_dtype)
-        return ref.ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
+        ctx.set_materialize_grads(False)
+        if x.device.type == "cpu":
+            ctx.save_for_backward(log_a, Bm, Cm, x)
+            return ref.ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
+        y, state, scratch = _forward(log_a, Bm, Cm, x, chunk, intra_dtype)
+        ctx.save_for_backward(log_a, Bm, Cm, x, *scratch)
+        return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
-        inputs = [t.detach().requires_grad_(t.requires_grad) for t in ctx.saved_tensors]
+        log_a, Bm, Cm, x, *scratch = ctx.saved_tensors
+        chunk, intra_dtype = ctx.args
+        grads = ssd_log_bwd(log_a, Bm, Cm, x, dy, dstate, chunk, scratch or None, intra_dtype)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
+
+
+#: The backward's kernels, in launch order, and their C entry points.
+BWD_KERNELS = {"ssd_bwd_chunk_dstate_kernel": "ssd_bwd_chunk_dstate",
+               "ssd_bwd_state_pass_kernel": "ssd_bwd_state_pass",
+               "ssd_bwd_chunk_scan_kernel": "ssd_bwd_chunk_scan",
+               "ssd_bwd_reduce_kernel": "ssd_bwd_reduce"}
+
+
+def ssd_log_bwd(log_a, Bm, Cm, x, dy, dstate, chunk: int = 64, scratch=None,
+                intra_dtype: str = "float32"):
+    """-> (d log_a, dB, dC, dx, each in its operand's dtype) of `ssd_log`
+    at (log_a, B, C, x), given y's gradient ``dy`` (B,T,H,P) and the final
+    state's ``dstate`` (B,H,N,P); None for either: zeros.  On the CPU
+    autograd through the plain forward, `ref.ssd_chunked_ref`; on a card
+    the four backward kernels, no fallback, reading the forward kernels'
+    ``scratch`` (the chunk states and the decays that `SSDScan`'s forward
+    keeps)."""
+    _check(log_a, Bm, Cm, x, chunk)
+    if dy is None:
+        dy = torch.zeros(x.shape, dtype=log_a.dtype, device=x.device)
+    if x.device.type == "cpu":
+        inputs = [t.detach().requires_grad_() for t in (log_a, Bm, Cm, x)]
         with torch.enable_grad():
-            y, state = ref.ssd_chunked_ref(*inputs, *ctx.args)
-        wrt = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad((y, state), wrt, (dy, dstate), allow_unused=True))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None, None)
+            y, state = ref.ssd_chunked_ref(*inputs, chunk, intra_dtype)
+        ys, gs = zip(*[(y, dy)] + ([] if dstate is None else [(state, dstate)]))
+        return torch.autograd.grad(ys, inputs, gs)
+    outs, calls = bwd_launches(log_a, Bm, Cm, x, dy, dstate, chunk, scratch)
+    for kernel, call in calls.items():
+        call()
+        ssd_log_bwd.kernel_launches[kernel] += 1
+    ssd_log_bwd.launches += 1
+    return outs[:4]
+
+
+ssd_log_bwd.launches = 0
+ssd_log_bwd.kernel_launches = dict.fromkeys(BWD_KERNELS, 0)
+
+
+def bwd_launches(log_a, Bm, Cm, x, dy, dstate, chunk, scratch):
+    """Check the backward's operands on a card and allocate its outputs ->
+    ((d log_a, dB, dC, dx, dS', part), {kernel: a function that launches it
+    and raises if the launch fails}), in `BWD_KERNELS` order.  dS' is the
+    (B, n_chunks, H, N, P) float32 scratch that ends up holding the
+    gradient of the state leaving each chunk; part, (2, B, n_chunks,
+    groups, 64, N) float32, each head group's dB and dC, which the last
+    kernel adds in group order (no atomics).  Nothing is launched or
+    counted here."""
+    _check_card(log_a, Bm, Cm, x, "float32")
+    b, t, h = log_a.shape
+    n, p = Bm.shape[2], x.shape[3]
+    tile, n_chunks, group = _grid(log_a, chunk, x.device)
+    if scratch is None:
+        raise ValueError("ssd_log_bwd on a card reads the forward kernels' scratch (SSDScan)")
+    s_in, cums = scratch
+    if (s_in.shape != (b, n_chunks, h, n, p) or cums.shape != (b, n_chunks, h, MAX_TILE)
+            or s_in.dtype != torch.float32 or cums.dtype != torch.float32
+            or not s_in.is_contiguous() or not cums.is_contiguous()):
+        raise ValueError("the forward's scratch does not match the operands")
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} must match x {tuple(x.shape)}")
+    dy = dy.to(torch.float32).contiguous()
+    if dstate is not None:
+        if dstate.shape != (b, h, n, p):
+            raise ValueError(f"dstate {tuple(dstate.shape)} must be {(b, h, n, p)}")
+        dstate = dstate.to(torch.float32).contiguous()
+    dev = x.device
+    n_groups = -(-h // group)
+    dla = torch.empty((b, t, h), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, t, n), dtype=Bm.dtype, device=dev)
+    dC = torch.empty((b, t, n), dtype=Cm.dtype, device=dev)
+    dx = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
+    ds_out = torch.empty((b, n_chunks, h, n, p), dtype=torch.float32, device=dev)
+    part = torch.empty((2, b, n_chunks, n_groups, MAX_TILE, n), dtype=torch.float32,
+                       device=dev)
+    lib = build.library("ssd")
+    tail = (int(x.dtype == torch.bfloat16), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+
+    def launcher(kernel, tensors, *rest):
+        entry = BWD_KERNELS[kernel]
+
+        def call():   # keeps its tensors (dy's copy too) alive as long as it lives
+            err = getattr(lib, entry)(*(None if v is None else v.data_ptr() for v in tensors),
+                                      *rest)
+            build.check(lib, err, f"{entry} launch")
+        return call
+
+    calls = {
+        "ssd_bwd_chunk_dstate_kernel": launcher(
+            "ssd_bwd_chunk_dstate_kernel", (Cm, dy, cums, ds_out), Cm.stride(0), Cm.stride(1),
+            b, h, t, n, tile, group, *tail),
+        "ssd_bwd_state_pass_kernel": launcher(
+            "ssd_bwd_state_pass_kernel", (ds_out, cums, dstate), b, h, n, n_chunks, *tail[1:]),
+        "ssd_bwd_chunk_scan_kernel": launcher(
+            "ssd_bwd_chunk_scan_kernel", (Bm, Cm, x, dy, s_in, ds_out, cums, dla, dx, part),
+            Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), x.stride(0), x.stride(1),
+            x.stride(2), b, h, t, n, tile, group, *tail),
+        "ssd_bwd_reduce_kernel": launcher(
+            "ssd_bwd_reduce_kernel", (part, dB, dC), b, t, n, tile, n_groups, *tail),
+    }
+    return (dla, dB, dC, dx, ds_out, part), calls
 
 
 def _launch(log_a, Bm, Cm, x, y, dstate, cums, state, tile: int, group: int) -> None:
-    """Call ``csrc/ssd.cu``'s entry point on checked operands and outputs;
-    raise if it returns an error."""
+    """Call ``csrc/ssd.cu``'s forward entry point on checked operands and
+    outputs; raise if it returns an error."""
     b, t, h = log_a.shape
     lib = build.library("ssd")
     err = lib.ssd_scan_fwd(

@@ -23,10 +23,11 @@ updates the cache in place and returns it.  ``forward`` and ``loss`` are
 differentiable: the stacked layers are walked through one ``unbind`` a
 stack, and under grad with ``cfg.remat`` each of the JAX package's remat
 units (a block; a hybrid or vlm group) runs under
-``torch.utils.checkpoint`` (`_units`).  Under grad the flash kernel's
-wrapper takes its autograd path (the forward kernel with the LSE, the
-three backward kernels); the SSD kernel has no backward yet, so ``ssm``
-and ``hybrid`` models train on the CPU only.  With ``use_kernels`` (the
+``torch.utils.checkpoint`` (`_units`).  Under grad the kernels' wrappers
+take their autograd paths: flash, the forward kernel with the LSE and the
+backward kernels; the SSD, the forward kernels keeping their scratch and
+the four backward kernels, so every family trains on the card.  With
+``use_kernels`` (the
 default) the self-attention of a prefill or forward (the encoder's too)
 goes through `flash_attention` and each Mamba-2 layer's SSD scan through
 `ssd_log`, the hand-written kernels' wrappers (one launch per layer on the

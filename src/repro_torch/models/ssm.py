@@ -6,8 +6,8 @@ A per head, D skip, SiLU(z) gating, RMSNorm, out_proj.
 
 ``mamba2_apply`` runs the chunked scan through `kernels.ssd.ops.ssd_log`
 (``use_kernel``, the default): ``csrc/ssd.cu`` on the card, its plain
-version on the CPU (under grad: autograd through the plain version on
-the CPU, `NotImplementedError` on a card).  Without ``use_kernel`` it runs
+version on the CPU (under grad the backward kernels on the card,
+autograd through the plain version on the CPU).  Without ``use_kernel`` it runs
 `_ssd_chunked`, the JAX package's plain chunked form.  ``mamba2_decode`` is the raw one-token
 recurrence in plain torch, as in the JAX package.
 """
