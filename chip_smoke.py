@@ -166,15 +166,17 @@ runs these phases, in order, each printing its seconds:
    2112, chunk 64 and 256, N 64 and 128, H 24 and 20 under head groups of
    16, a 64-head ragged call, mamba2-130m's and Zamba2's training shapes
    at 2 x 4096 in bf16 and float32, the model's strided slices, a random
-   final-state cotangent or none): ``ssd_bwd_chunk_dstate_kernel``,
-   ``ssd_bwd_state_pass_kernel``, ``ssd_bwd_chunk_scan_kernel`` and
+   final-state cotangent or none, and sub-chunks whose last rows end
+   inside an mma tile: T 17 and 100 at N 128 float32, T 641 at N 64 bf16
+   with a final-state cotangent): ``ssd_bwd_state_pass_kernel`` (the chunk
+   sums fused into the reverse pass), ``ssd_bwd_chunk_scan_kernel`` and
    ``ssd_bwd_reduce_kernel`` on the forward kernels' scratch against
    ``ssd_chunked_bwd_ref`` (float32 within 1e-4 of each gradient's scale;
    bf16 dB, dC and dx also within one bf16 ulp, and by the ratio rule
-   against the plain version from the float32 gradient; the first two
-   kernels on their own output, each chunk's sum_i exp(cum_i) C_i dy_i^T
-   and the state gradients dS', within 1e-4 of the scale); two calls and
-   the kernels launched alone bitwise; exactly four launches a call.
+   against the plain version from the float32 gradient; the state pass on
+   its own output, the state gradients dS', within 1e-4 of the scale); two
+   calls and the kernels launched alone bitwise; exactly three launches a
+   call.
 4. batch path ("4 batch path", after the main path): ``run_batch`` of K = 4
    queries (the main box and three moved by +0.25, +0.5 and -0.25 deg in
    RA) for ``raw_fits`` (dense) and ``sql_structured`` (sparse, the union
@@ -387,10 +389,13 @@ runs these phases, in order, each printing its seconds:
    The SSD backward at Zamba2's and mamba2-130m's training shapes
    (`SSD_BWD_TIMED`, bf16 strided, no final-state cotangent): through the
    wrapper, each kernel launched alone (its C entry point on preallocated
-   outputs), ``ssd_chunked_bwd_ref`` and the forward kernels; bounds by
-   float32 operations in the kernels' 64-step sub-chunks (the causal half
-   of each (L, L) product, the three state products and the chunk sums) or
-   bytes (`ssd_bwd_bound`); no PyTorch call computes it (library none).
+   outputs), ``ssd_chunked_bwd_ref``, the forward kernels (each alone from
+   a profiler trace, at the same shape) and the three kernels at each head
+   group of `SSD_BWD_GROUPS`; bounds (`ssd_bwd_bound`) by bytes or by the
+   operations on the units that run them (the products on the TF32 tensor
+   cores with each 3xTF32 pass counted, the elementwise work in float32),
+   and beside them the float32 CUDA-core reckoning (every product once in
+   float32 `fmaf`); no PyTorch call computes it (library none).
    The kernels redesigned for the card (``flash_fwd_bf16_kernel``,
    ``psf_match_2d_kernel``, ``psf_match_sep_kernel``,
    ``warp_project_kernel``) also print their registers and spills (ptxas
@@ -594,6 +599,7 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 FLASH_ROW_ULPS, FLASH_REL_L2 = 4.0, 5e-3
 SSD_TOL, SSD_P = 2e-4, 64
 BF16_TC_OPS_PER_S = 989e12              # H100 SXM bf16 tensor cores, dense
+TF32_TC_OPS_PER_S = 495e12              # H100 SXM TF32 tensor cores, dense
 FLASH_CASES = (
     ("zamba2_prefill", 4, 32, 32, 2048, 64, True, None, "bfloat16", True),
     ("zamba2_ragged", 1, 32, 32, 1000, 64, True, None, "bfloat16", True),
@@ -700,21 +706,20 @@ SSD_CASES = (
     ("mamba2_130m_prefill", 4, 2048, 24, 128, 256, "bfloat16", "strided"),
     ("h24_group16_n128", 4, 2112, 24, 128, 64, "bfloat16", "strided"),
 )
-# The SSD backward kernels (ssd_bwd_chunk_dstate_kernel, ssd_bwd_state_pass_kernel,
-# ssd_bwd_chunk_scan_kernel, ssd_bwd_reduce_kernel) against ssd_chunked_bwd_ref
-# on the same operands (the forward kernels' scratch, a random dy and, where
-# the last field says so, a random final-state cotangent; else none, as in
-# training): (name, B, T, H, N, chunk, dtype, form, final).  float32 within
-# BWD_F32_REL of each gradient's scale; bfloat16 dB, dC and dx (each one
-# float32 sum rounded once, on both sides) also within SSD_BWD_BF16_RTOL
-# (one bf16 ulp) of the value, and by the ratio rule (BF16_L2, BF16_ULP)
-# against the plain version from the float32 gradient; two runs and each
-# kernel launched alone bitwise.  The first two kernels are held on what they
-# leave in the dS' scratch, launched alone (STAGES): each chunk's
-# sum_i exp(cum_i) C_i dy_i^T, then the gradient dS' of the state leaving
-# each chunk, against ssd_chunked_bwd_ref's (states=True), float32 within
-# BWD_F32_REL of the scale in both dtypes.
-STAGES = {"ssd_bwd_chunk_dstate_kernel": "chunk sums", "ssd_bwd_state_pass_kernel": "dS'"}
+# The SSD backward kernels (ssd_bwd_state_pass_kernel, ssd_bwd_chunk_scan_kernel,
+# ssd_bwd_reduce_kernel) against ssd_chunked_bwd_ref on the same operands
+# (the forward kernels' scratch, a random dy and, where the last field says
+# so, a random final-state cotangent; else none, as in training): (name, B,
+# T, H, N, chunk, dtype, form, final).  float32 within BWD_F32_REL of each
+# gradient's scale; bfloat16 dB, dC and dx (each one float32 sum rounded
+# once, on both sides) also within SSD_BWD_BF16_RTOL (one bf16 ulp) of the
+# value, and by the ratio rule (BF16_L2, BF16_ULP) against the plain version
+# from the float32 gradient; two runs and each kernel launched alone
+# bitwise.  The state pass is also held on what it leaves in the dS' scratch,
+# launched alone (STAGES): the gradient dS' of the state leaving each chunk,
+# against ssd_chunked_bwd_ref's (states=True), within BWD_F32_REL of the
+# scale in both dtypes (the chunk sums it adds stay in its registers).
+STAGES = {"ssd_bwd_state_pass_kernel": "dS'"}
 SSD_BWD_CASES = (
     ("t1", 2, 1, 4, 64, 64, "float32", "log", True),
     ("t50_one_chunk", 2, 50, 8, 64, 64, "float32", "log", True),
@@ -726,6 +731,10 @@ SSD_BWD_CASES = (
     ("h24_group16", 4, 2112, 24, 64, 64, "float32", "log", True),
     ("h20_group16_n128", 4, 2112, 20, 128, 64, "bfloat16", "strided", True),
     ("zamba2_ragged", 1, 1000, 64, 64, 64, "bfloat16", "strided", True),
+    # the mma tiles' edges inside a sub-chunk: 17 and 36 rows in the last
+    ("t17_n128_f32", 2, 17, 8, 128, 64, "float32", "log", True),
+    ("t100_n128_f32", 2, 100, 8, 128, 64, "float32", "log", False),
+    ("t641_n64_bf16_final", 2, 641, 8, 64, 64, "bfloat16", "strided", True),
     # the training shapes (phase "4 lm training", 2 x 4096)
     ("mamba2_130m_train", 2, 4096, 24, 128, 256, "bfloat16", "strided", False),
     ("mamba2_130m_train_f32", 2, 4096, 24, 128, 256, "float32", "strided", False),
@@ -735,6 +744,8 @@ SSD_BWD_CASES = (
 SSD_BWD_BF16_RTOL = 2.0 ** -7
 # Phase 5 times the SSD backward at these training shapes: (B, T, H, N, chunk).
 SSD_BWD_TIMED = {"zamba2-1.2b": (2, 4096, 64, 64, 64), "mamba2-130m": (2, 4096, 24, 128, 256)}
+# ... and its three kernels at each of these head groups (ssd_bwd_group_sweep).
+SSD_BWD_GROUPS = (2, 4, 8, 12, 16)
 # The Zamba2 serving path: the full configuration, random weights from
 # LM.init(LM_SEED), two request batches of (prompts, tokens), greedy decode
 # steps.  Kernel vs plain path: float32 within F32_REL of each value's scale
@@ -1320,7 +1331,7 @@ def ssd_bwd_cases(torch, dev):
             call()
             if kernel in STAGES:   # what it leaves in the dS' scratch
                 staged[kernel] = outs[4].clone()
-        *want, q_sum, ds_out = ssd_chunked_bwd_ref(*ops_in, dy, ds, chunk, states=True)
+        *want, ds_out = ssd_chunked_bwd_ref(*ops_in, dy, ds, chunk, states=True)
         torch.cuda.synchronize()
         counts = {k: v - before[k] for k, v in ssd_ops.ssd_log_bwd.kernel_launches.items()}
         require(counts == dict.fromkeys(ssd_ops.BWD_KERNELS, 2),
@@ -1329,7 +1340,7 @@ def ssd_bwd_cases(torch, dev):
                     for a, c, d in zip(got, again, outs[:4])),
                 f"ssd bwd {name}: two backward runs on the same operands differ")
         errs = {}
-        for (kernel, what), x, y in zip(STAGES.items(), staged.values(), (q_sum, ds_out)):
+        for (kernel, what), x, y in zip(STAGES.items(), staged.values(), (ds_out,)):
             err = float((x - y).abs().max())
             scale_y = float(y.abs().max())
             require(err <= BWD_F32_REL * scale_y, f"ssd bwd {name} {what} ({kernel}): max "
@@ -1371,26 +1382,38 @@ def ssd_bwd_cases(torch, dev):
             del exact
         tile = min(chunk, ssd_ops.MAX_TILE)
         group = ssd_ops.heads_per_block(b, -(-t // tile), h,
-                                        torch.cuda.get_device_properties(dev).multi_processor_count)
+                                        torch.cuda.get_device_properties(dev).multi_processor_count,
+                                        ssd_ops.BWD_BLOCKS_PER_SM)
         print(f"  ssd bwd {name}: B={b} T={t} H={h} N={n} P={SSD_P} chunk={chunk} {dtype} "
               f"{form} group={group} final-state cotangent {'random' if final else 'none'}: "
               + ", ".join(f"{w} {e}" for w, e in errs.items())
               + "; two runs and the kernels alone bitwise" + info, flush=True)
-        del ops_in, dy, ds, scratch, got, again, outs, calls, want, q_sum, ds_out, staged
+        del ops_in, dy, ds, scratch, got, again, outs, calls, want, ds_out, staged
     torch.cuda.empty_cache()
     return worst
 
 
 def ssd_bwd_bound(b, t, h, n, p, chunk, esize, n_groups):
     """Bounds of one ssd_log_bwd call in the kernels' decomposition
-    (sub-chunks of min(chunk, 64)) -> {kernel or "call": (ms, by)}.  float32
-    operations on the CUDA cores, the causal half of every (L, L) product:
-    per (batch, sub-chunk) C B^T; per (head, sub-chunk) D = dy x^T, A^T dy,
-    W B and W^T C (2 P, 2 P, 2 N, 2 N a pair), the mask and the products A,
-    W and A o D (5 a pair), the chunk sum and the three state products (2 L
-    N P each), the reverse pass (2 N P); each input read and each output
-    written once (the call: log_a, B, C, x, dy in; d log_a, dB, dC, dx out;
-    a kernel: its own operands, the scratch included)."""
+    (sub-chunks of min(chunk, 64)) -> ({kernel or "call": (ms, by)}, {kernel
+    or "call": ms of the float32 CUDA-core reckoning}).
+
+    The first is the larger of bytes (each input read and each output
+    written once: the call log_a, B, C, x, dy in, d log_a, dB, dC, dx out; a
+    kernel its own operands, the scratch included) and the operations on
+    the units that run them: the products on the TF32 tensor cores, every
+    3xTF32 pass counted (an operand read from bf16 takes no lo part, one
+    pass fewer), the causal half of each (L, L) product; per (batch,
+    sub-chunk) C B^T and the group's (sum W) B and (sum W)^T C, counted
+    once, as if one group held every head; per (head, sub-chunk) D = dy x^T,
+    A^T dy, dy S^T, x dS'^T, B dS' and the chunk sums C^T (e o dy); beside
+    the float32 elementwise work on the CUDA cores (the mask and the
+    products A, W and A o D, 5 a pair; the carry, 2 N P a sub-chunk).  The
+    second counts every product once in float32 on the CUDA cores, as a
+    float32 `fmaf` design runs them (per (head, sub-chunk) D, A^T dy, W B
+    and W^T C, the three state products and the chunk sums; per (batch,
+    sub-chunk) C B^T): a column to compare the tensor-core kernels with
+    float32 CUDA-core ones."""
     tile = min(chunk, 64)
     sizes = [tile] * (t // tile) + ([t % tile] if t % tile else [])
     pairs = sum(r * (r + 1) // 2 for r in sizes)
@@ -1399,25 +1422,81 @@ def ssd_bwd_bound(b, t, h, n, p, chunk, esize, n_groups):
     cums = 4 * b * nc * h * 64
     ops_in, ops_dy, ops_bc = b * t * h * p * esize, 4 * b * t * h * p, b * t * n * esize
     part = 4 * 2 * b * nc * n_groups * 64 * n
-    scan_ops = b * (2 * n * pairs + h * (pairs * (4 * p + 4 * n + 5) + 6 * n * p * t))
+    lo = int(esize == 4)                    # the lo pass of an operand read from float32
+    state_prod = 2 * b * h * n * p * t      # one (N, P) product over every step of every head
+    pass_tc = state_prod * (2 + lo)
+    scan_tc = (b * (2 * n * pairs * (1 + 2 * lo) + 2 * 2 * n * pairs * (2 + lo))
+               + b * h * 2 * p * pairs * ((2 + lo) + 3) + state_prod * (3 + 2 * (2 + lo)))
+    scan_fp = 5 * b * h * pairs
+    carry = 2 * b * h * nc * n * p
+
+    def on_units(nbytes, tc_ops, fp_ops):
+        by = {"bytes": nbytes / HBM_BYTES_PER_S, "TF32 operations": tc_ops / TF32_TC_OPS_PER_S,
+              "fp32 operations": fp_ops / FP32_OPS_PER_S}
+        name = max(by, key=by.get)
+        return by[name] * 1e3, name
+
     parts = {
-        "ssd_bwd_chunk_dstate_kernel": bound(ops_bc + ops_dy + cums + state,
-                                             b * h * 2 * n * p * t),
-        "ssd_bwd_state_pass_kernel": bound(2 * state + 4 * b * nc * h, 2 * b * nc * h * n * p),
-        "ssd_bwd_chunk_scan_kernel": bound(2 * ops_bc + ops_in + ops_dy + 2 * state + cums
-                                           + 4 * b * t * h + ops_in + part, scan_ops),
-        "ssd_bwd_reduce_kernel": bound(part + 2 * ops_bc, part // 4),
+        "ssd_bwd_state_pass_kernel": on_units(ops_bc + ops_dy + cums + state, pass_tc, carry),
+        "ssd_bwd_chunk_scan_kernel": on_units(2 * ops_bc + ops_in + ops_dy + 2 * state + cums
+                                              + 4 * b * t * h + ops_in + part, scan_tc, scan_fp),
+        "ssd_bwd_reduce_kernel": on_units(part + 2 * ops_bc, 0, part // 4),
     }
-    parts["call"] = bound(8 * b * t * h + 4 * ops_bc + 2 * ops_in + ops_dy,
-                          scan_ops + b * h * (2 * n * p * t + 2 * nc * n * p))
+    parts["call"] = on_units(8 * b * t * h + 4 * ops_bc + 2 * ops_in + ops_dy,
+                             pass_tc + scan_tc, scan_fp + carry)
+    fp32_scan = b * (2 * n * pairs + h * (pairs * (4 * p + 4 * n + 5) + 6 * n * p * t))
+    fp32 = {
+        "ssd_bwd_state_pass_kernel": bound(ops_bc + ops_dy + cums + state,
+                                           state_prod + carry)[0],
+        "ssd_bwd_chunk_scan_kernel": bound(2 * ops_bc + ops_in + ops_dy + 2 * state + cums
+                                           + 4 * b * t * h + ops_in + part, fp32_scan)[0],
+        "ssd_bwd_reduce_kernel": parts["ssd_bwd_reduce_kernel"][0],
+        "call": bound(8 * b * t * h + 4 * ops_bc + 2 * ops_in + ops_dy,
+                      fp32_scan + state_prod + carry)[0],
+    }
+    return parts, fp32
+
+
+def ssd_forward_by_kernel(torch, ssd_ops, ops_in, chunk, reps):
+    """Device ms of each forward kernel of one ssd_log call on ``ops_in``,
+    from a profiler trace of ``reps`` calls ({} when the trace holds no
+    device time)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            ssd_ops._forward(*ops_in, chunk, "float32")
+        torch.cuda.synchronize()
+    parts = {}
+    for ev in prof.key_averages():
+        dt = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for part in ("ssd_chunk_state_kernel", "ssd_state_pass_kernel", "ssd_chunk_scan_kernel"):
+            if part in ev.key and dt:
+                parts[part] = parts.get(part, 0.0) + dt / reps / 1e3
     return parts
+
+
+def ssd_bwd_group_sweep(torch, ssd_ops, ops_in, dy, chunk, scratch, reps):
+    """The backward's three kernels at each head group of SSD_BWD_GROUPS
+    (the chunk scan's blocks own that many heads) -> {group: ms}."""
+    out = {}
+    for group in SSD_BWD_GROUPS:
+        _, calls = ssd_ops.bwd_launches(*ops_in, dy, None, chunk, scratch, group=group)
+
+        def run():
+            for call in calls.values():
+                call()
+        out[group] = cuda_ms(torch, run, reps)
+        del calls
+    return out
 
 
 def ssd_bwd_times(torch, dev, reps, launches, case_err, logs):
     """The SSD backward at each training shape of SSD_BWD_TIMED: through the
     wrapper, each kernel launched alone (CUDA events, warm), the plain
-    version, the bounds -> the kernels' rows (the first shape's numbers,
-    every shape's in ``bwd_shapes``)."""
+    version, the bounds (on the units that run it, and the float32
+    CUDA-core reckoning), the forward's kernels at the same shape, the head
+    group swept -> the kernels' rows (the first shape's numbers, every
+    shape's in ``bwd_shapes``)."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
 
@@ -1438,22 +1517,32 @@ def ssd_bwd_times(torch, dev, reps, launches, case_err, logs):
         call_bytes = torch.cuda.max_memory_allocated() - base_mem
         plain_ms = cuda_ms(torch, lambda: ssd_chunked_bwd_ref(*ops_in, dy, None, chunk), 2)
         fwd_ms = cuda_ms(torch, lambda: ssd_ops._forward(*ops_in, chunk, "float32"), reps)
-        bounds = ssd_bwd_bound(b, t, h, n, SSD_P, chunk, 2, n_groups)
+        fwd_parts = ssd_forward_by_kernel(torch, ssd_ops, ops_in, chunk, reps)
+        sweep = ssd_bwd_group_sweep(torch, ssd_ops, ops_in, dy, chunk, scratch, reps)
+        bounds, fp32 = ssd_bwd_bound(b, t, h, n, SSD_P, chunk, 2, n_groups)
         shape = (f"{arch} training: B={b} T={t} H={h} N={n} P={SSD_P} chunk {chunk} (sub-chunks "
                  f"of {min(chunk, 64)}), bf16 strided B, C, x, no final-state cotangent, "
                  f"{n_groups} head groups")
         shapes.append(dict(arch=arch, shape=shape, ms=wrapper_ms, alone_ms=alone,
-                           plain_ms=plain_ms, forward_ms=fwd_ms, call_bytes=call_bytes,
+                           plain_ms=plain_ms, forward_ms=fwd_ms, forward_by_kernel_ms=fwd_parts,
+                           group_sweep_ms=sweep, call_bytes=call_bytes,
                            bound_ms=bounds["call"][0], bound_by=bounds["call"][1],
+                           fp32_bound_ms=fp32["call"],
                            kernel_bounds={k: v[0] for k, v in bounds.items()},
-                           kernel_bound_by={k: v[1] for k, v in bounds.items()}))
+                           kernel_bound_by={k: v[1] for k, v in bounds.items()},
+                           kernel_fp32_bounds=fp32))
         print(f"  ssd backward at {shape}: through the wrapper {wrapper_ms:.3f} ms (alone: "
               + ", ".join(f"{k} {v:.4f}" for k, v in alone.items())
               + f"); bound {bounds['call'][0]:.4f} ms by {bounds['call'][1]} ("
               + ", ".join(f"{k} {v[0]:.4f} by {v[1]}" for k, v in bounds.items() if k != "call")
+              + f"); float32 CUDA-core bound {fp32['call']:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in fp32.items() if k != "call")
               + f"); plain ssd_chunked_bwd_ref {plain_ms:.3f} ms; the forward kernels "
-              f"{fwd_ms:.3f} ms; memory a call allocates {call_bytes} bytes; library: none",
-              flush=True)
+              f"{fwd_ms:.3f} ms (by kernel, profiler: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in fwd_parts.items())
+              + "); the backward by head group: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items())
+              + f" ms; memory a call allocates {call_bytes} bytes; library: none", flush=True)
         del ops_in, dy, scratch, outs, calls
         torch.cuda.empty_cache()
     m = shapes[0]
@@ -1466,6 +1555,7 @@ def ssd_bwd_times(torch, dev, reps, launches, case_err, logs):
             launches=launches[kern], max_abs_err=case_err[kern], ms=m["alone_ms"][kern],
             plain_ms=m["plain_ms"], plain="ssd_chunked_bwd_ref (all four gradients)",
             bound_ms=m["kernel_bounds"][kern], bound_by=m["kernel_bound_by"][kern],
+            fp32_bound_ms=m["kernel_fp32_bounds"][kern],
             library_ms=None, library="none: no PyTorch call computes the SSD's gradient",
             backward_wrapper_ms=m["ms"], backward_bound_ms=m["bound_ms"], shape=m["shape"],
             ptxas=ptxas_summary(logs.get("ssd", ""), kern),

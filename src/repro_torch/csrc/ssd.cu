@@ -54,6 +54,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -454,7 +455,6 @@ cudaError_t dispatch(int n, const float* la, const void* bm, const void* cm, con
   }
 }
 
-
 // ------------------------------------------------------------------ backward
 //
 // The gradient of the scan above.  The JAX package has no kernel for it (it
@@ -463,282 +463,596 @@ cudaError_t dispatch(int n, const float* la, const void* bm, const void* cm, con
 // state leaving the sub-chunk, S the state entering it (the forward's dS
 // scratch after its pass), G = C B^T, D_ij = dy_i . x_j,
 // M_ij = exp(cum_i - cum_j) for j <= i (masked before the exp), A = M o G,
-// W = M o D and w_j = exp(cum_last - cum_j):
-//   dS    = exp(cum_last) dS' + sum_i exp(cum_i) C_i dy_i^T   (a reverse pass)
+// W = M o D, e_i = exp(cum_i) and w_j = exp(cum_last - cum_j):
+//   dS    = exp(cum_last) dS' + C^T (e o dy)                  (a reverse pass)
 //   dx    = A^T dy + w o (B dS')
-//   dC    = sum_h [W B + exp(cum) o (dy S^T)]        (B and C are shared
-//   dB    = sum_h [W^T C + w o (x dS'^T)]             across heads)
+//   dC    = (sum_h W) B + sum_h e o (dy S^T)        (B and C are shared
+//   dB    = (sum_h W)^T C + sum_h w o (x dS'^T)      across heads)
 //   dcum  = rowsum(A o D) - colsum(A o D) + C . dC_inter - x . dx_inter, and
-//           exp(cum_last) <S, dS'> + sum_j x_j . dx_inter_j at the last step;
+//           exp(cum_last) <S, dS'> + sum_j x_j . dx_inter_j at the last step,
+//           with x_j . dx_inter_j = w_j B_j . (x dS'^T)_j;
 //   d log_a is the reverse cumulative sum of dcum within the sub-chunk.
 //
-//   ssd_bwd_chunk_dstate_kernel, one block per (sub-chunk, group of heads,
-//     batch): each head's sum_i exp(cum_i) C_i dy_i^T into a float32 scratch
-//     (B, n_chunks, H, N, P), as ssd_chunk_state_kernel builds dS.
-//   ssd_bwd_state_pass_kernel, one thread an (N, P) entry of one (batch,
-//     head): walks the chunks last to first from the final state's gradient
-//     (0 for none), overwrites each chunk's sum with dS' and carries
-//     g <- exp(cum_last) g + sum.
+//   ssd_bwd_state_pass_kernel, one block of 8 warps per (32 state rows, head,
+//     batch): walks the sub-chunks last to first from the final state's
+//     gradient (0 for none), kept in registers as mma accumulators.  Per
+//     sub-chunk it computes its rows of C^T (e o dy) on the tensor cores,
+//     writes the carried gradient as that sub-chunk's dS' and carries
+//     g <- exp(cum_last) g + C^T (e o dy).  dy, C and the decays arrive by
+//     16-byte cp.async in a ring of three stages, two sub-chunks ahead, and
+//     the threads that copy a stage's decays take their exp as it lands, so
+//     a step waits on no load and crosses one barrier.  The chunk sums never
+//     reach device memory: the (B, n_chunks, H, N, P) float32 dS' scratch is
+//     written once (the two kernels it replaces wrote, read and rewrote it).
 //   ssd_bwd_chunk_scan_kernel, one block per (sub-chunk, group of heads,
-//     batch): G once, then per head D, A and W (shared memory), dx and
-//     d log_a written, and dB and dC summed over the block's heads in
-//     registers and written once as the block's partial (2, B, n_chunks,
-//     groups, 64, N).
+//     batch) of 8 warps for each 64-column slice of N (16 at N 128, whose
+//     two halves run the state products of their own slice side by side):
+//     G = C B^T once; per head D, A (kept in shared memory for A^T dy), the
+//     group's sum of W (shared memory), dx and d log_a written; the group's
+//     dB and dC of each half's slice in registers as mma accumulators
+//     across the head loop, the W terms added once at the end, written once
+//     as the block's partial (2, B, n_chunks, groups, 64, N).  Each head's
+//     x, dy, decays, S and dS' arrive by cp.async one phase ahead of their
+//     use (the next head's x, dy, decays and S during this head's dS'
+//     products; dS' during dy S^T at N 64, during D and A^T dy at N 128).
 //   ssd_bwd_reduce_kernel, one thread an element of dB or dC: the groups'
 //     partials added in group order, written in the operands' dtype.
 // No atomics: two runs give the same bits.  The forward's decays (cum) and
 // chunk states are read from its scratch, which the wrapper keeps under
 // grad; nothing of the forward is recomputed.
 //
-// What bounds it on an H100: float32 operations on the CUDA cores.  Per
-// (head, sub-chunk) D, A^T dy, W B and W^T C (2 L^2 P + 2 L^2 P + 4 L^2 N,
-// about half of it under the causal mask) and the three state products
-// B dS', dy S^T and x dS'^T (6 L N P), plus the chunk sums (2 L N P); per
-// (batch, sub-chunk) group G (2 L^2 N).  Bytes: the two (B, n_chunks, H, N,
-// P) float32 scratches read (S, and dS' written then read twice), the
-// operands, dy and the outputs.  The chunk-scan block holds B, C, G, x, dy,
-// A, W and one state in shared memory (198 KB at N 128, 148 KB at N 64: one
-// block an SM); each thread owns rows ty*4 .. ty*4+3 and columns tx + 16 q
-// of every product (tile_mm), reading each operand as stored, with rows
-// padded to 16-byte multiples that put consecutive columns in other banks.
+// Products on the tensor cores at float32 accuracy.  Every product runs as
+// mma.sync.m16n8k8 with TF32 operands and float32 accumulators.  A float32
+// operand a is split as hi = the TF32 rounding of a (to nearest, ties away
+// from zero: cvt.rna.tf32's, done in two integer operations) and lo = the
+// same rounding of a - hi (exact: -fmad=false, no fast math), and the
+// product is lo.hi + hi.lo + hi.hi (3xTF32; the lo.lo term, 2^-22 of the
+// product, is dropped), the tiles of a warp interleaved pass by pass.  A
+// value read from bf16 (B, C and x in a bf16 call) is exact in TF32 and
+// takes no lo part.  So in a bf16 call G takes one pass; D = dy x^T, x dS'^T,
+// B dS', (sum W) B, (sum W)^T C and the chunk sums C^T (e o dy) two (dy,
+// dS', W, e o dy split); A^T dy and dy S^T three; in a float32 call every
+// product three.  No product takes a single TF32 pass over a float32 value
+// (tests/test_torch_ssd_bwd.py emulates each product's split).
+//
+// Layout.  Every tile in shared memory is row-major with its element (r, c)
+// at column c ^ swz(r): for float32 tiles (row stride a multiple of 32
+// words) 8 ((r & 3) ^ ((r >> 2) & 1)), for bf16 ones (a multiple of 64
+// elements) 8 (r & 7).  An mma's k slots t and t + 4 hold k = 2t and 2t + 1
+// in both operands, so a fragment read along a row takes both of a lane's
+// values in one 8-byte (bf16: 4-byte) load, and a fragment read down the
+// columns (an operand stored transposed: A^T, B^T, W^T) hits distinct banks
+// too: each operand is read as it was stored, with no transposed copy and
+// no bank conflict.  The swizzles move aligned groups of 8 elements whole,
+// so the 16-byte copies stay 16-byte.  In the chunk scan warp w owns output
+// rows 16 (w % 4) .. +15 of every product and, of those over L or P, a
+// group of 32 / (N / 64) columns, of those over N a 32-column half of its
+// half's slice: the causal (L, L) products skip the 8-column tiles above
+// the diagonal, and A^T dy runs k from the warp's first row.
+//
+// Shared memory, registers and blocks an SM on an H100 (ptxas -v; PERF.md
+// row 16).  The chunk scan keeps dy, A, S, dS' (at N 64 in A's tile), the
+// group's W sum and G as float32 tiles, and B, C and x in the operands'
+// dtype: bf16 at N 64 (Zamba2's training shape) 106.8 KB and 128
+// registers, two blocks of 8 warps an SM; bf16 at N 128 (mamba2-130m's)
+// 171.8 KB and 125 registers, one block of 16 warps (its two halves);
+// float32 130.8 KB and 185 registers at N 64 (one block of 8 warps), 211.8
+// KB and 122 at N 128 (16).  No instance spills.  The pass holds 73.3 KB
+// (three stages of dy, 32 columns of C and the decays) and 93 (bf16) or 105
+// registers, two blocks of 8 warps an SM.
+//
+// What bounds each kernel on an H100.  The chunk scan: its bytes (S, dS'
+// and dy in float32, x, dx; 0.167 ms at Zamba2's 2 x 4096) beside the TF32
+// products with each split pass counted (0.08 ms at 495 TFLOP/s); it runs
+// at several times that, held by mma.sync's fragment loads and splits from
+// shared memory (about four instructions an mma) and the per-head phases'
+// barriers.  The pass: its bytes (dy read once, dS' written once; C and the
+// decays), 0.08 ms at Zamba2's 268 MB.  The reduction: its bytes.
 
 __device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
 __device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) { *p = __float2bfloat16_rn(v); }
-
-constexpr int kRP = kL + 1;   // row stride of the (16, kL) partial-sum tiles
-
-template <int R, int C>
-__device__ __forceinline__ void zero(float (&a)[R][C]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < C; ++j) a[i][j] = 0.0f;
+// Two adjacent outputs (p 8-byte aligned for float, 4 for bf16).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// acc[i][q] += sum_{k0 <= k < k1} L(ty*4 + i, k) R(k, tx + 16 q), k0 and k1
-// multiples of 4, in k order.  LK: L stored k-major (L[k * lds + row]), else
-// by row (L[row * lds + k]); RK: R stored k-major (R[k * rds + col]), else by
-// column (R[col * rds + k], rds = 4 mod 32 so that a quarter warp's 16-byte
-// loads fall in distinct banks).  Every load is 16 bytes but RK's, a scalar
-// a lane over consecutive columns.
-template <int Q, bool LK, bool RK>
-__device__ __forceinline__ void tile_mm(float (&acc)[4][Q], const float* __restrict__ L,
-                                        int lds, const float* __restrict__ R, int rds, int k0,
-                                        int k1) {
-  const int ty = threadIdx.x >> 4;
-  const int tx = threadIdx.x & 15;
-#pragma unroll 2
-  for (int k = k0; k < k1; k += 4) {
-    float lv[4][4];   // [row][k]
-    float rv[Q][4];   // [column][k]
-    if constexpr (LK) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 v = ld4(L + (k + kk) * lds + ty * 4);
-        lv[0][kk] = v.x;
-        lv[1][kk] = v.y;
-        lv[2][kk] = v.z;
-        lv[3][kk] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float4 v = ld4(L + (ty * 4 + i) * lds + k);
-        lv[i][0] = v.x;
-        lv[i][1] = v.y;
-        lv[i][2] = v.z;
-        lv[i][3] = v.w;
-      }
-    }
-    if constexpr (RK) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int q = 0; q < Q; ++q) rv[q][kk] = R[(k + kk) * rds + tx + 16 * q];
-    } else {
-#pragma unroll
-      for (int q = 0; q < Q; ++q) {
-        const float4 v = ld4(R + (tx + 16 * q) * rds + k);
-        rv[q][0] = v.x;
-        rv[q][1] = v.y;
-        rv[q][2] = v.z;
-        rv[q][3] = v.w;
-      }
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < Q; ++q) acc[i][q] = __fmaf_rn(lv[i][kk], rv[q][kk], acc[i][q]);
+template <typename T>
+__device__ __forceinline__ T zero_of() { return T(0.0f); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.0f);
+}
+
+// The swizzle of row r of a tile of T (above): float32 tiles (row stride a
+// multiple of 32 words) XOR 8 f(r), f(r) = (r & 3) ^ ((r >> 2) & 1), which
+// takes four distinct values on rows 0-3, on rows 4-7, on the even and on
+// the odd rows of any eight; bf16 tiles (row stride a multiple of 64
+// elements) XOR 8 (r & 7).  Both move aligned groups of 8 elements whole.
+template <typename T>
+__device__ __forceinline__ int swz(int r) {
+  if constexpr (std::is_same<T, float>::value) return 8 * ((r & 3) ^ ((r >> 2) & 1));
+  else return 8 * (r & 7);
+}
+// The offset of element (r, c) of a swizzled tile of T with row stride ld.
+template <typename T>
+__device__ __forceinline__ int sw(int r, int c, int ld) { return r * ld + (c ^ swz<T>(r)); }
+
+// Two adjacent elements (8-byte aligned for float, 4 for bf16) as float.
+__device__ __forceinline__ float2 ld_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// cvt.rna.tf32.f32 on a finite value: round the magnitude to 10 mantissa
+// bits, ties away from zero, with two integer operations (adding half of
+// the 13 dropped bits to the sign-magnitude encoding carries into the
+// exponent exactly when the magnitude rounds up to it).  cvt.rna.tf32 itself
+// costs about four times as many instructions on sm_90, which made the
+// splits the bulk of the products' instructions.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// hi and lo TF32 parts of v; lo is 0 (and unused) when v is exact in TF32.
+template <bool kSplit>
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kSplit) {
+    hi = tf32_rna(v);
+    lo = tf32_rna(v - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(v);
+    lo = 0u;
   }
 }
 
-template <int N>
-constexpr size_t bwd_dstate_smem_bytes() {
-  // sC [kL][N+4]; sDy [kL][kP]; sW [kL].
-  return sizeof(float) * (kL * (N + 4) + kL * kP + kL);
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Each head's sum_i exp(cum_i) C_i dy_i^T (N, P) into qbuf; dy (B, T, H, P)
-// contiguous float32.
-template <typename T, int N>
-__global__ void __launch_bounds__(kThreads, 2)
-    ssd_bwd_chunk_dstate_kernel(const T* __restrict__ cm, const float* __restrict__ dy,
-                                const float* __restrict__ cumbuf, float* __restrict__ qbuf,
-                                long long c_b, long long c_t, int nheads, int seq, int chunk,
-                                int group) {
-  constexpr int CS = N + 4;   // row stride of C (16-byte rows)
-  constexpr int NR = N / 16;  // state rows a thread owns
-  extern __shared__ float smem[];
-  float* sC = smem;            // [kL][CS]
-  float* sDy = sC + kL * CS;   // [kL][kP]
-  float* sW = sDy + kL * kP;   // [kL]
+// A warp's product on the tensor cores: for mt < MT and nt < nt_end,
+//   acc[mt][nt] += sum_{k < kn} Aop(m0 + 16 mt + ., ka0 + k) Bop(kb0 + k, n0 + 8 nt + .)
+// in m16n8k8 accumulator layout.  Aop is stored by rows (A[r][k]) or, AK, by
+// k (A[k][r]); Bop by its columns (B[n][k]) or, BK, by k (B[k][n]); all
+// swizzled tiles.  SA / SB split that operand (a float32 value), else it is
+// exact in TF32.  BS scales Bop's row k by bscale[kb0 + k].  An mma's k slot
+// t holds k = 2 t of its 8 and slot t + 4 holds 2 t + 1, in A and in B alike
+// (the sum over k is the same), so a fragment read along a row takes both
+// of a lane's values in one 8-byte (bf16: 4-byte) load.  m0, n0, ka0, kb0
+// and kn are multiples of 8 (kn of 16), so the swizzle of every element the
+// lane reads depends on the lane alone: its offsets are worked out once,
+// and a step of k adds a base (K * ld for a tile stored by k; K ^ swz for
+// one stored by rows, K the step's first k).
+template <int MT, int NT, bool AK, bool BK, bool SA, bool SB, bool BS = false, int UR = 2,
+          typename TA, typename TB>
+__device__ __forceinline__ void warp_mma(float (&acc)[MT][NT][4], const TA* __restrict__ A,
+                                         int lda, int m0, int ka0, const TB* __restrict__ B,
+                                         int ldb, int n0, int kb0, int kn, int nt_end = NT,
+                                         const float* __restrict__ bscale = nullptr) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int sa = swz<TA>(g);   // rows g and g + 8 of a tile stored by rows
+  const int sb = swz<TB>(g);
+  // A: by rows, (row g [+ 8], k 2t); by k, (k 2t + u, row g [+ 8]): [mt][h][u].
+  int oa[MT][2][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r = m0 + 16 * mt + 8 * hf + g;
+        oa[mt][hf][u] = AK ? (2 * t + u) * lda + (r ^ swz<TA>(2 * t + u)) : r * lda + 2 * t;
+      }
+  // B: by columns, (column g, k 2t); by k, (k 2t + u, column g): [nt][u].
+  int ob[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = n0 + 8 * nt + g;
+      ob[nt][u] = BK ? (2 * t + u) * ldb + (c ^ swz<TB>(2 * t + u)) : c * ldb + 2 * t;
+    }
+#pragma unroll UR
+  for (int k = 0; k < kn; k += 8) {
+    const TA* Ak = A + (AK ? (ka0 + k) * lda : (ka0 + k) ^ sa);
+    const TB* Bk = B + (BK ? (kb0 + k) * ldb : (kb0 + k) ^ sb);
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float v[4];   // a0 (g, 2t), a1 (g + 8, 2t), a2 (g, 2t + 1), a3 (g + 8, 2t + 1)
+      if constexpr (AK) {
+        v[0] = to_f(Ak[oa[mt][0][0]]);
+        v[1] = to_f(Ak[oa[mt][1][0]]);
+        v[2] = to_f(Ak[oa[mt][0][1]]);
+        v[3] = to_f(Ak[oa[mt][1][1]]);
+      } else {
+        const float2 lo = ld_pair(Ak + oa[mt][0][0]);
+        const float2 hi = ld_pair(Ak + oa[mt][1][0]);
+        v[0] = lo.x;
+        v[1] = hi.x;
+        v[2] = lo.y;
+        v[3] = hi.y;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) split<SA>(v[q], ah[mt][q], al[mt][q]);
+    }
+    float s0 = 1.0f, s1 = 1.0f;
+    if constexpr (BS) {
+      s0 = bscale[kb0 + k + 2 * t];
+      s1 = bscale[kb0 + k + 2 * t + 1];
+    }
+    uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt < nt_end) {
+        float b0, b1;
+        if constexpr (BK) {
+          b0 = to_f(Bk[ob[nt][0]]);
+          b1 = to_f(Bk[ob[nt][1]]);
+        } else {
+          const float2 v = ld_pair(Bk + ob[nt][0]);
+          b0 = v.x;
+          b1 = v.y;
+        }
+        if constexpr (BS) {
+          b0 *= s0;
+          b1 *= s1;
+        }
+        split<SB>(b0, bh[nt][0], bl[nt][0]);
+        split<SB>(b1, bh[nt][1], bl[nt][1]);
+      }
+    }
+    // Each tile takes lo.hi, hi.lo, then hi.hi (the small terms first), the
+    // tiles interleaved so that no mma waits on the one before it.
+    if constexpr (SA) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          if (nt < nt_end) mma_tf32(acc[mt][nt], al[mt], bh[nt]);
+    }
+    if constexpr (SB) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          if (nt < nt_end) mma_tf32(acc[mt][nt], ah[mt], bl[nt]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        if (nt < nt_end) mma_tf32(acc[mt][nt], ah[mt], bh[nt]);
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&a)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[i][j][q] = 0.0f;
+}
+
+__device__ __forceinline__ float4 ld4g(const float* __restrict__ p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// 16-byte cp.async into shared memory; nothing is read and zeros are written
+// when !valid (src must still be a mapped address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Rows [t0, t0 + kL) of a (seq, W) operand (row stride ld elements, W
+// contiguous) into the swizzled [kL][W] tile dst (kind T), zero past the
+// chunk or the sequence: 16 loads a thread in flight, then their stores.
+template <int W, int kBlock, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, long long ld, int t0,
+                                          int chunk, int seq) {
+  constexpr int kIter = kL * W / kBlock;
+  constexpr int kBatch = kIter < 16 ? kIter : 16;
+#pragma unroll
+  for (int k0 = 0; k0 < kIter; k0 += kBatch) {
+    T v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int e = threadIdx.x + (k0 + k) * kBlock;
+      const int r = e / W;
+      v[k] = (r < chunk && t0 + r < seq) ? src[(t0 + r) * ld + e % W] : zero_of<T>();
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int e = threadIdx.x + (k0 + k) * kBlock;
+      dst[sw<T>(e / W, e % W, W)] = v[k];
+    }
+  }
+}
+
+// ---- the fused chunk sums and reverse state pass
+
+constexpr int kPassThreads = 256;
+constexpr int kPassRows = 32;   // state rows a block owns
+constexpr int kPassStages = 3;  // sub-chunks in the ring
+// A stage: dy [kL][kP] float32, C [kL][128 bytes] (32 columns in the
+// operands' dtype), cum [kL]; bytes.
+constexpr int kPassStageBytes = 4 * kL * kP + 128 * kL + 4 * kL;
+constexpr size_t kPassSmem = kPassStages * kPassStageBytes + 2 * 4 * kL;
+
+// Sub-chunk c's dy, C and decays into a stage by 16-byte cp.async (zeros
+// past the chunk or the sequence).  C's rows are 16-byte aligned (the
+// wrapper sees to it).
+template <typename T>
+__device__ __forceinline__ void pass_issue(unsigned char* st, const float* __restrict__ dy_bh,
+                                           long long dy_t, const T* __restrict__ c_bs,
+                                           long long c_t, const float* __restrict__ cum_c,
+                                           int t0, int chunk, int seq) {
+  float* sDy = reinterpret_cast<float*>(st);
+  T* sC = reinterpret_cast<T*>(st + 4 * kL * kP);
+  float* sCum = reinterpret_cast<float*>(st + 4 * kL * kP + 128 * kL);
+#pragma unroll
+  for (int k = 0; k < kL * kP / (4 * kPassThreads); ++k) {
+    const int e = threadIdx.x + k * kPassThreads;
+    const int r = e >> 4;
+    const int col = (e & 15) * 4;
+    const bool valid = r < chunk && t0 + r < seq;
+    cp_async16(sDy + sw<float>(r, col, kP), valid ? dy_bh + (t0 + r) * dy_t + col : dy_bh,
+               valid);
+  }
+  constexpr int kE = 16 / sizeof(T);            // elements a copy
+  constexpr int kLd = 128 / sizeof(T);          // the C tile's row stride
+  constexpr int kPerRow = kPassRows / kE;       // copies a row
+#pragma unroll
+  for (int k = 0; k < kL * kPerRow / kPassThreads; ++k) {
+    const int e = threadIdx.x + k * kPassThreads;
+    const int r = e / kPerRow;
+    const int col = (e % kPerRow) * kE;
+    const bool valid = r < chunk && t0 + r < seq;
+    cp_async16(sC + sw<T>(r, col, kLd), valid ? c_bs + (t0 + r) * c_t + col : c_bs, valid);
+  }
+  if (threadIdx.x < kL / 4) cp_async16(sCum + threadIdx.x * 4, cum_c + threadIdx.x * 4, true);
+}
+
+// dS' of every sub-chunk for state rows r0 .. r0 + 31 of one (batch, head),
+// the chunk sums C^T (e o dy) on the tensor cores.  Warp w owns rows
+// 16 (w % 2) .. +15 and columns 16 (w / 2) .. +15 of the block's (32, P)
+// (one m16 tile by two n8 tiles).  dy (B, T, H, P) and the decays are
+// contiguous float32; C (B, T, N) strided with 16-byte aligned rows.
+// Sub-chunk c's operands are copied two sub-chunks ahead, and the threads
+// that copy its decays also take their exp once they land, so a step waits
+// on no load and has one barrier.
+template <typename T>
+__global__ void __launch_bounds__(kPassThreads, 2)
+    ssd_bwd_state_pass_kernel(const T* __restrict__ cm, const float* __restrict__ dy,
+                              const float* __restrict__ cumbuf, const float* __restrict__ dfinal,
+                              float* __restrict__ ds_out, long long c_b, long long c_t,
+                              int nheads, int seq, int chunk, int n) {
+  constexpr bool kExact = !std::is_same<T, float>::value;   // C read from bf16
+  constexpr int kLd = 128 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char pbuf[];
+  float* sE = reinterpret_cast<float*>(pbuf + kPassStages * kPassStageBytes);   // [2][kL]
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int c = blockIdx.x;
+  const int w = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int h0 = blockIdx.y * group;
-  const int h1 = min(h0 + group, nheads);
-  const int t0 = c * chunk;
-  const int n_chunks = gridDim.x;
+  const int r0 = blockIdx.x * kPassRows;
+  const int m0 = 16 * (w & 1);    // the warp's rows within the block's 32
+  const int n0 = 16 * (w >> 1);   // its columns
+  const int n_chunks = (seq + chunk - 1) / chunk;
   const long long dy_t = static_cast<long long>(nheads) * kP;
-  {
-    Rows<N, T> rc;
-    rc.load(cm + b * c_b, c_t, t0, chunk, seq);
-    rc.template store<CS>(sC);
-  }
-  for (int h = h0; h < h1; ++h) {
-    const long long bch = (static_cast<long long>(b) * n_chunks + c) * nheads + h;
-    __syncthreads();   // C is in; the previous head's reads are done
-    {
-      Rows<kP, float> rd;
-      rd.load(dy + static_cast<long long>(b) * seq * dy_t + h * kP, dy_t, t0, chunk, seq);
-      rd.template store<kP>(sDy);
-    }
-    if (tid < kL) sW[tid] = expf(cumbuf[bch * kL + tid]);
-    __syncthreads();
-    float acc[NR][4];
-    zero(acc);
-#pragma unroll 2
-    for (int i = 0; i < kL; ++i) {
-      const float wi = sW[i];
-      const float4 dv = ld4(sDy + i * kP + tx * 4);
-      const float dw[4] = {dv.x * wi, dv.y * wi, dv.z * wi, dv.w * wi};
-      float cr[NR];
+  const float* dy_bh = dy + static_cast<long long>(b) * seq * dy_t + h * kP;
+  const T* c_bs = cm + b * c_b + r0;
+  const long long np = static_cast<long long>(n) * kP;
+  const float* cum_bh = cumbuf + (static_cast<long long>(b) * n_chunks * nheads + h) * kL;
+  const long long cum_c = static_cast<long long>(nheads) * kL;   // a sub-chunk's stride
+
+  // Fragment offsets (k slots t and t + 4 hold k = 2t and 2t + 1, as in
+  // warp_mma): A = C^T from the C tile stored by k, B = dy stored by k.
+  int oa[4];
+  oa[0] = sw<T>(2 * t, m0 + g, kLd);
+  oa[1] = sw<T>(2 * t, m0 + 8 + g, kLd);
+  oa[2] = sw<T>(2 * t + 1, m0 + g, kLd);
+  oa[3] = sw<T>(2 * t + 1, m0 + 8 + g, kLd);
+  int ob[2][2];
 #pragma unroll
-      for (int r = 0; r < NR; r += 4) {
-        const float4 cv = ld4(sC + i * CS + ty * NR + r);
-        cr[r] = cv.x;
-        cr[r + 1] = cv.y;
-        cr[r + 2] = cv.z;
-        cr[r + 3] = cv.w;
+  for (int nt = 0; nt < 2; ++nt) {
+    ob[nt][0] = sw<float>(2 * t, n0 + 8 * nt + g, kP);
+    ob[nt][1] = sw<float>(2 * t + 1, n0 + 8 * nt + g, kP);
+  }
+
+  // The carried gradient: rows r0 + m0 + g (+ 8), columns n0 + 8 nt + 2 t
+  // (+ 1), from the final state's gradient.
+  float gs[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = r0 + m0 + g + 8 * (q >> 1);
+      const int col = n0 + 8 * nt + 2 * t + (q & 1);
+      gs[nt][q] =
+          dfinal != nullptr ? dfinal[(static_cast<long long>(b) * nheads + h) * np + row * kP + col]
+                            : 0.0f;
+    }
+
+  const int last = n_chunks - 1;
+  pass_issue<T>(pbuf, dy_bh, dy_t, c_bs, c_t, cum_bh + last * cum_c, last * chunk, chunk, seq);
+  cp_async_commit();
+  if (last >= 1)
+    pass_issue<T>(pbuf + kPassStageBytes, dy_bh, dy_t, c_bs, c_t, cum_bh + (last - 1) * cum_c,
+                  (last - 1) * chunk, chunk, seq);
+  cp_async_commit();
+  for (int s = 0; s <= last; ++s) {
+    const int c = last - s;
+    const unsigned char* st = pbuf + (s % kPassStages) * kPassStageBytes;
+    const float* sDy = reinterpret_cast<const float*>(st);
+    const T* sC = reinterpret_cast<const T*>(st + 4 * kL * kP);
+    float* sEs = sE + (s & 1) * kL;
+    cp_async_wait<1>();   // this thread's copies of stage s are in
+    if (tid < kL / 4) {   // the threads that copied the decays take their exp
+      const float4 v = *reinterpret_cast<const float4*>(st + 4 * kL * kP + 128 * kL + 16 * tid);
+      *reinterpret_cast<float4*>(sEs + 4 * tid) =
+          make_float4(expf(v.x), expf(v.y), expf(v.z), expf(v.w));
+    }
+    __syncthreads();   // stage s and its exps are in; every read of stage s - 1 is done
+    if (c >= 2)
+      pass_issue<T>(pbuf + ((s + 2) % kPassStages) * kPassStageBytes, dy_bh, dy_t, c_bs, c_t,
+                    cum_bh + (c - 2) * cum_c, (c - 2) * chunk, chunk, seq);
+    cp_async_commit();
+    const float decay = sEs[kL - 1];
+    float q[2][4];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[nt][i] = 0.0f;
+#pragma unroll
+    for (int k = 0; k < kL; k += 8) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split<!kExact>(to_f(sC[k * kLd + oa[i]]), ah[i], al[i]);
+      const float s0 = sEs[k + 2 * t];
+      const float s1 = sEs[k + 2 * t + 1];
+      uint32_t bh[2][2], bl[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        split<true>(sDy[k * kP + ob[nt][0]] * s0, bh[nt][0], bl[nt][0]);
+        split<true>(sDy[k * kP + ob[nt][1]] * s1, bh[nt][1], bl[nt][1]);
       }
-#pragma unroll
-      for (int r = 0; r < NR; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[r][q] = __fmaf_rn(cr[r], dw[q], acc[r][q]);
-    }
-    float* qs = qbuf + bch * N * kP;
-#pragma unroll
-    for (int r = 0; r < NR; ++r)
-      *reinterpret_cast<float4*>(qs + (ty * NR + r) * kP + tx * 4) =
-          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  }
-}
-
-// The reverse state pass, one thread an entry of the (N, P) state of one
-// (batch, head): from the final state's gradient (dfinal, or 0 when null),
-// walks the chunks last to first, replaces each chunk's sum in qbuf by the
-// gradient dS' of the state leaving that chunk and carries
-// g <- exp(cum_last) g + sum.
-__global__ void __launch_bounds__(kThreads)
-    ssd_bwd_state_pass_kernel(float* __restrict__ qbuf, const float* __restrict__ cumbuf,
-                              const float* __restrict__ dfinal, int nheads, int np,
-                              int n_chunks, long long total) {
-  const long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (e >= total) return;
-  const long long bh = e / np;
-  const long long off = e % np;
-  const long long b = bh / nheads;
-  const long long h = bh % nheads;
-  constexpr int kBatch = 8;   // chunks whose loads are in flight together
-  float g = dfinal != nullptr ? dfinal[e] : 0.0f;
-  for (int c1 = n_chunks - 1; c1 >= 0; c1 -= kBatch) {
-    float q[kBatch];
-    float cum_last[kBatch];
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const long long bch = (b * n_chunks + c1 - k) * nheads + h;
-      const bool in = c1 - k >= 0;
-      q[k] = in ? qbuf[bch * np + off] : 0.0f;
-      cum_last[k] = in ? cumbuf[bch * kL + kL - 1] : 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      if (c1 - k >= 0) {
-        qbuf[((b * n_chunks + c1 - k) * nheads + h) * np + off] = g;
-        g = g * expf(cum_last[k]) + q[k];
+      // lo.hi, hi.lo, hi.hi for each tile, the two tiles interleaved.
+      if constexpr (!kExact) {
+        mma_tf32(q[0], al, bh[0]);
+        mma_tf32(q[1], al, bh[1]);
       }
+      mma_tf32(q[0], ah, bl[0]);
+      mma_tf32(q[1], ah, bl[1]);
+      mma_tf32(q[0], ah, bh[0]);
+      mma_tf32(q[1], ah, bh[1]);
     }
+    float* out = ds_out + ((static_cast<long long>(b) * n_chunks + c) * nheads + h) * np;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = r0 + m0 + g + 8 * hf;
+        const int col = n0 + 8 * nt + 2 * t;
+        store2(out + row * kP + col, gs[nt][2 * hf], gs[nt][2 * hf + 1]);
+        gs[nt][2 * hf] = gs[nt][2 * hf] * decay + q[nt][2 * hf];
+        gs[nt][2 * hf + 1] = gs[nt][2 * hf + 1] * decay + q[nt][2 * hf + 1];
+      }
   }
+  cp_async_wait<0>();
 }
 
-// A (N, kP) float32 state into shared rows of kTS floats.
-template <int N>
-__device__ __forceinline__ void load_state(float* dst, const float* __restrict__ src) {
-  constexpr int kIter = N * kP / (kThreads * 4);
-  float4 v[kIter];
-#pragma unroll
-  for (int k = 0; k < kIter; ++k) v[k] = ld4(src + (threadIdx.x + k * kThreads) * 4);
-#pragma unroll
-  for (int k = 0; k < kIter; ++k) {
-    const int e = (threadIdx.x + k * kThreads) * 4;
-    *reinterpret_cast<float4*>(dst + (e / kP) * kTS + e % kP) = v[k];
-  }
-}
+// ---- the chunk scan
 
-template <int N>
-constexpr size_t bwd_scan_smem_bytes() {
-  // sB, sC [kL][N+4]; sG, sX, sDy, sA, sW [kL][kTS]; sSt [N][kTS]; sCum [kL];
-  // sRow, sZ, sCol [16][kRP] (padded to 16 bytes); sRed [warps].
-  return sizeof(float) * (2 * kL * (N + 4) + 5 * kL * kTS + N * kTS + kL +
-                          3 * ((16 * kRP + 3) / 4 * 4) + kThreads / 32);
+// Shared memory and shape of the chunk scan for operand type T and state
+// size N: one 8-warp half a 64-column slice of N (two halves, one block
+// of 16 warps, at N 128).
+template <typename T, int N>
+struct BwdScanSmem {
+  static constexpr int kS = N / 64;             // slices of N, halves of the block
+  static constexpr int kBlock = kThreads * kS;  // threads
+  static constexpr int kWarps = kBlock / 32;
+  // Float tiles dy, A (at N 64 then dS'), S (kS slices), dS' (kS slices,
+  // at N 128 only), the W sum and G; cum, e, w; the row and z (2 kS x kL,
+  // by 4-warp column group) and column (4 x kL, by row tile) partials of
+  // dcum; <S, dS'> by warp; then B, C and x in the operands' dtype.
+  static constexpr int kFloats = (4 + kS + (kS > 1 ? kS : 0)) * kL * kP + 3 * kL +
+                                 4 * kS * kL + 4 * kL + kWarps;
+  static constexpr size_t bytes = sizeof(float) * kFloats + sizeof(T) * (2 * kL * N + kL * kP);
+  static constexpr int blocks = kS == 1 && bytes <= 113 * 1024 ? 2 : 1;
+};
+
+// Rows [0, rows) of a (., kP) tile of T whose row r is src + r * ld (rows
+// 16-byte aligned) into the swizzled tile dst by 16-byte cp.async, zeros in
+// rows [rows, R); kBlock threads.
+template <int R, int kBlock, typename T>
+__device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ src, long long ld,
+                                          int rows) {
+  constexpr int kE = 16 / sizeof(T);   // elements a copy
+  constexpr int kPerRow = kP / kE;
+#pragma unroll 1   // one address at a time: the copies are issued between products
+  for (int k = 0; k < R * kPerRow / kBlock; ++k) {
+    const int e = threadIdx.x + k * kBlock;
+    const int r = e / kPerRow;
+    const int col = (e % kPerRow) * kE;
+    cp_async16(dst + sw<T>(r, col, kP), r < rows ? src + r * ld + col : src, r < rows);
+  }
 }
 
 // dx and d log_a of every head of the group, and the group's dB and dC.
+// Warp w (of 8 kS) owns rows 16 (w % 4) .. +15 of every product: of the
+// ones that do not run over N (G, D, A^T dy, B dS') the 32 / kS columns
+// from (w / 4) 32 / kS; of the ones that do (dy S^T, x dS'^T, the W terms,
+// dB and dC) the 32-column half (w / 4) % 2 of slice w / 8.  Each head's
+// x, dy, decays and S, and its dS', arrive by cp.async one phase ahead of
+// their use: the next head's x, dy, decays and S during this head's dS'
+// products; dS' at N 64 during dy S^T (into A's tile, free by then), at N
+// 128 during D and A^T dy (its own tiles).
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(BwdScanSmem<T, N>::kBlock, (BwdScanSmem<T, N>::blocks))
     ssd_bwd_chunk_scan_kernel(const T* __restrict__ bm, const T* __restrict__ cm,
                               const T* __restrict__ x, const float* __restrict__ dy,
                               const float* __restrict__ s_in, const float* __restrict__ ds_out,
                               const float* __restrict__ cumbuf, float* __restrict__ dla,
                               T* __restrict__ dx, float* __restrict__ part, const Strides st,
                               int nheads, int seq, int chunk, int group) {
-  constexpr int BS = N + 4;
-  constexpr int Q = N / 16;   // state columns a thread owns: tx + 16 q
-  constexpr int kPT = (16 * kRP + 3) / 4 * 4;
-  extern __shared__ float smem[];
-  float* sB = smem;               // [kL][BS]   B_j
-  float* sC = sB + kL * BS;       // [kL][BS]   C_i
-  float* sG = sC + kL * BS;       // [kL][kTS]  C_i . B_j
-  float* sX = sG + kL * kTS;      // [kL][kTS]  x_j
-  float* sDy = sX + kL * kTS;     // [kL][kTS]  dy_i
-  float* sA = sDy + kL * kTS;     // [kL][kTS]  A = M o G
-  float* sW = sA + kL * kTS;      // [kL][kTS]  W = M o D
-  float* sSt = sW + kL * kTS;     // [N][kTS]   S, then dS'
-  float* sCum = sSt + N * kTS;    // [kL]
-  float* sRow = sCum + kL;        // [16][kRP]  row sums of A o D and C . dC_inter, by tx
-  float* sZ = sRow + kPT;         // [16][kRP]  x . dx_inter, by tx
-  float* sCol = sZ + kPT;         // [16][kRP]  column sums of A o D, by ty
-  float* sRed = sCol + kPT;       // [warps]    <S, dS'>
+  using Smem = BwdScanSmem<T, N>;
+  constexpr bool kExact = !std::is_same<T, float>::value;   // B, C, x read from bf16
+  constexpr int kS = Smem::kS;
+  constexpr int kBlock = Smem::kBlock;
+  constexpr int kWarps = Smem::kWarps;
+  constexpr int kNG = 4 / kS;                               // 8-column tiles a column group
+  extern __shared__ __align__(16) float smem[];
+  float* sDy = smem;                   // [kL][kP]       dy_i
+  float* sA = sDy + kL * kP;           // [kL][kL]       A = M o G (N 64: then dS')
+  float* sSt = sA + kL * kL;           // [N][kP]        S
+  float* sD = kS > 1 ? sSt + N * kP : sA;   // [N][kP]   dS'
+  float* sWs = sSt + (kS > 1 ? 2 : 1) * N * kP;   // [kL][kL]  sum over the group of W = M o D
+  float* sG = sWs + kL * kL;           // [kL][kL]       C_i . B_j
+  float* sCum = sG + kL * kL;          // [kL]
+  float* sE = sCum + kL;               // [kL]  exp(cum_i)
+  float* sWv = sE + kL;                // [kL]  exp(cum_last - cum_j)
+  float* sRow = sWv + kL;              // [2 kS][kL]  row terms of dcum, by column group
+  float* sZ = sRow + 2 * kS * kL;      // [2 kS][kL]  x . dx_inter, by column group
+  float* sCol = sZ + 2 * kS * kL;      // [4][kL]     column sums of A o D, by row tile
+  float* sDot = sCol + 4 * kL;         // [warps]     <S, dS'>
+  T* sB = reinterpret_cast<T*>(sDot + kWarps);   // [kL][N]  B_j
+  T* sC = sB + kL * N;                 // [kL][N]  C_i
+  T* sX = sC + kL * N;                 // [kL][kP] x_j
 
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
+  const int w = tid >> 5;
   const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int m0 = 16 * (w & 3);         // the warp's output rows
+  const int wq = w >> 2;               // its column group
+  const int cg = wq * (32 / kS);       // the group's first column of an (L, L) or (L, P) product
+  const int hs = w >> 3;               // its slice of N
+  const int cs = kL * hs + 32 * (wq & 1);   // its first column of N in the slice products
   const int c = blockIdx.x;
   const int b = blockIdx.z;
   const int h0 = blockIdx.y * group;
@@ -747,178 +1061,244 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_chunks = gridDim.x;
   const int valid = min(chunk, seq - t0);   // rows of the sub-chunk in the sequence
   const long long dy_t = static_cast<long long>(nheads) * kP;
-  {
-    Rows<N, T> rb, rc;
-    rb.load(bm + b * st.b_b, st.b_t, t0, chunk, seq);
-    rc.load(cm + b * st.c_b, st.c_t, t0, chunk, seq);
-    rb.template store<BS>(sB);
-    rc.template store<BS>(sC);
-  }
+  // The 8-column tiles of this warp's group on or below the diagonal.
+  const int nt_causal = max(0, min(kNG, (m0 >> 3) + 2 - (cg >> 3)));
+  const float* dy_b = dy + (static_cast<long long>(b) * seq + t0) * dy_t;
+  const T* x_b = x + b * st.x_b + t0 * st.x_t;
+  auto bch_of = [&](int h) { return (static_cast<long long>(b) * n_chunks + c) * nheads + h; };
+
+  // The first head's x, dy, decays and S.
+  copy_tile<kL, kBlock>(sX, x_b + h0 * st.x_h, st.x_t, valid);
+  copy_tile<kL, kBlock>(sDy, dy_b + h0 * kP, dy_t, valid);
+  if (tid < kL / 4) cp_async16(sCum + 4 * tid, cumbuf + bch_of(h0) * kL + 4 * tid, true);
+  copy_tile<N, kBlock>(sSt, s_in + bch_of(h0) * N * kP, kP, N);
+  cp_async_commit();
+  load_tile<N, kBlock>(sB, bm + b * st.b_b, st.b_t, t0, chunk, seq);
+  load_tile<N, kBlock>(sC, cm + b * st.c_b, st.c_t, t0, chunk, seq);
+#pragma unroll
+  for (int k = 0; k < kL * kL / (4 * kBlock); ++k)
+    reinterpret_cast<float4*>(sWs)[tid + k * kBlock] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   __syncthreads();
   {
-    float g[4][4];
-    zero(g);
-    tile_mm<4, false, false>(g, sC, BS, sB, BS, 0, N);
+    float gacc[1][kNG][4];   // G on the warp's causal tiles (rows i, columns j)
+    zero(gacc);
+    if (nt_causal > 0)
+      warp_mma<1, kNG, false, false, !kExact, !kExact>(gacc, sC, N, m0, 0, sB, N, cg, 0, N,
+                                                       nt_causal);
+    int grow = m0 + g;
+    asm volatile("" : "+r"(grow));   // the D epilogue works its own offsets out: none held
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int nt = 0; nt < kNG; ++nt)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) sG[(ty * 4 + i) * kTS + tx + 16 * q] = g[i][q];
+      for (int hf = 0; hf < 2; ++hf)
+        store2(sG + sw<float>(grow + 8 * hf, cg + 8 * nt + 2 * t, kL), gacc[0][nt][2 * hf],
+               gacc[0][nt][2 * hf + 1]);
   }
-  float dBacc[4][Q];
-  float dCacc[4][Q];
+  float dBacc[1][4][4];   // the group's dB and dC on this warp's tiles of its slice
+  float dCacc[1][4][4];
   zero(dBacc);
   zero(dCacc);
 
   for (int h = h0; h < h1; ++h) {
-    const long long bch = (static_cast<long long>(b) * n_chunks + c) * nheads + h;
-    __syncthreads();   // G is in; the previous head's reads are done
-    {
-      Rows<kP, T> rx;
-      rx.load(x + b * st.x_b + h * st.x_h, st.x_t, t0, chunk, seq);
-      rx.template store<kTS>(sX);
-      Rows<kP, float> rd;
-      rd.load(dy + static_cast<long long>(b) * seq * dy_t + h * kP, dy_t, t0, chunk, seq);
-      rd.template store<kTS>(sDy);
+    const long long bch = bch_of(h);
+    cp_async_wait<0>();
+    __syncthreads();   // x, dy, the decays and S are in; G is in
+    if constexpr (kS > 1) {   // this head's dS', during D and A^T dy
+      copy_tile<N, kBlock>(sD, ds_out + bch * N * kP, kP, N);
+      cp_async_commit();
     }
-    load_state<N>(sSt, s_in + bch * N * kP);
-    if (tid < kL) sCum[tid] = cumbuf[bch * kL + tid];
-    __syncthreads();
-    const float cum_last = sCum[kL - 1];
-    float rowp[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // this thread's share of each row's dcum
-    float zp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (tid < kL) {
+      const float cum = sCum[tid];
+      sE[tid] = expf(cum);
+      sWv[tid] = expf(sCum[kL - 1] - cum);
+    }
+    float rowp[2] = {0.0f, 0.0f};   // rows m0 + g, m0 + g + 8: this thread's share of dcum
+    float zp[2] = {0.0f, 0.0f};
     {
-      // D = dy x^T; the mask before the exp; A, W stored; A o D summed.
-      float d[4][4];
+      // D = dy x^T on the causal tiles; the mask before the exp; A stored,
+      // W summed over the group, A o D summed by row and by column.
+      float d[1][kNG][4];
       zero(d);
-      tile_mm<4, false, false>(d, sDy, kTS, sX, kTS, 0, kP);
-      float colp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (nt_causal > 0)
+        warp_mma<1, kNG, false, false, true, !kExact>(d, sDy, kP, m0, 0, sX, kP, cg, 0, kP,
+                                                      nt_causal);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty * 4 + i;
-        const float cr = sCum[row];
+      for (int nt = 0; nt < kNG; ++nt) {
+        float colp[2] = {0.0f, 0.0f};
+        if (nt < nt_causal) {
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int col = tx + 16 * q;
-          const bool causal = col <= row;
-          const float diff = causal ? cr - sCum[col] : 0.0f;
-          const float m = causal ? expf(diff) : 0.0f;
-          const float a = m * sG[row * kTS + col];
-          sA[row * kTS + col] = a;
-          sW[row * kTS + col] = m * d[i][q];
-          const float v = a * d[i][q];
-          rowp[i] += v;
-          colp[q] += v;
+          for (int hf = 0; hf < 2; ++hf) {
+            const int row = m0 + g + 8 * hf;
+            const int col = cg + 8 * nt + 2 * t;
+            const int off = sw<float>(row, col, kL);   // (row, col) and (row, col + 1)
+            const float2 gv = ld_pair(sG + off);
+            float2 wsum = ld_pair(sWs + off);
+            const float ci = sCum[row];
+            float a2[2];
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const bool causal = col + q <= row;
+              const float diff = causal ? ci - sCum[col + q] : 0.0f;
+              const float m = causal ? expf(diff) : 0.0f;
+              const float a = m * (q ? gv.y : gv.x);
+              const float dv = d[0][nt][2 * hf + q];
+              a2[q] = a;
+              if (causal) (q ? wsum.y : wsum.x) += m * dv;
+              const float v = a * dv;
+              rowp[hf] += v;
+              colp[q] += v;
+            }
+            store2(sA + off, a2[0], a2[1]);
+            store2(sWs + off, wsum.x, wsum.y);
+          }
         }
-      }
+        // This tile's column sums over the warp's 16 rows (lanes of one t),
+        // in a fixed order.
 #pragma unroll
-      for (int q = 0; q < 4; ++q) sCol[ty * kRP + tx + 16 * q] = colp[q];
-    }
-    {
-      // dC_inter = exp(cum_i) (dy S^T), and its dcum term C_i . dC_inter_i.
-      float ci[4][Q];
-      zero(ci);
-      tile_mm<Q, false, false>(ci, sDy, kTS, sSt, kTS, 0, kP);
+        for (int q = 0; q < 2; ++q) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty * 4 + i;
-        const float e = expf(sCum[row]);
-#pragma unroll
-        for (int q = 0; q < Q; ++q) {
-          const float v = ci[i][q] * e;
-          dCacc[i][q] += v;
-          rowp[i] += sC[row * BS + tx + 16 * q] * v;
-        }
-      }
-    }
-    __syncthreads();   // A, W and the column sums are in; the reads of S are done
-    {
-      // dS' over S, and <S, dS'>.
-      constexpr int kIter = N * kP / (kThreads * 4);
-      const float* src = ds_out + bch * N * kP;
-      float4 v[kIter];
-#pragma unroll
-      for (int k = 0; k < kIter; ++k) v[k] = ld4(src + (tid + k * kThreads) * 4);
-      float dot = 0.0f;
-#pragma unroll
-      for (int k = 0; k < kIter; ++k) {
-        const int e = (tid + k * kThreads) * 4;
-        float* dst = sSt + (e / kP) * kTS + e % kP;
-        const float4 s = ld4(dst);
-        dot += s.x * v[k].x + s.y * v[k].y + s.z * v[k].z + s.w * v[k].w;
-        *reinterpret_cast<float4*>(dst) = v[k];
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0) sRed[tid >> 5] = dot;
-    }
-    __syncthreads();
-    {
-      // dx = A^T dy + w o (B dS'), and x . dx_inter.
-      float xa[4][4];
-      float xi[4][4];
-      zero(xa);
-      zero(xi);
-      tile_mm<4, true, true>(xa, sA, kTS, sDy, kTS, ty * 4, kL);
-      tile_mm<4, false, true>(xi, sB, BS, sSt, kTS, 0, N);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int j = ty * 4 + i;
-        const float wj = expf(cum_last - sCum[j]);
-        T* dxrow = dx + ((static_cast<long long>(b) * seq + t0 + j) * nheads + h) * kP;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = tx + 16 * q;
-          const float inter = xi[i][q] * wj;
-          zp[i] += sX[j * kTS + p] * inter;
-          if (j < valid) from_f(xa[i][q] + inter, dxrow + p);
+          for (int off = 4; off < 32; off <<= 1)
+            colp[q] += __shfl_xor_sync(0xffffffffu, colp[q], off);
+          if (g == 0) sCol[(m0 >> 4) * kL + cg + 8 * nt + 2 * t + q] = colp[q];
         }
       }
     }
-    // dC += W B (j <= i); dB += W^T C (i >= j) + w o (x dS'^T).
-    tile_mm<Q, false, true>(dCacc, sW, kTS, sB, BS, 0, ty * 4 + 4);
-    tile_mm<Q, true, true>(dBacc, sW, kTS, sC, BS, ty * 4, kL);
+    __syncthreads();   // A, the W sum, e and w are in
+    // dx = A^T dy (i >= j), then + w o (B dS').
+    float dxa[1][kNG][4];
+    zero(dxa);
+    warp_mma<1, kNG, true, true, true, true>(dxa, sA, kL, m0, m0, sDy, kP, cg, m0, kL - m0);
+    if constexpr (kS == 1) {   // dS' into A's tile, during dy S^T
+      __syncthreads();         // the reads of A are done
+      copy_tile<kL, kBlock>(sD, ds_out + bch * N * kP, kP, kL);
+      cp_async_commit();
+    }
+    float tmp[1][4][4];
+    // dC_inter = e o (dy S^T) over this warp's slice; dC += it; its dcum term C_i . dC_inter_i.
+    zero(tmp);
+    warp_mma<1, 4, false, false, true, true>(tmp, sDy, kP, m0, 0, sSt + hs * kL * kP, kP,
+                                             32 * (wq & 1), 0, kP);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = m0 + g + 8 * (q >> 1);
+        const int col = cs + 8 * nt + 2 * t + (q & 1);
+        const float v = tmp[0][nt][q] * sE[row];
+        dCacc[0][nt][q] += v;
+        rowp[q >> 1] += to_f(sC[sw<T>(row, col, N)]) * v;
+      }
+    cp_async_wait<0>();
+    __syncthreads();   // dS' is in; the reads of dy are done
+    float dot = 0.0f;
     {
-      float bi[4][Q];
-      zero(bi);
-      tile_mm<Q, false, false>(bi, sX, kTS, sSt, kTS, 0, kP);
+      // <S, dS'> over this thread's share of its half's slice.
+      const float* s_h = sSt + hs * kL * kP;
+      const float* d_h = sD + hs * kL * kP;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float wj = expf(cum_last - sCum[ty * 4 + i]);
+      for (int k = 0; k < kL * kP / (4 * kThreads); ++k) {
+        const int e = (tid & (kThreads - 1)) + k * kThreads;
+        const int off = sw<float>(e >> 4, (e & 15) * 4, kP);
+        const float4 sv = *reinterpret_cast<const float4*>(s_h + off);
+        const float4 dv = *reinterpret_cast<const float4*>(d_h + off);
+        dot += sv.x * dv.x + sv.y * dv.y + sv.z * dv.z + sv.w * dv.w;
+      }
+    }
+    __syncthreads();   // the reads of S are done
+    if (h + 1 < h1) {   // the next head's dy, decays and S
+      copy_tile<kL, kBlock>(sDy, dy_b + (h + 1) * kP, dy_t, valid);
+      if (tid < kL / 4) cp_async16(sCum + 4 * tid, cumbuf + bch_of(h + 1) * kL + 4 * tid, true);
+      copy_tile<N, kBlock>(sSt, s_in + bch_of(h + 1) * N * kP, kP, N);
+      cp_async_commit();
+    }
+    // x dS'^T over this warp's slice: dB += w o it; x . dx_inter = w_j B_j . (x dS'^T)_j.
+    zero(tmp);
+    warp_mma<1, 4, false, false, !kExact, true>(tmp, sX, kP, m0, 0, sD + hs * kL * kP, kP,
+                                                32 * (wq & 1), 0, kP);
 #pragma unroll
-        for (int q = 0; q < Q; ++q) dBacc[i][q] += bi[i][q] * wj;
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = m0 + g + 8 * (q >> 1);
+        const int col = cs + 8 * nt + 2 * t + (q & 1);
+        const float v = tmp[0][nt][q];
+        zp[q >> 1] += to_f(sB[sw<T>(row, col, N)]) * v;
+        dBacc[0][nt][q] += v * sWv[row];
+      }
+    if (h + 1 < h1) {
+      __syncthreads();   // the reads of x are done
+      copy_tile<kL, kBlock>(sX, x_b + (h + 1) * st.x_h, st.x_t, valid);
+      cp_async_commit();
+    }
+    // B dS' over every slice's k: dx += w o it.
+    {
+      float bd[1][kNG][4];
+      zero(bd);
+#pragma unroll
+      for (int s = 0; s < kS; ++s)
+        warp_mma<1, kNG, false, true, !kExact, true>(bd, sB, N, m0, kL * s, sD + s * kL * kP,
+                                                     kP, cg, 0, kL);
+#pragma unroll
+      for (int nt = 0; nt < kNG; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dxa[0][nt][q] += bd[0][nt][q] * sWv[m0 + g + 8 * (q >> 1)];
+    }
+    // dx, the rows in the sequence.
+#pragma unroll
+    for (int nt = 0; nt < kNG; ++nt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int j = m0 + g + 8 * hf;
+        if (j < valid)
+          store2(dx + ((static_cast<long long>(b) * seq + t0 + j) * nheads + h) * kP + cg +
+                     8 * nt + 2 * t,
+                 dxa[0][nt][2 * hf], dxa[0][nt][2 * hf + 1]);
+      }
+    // The row terms over the quad, in a fixed order.
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        rowp[hf] += __shfl_xor_sync(0xffffffffu, rowp[hf], off);
+        zp[hf] += __shfl_xor_sync(0xffffffffu, zp[hf], off);
+      }
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        sRow[wq * kL + m0 + g + 8 * hf] = rowp[hf];
+        sZ[wq * kL + m0 + g + 8 * hf] = zp[hf] * sWv[m0 + g + 8 * hf];
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      sRow[tx * kRP + ty * 4 + i] = rowp[i];
-      sZ[tx * kRP + ty * 4 + i] = zp[i];
-    }
+    for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (lane == 0) sDot[w] = dot;
     __syncthreads();
     if (tid < 32) {
       // dcum of rows 2 lane and 2 lane + 1, the last step's terms, then
       // d log_a as the reverse inclusive sum (over lanes from the top).
-      float dc[2];
+      float dcv[2];
       float zsum = 0.0f;
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         const int r = 2 * lane + k;
-        float rs = 0.0f, cs = 0.0f, zs = 0.0f;
+        float rs = 0.0f, zs = 0.0f;
 #pragma unroll
-        for (int u = 0; u < 16; ++u) {
-          rs += sRow[u * kRP + r];
-          cs += sCol[u * kRP + r];
-          zs += sZ[u * kRP + r];
+        for (int u = 0; u < 2 * kS; ++u) {
+          rs += sRow[u * kL + r];
+          zs += sZ[u * kL + r];
         }
-        dc[k] = rs - cs - zs;
+        const float cs4 = sCol[r] + sCol[kL + r] + sCol[2 * kL + r] + sCol[3 * kL + r];
+        dcv[k] = rs - cs4 - zs;
         zsum += zs;
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) zsum += __shfl_xor_sync(0xffffffffu, zsum, off);
       float sdot = 0.0f;
 #pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) sdot += sRed[w];
-      if (lane == 31) dc[1] += expf(cum_last) * sdot + zsum;
-      float suf = dc[0] + dc[1];
+      for (int u = 0; u < kWarps; ++u) sdot += sDot[u];
+      if (lane == 31) dcv[1] += sE[kL - 1] * sdot + zsum;   // exp(cum_last) <S, dS'>
+      float suf = dcv[0] + dcv[1];
 #pragma unroll
       for (int off = 1; off < 32; off <<= 1) {
         const float up = __shfl_down_sync(0xffffffffu, suf, off);
@@ -926,23 +1306,30 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       float above = __shfl_down_sync(0xffffffffu, suf, 1);
       if (lane == 31) above = 0.0f;
-      const float d1 = dc[1] + above;
-      const float d0 = dc[0] + d1;
+      const float d1 = dcv[1] + above;
+      const float d0 = dcv[0] + d1;
       float* out = dla + (static_cast<long long>(b) * seq + t0) * nheads + h;
       if (2 * lane < valid) out[static_cast<long long>(2 * lane) * nheads] = d0;
       if (2 * lane + 1 < valid) out[static_cast<long long>(2 * lane + 1) * nheads] = d1;
     }
   }
+  __syncthreads();   // the group's W sum is in
+  // The W terms once for the group over this warp's slice: dC += (sum W) B
+  // (j <= i), dB += (sum W)^T C (i >= j).
+  warp_mma<1, 4, false, true, true, !kExact>(dCacc, sWs, kL, m0, 0, sB, N, cs, 0, m0 + 16);
+  warp_mma<1, 4, true, true, true, !kExact>(dBacc, sWs, kL, m0, m0, sC, N, cs, m0, kL - m0);
   // The group's dB and dC: part[which][b][c][group][row][n].
   const long long plane = static_cast<long long>(gridDim.z) * n_chunks * gridDim.y * kL * N;
   float* pb = part + ((static_cast<long long>(b) * n_chunks + c) * gridDim.y + blockIdx.y) * kL * N;
+  int row0 = m0 + g;
+  asm volatile("" : "+r"(row0));   // worked out here, not held (or spilled) across the head loop
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      const int idx = (ty * 4 + i) * N + tx + 16 * q;
-      pb[idx] = dBacc[i][q];
-      pb[plane + idx] = dCacc[i][q];
+    for (int hf = 0; hf < 2; ++hf) {
+      const int idx = (row0 + 8 * hf) * N + cs + 8 * nt + 2 * t;
+      store2(pb + idx, dBacc[0][nt][2 * hf], dBacc[0][nt][2 * hf + 1]);
+      store2(pb + plane + idx, dCacc[0][nt][2 * hf], dCacc[0][nt][2 * hf + 1]);
     }
 }
 
@@ -971,18 +1358,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // Launchers, one a kernel, by operand type T and state size N.
-struct BwdDstate {
+struct BwdPass {
   template <typename T, int N>
-  static cudaError_t run(const void* cm, const float* dy, const float* cumbuf, float* qbuf,
-                         long long c_b, long long c_t, int batch, int nheads, int seq,
-                         int chunk, int group, cudaStream_t stream) {
-    auto k = ssd_bwd_chunk_dstate_kernel<T, N>;
-    constexpr size_t bytes = bwd_dstate_smem_bytes<N>();
-    cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  static cudaError_t run(const void* cm, const float* dy, const float* cumbuf,
+                         const float* dfinal, float* ds_out, long long c_b, long long c_t,
+                         int batch, int nheads, int seq, int chunk, cudaStream_t stream) {
+    auto k = ssd_bwd_state_pass_kernel<T>;
+    cudaError_t err =
+        cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, kPassSmem);
     if (err != cudaSuccess) return err;
-    const dim3 grid((seq + chunk - 1) / chunk, (nheads + group - 1) / group, batch);
-    k<<<grid, kThreads, bytes, stream>>>(static_cast<const T*>(cm), dy, cumbuf, qbuf, c_b, c_t,
-                                         nheads, seq, chunk, group);
+    const dim3 grid(N / kPassRows, nheads, batch);
+    k<<<grid, kPassThreads, kPassSmem, stream>>>(static_cast<const T*>(cm), dy, cumbuf, dfinal,
+                                                 ds_out, c_b, c_t, nheads, seq, chunk, N);
     return cudaGetLastError();
   }
 };
@@ -994,11 +1381,11 @@ struct BwdScan {
                          float* dla, void* dx, float* part, const Strides st, int batch,
                          int nheads, int seq, int chunk, int group, cudaStream_t stream) {
     auto k = ssd_bwd_chunk_scan_kernel<T, N>;
-    constexpr size_t bytes = bwd_scan_smem_bytes<N>();
+    constexpr size_t bytes = BwdScanSmem<T, N>::bytes;
     cudaError_t err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return err;
     const dim3 grid((seq + chunk - 1) / chunk, (nheads + group - 1) / group, batch);
-    k<<<grid, kThreads, bytes, stream>>>(
+    k<<<grid, BwdScanSmem<T, N>::kBlock, bytes, stream>>>(
         static_cast<const T*>(bm), static_cast<const T*>(cm), static_cast<const T*>(x), dy, s_in,
         ds_out, cumbuf, dla, static_cast<T*>(dx), part, st, nheads, seq, chunk, group);
     return cudaGetLastError();
@@ -1062,33 +1449,26 @@ extern "C" const char* ssd_error_string(int code) {
 // checks the operands: B, C and x as for ssd_scan_fwd (given by their
 // element strides); dy (B, T, H, P) and dfinal (B, H, N, P; null: zeros)
 // contiguous float32; s_in and cumbuf the forward's dS and decays'
-// scratch; qbuf (B, n_chunks, H, N, P), part (2, B, n_chunks, groups, 64,
+// scratch; ds_out (B, n_chunks, H, N, P), part (2, B, n_chunks, groups, 64,
 // N), d log_a (B, T, H) float32, dx (B, T, H, P), dB and dC (B, T, N) in the
 // operands' dtype, all contiguous.  n, chunk and group as ssd_scan_fwd.
+// The state pass copies C, the chunk scan x, by 16 bytes: their pointers
+// and their strides but the last, in bytes, must be multiples of 16.
 
-extern "C" int ssd_bwd_chunk_dstate(const void* cm, const float* dy, const float* cumbuf,
-                                    float* qbuf, long long c_b, long long c_t, int batch,
-                                    int nheads, int seq, int n, int chunk, int group,
-                                    int is_bf16, int device, void* stream) {
+extern "C" int ssd_bwd_state_pass(const void* cm, const float* dy, const float* cumbuf,
+                                  const float* dfinal, float* ds_out, long long c_b,
+                                  long long c_t, int batch, int nheads, int seq, int n,
+                                  int chunk, int is_bf16, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (chunk < 1 || chunk > kL || group < 1 || group > kMaxGroup)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(by_type<BwdDstate>(is_bf16, n, cm, dy, cumbuf, qbuf, c_b, c_t, batch,
-                                             nheads, seq, chunk, group,
-                                             static_cast<cudaStream_t>(stream)));
-}
-
-extern "C" int ssd_bwd_state_pass(float* qbuf, const float* cumbuf, const float* dfinal,
-                                  int batch, int nheads, int n, int n_chunks, int device,
-                                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = static_cast<long long>(batch) * nheads * n * kP;
-  const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-  ssd_bwd_state_pass_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      qbuf, cumbuf, dfinal, nheads, n * kP, n_chunks, total);
-  return static_cast<int>(cudaGetLastError());
+  if (chunk < 1 || chunk > kL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long esize = is_bf16 ? 2 : 4;
+  if (reinterpret_cast<uintptr_t>(cm) % 16 != 0 || (c_b * esize) % 16 != 0 ||
+      (c_t * esize) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return static_cast<int>(by_type<BwdPass>(is_bf16, n, cm, dy, cumbuf, dfinal, ds_out, c_b, c_t,
+                                           batch, nheads, seq, chunk,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int ssd_bwd_chunk_scan(const void* bm, const void* cm, const void* x, const float* dy,
@@ -1102,6 +1482,10 @@ extern "C" int ssd_bwd_chunk_scan(const void* bm, const void* cm, const void* x,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (chunk < 1 || chunk > kL || group < 1 || group > kMaxGroup)
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long esize = is_bf16 ? 2 : 4;
+  if (reinterpret_cast<uintptr_t>(x) % 16 != 0 || (x_b * esize) % 16 != 0 ||
+      (x_t * esize) % 16 != 0 || (x_h * esize) % 16 != 0)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const Strides st{0, 0, b_b, b_t, c_b, c_t, x_b, x_t, x_h};
   return static_cast<int>(by_type<BwdScan>(is_bf16, n, bm, cm, x, dy, s_in, ds_out, cumbuf, dla,
                                            dx, part, st, batch, nheads, seq, chunk, group,

@@ -89,12 +89,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # b, t; B b, t; C b, t; x b, t, h), batch, nheads, seq, n, chunk,
         # group, is_bf16, device, stream
         "ssd_scan_fwd": ((_VP,) * 8 + (_LL,) * 9 + (_I,) * 8 + (_VP,), _I),
-        # C, dy, the decays' scratch, dS' scratch, C's strides (b, t), batch,
-        # nheads, seq, n, chunk, group, is_bf16, device, stream
-        "ssd_bwd_chunk_dstate": ((_VP,) * 4 + (_LL,) * 2 + (_I,) * 8 + (_VP,), _I),
-        # dS' scratch, decays, final state's gradient (or null), batch,
-        # nheads, n, n_chunks, device, stream
-        "ssd_bwd_state_pass": ((_VP,) * 3 + (_I,) * 5 + (_VP,), _I),
+        # C, dy, the decays' scratch, the final state's gradient (or null),
+        # dS' scratch, C's strides (b, t), batch, nheads, seq, n, chunk,
+        # is_bf16, device, stream
+        "ssd_bwd_state_pass": ((_VP,) * 5 + (_LL,) * 2 + (_I,) * 7 + (_VP,), _I),
         # B, C, x, dy, the forward's dS scratch, dS', decays, d log_a, dx,
         # partials, strides (B b, t; C b, t; x b, t, h), batch, nheads, seq,
         # n, chunk, group, is_bf16, device, stream

@@ -17,12 +17,14 @@ through `SSDScan`, an autograd Function.  On a card its forward launches the
 same three kernels and keeps their scratch for the backward: the states
 entering each chunk, (B, n_chunks, H, N, P), and the decays, (B, n_chunks,
 H, 64), both float32.  Its backward is `ssd_log_bwd`, which launches
-``ssd_bwd_chunk_dstate_kernel``, ``ssd_bwd_state_pass_kernel``,
-``ssd_bwd_chunk_scan_kernel`` and ``ssd_bwd_reduce_kernel`` in that order
-(`BWD_KERNELS`), with no fallback; on the CPU the forward is the plain
-version and the backward autograd through it.  A successful backward on a
-card adds one to ``ssd_log_bwd.launches`` and one to each kernel's entry
-of ``ssd_log_bwd.kernel_launches``.  ``ref.ssd_chunked_bwd_ref`` is the
+``ssd_bwd_state_pass_kernel`` (the chunk sums fused into the reverse state
+pass: it writes the dS' scratch), ``ssd_bwd_chunk_scan_kernel`` and
+``ssd_bwd_reduce_kernel`` in that order (`BWD_KERNELS`), with no fallback;
+the first two run their products on the tensor cores at float32 accuracy
+(3xTF32, ``csrc/ssd.cu``).  On the CPU the forward is the plain version and
+the backward autograd through it.  A successful backward on a card adds one
+to ``ssd_log_bwd.launches`` and one to each kernel's entry of
+``ssd_log_bwd.kernel_launches``.  ``ref.ssd_chunked_bwd_ref`` is the
 backward kernels' function in their own decomposition, which the tests
 and ``chip_smoke.py`` hold them against.
 """
@@ -47,15 +49,22 @@ KERNELS_PER_CALL = 3
 BLOCKS_PER_SM = 2
 #: Most heads one block of the chunk kernels may own (csrc/ssd.cu kMaxGroup).
 MAX_GROUP = 16
+#: `BLOCKS_PER_SM` for the backward's chunk scan.  Its block sums the group's
+#: W = M o D once and writes one dB / dC partial a group, so larger groups
+#: save work: at both training shapes (Zamba2 and mamba2-130m, 2 x 4096)
+#: groups of 16 ran faster than the 8 that two blocks an SM give mamba2.
+BWD_BLOCKS_PER_SM = 1
 
 
-def heads_per_block(batch: int, n_chunks: int, nheads: int, sm_count: int) -> int:
+def heads_per_block(batch: int, n_chunks: int, nheads: int, sm_count: int,
+                    per_sm: int = BLOCKS_PER_SM) -> int:
     """Heads one block of the chunk kernels owns: `MAX_GROUP` (C Bᵀ computed
     once for 16 heads), halved while the launch would have fewer than
-    `BLOCKS_PER_SM` blocks for each of the card's `sm_count` SMs (on an
-    H100's 132, a 1 x 1000 prefill: 16 chunks, 2 heads)."""
+    ``per_sm`` blocks for each of the card's `sm_count` SMs (on an H100's
+    132, a 1 x 1000 prefill: 16 chunks, 2 heads).  The backward passes
+    `BWD_BLOCKS_PER_SM`."""
     g = MAX_GROUP
-    while g > 1 and batch * n_chunks * -(-nheads // g) < BLOCKS_PER_SM * sm_count:
+    while g > 1 and batch * n_chunks * -(-nheads // g) < per_sm * sm_count:
         g //= 2
     return min(g, nheads)
 
@@ -124,13 +133,13 @@ def _check_card(log_a, Bm, Cm, x, intra_dtype):
         raise ValueError("log_a, B, C and x must have a contiguous last axis")
 
 
-def _grid(log_a, chunk, device):
+def _grid(log_a, chunk, device, per_sm=BLOCKS_PER_SM):
     """(sub-chunk length, sub-chunks, heads a block) of a call on a card."""
     b, t, h = log_a.shape
     tile = min(chunk, MAX_TILE)
     n_chunks = -(-t // tile)
     sm = torch.cuda.get_device_properties(device).multi_processor_count
-    return tile, n_chunks, heads_per_block(b, n_chunks, h, sm)
+    return tile, n_chunks, heads_per_block(b, n_chunks, h, sm, per_sm)
 
 
 def _forward(log_a, Bm, Cm, x, chunk, intra_dtype):
@@ -175,8 +184,7 @@ class SSDScan(torch.autograd.Function):
 
 
 #: The backward's kernels, in launch order, and their C entry points.
-BWD_KERNELS = {"ssd_bwd_chunk_dstate_kernel": "ssd_bwd_chunk_dstate",
-               "ssd_bwd_state_pass_kernel": "ssd_bwd_state_pass",
+BWD_KERNELS = {"ssd_bwd_state_pass_kernel": "ssd_bwd_state_pass",
                "ssd_bwd_chunk_scan_kernel": "ssd_bwd_chunk_scan",
                "ssd_bwd_reduce_kernel": "ssd_bwd_reduce"}
 
@@ -187,7 +195,7 @@ def ssd_log_bwd(log_a, Bm, Cm, x, dy, dstate, chunk: int = 64, scratch=None,
     at (log_a, B, C, x), given y's gradient ``dy`` (B,T,H,P) and the final
     state's ``dstate`` (B,H,N,P); None for either: zeros.  On the CPU
     autograd through the plain forward, `ref.ssd_chunked_ref`; on a card
-    the four backward kernels, no fallback, reading the forward kernels'
+    the three backward kernels, no fallback, reading the forward kernels'
     ``scratch`` (the chunk states and the decays that `SSDScan`'s forward
     keeps)."""
     _check(log_a, Bm, Cm, x, chunk)
@@ -211,19 +219,24 @@ ssd_log_bwd.launches = 0
 ssd_log_bwd.kernel_launches = dict.fromkeys(BWD_KERNELS, 0)
 
 
-def bwd_launches(log_a, Bm, Cm, x, dy, dstate, chunk, scratch):
+def bwd_launches(log_a, Bm, Cm, x, dy, dstate, chunk, scratch, group=None):
     """Check the backward's operands on a card and allocate its outputs ->
     ((d log_a, dB, dC, dx, dS', part), {kernel: a function that launches it
     and raises if the launch fails}), in `BWD_KERNELS` order.  dS' is the
-    (B, n_chunks, H, N, P) float32 scratch that ends up holding the
-    gradient of the state leaving each chunk; part, (2, B, n_chunks,
-    groups, 64, N) float32, each head group's dB and dC, which the last
-    kernel adds in group order (no atomics).  Nothing is launched or
-    counted here."""
+    (B, n_chunks, H, N, P) float32 scratch that the state pass fills with
+    the gradient of the state leaving each chunk (the chunk sums stay in its
+    registers); part, (2, B, n_chunks, groups, 64, N) float32, each head
+    group's dB and dC, which the last kernel adds in group order (no
+    atomics).  The chunk scan's blocks own `heads_per_block` heads under
+    `BWD_BLOCKS_PER_SM`, or ``group`` (a sweep's override).  Nothing is
+    launched or counted here."""
     _check_card(log_a, Bm, Cm, x, "float32")
     b, t, h = log_a.shape
     n, p = Bm.shape[2], x.shape[3]
-    tile, n_chunks, group = _grid(log_a, chunk, x.device)
+    tile, n_chunks, rule = _grid(log_a, chunk, x.device, BWD_BLOCKS_PER_SM)
+    group = rule if group is None else group
+    if not 1 <= group <= MAX_GROUP:
+        raise ValueError(f"a head group of {group}: need 1 to {MAX_GROUP}")
     if scratch is None:
         raise ValueError("ssd_log_bwd on a card reads the forward kernels' scratch (SSDScan)")
     s_in, cums = scratch
@@ -247,6 +260,9 @@ def bwd_launches(log_a, Bm, Cm, x, dy, dstate, chunk, scratch):
     ds_out = torch.empty((b, n_chunks, h, n, p), dtype=torch.float32, device=dev)
     part = torch.empty((2, b, n_chunks, n_groups, MAX_TILE, n), dtype=torch.float32,
                        device=dev)
+    # The state pass copies C's rows, the chunk scan x's, by 16 bytes: a view
+    # whose rows are not 16-byte aligned (not the model's) is copied first.
+    c_pass, x = _rows_16(Cm), _rows_16(x)
     lib = build.library("ssd")
     tail = (int(x.dtype == torch.bfloat16), dev.index, torch.cuda.current_stream(dev).cuda_stream)
 
@@ -260,11 +276,9 @@ def bwd_launches(log_a, Bm, Cm, x, dy, dstate, chunk, scratch):
         return call
 
     calls = {
-        "ssd_bwd_chunk_dstate_kernel": launcher(
-            "ssd_bwd_chunk_dstate_kernel", (Cm, dy, cums, ds_out), Cm.stride(0), Cm.stride(1),
-            b, h, t, n, tile, group, *tail),
         "ssd_bwd_state_pass_kernel": launcher(
-            "ssd_bwd_state_pass_kernel", (ds_out, cums, dstate), b, h, n, n_chunks, *tail[1:]),
+            "ssd_bwd_state_pass_kernel", (c_pass, dy, cums, dstate, ds_out), c_pass.stride(0),
+            c_pass.stride(1), b, h, t, n, tile, *tail),
         "ssd_bwd_chunk_scan_kernel": launcher(
             "ssd_bwd_chunk_scan_kernel", (Bm, Cm, x, dy, s_in, ds_out, cums, dla, dx, part),
             Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1), x.stride(0), x.stride(1),
@@ -273,6 +287,14 @@ def bwd_launches(log_a, Bm, Cm, x, dy, dstate, chunk, scratch):
             "ssd_bwd_reduce_kernel", (part, dB, dC), b, t, n, tile, n_groups, *tail),
     }
     return (dla, dB, dC, dx, ds_out, part), calls
+
+
+def _rows_16(t):
+    """``t`` if its pointer and its strides but the last are multiples of 16
+    bytes, else a contiguous copy (whose rows of 64 or 128 elements are)."""
+    esize = t.element_size()
+    aligned = t.data_ptr() % 16 == 0 and all(st * esize % 16 == 0 for st in t.stride()[:-1])
+    return t if aligned else t.contiguous()
 
 
 def _launch(log_a, Bm, Cm, x, y, dstate, cums, state, tile: int, group: int) -> None:

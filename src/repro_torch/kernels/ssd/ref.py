@@ -112,9 +112,8 @@ TILE = 64
 def ssd_chunked_bwd_ref(log_a, Bm, Cm, x, dy, dstate, chunk: int, states: bool = False):
     """The gradient of `ssd_chunked_ref` (float32 intra-chunk work) in the
     backward kernels' decomposition -> (d log_a float32, dB, dC, dx, each in
-    its operand's dtype; with ``states``, also each chunk's
-    sum_i exp(cum_i) C_i dy_i^T and dS', each (B, n_chunks, H, N, P): what
-    the first two kernels write).
+    its operand's dtype; with ``states``, also dS', (B, n_chunks, H, N, P):
+    what the state pass kernel writes).
 
     ``dy`` (B,S,H,P) is y's gradient, ``dstate`` (B,H,N,P) the final
     state's (None: zeros).  The sequence runs in chunks of min(chunk, TILE)
@@ -195,4 +194,4 @@ def ssd_chunked_bwd_ref(log_a, Bm, Cm, x, dy, dstate, chunk: int, states: bool =
         return t.reshape(b, nc * l, *t.shape[3:])[:, :s].to(like.dtype)
 
     grads = out(dla, log_a), out(dB, Bm), out(dC, Cm), out(dx, x)
-    return grads + (q_sum, ds_out) if states else grads
+    return grads + (ds_out,) if states else grads

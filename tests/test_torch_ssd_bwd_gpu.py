@@ -5,12 +5,14 @@ does) and ``ops.ssd_log_bwd`` twice on numpy-seeded operands and
 cotangents, and holds it against ``ref.ssd_chunked_bwd_ref`` on the same
 operands: two runs bitwise; every gradient within 1e-4 of its largest
 magnitude, and a bf16 gradient (dB, dC, dx: both sides round float32 sums
-to bf16 once) also within one bf16 ulp of its value (rtol 2^-7); the four
-backward launches counted exactly.  The cases cover ragged T, chunk 64 and
-256, N 64 and 128, H that the head group does not divide, the model's
-strided slices, no final-state cotangent and bf16 operands.  Then
-``ssd_log`` under grad on a card: one forward launch, and one launch of
-each backward kernel per ``backward()``.  Without a card every case skips;
+to bf16 once) also within one bf16 ulp of its value (rtol 2^-7); the three
+backward launches a call counted exactly.  The cases cover ragged T,
+chunk 64 and 256, N 64 and 128, H that the head group does not divide,
+the model's strided slices, no final-state cotangent, bf16 operands, and
+sub-chunks whose last rows end inside an m16n8k8 tile (T 17 and 100 at N
+128, T 641 at N 64 in bf16).  Then ``ssd_log`` under grad on a card: one
+forward launch, and one launch of each backward kernel per
+``backward()``.  Without a card every case skips;
 this file imports no JAX, so a card's ``pytest -m gpu`` collects it.
 """
 import numpy as np
@@ -60,6 +62,10 @@ def cuda():
     # H100's 132 SMs), the last group 4 or 8
     (4, 2112, 20, 64, 64, "bfloat16", True, True),
     (4, 2112, 24, 128, 64, "float32", False, True),
+    # the mma tiles' edges inside a sub-chunk: 17 and 36 rows in the last
+    (2, 17, 8, 128, 64, "float32", False, True),
+    (2, 100, 8, 128, 64, "float32", False, False),
+    (2, 641, 8, 64, 64, "bfloat16", True, True),
 ])
 def test_cuda_bwd_kernels_match_plain_and_repeat(cuda, b, t, h, n, chunk, dtype, strided,
                                                  final):
@@ -71,8 +77,8 @@ def test_cuda_bwd_kernels_match_plain_and_repeat(cuda, b, t, h, n, chunk, dtype,
     again = ops.ssd_log_bwd(la, Bm, Cm, x, dy, ds, chunk, scratch)
     want = ref.ssd_chunked_bwd_ref(la, Bm, Cm, x, dy, ds, chunk)
     torch.cuda.synchronize()
-    assert {k: v - before[k] for k, v in ops.ssd_log_bwd.kernel_launches.items()} == \
-        dict.fromkeys(ops.BWD_KERNELS, 2)
+    counts = {k: v - before[k] for k, v in ops.ssd_log_bwd.kernel_launches.items()}
+    assert counts == dict.fromkeys(ops.BWD_KERNELS, 2) and sum(counts.values()) == 2 * 3
     for name, g, a, w in zip(("dlog_a", "dB", "dC", "dx"), got, again, want):
         assert torch.equal(g, a), name
         assert g.shape == w.shape and g.dtype == w.dtype, name
@@ -97,8 +103,8 @@ def test_ssd_log_under_grad_on_a_card_launches_the_kernels(cuda):
     (y.square().sum() + st.sum()).backward()
     torch.cuda.synchronize()
     assert ops.ssd_log.launches == fwd + 1
-    assert {k: v - bwd[k] for k, v in ops.ssd_log_bwd.kernel_launches.items()} == \
-        dict.fromkeys(ops.BWD_KERNELS, 1)
+    counts = {k: v - bwd[k] for k, v in ops.ssd_log_bwd.kernel_launches.items()}
+    assert counts == dict.fromkeys(ops.BWD_KERNELS, 1) and sum(counts.values()) == 3
     want = ref.ssd_chunked_bwd_ref(la.detach(), Bm.detach(), Cm.detach(), x.detach(),
                                    2 * y.detach(), torch.ones_like(st), 64)
     for g, w in zip((la.grad, Bm.grad, Cm.grad, x.grad), want):
