@@ -6,11 +6,14 @@
     python3 chip_smoke.py --distributed-only [--n-runs 8]
     python3 chip_smoke.py --lm-only [--reps 5]
     python3 chip_smoke.py --train-only [--reps 5]
+    python3 chip_smoke.py --sharded-only
+    python3 chip_smoke.py --drill-only [--n-runs 8]
 
 The second form only times the brick mosaic on random tiles at the brick
 window's shape (`mosaic_only`); a copy of the script at the root of an older
 checkout times that checkout's mosaic kernel the same way.  The first form
-runs these phases, in order, each printing its seconds:
+runs these phases, in order, each printing its seconds (the main survey
+renders in a process pool while phase 3 runs):
 
 1. card: a CUDA device must be present; prints ``nvidia-smi``'s name and
    power limit.
@@ -239,7 +242,9 @@ runs these phases, in order, each printing its seconds:
    ``peak_bytes`` and the ``max_memory_allocated`` rise as phase "4
    streaming" does.  Then the SIGKILL drill: this script as a subprocess
    (``--crash-child``) streams ``raw_fits`` over a reduced survey
-   (`CRASH_CFG`, 720 frames) with ``journal_dir``, once uninterrupted, once
+   (`CRASH_CFG`, 720 frames: the main survey's first two epochs, pickled
+   once for the three processes, `crash_survey`) with ``journal_dir``, once
+   uninterrupted, once
    killed by its own SIGKILL after the first window's journal commit, then
    once more on that journal: it resumes the finished window and is bitwise
    the uninterrupted run.
@@ -343,6 +348,29 @@ runs these phases, in order, each printing its seconds:
    resumed: final losses within 1e-6, bitwise or not printed).
    ``--train-only`` runs the flash and SSD backward's cases, this phase
    and the backward's timings, and exits.
+4. lm sharded ("4 lm sharded", after training; `sharded_phase`): the train
+   step on a device mesh (``make_sharded_train_step``: parameters, m and v
+   DTensors placed by the sharding rules, the flash and SSD kernels on each
+   rank's local shards through ``local_map``).  Form (a): one NCCL rank on
+   a (1, 1) mesh, qwen2-1.5b at full width and depth, 2 x 4096, one float32
+   and one bf16 step against the unsharded step (float32 within 1e-4 of each
+   leaf's scale, bitwise or not printed; bf16 by the ratio rule), exactly
+   `step_launches` a step, ms a step beside the unsharded step's.  Form
+   (b): eight gloo ranks sharing the card on a (4, 2) mesh (qwen2-1.5b
+   FSDP + TP, granite-moe-3b-a800m's token-local MoE over (data, model),
+   mamba2-130m pure_dp, qwen2-1.5b with zero1 and sequence-parallel
+   activations; no remat, 2 layers, mamba2 8; 8 x 512), 2 float32 steps
+   and one bf16 step each against the unsharded runs on the card (each
+   step's loss within 1e-5 and grad norm within 1e-4 of its value, the
+   first step's gradients within 1e-4 of their scale, the second step's
+   parameters within 1e-4; bf16 and zero1 by the ratio rule; the kernels
+   held in phase 3 at each rank's local shapes, `sharded_kernel_cases`),
+   every rank's loss bitwise rank 0's, every
+   placement its spec's after each step, the collectives of a step by kind
+   and bytes (CommDebugMode), each rank's ``max_memory_allocated``.
+   ``--sharded-only`` builds the kernels, holds them at the phase's local
+   shapes (phase "3 lm kernels"'s `sharded_kernel_cases`), runs this phase
+   and exits.
 5. measure: each kernel's time on the card (CUDA events, warm), its plain
    version's, the nearest PyTorch call's (``F.grid_sample`` bilinear over
    the same samples, plus a sum for the coadd; it covers only the
@@ -629,6 +657,15 @@ FLASH_CASES = (
     ("granite_gqa24_8_d64", 4, 24, 8, 2048, 64, True, None, "bfloat16", True),
     ("whisper_encoder_s1500", 4, 20, 20, 1500, 64, False, None, "bfloat16", True),
     ("llama_vision_gqa32_8_d128", 4, 32, 8, 2048, 128, True, None, "bfloat16", True),
+    # The shapes a rank of phase "4 lm sharded" gives the kernel (`sharded_kernel_cases`):
+    # qwen2-1.5b at 2 x 4096 (form a), its 6:1 heads a shard on 2 rows of 512 and
+    # granite's 24:8 on 1 row (form b).
+    ("qwen2_train_b2_s4096", 2, 12, 2, 4096, 128, True, None, "bfloat16", True),
+    ("qwen2_train_b2_s4096_f32", 2, 12, 2, 4096, 128, True, None, "float32", True),
+    ("qwen2_shard_6_1_s512", 2, 6, 1, 512, 128, True, None, "bfloat16", True),
+    ("qwen2_shard_6_1_s512_f32", 2, 6, 1, 512, 128, True, None, "float32", True),
+    ("granite_shard_24_8_s512", 1, 24, 8, 512, 64, True, None, "bfloat16", True),
+    ("granite_shard_24_8_s512_f32", 1, 24, 8, 512, 64, True, None, "float32", True),
 )
 # The flash backward kernels (flash_bwd_preprocess_kernel, flash_bwd_dkdv_kernel,
 # flash_bwd_dq_kernel) against flash_bwd_ref on the same operands (q, k, v and
@@ -658,6 +695,11 @@ FLASH_BWD_CASES = (
     # blocks and 3 x 8 x 32, both over one and a half waves
     ("qwen2_b5_nosplit", 5, 12, 2, 4096, 128, True, None, "bfloat16"),
     ("granite_b3_f32_nosplit", 3, 24, 8, 2048, 64, True, None, "float32"),
+    # phase "4 lm sharded" form (b)'s local shards (`sharded_kernel_cases`)
+    ("qwen2_shard_6_1_s512", 2, 6, 1, 512, 128, True, None, "bfloat16"),
+    ("qwen2_shard_6_1_s512_f32", 2, 6, 1, 512, 128, True, None, "float32"),
+    ("granite_shard_24_8_s512", 1, 24, 8, 512, 64, True, None, "bfloat16"),
+    ("granite_shard_24_8_s512_f32", 1, 24, 8, 512, 64, True, None, "float32"),
 )
 BWD_F32_REL, LSE_REL = 1e-4, 1e-5
 # flash_bwd_times: the wrapper, SDPA's backward and the two dkdv grids (the
@@ -705,6 +747,9 @@ SSD_CASES = (
     # this size), and its heads under groups of 16 (a last group of 8) at N 128.
     ("mamba2_130m_prefill", 4, 2048, 24, 128, 256, "bfloat16", "strided"),
     ("h24_group16_n128", 4, 2112, 24, 128, 64, "bfloat16", "strided"),
+    # mamba2-130m on one row of 512 a rank (phase "4 lm sharded" form b, pure_dp)
+    ("mamba2_shard_t512", 1, 512, 24, 128, 256, "bfloat16", "strided"),
+    ("mamba2_shard_t512_f32", 1, 512, 24, 128, 256, "float32", "strided"),
 )
 # The SSD backward kernels (ssd_bwd_state_pass_kernel, ssd_bwd_chunk_scan_kernel,
 # ssd_bwd_reduce_kernel) against ssd_chunked_bwd_ref on the same operands
@@ -740,6 +785,9 @@ SSD_BWD_CASES = (
     ("mamba2_130m_train_f32", 2, 4096, 24, 128, 256, "float32", "strided", False),
     ("zamba2_train", 2, 4096, 64, 64, 64, "bfloat16", "strided", False),
     ("zamba2_train_f32", 2, 4096, 64, 64, 64, "float32", "strided", False),
+    # phase "4 lm sharded" form (b)'s local shards (`sharded_kernel_cases`)
+    ("mamba2_shard_t512", 1, 512, 24, 128, 256, "bfloat16", "strided", False),
+    ("mamba2_shard_t512_f32", 1, 512, 24, 128, 256, "float32", "strided", False),
 )
 SSD_BWD_BF16_RTOL = 2.0 ** -7
 # Phase 5 times the SSD backward at these training shapes: (B, T, H, N, chunk).
@@ -842,6 +890,51 @@ TRAIN_STEPS = 10
 TRAIN_DRILL = dict(n_layers=2, vocab=512, steps=12, global_batch=4, seq_len=256, ckpt_every=4,
                    crash_at=6)
 DRILL_TOL = 1e-6
+# The LM train step on a device mesh (phase "4 lm sharded", after "4 lm
+# training"; `sharded_phase`): make_sharded_train_step, the parameters, m and
+# v placed by the sharding rules (FSDP + TP, pure_dp, zero1, the token-local
+# MoE, sequence-parallel activations), the flash and SSD kernels on each
+# rank's local shards.  Form (a): one NCCL rank on a (1, 1) mesh, TRAIN_ARCH
+# at full width and depth on TRAIN_BATCH (LM.init(TRAIN_SEED), the first
+# TokenPipeline batch), one float32 and one bf16 step, each held against the
+# unsharded step of the same dtype (float32 within F32_REL of each leaf's
+# scale, bitwise or not printed; bf16 by the ratio rule of each leaf's
+# float32 update), exactly `step_launches` a step.  Form (b): eight gloo
+# ranks sharing the card (NCCL puts no two ranks on one device) on the
+# reference test's (4, 2) mesh, each cell 2 float32 AdamW steps (as
+# tests/test_distributed.py:57 runs) and one bf16 step on SHARDED_BATCH_B,
+# held against the unsharded runs on the card (parameters within
+# SHARDED_PARAM_ATOL and loss within SHARDED_LOSS_ATOL, the reference test's;
+# bf16 by the ratio rule; the MoE's unsharded run dispatching over the same
+# token groups, `moe.moe_apply_grouped`); every rank's loss bitwise rank
+# 0's, every placement its spec's.  Form (b) runs each cell without remat
+# and cut in depth (qwen2 and granite to 2 layers, mamba2-130m to 8) so
+# that the phase keeps to the script's time: gloo carries every collective
+# of CUDA tensors through the host, 10-20 s a step at 4 layers (PERF.md).
+# mamba2 keeps 8: at 4 its 96-value A_log gradient missed the bf16 ratio
+# rule's max criterion by 4 % in one run (PERF.md).
+SHARDED_MESH_A = ((1, 1), ("data", "model"))
+SHARDED_CELLS_A = ((TRAIN_ARCH, {}),)
+# What each step of a form holds, by dtype (one entry a step): "params",
+# the parameters after the step, and "m", AdamW's first moment, which
+# after the first step is (1 - b1) times the clipped gradient.
+SHARDED_KEEP_A = {"float32": [("params", "m"), ()], "bfloat16": [("m",), ()]}
+SHARDED_MESH_B = ((4, 2), ("data", "model"))
+SHARDED_BATCH_B = (8, 512)
+SHARDED_KEEP_B = {"float32": [("m",), ("params",)], "bfloat16": [("m",)]}
+SHARDED_CELLS_B = (
+    ("qwen2-1.5b", dict(n_layers=2, remat=False)),            # FSDP + TP, flash at 6:1 a shard
+    ("granite-moe-3b-a800m", dict(n_layers=2, remat=False)),  # token-local MoE, (data, model)
+    ("mamba2-130m", dict(n_layers=8, remat=False)),           # pure_dp, SSD at 1 row a rank
+    ("qwen2-1.5b", dict(n_layers=2, remat=False, param_mode="zero1",  # qwen2-72b's zero1 and
+                        seq_shard_activations=True)),                # sequence parallelism
+)
+# Form (b)'s float32 steps (tests/test_distributed.py:85-87): every parameter
+# after the second step within SHARDED_PARAM_ATOL of the unsharded run's,
+# each step's loss within SHARDED_LOSS_ATOL; in both forms each float32
+# step's grad norm within F32_REL of the unsharded one's.
+SHARDED_PARAM_ATOL, SHARDED_LOSS_ATOL = 1e-4, 1e-5
+SHARDED_TIMEOUT_S = 900
 
 
 class SmokeFailure(Exception):
@@ -1089,11 +1182,12 @@ def flash_rows(torch, what, out, plain, floor=0.0):
     return ulps, l2
 
 
-def flash_cases(torch, flash, flash_ref, dev):
-    """Hold csrc/flash.cu against its plain version in every FLASH_CASES case."""
+def flash_cases(torch, flash, flash_ref, dev, cases=FLASH_CASES):
+    """Hold csrc/flash.cu against its plain version in every case of
+    ``cases`` (FLASH_CASES, or those of `sharded_kernel_cases`)."""
     g = torch.Generator(device=dev).manual_seed(15)
     worst = 0.0
-    for name, b, hq, hkv, s, d, causal, window, dtype, strided in FLASH_CASES:
+    for name, b, hq, hkv, s, d, causal, window, dtype, strided in cases:
         dt = getattr(torch, dtype)
         if strided:   # the model's (B, S, H, D) activations seen as (B, H, S, D)
             q, k, v = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt).transpose(1, 2)
@@ -1154,9 +1248,10 @@ def sdpa_backward(torch, F, q, k, v, do, causal, window):
     return lambda: torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
 
 
-def flash_bwd_cases(torch, dev):
+def flash_bwd_cases(torch, dev, cases=FLASH_BWD_CASES):
     """Hold the forward's LSE and the backward kernels against their plain
-    versions in every FLASH_BWD_CASES case -> {kernel: worst max |diff|}."""
+    versions in every case of ``cases`` (FLASH_BWD_CASES, or those of
+    `sharded_kernel_cases`) -> {kernel: worst max |diff|}."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import ops as flash_ops
@@ -1165,7 +1260,7 @@ def flash_bwd_cases(torch, dev):
     g = torch.Generator(device=dev).manual_seed(25)
     worst = dict.fromkeys(flash_ops.BWD_KERNELS, 0.0)
     grids = set()   # (dtype, split grid) of the GQA cases
-    for name, b, hq, hkv, s, d, causal, window, dtype in FLASH_BWD_CASES:
+    for name, b, hq, hkv, s, d, causal, window, dtype in cases:
         dt = getattr(torch, dtype)
         q, k, v, do = (torch.randn((b, s, h, d), generator=g, device=dev).to(dt).transpose(1, 2)
                        for h in (hq, hkv, hkv, hq))
@@ -1251,16 +1346,19 @@ def flash_bwd_cases(torch, dev):
               + "; two runs bitwise" + info, flush=True)
         del q, k, v, do, o, lse, got, again, want, delta, delta_p, calls, alone, part
     torch.cuda.empty_cache()
-    require(grids == {(t, sp) for t in ("bfloat16", "float32") for sp in (False, True)},
+    require(cases is not FLASH_BWD_CASES
+            or grids == {(t, sp) for t in ("bfloat16", "float32") for sp in (False, True)},
             f"flash bwd: a GQA case on each grid in each dtype, got {sorted(grids)}")
     return worst
 
 
-def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, ssd_heads_per_block, dev):
-    """Hold csrc/ssd.cu against its plain versions in every SSD_CASES case."""
+def ssd_cases(torch, ssd_log, ssd, chunked_ref, batched_ref, ssd_heads_per_block, dev,
+              cases=SSD_CASES):
+    """Hold csrc/ssd.cu against its plain versions in every case of ``cases``
+    (SSD_CASES, or those of `sharded_kernel_cases`)."""
     g = torch.Generator(device=dev).manual_seed(16)
     worst = 0.0
-    for name, b, t, h, n, chunk, dtype, form in SSD_CASES:
+    for name, b, t, h, n, chunk, dtype, form in cases:
         log_a, Bm, Cm, x = ssd_operands(torch, g, dev, b, t, h, n, dtype, form)
         y_p, s_p = chunked_ref(log_a, Bm, Cm, x, chunk)
         if form == "a":
@@ -1308,16 +1406,17 @@ def ssd_operands(torch, g, dev, b, t, h, n, dtype, form):
     return log_a, Bm, Cm, torch.randn((b, t, h, SSD_P), generator=g, device=dev).to(dt)
 
 
-def ssd_bwd_cases(torch, dev):
+def ssd_bwd_cases(torch, dev, cases=SSD_BWD_CASES):
     """Hold the SSD backward kernels against ssd_chunked_bwd_ref in every
-    SSD_BWD_CASES case -> {kernel: worst max |diff| of what it writes}."""
+    case of ``cases`` (SSD_BWD_CASES, or those of `sharded_kernel_cases`)
+    -> {kernel: worst max |diff| of what it writes}."""
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunked_bwd_ref
 
     g = torch.Generator(device=dev).manual_seed(27)
     worst = dict.fromkeys(ssd_ops.BWD_KERNELS, 0.0)
     names = ("dlog_a", "dB", "dC", "dx")
-    for name, b, t, h, n, chunk, dtype, form, final in SSD_BWD_CASES:
+    for name, b, t, h, n, chunk, dtype, form, final in cases:
         ops_in = ssd_operands(torch, g, dev, b, t, h, n, dtype, form)
         dy = torch.randn((b, t, h, SSD_P), generator=g, device=dev)
         ds = torch.randn((b, h, n, SSD_P), generator=g, device=dev) if final else None
@@ -1745,7 +1844,9 @@ def kernels_swapped_for_plain():
     from repro_torch.kernels.attention.ref import flash_ref
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 
-    return lm_kernels_replaced(lambda _, *a: flash_ref(*a), lambda _, *a: ssd_chunked_ref(*a))
+    # The plain versions run on plain tensors: the batch axes of a mesh are moot.
+    return lm_kernels_replaced(lambda _, *a, batch_axes=(): flash_ref(*a),
+                               lambda _, *a, batch_axes=(): ssd_chunked_ref(*a))
 
 
 def kernels_held_per_call(held, rows):
@@ -1767,8 +1868,8 @@ def kernels_held_per_call(held, rows):
             err, over = max(err, float(diff.max())), max(over, float((diff / allowed).max()))
         held[name] = (calls + 1, err, over)
 
-    def flash(kernel, q, k, v, causal=True, window=None, scale=None):
-        out = kernel(q, k, v, causal, window, scale)
+    def flash(kernel, q, k, v, causal=True, window=None, scale=None, batch_axes=()):
+        out = kernel(q, k, v, causal, window, scale, batch_axes=batch_axes)
         plain = flash_ref(q, k, v, causal, window, scale).float()
         tol = FLASH_TOL[str(q.dtype).removeprefix("torch.")]
         note("flash_attention_single", (out, plain, tol + tol * plain.abs()))
@@ -1777,8 +1878,8 @@ def kernels_held_per_call(held, rows):
             rows[:] = [max(a, b) for a, b in zip(rows, got)]
         return out
 
-    def ssd_log(kernel, log_a, Bm, Cm, x, chunk=64, intra_dtype="float32"):
-        y, s = kernel(log_a, Bm, Cm, x, chunk, intra_dtype)
+    def ssd_log(kernel, log_a, Bm, Cm, x, chunk=64, intra_dtype="float32", batch_axes=()):
+        y, s = kernel(log_a, Bm, Cm, x, chunk, intra_dtype, batch_axes=batch_axes)
         y_p, s_p = ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
         note("ssd_chunked", *((got, want, SSD_TOL * max(float(want.abs().max()), 1.0))
                               for got, want in ((y, y_p), (s, s_p))))
@@ -1984,8 +2085,8 @@ def moe_flips_per_call(flips):
     def apply(params, x, cfg, return_kv=False, use_kernel=True):
         xn = rmsnorm(params["ln_attn"], x)
         kernel = flash_ops.flash_attention
-        flash_ops.flash_attention = lambda q, k, v, causal=True, window=None, scale=None: (
-            flash_ref(q, k, v, causal, window, scale))
+        flash_ops.flash_attention = lambda q, k, v, causal=True, window=None, scale=None, \
+            batch_axes=(): flash_ref(q, k, v, causal, window, scale)
         try:
             h_plain = attn.attend_full(params["attn"], xn, cfg, use_kernel=use_kernel)
         finally:
@@ -2210,10 +2311,11 @@ def zero_lm_counts():
 
 
 def step_launches(torch, cfg, b, s, dtype):
-    """The launches one remat training step of a dense, ssm or hybrid
+    """The launches one training step of a dense, ssm or hybrid
     configuration must make, from its config alone: each layer's forward
-    kernel twice (the recompute), except the hybrid's n_layers %
-    shared_attn_period tail layers, which are not rematted, once; each
+    kernel twice under remat (the recompute), except the hybrid's n_layers %
+    shared_attn_period tail layers, which are not rematted, once (once
+    everywhere without remat); each
     backward kernel once a layer (the flash reduction on the split grid
     only).  The hybrid's shared attention block after every
     shared_attn_period layers counts as a layer of attention."""
@@ -2227,10 +2329,12 @@ def step_launches(torch, cfg, b, s, dtype):
     split = n_attn and flash_ops.bwd_split(
         b, cfg.n_heads, cfg.n_kv_heads, s,
         flash_ops.bwd_key_tile(cfg.head_dim, getattr(torch, dtype)))
-    return {"flash_attention_single": 2 * n_attn,
+    fwd = 2 if cfg.remat else 1   # without remat, each forward kernel once a layer
+    return {"flash_attention_single": fwd * n_attn,
             **{k: n_attn * bool(split or k != "flash_bwd_dkdv_reduce_kernel")
                for k in flash_ops.BWD_KERNELS},
-            "ssd_chunked": 2 * n_ssd - tail, **dict.fromkeys(ssd_ops.BWD_KERNELS, n_ssd)}
+            "ssd_chunked": fwd * n_ssd - tail * (fwd - 1),
+            **dict.fromkeys(ssd_ops.BWD_KERNELS, n_ssd)}
 
 
 def unit_launches(model):
@@ -2564,6 +2668,548 @@ def train_drill(torch, dev):
     return dict(config=dict(d, arch=TRAIN_ARCH), final_loss=clean["final_loss"],
                 resumed_final_loss=resumed["final_loss"], diff=diff, bitwise=bitwise,
                 seconds=time.perf_counter() - t0)
+
+
+# --------------------------------------------------------- 4 lm sharded --
+
+def sharded_batch(torch, cfg, b, s):
+    """The first TokenPipeline batch (b, s) over synthetic_corpus at cfg's
+    vocabulary, as phase "4 lm training" builds its batches (CPU tensors)."""
+    from repro_torch.data.packing import pack_documents, synthetic_corpus
+    from repro_torch.data.pipeline import PipelineConfig, TokenPipeline
+
+    docs, srcs = synthetic_corpus(vocab=cfg.vocab_size, seed=TRAIN_SEED)
+    pipe = TokenPipeline(pack_documents(docs, srcs, shard_len=4 * s),
+                         PipelineConfig(b, s, seed=TRAIN_SEED))
+    return {k: torch.from_numpy(v) for k, v in pipe.batch_at(0).items()}
+
+
+def sharded_local(cfg, sizes, b):
+    """(rows, q heads, kv heads) of one rank's flash calls, and the MoE's
+    token groups (1 for other families), for a global batch of b rows on a
+    mesh of ``sizes``: the kernels' local shards (`sharding.local_spec`)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.specs import act_axes
+
+    act = act_axes(cfg, sizes, b)
+    spec = sharding.local_spec(sizes, act, b, 4, head_dim=1,
+                               heads=(cfg.n_heads, cfg.n_kv_heads) if cfg.n_heads else ())
+    rows = b // math.prod(sizes[a] for a in spec[0] or ())
+    m = sizes.get("model", 1) if spec[1] == "model" else 1
+    groups = (b // rows) if cfg.family == "moe" else 1
+    return rows, cfg.n_heads // m, cfg.n_kv_heads // m, groups
+
+
+def sharded_kernel_cases():
+    """The phase-3 cases at the shapes phase "4 lm sharded" gives the
+    kernels -> {"flash", "flash_bwd", "ssd", "ssd_bwd": the cases of
+    FLASH_CASES, FLASH_BWD_CASES, SSD_CASES, SSD_BWD_CASES}: each rank's
+    local shard (`sharded_local`) of every cell of both forms, in float32
+    and bf16; SmokeFailure where a table has no such case."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.specs import act_axes
+
+    tables = dict(flash=FLASH_CASES, flash_bwd=FLASH_BWD_CASES, ssd=SSD_CASES,
+                  ssd_bwd=SSD_BWD_CASES)
+    picked = {key: [] for key in tables}
+    for (shape, axes), cells, (b, s) in ((SHARDED_MESH_A, SHARDED_CELLS_A, TRAIN_BATCH),
+                                         (SHARDED_MESH_B, SHARDED_CELLS_B, SHARDED_BATCH_B)):
+        sizes = dict(zip(axes, shape))
+        for arch, cut in cells:
+            cfg = dataclasses.replace(get_config(arch), **cut)
+            rows, hq, hkv, _ = sharded_local(cfg, sizes, b)
+            want = {}
+            if cfg.n_heads:
+                want["flash"] = want["flash_bwd"] = (rows, hq, hkv, s, cfg.head_dim, True,
+                                                     cfg.sliding_window)
+            if cfg.family in SSD_FAMILIES:
+                h = cfg.n_ssm_heads
+                spec = sharding.local_spec(sizes, act_axes(cfg, sizes, b), b, 4, 2, (h,))
+                want["ssd"] = want["ssd_bwd"] = (
+                    rows, s, h // (sizes["model"] if spec[2] == "model" else 1),
+                    cfg.ssm_state, cfg.ssm_chunk)
+            for key, shp in want.items():
+                for dtype in ("float32", "bfloat16"):
+                    hits = [c for c in tables[key]
+                            if tuple(c[1:1 + len(shp)]) == shp and c[1 + len(shp)] == dtype]
+                    require(hits, f"lm sharded: {arch} gives a rank's {key} kernel {shp} in "
+                                  f"{dtype}, which no phase-3 case holds")
+                    picked[key] += [c for c in hits if c not in picked[key]]
+    return picked
+
+
+def sharded_step_launches(torch, cfg, sizes, b, s, dtype):
+    """The launches a rank's sharded step makes (`step_launches` at its local
+    rows and heads; a MoE layer counts as a dense one's attention)."""
+    rows, hq, hkv, _ = sharded_local(cfg, sizes, b)
+    local = dataclasses.replace(cfg, n_heads=hq, n_kv_heads=hkv,
+                                family="dense" if cfg.family == "moe" else cfg.family)
+    return step_launches(torch, local, rows, s, dtype)
+
+
+@contextlib.contextmanager
+def moe_groups(groups):
+    """The plain model's MoE layers dispatching token-local over ``groups``
+    row groups (`moe.moe_apply_grouped`): the function the sharded step
+    computes over its shards; nothing for 1."""
+    from repro_torch.models import moe
+
+    saved = moe.moe_apply
+    if groups > 1:
+        moe.moe_apply = functools.partial(moe.moe_apply_grouped, groups=groups)
+    try:
+        yield
+    finally:
+        moe.moe_apply = saved
+
+
+def device_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def unsharded_steps(torch, cfg, params0, batch, keep, groups, sizes, host=False):
+    """AdamW steps of make_train_step on plain tensors from params0 (cloned):
+    for each dtype of ``keep`` ({dtype: [names kept after each step]}) one
+    step an entry -> {dtype: [dict(loss, grad_norm, ms, and a copy of each
+    kept tree: "params", "m")]}; zero1 as the config says (the compute
+    copy's specs those of a mesh of ``sizes``); the MoE over ``groups``
+    token groups (`moe_groups`); with ``host`` the copies in host memory
+    (handed to ranks through shared memory, not the card)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.specs import make_train_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import adamw_init, tree_map
+
+    dev = next(x for _, x in tree_leaves(params0)).device
+    out = {}
+    for dtype, kept in keep.items():
+        c = dataclasses.replace(cfg, dtype=dtype)
+        compute = (sharding.strip_axis(sharding.param_pspecs(params0, sizes, pure_dp=c.pure_dp))
+                   if c.param_mode == "zero1" else None)
+        step = make_train_step(build_model(c, device=dev), compute_pspecs=compute)
+        params = tree_map(lambda x: x.clone(), params0)
+        opt = adamw_init(params)
+        runs = []
+        with moe_groups(groups):
+            for names in kept:
+                device_sync(torch, dev)
+                t0 = time.perf_counter()
+                params, opt, met = step(params, opt, batch)
+                device_sync(torch, dev)
+                run = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                           ms=(time.perf_counter() - t0) * 1e3)
+                trees = {"params": params, "m": opt["m"]}
+                run.update({k: tree_map(lambda x: x.detach().to("cpu" if host else x.device,
+                                                                copy=True), trees[k])
+                            for k in names})
+                runs.append(run)
+        out[dtype] = runs
+        del params, opt, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def comm_bytes_mode():
+    """DTensor's CommDebugMode that also adds up, by collective, the bytes of
+    each call's input tensor on this rank."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class CommBytes(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            before = sum(self.comm_counts.values())
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if sum(self.comm_counts.values()) > before:
+                name = str(func._overloadpacket).split(".")[-1]
+                t = next((a for a in args if hasattr(a, "element_size")), None)
+                self.bytes[name] = self.bytes.get(name, 0) + (
+                    0 if t is None else t.numel() * t.element_size())
+            return out
+
+    return CommBytes()
+
+
+def tree_get(tree, path):
+    for k in path.strip("/").split("/"):
+        tree = tree[k]
+    return tree
+
+
+def held_shards(torch, tree, want, truth, name, pspecs, mesh, coord):
+    """This rank's shards of ``tree`` (the sharded step's parameters or first
+    moments after step i + 1) against the same slices of the unsharded
+    run's -> {path: numbers}: the largest |diff|, whether equal, the
+    largest |value| of the unsharded one, and for bf16 the sums of squares
+    (owned shards only: a replicated shard counts on coordinate 0) and the
+    largest values of sharded - f32, unsharded - f32 and f32, the
+    float32 truth given (``truth``, None: held by tolerance)."""
+    from repro_torch.distributed import sharding
+
+    want = want[name]
+    f32 = None if truth is None else truth[name]
+    out = {}
+    for path, x in tree_leaves(tree):
+        pspec = tree_get(pspecs, path)
+        loc = x.to_local().float()
+        w = sharding.local_part(tree_get(want, path), pspec, mesh).to(loc.device).float()
+        diff = (loc - w).abs()
+        info = dict(equal=bool(torch.equal(loc, w)), scale=float(w.abs().max()),
+                    owned=all(c == 0 for c, p in zip(coord, x.placements) if p.is_replicate()),
+                    max_diff=float(diff.max()) if diff.numel() else 0.0)
+        if f32 is not None:
+            f = sharding.local_part(tree_get(f32, path), pspec, mesh).to(loc.device).float()
+            for key, t in (("s", loc - f), ("c", w - f), ("f", f)):
+                info[key + "2"] = float((t.double() ** 2).sum())
+                info[key + "max"] = float(t.abs().max())
+        out[path] = info
+    return out
+
+
+def sharded_rank(rank, world, spec):
+    """One rank of phase "4 lm sharded" (`sharded_phase`), started by
+    ``run_ranks`` -> a row a cell.
+
+    On the mesh of ``spec``, for each cell: the config's sharded train step
+    (``make_sharded_train_step``) from LM.init(TRAIN_SEED), the steps of
+    ``spec["keep"]`` in float32 and in bf16, each step counted (the LM kernels'
+    launches), timed, its placements checked (every parameter, m and v as
+    its spec says, step replicated) and its parameters compared shard by
+    shard with the unsharded runs' (the cell carries them, or this rank
+    runs them first: form (a)): the largest |diff| and, for the ratio rule,
+    the sums of squares of the shards this rank owns (a replicated shard
+    counts on coordinate 0 only).  The second float32 step's collectives
+    are counted by kind and bytes (`comm_bytes_mode`)."""
+    import warnings as _w
+
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import make_sharded_train_step
+    from repro_torch.models.model import build_model
+
+    _w.filterwarnings("ignore")
+    dev = torch.device(spec["device"])
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    shape, axes = spec["mesh"]
+    mesh = make_mesh(shape, axes, dev.type, spec["backend"])
+    sizes = dict(zip(axes, shape))
+    coord = mesh.get_coordinate()
+    rows = []
+    if rank == 0:
+        print(f"  rank 0: joined the group ({spec['backend']}, {world} ranks)", flush=True)
+    for cell in spec["cells"]:
+        cfg = dataclasses.replace(get_config(cell["arch"]), **cell["cut"])
+        b = cell["batch"]["tokens"].shape[0]
+        batch = {k: v.to(dev) for k, v in cell["batch"].items()}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        base = cell.get("base")
+        own = base is None
+        if own:   # form (a): the unsharded runs in this process first
+            if cfg.param_mode == "zero1":
+                raise ValueError("a cell run in its rank holds no zero1 step")
+            params0 = build_model(cfg, device=dev).init(TRAIN_SEED)
+            base = unsharded_steps(torch, cfg, params0, batch, spec["keep"], 1, sizes)
+            del params0
+        truths = cell.get("truth") or base["float32"]
+        row = dict(steps=[])
+        for dtype, kept in spec["keep"].items():
+            t_cell = time.perf_counter()
+            st = make_sharded_train_step(dataclasses.replace(cfg, dtype=dtype), mesh, b,
+                                         device=dev)
+            params, opt, bt = st.place(st.model.init(TRAIN_SEED), batch)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            placed_s, held_s = time.perf_counter() - t_cell, 0.0
+            for i, names in enumerate(kept):
+                zero_lm_counts()
+                counted = dtype == "float32" and i == 1 and world > 1
+                mode = comm_bytes_mode() if counted else contextlib.nullcontext()
+                device_sync(torch, dev)
+                t0 = time.perf_counter()
+                with mode:
+                    params, opt, met = st(params, opt, bt)
+                device_sync(torch, dev)
+                rec = dict(dtype=dtype, step=i + 1, ms=(time.perf_counter() - t0) * 1e3,
+                           loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                           launches=lm_counts())
+                if counted:
+                    rec["collectives"] = {str(k).split(".")[-1]: v
+                                          for k, v in mode.comm_counts.items()}
+                    rec["collective_bytes"] = mode.bytes
+                rec["placements_ok"] = all(
+                    x.placements == tuple(sharding.placements(tree_get(st.pspecs, path), mesh))
+                    for tree in (params, opt["m"], opt["v"]) for path, x in tree_leaves(tree)
+                ) and opt["step"].placements == tuple(sharding.placements((), mesh))
+                t_held = time.perf_counter()
+                trees = {"params": params, "m": opt["m"]}
+                ratio = dtype == "bfloat16" or cfg.param_mode == "zero1"
+                truth = truths[i if dtype == "float32" else 0] if ratio else None
+                rec["held"] = {name: held_shards(torch, trees[name], base[dtype][i], truth, name,
+                                                 st.pspecs, mesh, coord)
+                               for name in names}
+                held_s += time.perf_counter() - t_held
+                row["steps"].append(rec)
+                if rank == 0:   # progress, for a run cut short
+                    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+                    print(f"  rank 0: {cell['arch']} {dtype} step {i + 1} {rec['ms']:.1f} ms, "
+                          f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+            if rank == 0:
+                print(f"  rank 0: {cell['arch']} {dtype}: built and placed in {placed_s:.1f} s, "
+                      f"held in {held_s:.1f} s, {time.perf_counter() - t_cell:.1f} s in all",
+                      flush=True)
+            del st, params, opt, bt
+            if own and dtype == "float32":   # held: not read again
+                for run in base["float32"]:
+                    run.pop("params", None)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        row["max_memory_allocated"] = (torch.cuda.max_memory_allocated()
+                                       if dev.type == "cuda" else 0)
+        row["base"], row["truth"] = ({d: [{k: v for k, v in r.items() if k not in ("params", "m")}
+                                          for r in runs] for d, runs in base.items()},
+                                     [{k: v for k, v in r.items() if k not in ("params", "m")}
+                                      for r in truths])
+        rows.append(row)
+        del base, batch
+    return rows
+
+
+def hold_tree(form, what, dtype, i, name, leaves, rec, ref, truth):
+    """Hold one tree of one step over the ranks' `held_shards` numbers ->
+    its record.  float32: parameters within SHARDED_PARAM_ATOL (form b, the
+    reference test's), or within F32_REL of each leaf's scale (form a, and
+    the first moments); bf16: the ratio rule, the sharded step's distance
+    from the unsharded float32 step against the unsharded bf16 step's, for
+    every leaf, the loss and the grad norm.  A zero1 step's gradients are
+    bf16 whatever the dtype: its float32 steps are held by the ratio rule
+    too, against the same config's plain (fsdp) float32 step (``truth``:
+    None holds by tolerance; `hold_sharded` holds such a step's loss and
+    grad norm)."""
+    max_diff = {p: max(x["max_diff"] for x in v) for p, v in leaves.items()}
+    scale = {p: max(x["scale"] for x in v) for p, v in leaves.items()}
+    out = dict(bitwise=all(x["equal"] for v in leaves.values() for x in v))
+    if truth is None:
+        if form == "b" and name == "params":   # tests/test_distributed.py:85-87
+            worst = max(max_diff, key=max_diff.get)
+            require(max_diff[worst] < SHARDED_PARAM_ATOL,
+                    f"{what} float32 step {i + 1} {name}: {worst} max |diff| "
+                    f"{max_diff[worst]:.3g} (limit {SHARDED_PARAM_ATOL})")
+            out.update(worst=worst, max_abs=max_diff[worst])
+            out["note"] = f"largest {worst} |diff| {max_diff[worst]:.3g}"
+            return out
+        rel = {p: max_diff[p] / max(scale[p], 1e-30) for p in max_diff}
+        worst = max(rel, key=rel.get)
+        require(rel[worst] <= F32_REL, f"{what} float32 step {i + 1} {name}: {worst} "
+                                       f"{rel[worst]:.3g} of its scale")
+        out.update(worst=worst, max_rel=rel[worst])
+        out["note"] = f"largest {worst} {rel[worst]:.3g} of its scale"
+        return out
+    f32 = truth
+
+    def norms(key):
+        return {p: (math.sqrt(sum(x[key + "2"] for x in v if x["owned"])),
+                    max(x[key + "max"] for x in v)) for p, v in leaves.items()}
+
+    sh, un, sc = norms("s"), norms("c"), norms("f")
+    rel = {p: (sh[p][0] / max(sc[p][0], 1e-30), sh[p][1] / max(sc[p][1], 1e-30),
+               un[p][0] / max(sc[p][0], 1e-30), un[p][1] / max(sc[p][1], 1e-30))
+           for p in leaves}
+    for key in ("loss", "grad_norm"):
+        w = abs(f32[key])
+        rel[key] = (abs(rec[key] - f32[key]) / w,) * 2 + (abs(ref[key] - f32[key]) / w,) * 2
+    ratio, at = 0.0, ""
+    for p, (l2_s, mx_s, l2_c, mx_c) in rel.items():
+        require(l2_s <= BF16_L2 * l2_c + BF16_ULP and mx_s <= BF16_MAX * mx_c + BF16_ULP,
+                f"{what} {dtype} step {i + 1} {name} {p}: from the unsharded float32 step, "
+                f"sharded L2 {l2_s:.3g} max {mx_s:.3g}, unsharded L2 {l2_c:.3g} max "
+                f"{mx_c:.3g}")
+        if l2_s / max(l2_c, 1e-30) > ratio:
+            ratio = l2_s / max(l2_c, 1e-30)
+            at = f"{p}: L2 {l2_s:.3g} vs {l2_c:.3g}, max {mx_s:.3g} vs {mx_c:.3g}"
+    out.update(l2_ratio=ratio, at=at)
+    out["note"] = f"bf16 ratio rule, largest L2 ratio {ratio:.3g} ({at})"
+    return out
+
+
+def hold_sharded(torch, form, cell, sizes, b, s, rows, card):
+    """Hold one cell of phase "4 lm sharded" over its ranks' rows -> (its
+    record, the LM kernels' launches of every rank's steps)."""
+    from repro_torch.configs.registry import get_config
+
+    arch, cut = cell["arch"], cell["cut"]
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    what = f"lm sharded ({form}) {arch}{' ' + str(cut) if cut else ''}"
+    r0 = rows[0]
+    launches = {}
+    for r, row in enumerate(rows):
+        for rec, rec0 in zip(row["steps"], r0["steps"]):
+            require(rec["loss"] == rec0["loss"] and rec["grad_norm"] == rec0["grad_norm"],
+                    f"{what} rank {r} {rec['dtype']} step {rec['step']}: loss "
+                    f"{rec['loss']!r} / grad norm {rec['grad_norm']!r}, rank 0 "
+                    f"{rec0['loss']!r} / {rec0['grad_norm']!r}")
+            require(rec["placements_ok"], f"{what} rank {r} {rec['dtype']} step "
+                                          f"{rec['step']}: a parameter, m, v or step is not "
+                                          "placed as its spec says")
+            want = sharded_step_launches(torch, cfg, sizes, b, s, rec["dtype"])
+            require(rec["launches"] == want, f"{what} rank {r} {rec['dtype']} step "
+                                             f"{rec['step']}: launched {rec['launches']}, "
+                                             f"expected {want}")
+            for k, v in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    base = r0["base"]
+    truths = r0["truth"]
+    out = dict(arch=arch, cut=cut, batch=[b, s], mesh=sizes, ranks=len(rows), card=card,
+               max_memory_allocated=[row["max_memory_allocated"] for row in rows], steps=[])
+    for k, rec in enumerate(r0["steps"]):
+        dtype, i = rec["dtype"], rec["step"] - 1
+        ref = base[dtype][i]
+        if dtype == "float32" and cfg.param_mode != "zero1":
+            dl, dg = abs(rec["loss"] - ref["loss"]), abs(rec["grad_norm"] - ref["grad_norm"])
+            loss_tol = SHARDED_LOSS_ATOL if form == "b" else F32_REL * abs(ref["loss"])
+            require(dl < loss_tol and dg <= F32_REL * abs(ref["grad_norm"]),
+                    f"{what} float32 step {i + 1}: loss {rec['loss']!r} vs {ref['loss']!r} "
+                    f"(limit {loss_tol:.3g}), grad norm {rec['grad_norm']!r} vs "
+                    f"{ref['grad_norm']!r} (limit {F32_REL} of it)")
+        step = dict(dtype=dtype, step=i + 1, ms=[row["steps"][k]["ms"] for row in rows],
+                    unsharded_ms=ref["ms"], loss=rec["loss"], unsharded_loss=ref["loss"],
+                    grad_norm=rec["grad_norm"], unsharded_grad_norm=ref["grad_norm"],
+                    launches=rec["launches"], held={})
+        notes = []
+        for name in rec["held"]:
+            leaves = {p: [row["steps"][k]["held"][name][p] for row in rows]
+                      for p in rec["held"][name]}
+            ratio = dtype == "bfloat16" or cfg.param_mode == "zero1"
+            truth = (truths[i if dtype == "float32" else 0] if ratio else None)
+            held = hold_tree(form, what, dtype, i, name, leaves, rec, ref, truth)
+            step["held"][name] = held
+            notes.append(f"{name}: {held['note']}")
+        step["bitwise"] = all(h["bitwise"] for h in step["held"].values()) and \
+            rec["loss"] == ref["loss"]
+        if "collectives" in rec:
+            step["collectives"] = rec["collectives"]
+            step["collective_bytes"] = rec["collective_bytes"]
+        out["steps"].append(step)
+        ms = step["ms"]
+        print(f"  {what} {dtype} step {i + 1}: {statistics.median(ms):.1f} ms a step (median "
+              f"of {len(ms)} ranks; max {max(ms):.1f}), unsharded {ref['ms']:.1f} ms; loss "
+              f"{rec['loss']:.6f} vs {ref['loss']:.6f}, grad norm {rec['grad_norm']:.6f} vs "
+              f"{ref['grad_norm']:.6f}; {'; '.join(notes)}; bitwise {step['bitwise']}; every "
+              f"rank's loss rank 0's; launches a rank {rec['launches']}", flush=True)
+        if "collectives" in rec:
+            calls = {k: (rec["collectives"].get(k), v) for k, v in rec["collective_bytes"].items()}
+            print(f"    collectives a step on rank 0 (CommDebugMode; calls, bytes of each "
+                  f"call's input): {calls}", flush=True)
+    print(f"  {what}: max_memory_allocated by rank (GiB) "
+          f"{[round(x / 2**30, 2) for x in out['max_memory_allocated']]}; {card}", flush=True)
+    return out, launches
+
+
+def sharded_phase(torch, card):
+    """Phase "4 lm sharded": make_sharded_train_step in form (a), one NCCL
+    rank on a (1, 1) mesh at full width and depth (SHARDED_A), and form (b),
+    SHARDED_WORLD_B gloo ranks sharing the card on SHARDED_MESH_B
+    (SHARDED_CELLS_B, the unsharded runs made here first and handed to the
+    ranks) -> (record, the LM kernels' launches of every rank's steps)."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import DEFAULT_BACKEND, run_ranks
+    from repro_torch.models.model import build_model
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "sharded")
+    shutil.rmtree(root, ignore_errors=True)
+    sharded_kernel_cases()   # every shape the ranks give a kernel is held in phase 3
+    record, launches = {}, {}
+    # Eight ranks' allocators share the card: they grow segments in place
+    # rather than leave it fragmented between cells (form (b)'s unsharded
+    # runs reach them in host shared memory, not through CUDA IPC, which
+    # the card's machine refuses under expandable segments).
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        for form in ("a", "b"):
+            if form == "a":
+                (shape, axes), cells = SHARDED_MESH_A, [dict(arch=a, cut=c)
+                                                        for a, c in SHARDED_CELLS_A]
+                b, s = TRAIN_BATCH
+                world, backend, keep = 1, DEFAULT_BACKEND[dev.type], SHARDED_KEEP_A
+            else:
+                (shape, axes), cells = SHARDED_MESH_B, [dict(arch=a, cut=c)
+                                                        for a, c in SHARDED_CELLS_B]
+                b, s = SHARDED_BATCH_B
+                world, backend, keep = math.prod(shape), "gloo", SHARDED_KEEP_B
+            sizes = dict(zip(axes, shape))
+            truths = {}
+            for cell in cells:
+                cfg = dataclasses.replace(get_config(cell["arch"]), **cell["cut"])
+                cell["batch"] = sharded_batch(torch, cfg, b, s)
+                if form == "b":   # the unsharded runs, handed to the ranks
+                    params0 = build_model(cfg, device=dev).init(TRAIN_SEED)
+                    on_dev = {k: v.to(dev) for k, v in cell["batch"].items()}
+                    groups = sharded_local(cfg, sizes, b)[3]
+                    cell["base"] = unsharded_steps(torch, cfg, params0, on_dev, keep, groups,
+                                                   sizes, host=True)
+                    plain = dataclasses.replace(cfg, param_mode="fsdp",
+                                                seq_shard_activations=False)
+                    if plain == cfg:
+                        truths[plain] = cell["base"]["float32"]
+                    else:   # zero1: held against float32 math, a plain cell's runs
+                        cell["truth"] = truths.get(plain) or unsharded_steps(
+                            torch, plain, params0, on_dev, {"float32": keep["float32"]},
+                            groups, sizes, host=True)["float32"]
+                    del params0, on_dev
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            store = os.path.join(root, f"store_{form}")
+            os.makedirs(store)
+            print(f"  lm sharded ({form}): spawning {world} rank(s), "
+                  f"{time.perf_counter() - t_phase:.1f} s into the phase", flush=True)
+            t0 = time.perf_counter()
+            spec = dict(device=DEVICE, mesh=(shape, axes), backend=backend, keep=keep,
+                        cells=cells)
+            out = run_ranks(sharded_rank, world, store, backend, args=(spec,),
+                            timeout_s=SHARDED_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            rows = []
+            for c, cell in enumerate(cells):
+                rec, got = hold_sharded(torch, form, cell, sizes, b, s, [o[c] for o in out],
+                                        card)
+                rows.append(rec)
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+            record[form] = dict(world=world, backend=backend, mesh=[list(shape), list(axes)],
+                                wall_s=wall, cells=rows)
+            print(f"  lm sharded ({form}): {world} rank(s), {backend}, mesh {shape} {axes}, "
+                  f"ranks ran {wall:.1f} s", flush=True)
+            del cells, out, spec
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("flash_attention_single", "ssd_chunked"):
+        require(launches.get(name, 0) > 0, f"lm sharded: {name} never launched")
+    return record, launches
 
 
 def bwd_bound(b, hq, hkv, s, d, causal, window, esize, products, nbytes):
@@ -3597,26 +4243,51 @@ def faults_phase(torch, np, dev, survey, engines, query, bqueries, counted):
                  "psf_match_2d", "coadd_moments_batch", "coadd_hist_batch", "coadd_clip_batch"):
         require(launches[name] > 0, f"faults: no {name} launch")
     out["launches"] = launches
-    out["crash"] = crash_drill(np)
+    out["crash"] = crash_drill(np, survey)
     return out
 
 
-def crash_drill(np):
+def crash_survey(survey=None, processes=1):
+    """The survey of `CRASH_CFG` (720 frames).  ``make_survey`` renders the
+    epochs in order, each frame from its own seed, so a survey whose
+    config differs from CRASH_CFG only in more epochs holds it as its
+    first frames: they are taken from ``survey`` when it is one (no second
+    render); else the survey is rendered on ``processes``."""
+    from repro_torch import SurveyConfig, make_survey
+    from repro_torch.core.survey import Survey
+
+    cfg = SurveyConfig(**CRASH_CFG)
+    if (survey is not None and survey.config.n_runs >= cfg.n_runs
+            and dataclasses.replace(survey.config, n_runs=cfg.n_runs) == cfg):
+        n = cfg.n_runs * cfg.n_camcols * cfg.n_fields * cfg.n_bands
+        return Survey(cfg, survey.images[:n], survey.catalog_ra, survey.catalog_dec,
+                      survey.catalog_flux)
+    return make_survey(cfg, processes=processes)
+
+
+def crash_drill(np, survey):
     """The SIGKILL drill: this script as a subprocess (``--crash-child``)
-    streams ``raw_fits`` over a reduced survey (`CRASH_CFG`) with
+    streams ``raw_fits`` over a reduced survey (`crash_survey` of the main
+    ``survey``, pickled once for the three processes) with
     ``journal_dir``: once uninterrupted, once killed by its own SIGKILL at
     `CRASH_STAGE` (`durable.set_crash_hook`), then a fresh process on the
     killed one's journal, which must resume (``resumed_windows`` > 0, only
     the missing windows launched, no journal left) bitwise the
     uninterrupted run.  -> the numbers it printed."""
+    import pickle
     import shutil
 
     root = os.path.join(ROOT, "build", "crash_drill")
     shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    survey_path = os.path.join(root, "survey.pkl")
+    with open(survey_path, "wb") as fh:
+        pickle.dump(crash_survey(survey, os.cpu_count() or 1), fh,
+                    protocol=pickle.HIGHEST_PROTOCOL)
 
     def child(name, crash=None):
         cmd = [sys.executable, os.path.abspath(__file__), "--crash-child",
-               os.path.join(root, name)]
+               os.path.join(root, name), "--crash-survey", survey_path]
         if crash:
             cmd += ["--crash", crash]
         t0 = time.perf_counter()
@@ -3661,21 +4332,24 @@ def crash_drill(np):
     return row
 
 
-def crash_child(out_dir, crash):
-    """``--crash-child``: one durable streamed ``raw_fits`` query over
-    `CRASH_CFG` on the card, its result into ``out_dir``; with ``crash``
-    (``stage:ordinal``) the process SIGKILLs itself at that durable commit."""
+def crash_child(out_dir, crash, survey_path):
+    """``--crash-child``: one durable streamed ``raw_fits`` query over the
+    pickled survey at ``survey_path`` on the card, its result into
+    ``out_dir``; with ``crash`` (``stage:ordinal``) the process SIGKILLs
+    itself at that durable commit."""
+    import pickle
     import signal
 
     import numpy as np
     import torch
 
-    from repro_torch import CoaddEngine, CoaddQuery, SurveyConfig, make_survey
+    from repro_torch import CoaddEngine, CoaddQuery
     from repro_torch.core import durable
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    survey = make_survey(SurveyConfig(**CRASH_CFG), processes=os.cpu_count() or 1)
+    with open(survey_path, "rb") as fh:
+        survey = pickle.load(fh)
     probe = CoaddEngine(survey, pack_capacity=64, device=DEVICE).exec_dataset("per_file")[0]
     budget = probe.chunk_nbytes(0, probe.n_packs) // STREAM_FRAC
     del probe
@@ -3953,7 +4627,6 @@ def distributed_phase(torch, np, survey, query, bqueries, procs):
     import pickle
     import shutil
 
-    from repro_torch import SurveyConfig, make_survey
     from repro_torch.launch.mesh import DEFAULT_BACKEND
 
     root = os.path.join(ROOT, "build", "distributed")
@@ -3967,11 +4640,9 @@ def distributed_phase(torch, np, survey, query, bqueries, procs):
 
     queries = {"main": [qdict(query)], "k4": [qdict(q) for q in bqueries]}
 
-    def pickled(form, sv=None):
+    def pickled(form, sv):
         """The form's survey pickled for its ranks -> (path, frames, s)."""
         t0 = time.perf_counter()
-        if sv is None:
-            sv = make_survey(SurveyConfig(**CRASH_CFG), processes=procs)
         path = os.path.join(root, f"survey_{form}.pkl")
         with open(path, "wb") as fh:
             pickle.dump(sv, fh, protocol=pickle.HIGHEST_PROTOCOL)
@@ -3979,10 +4650,11 @@ def distributed_phase(torch, np, survey, query, bqueries, procs):
 
     forms = {}
     dev_type = torch.device(DEVICE).type
-    # Form (b)'s cut survey renders (in its own process pool) while form
-    # (a)'s rank runs.
+    # Form (b)'s cut survey (the main survey's first two epochs,
+    # `crash_survey`) is pickled while form (a)'s rank runs.
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        prepared = {"a": pool.submit(pickled, "a", survey), "b": pool.submit(pickled, "b")}
+        prepared = {"a": pool.submit(pickled, "a", survey),
+                    "b": pool.submit(lambda: pickled("b", crash_survey(survey, procs)))}
         for form, world, backend in (("a", 1, DEFAULT_BACKEND[dev_type]),
                                      ("b", DIST_WORLD_B, "gloo")):
             forms[form] = distributed_form(form, world, backend, *prepared[form].result(),
@@ -4099,9 +4771,17 @@ def main(argv=None) -> int:
     ap.add_argument("--train-only", action="store_true",
                     help="only hold the flash backward kernels, run phase 4 lm training and "
                          "time the backward kernels, and exit")
+    ap.add_argument("--sharded-only", action="store_true",
+                    help="only hold the LM kernels at the shapes phase 4 lm sharded gives them, "
+                         "run that phase (forms a and b) and exit")
+    ap.add_argument("--drill-only", action="store_true",
+                    help="only run phase 4 faults' SIGKILL drill over a survey of --n-runs "
+                         "epochs and exit")
     ap.add_argument("--crash-child", metavar="DIR",
                     help="the SIGKILL drill's subprocess (crash_child); not for direct use")
     ap.add_argument("--crash", metavar="STAGE:N", help="with --crash-child: SIGKILL there")
+    ap.add_argument("--crash-survey", metavar="PKL",
+                    help="with --crash-child: the pickled survey it queries")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -4113,7 +4793,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.crash_child:
-        return crash_child(args.crash_child, args.crash)
+        return crash_child(args.crash_child, args.crash, args.crash_survey)
     if args.mosaic_only:
         print(card_line())
         mosaic_only(torch, np, torch.device(DEVICE))
@@ -4130,6 +4810,40 @@ def main(argv=None) -> int:
             print(json.dumps({"distributed": distributed_phase(
                 torch, np, survey, CoaddQuery(**MAIN_QUERY),
                 offset_queries(CoaddQuery, MAIN_QUERY, BATCH_OFFSETS), os.cpu_count() or 1)}))
+        return 0
+
+    if args.drill_only:
+        from repro_torch import SurveyConfig, make_survey
+        from repro_torch.kernels import build
+
+        print(card_line())
+        build.build_all()
+        survey = make_survey(SurveyConfig(**dict(CRASH_CFG, n_runs=args.n_runs)),
+                             processes=os.cpu_count() or 1)
+        print(json.dumps({"crash": crash_drill(np, survey)}))
+        return 0
+    if args.sharded_only:
+        from repro_torch.kernels import build
+        from repro_torch.kernels.attention import ops as flash_ops
+        from repro_torch.kernels.attention.ref import flash_ref
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        from repro_torch.kernels.ssd import ref as ssd_ref
+
+        smi = card_line()
+        print(smi)
+        with phase("2 build"):
+            build.build_all()
+        with phase("3 lm kernels"):   # at the shapes the phase gives them
+            dev, cases = torch.device(DEVICE), sharded_kernel_cases()
+            flash_cases(torch, flash_ops.flash_attention, flash_ref, dev, cases["flash"])
+            flash_bwd_cases(torch, dev, cases["flash_bwd"])
+            ssd_cases(torch, ssd_ops.ssd_log, ssd_ops.ssd, ssd_ref.ssd_chunked_ref,
+                      ssd_ref.ssd_batched_ref, ssd_ops.heads_per_block, dev, cases["ssd"])
+            ssd_bwd_cases(torch, dev, cases["ssd_bwd"])
+        with phase("4 lm sharded"):
+            sharded, sharded_launches = sharded_phase(torch, smi)
+            print(json.dumps({"lm_sharded": sharded, "launches": sharded_launches}))
+        print(f"card: {smi}")
         return 0
 
     import torch.nn.functional as F
@@ -4185,6 +4899,20 @@ def main(argv=None) -> int:
         for name in ("warp", "psf", "mosaic", "flash", "ssd"):
             print(f"  loaded {build.library_path(name).relative_to(ROOT)}")
             build.library(name)
+
+    # The main path's survey renders in its own process pool while phase 3
+    # runs on the card.
+    import concurrent.futures
+
+    cfg = SurveyConfig(n_runs=args.n_runs, n_camcols=6, n_bands=5, n_fields=12,
+                       height=512, width=512, seed=82)
+
+    def render():
+        t0 = time.perf_counter()
+        return make_survey(cfg, processes=procs), time.perf_counter() - t0
+
+    render_pool = concurrent.futures.ThreadPoolExecutor(1)
+    rendering = render_pool.submit(render)
 
     # --------------------------------------------------------- 3 kernels --
     edge_flips = []       # (case, kernel, image or -1, row, col)
@@ -5068,15 +5796,15 @@ def main(argv=None) -> int:
                                             ssd_ops.heads_per_block, dev)
 
     # ------------------------------------------------------- 4 main path --
-    cfg = SurveyConfig(n_runs=args.n_runs, n_camcols=6, n_bands=5, n_fields=12,
-                       height=512, width=512, seed=82)
     query = CoaddQuery(**MAIN_QUERY)
     with phase("4 main path"):
         t0 = time.perf_counter()
-        survey = make_survey(cfg, processes=procs)
+        survey, render_s = rendering.result()
+        render_pool.shutdown()
         print(f"  survey: {len(survey)} frames of {cfg.height} x {cfg.width} px "
               f"(n_runs={cfg.n_runs}{'' if cfg.n_runs == 8 else ', cut from 8'}) "
-              f"rendered in {time.perf_counter() - t0:.1f} s on {procs} processes")
+              f"rendered in {render_s:.1f} s on {procs} processes beside phase 3 (waited "
+              f"{time.perf_counter() - t0:.1f} s for it here)")
         eng = CoaddEngine(survey, pack_capacity=64, device=DEVICE, brick_deg=BRICK_DEG,
                           brick_npix=BRICK_NPIX)
         t0 = time.perf_counter()
@@ -5866,6 +6594,15 @@ def main(argv=None) -> int:
     with phase("4 lm training"):
         training, train_launches = lm_training(torch, np, dev, smi)
         print(json.dumps({"lm_training": training}))
+
+    # ------------------------------------------- 4 lm sharded train step --
+    # The same kernels on each rank's local shards: their launches count in
+    # the kernels' rows with the training path's.
+    with phase("4 lm sharded"):
+        sharded, sharded_launches = sharded_phase(torch, smi)
+        print(json.dumps({"lm_sharded": sharded}))
+        for k, v in sharded_launches.items():
+            train_launches[k] = train_launches.get(k, 0) + v
 
     # --------------------------------------------------------- 5 measure --
     kernels = []

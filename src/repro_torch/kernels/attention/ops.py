@@ -26,15 +26,23 @@ without the LSE, as before.
 Only a successful launch adds one to ``flash_attention.launches`` (forward)
 or to ``flash_attention_bwd.launches`` and its kernel's entry of
 ``flash_attention_bwd.kernel_launches`` (backward: three or four a call).
+
+On a device mesh (DTensor operands, the sharded train step) a kernel never
+sees a DTensor: `flash_attention` runs each rank's local shard through
+``local_map``, the batch split over the given batch axes and the heads over
+``model`` where both the q heads and the kv heads divide by it (each shard
+keeps the GQA ratio), the operands redistributed to that first.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import build
 from repro_torch.kernels.attention import ref
 
@@ -110,7 +118,7 @@ def _forward(q, k, v, causal, window, scale, with_lse):
 
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
-                    scale: Optional[float] = None):
+                    scale: Optional[float] = None, batch_axes: Sequence[str] = ()):
     """q: (B, Hq, S, D), k/v: (B, Hkv, S, D) -> (B, Hq, S, D) in q's dtype.
 
     Forward attention with an online softmax, the function of the JAX
@@ -119,8 +127,11 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
     operands may be strided views whose last axis is contiguous; the output
     takes q's memory layout, so a (B, S, H, D) activation seen as
     (B, H, S, D) comes back the same way.  Differentiable under grad
-    (`FlashAttention`).
+    (`FlashAttention`).  DTensor operands run on their local shards (the
+    batch over ``batch_axes``, the module docstring).
     """
+    if isinstance(q, DTensor):
+        return _on_shards(q, k, v, causal, window, scale, batch_axes)
     _check(q, k, v, window)
     scale = _scale(q.shape[3], scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -129,6 +140,16 @@ def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
 
 
 flash_attention.launches = 0
+
+
+def _on_shards(q, k, v, causal, window, scale, batch_axes):
+    """`flash_attention` of DTensors through ``local_map``: the output placed
+    as the operands' local shards are."""
+    mesh = q.device_mesh
+    pl = sharding.placements(sharding.local_spec(mesh, batch_axes, q.shape[0], 4, head_dim=1,
+                                                 heads=(q.shape[1], k.shape[1])), mesh)
+    run = sharding.on_shards(flash_attention, mesh, (pl, pl, pl, None, None, None), pl)
+    return run(q, k, v, causal, window, scale)
 
 
 class FlashAttention(torch.autograd.Function):

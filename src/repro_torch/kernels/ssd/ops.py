@@ -27,12 +27,23 @@ to ``ssd_log_bwd.launches`` and one to each kernel's entry of
 ``ssd_log_bwd.kernel_launches``.  ``ref.ssd_chunked_bwd_ref`` is the
 backward kernels' function in their own decomposition, which the tests
 and ``chip_smoke.py`` hold them against.
+
+On a device mesh (DTensor operands, the sharded train step) the kernels
+never see a DTensor: `ssd_log` runs each rank's local shard through
+``local_map``, the batch split over the given batch axes and the heads over
+``model`` where ``model`` is not a batch axis and divides them.  B and C
+are shared by every head (one group), so they stay whole over ``model``
+and their gradients come back as partial sums over it.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Sequence
 
+import torch
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import sharding
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref
 
@@ -93,7 +104,8 @@ def _check(log_a, Bm, Cm, x, chunk):
                          f"log_a {tuple(log_a.shape)}, chunk {chunk}")
 
 
-def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
+def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32",
+            batch_axes: Sequence[str] = ()):
     """The chunked SSD scan -> (y (B,T,H,P) float32, final state (B,H,N,P) float32).
 
     log_a: (B,T,H) float32 log-decay (<= 0); B/C: (B,T,N), shared across
@@ -103,8 +115,11 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
     kernels owns `heads_per_block` heads (the last block fewer when that
     does not divide H), and the call allocates two scratch tensors: the
     chunk states, (B, n_chunks, H, N, P) float32, and the decays,
-    (B, n_chunks, H, 64).
+    (B, n_chunks, H, 64).  DTensor operands run on their local shards (the
+    batch over ``batch_axes``, the module docstring).
     """
+    if isinstance(x, DTensor):
+        return _on_shards(log_a, Bm, Cm, x, chunk, intra_dtype, batch_axes)
     _check(log_a, Bm, Cm, x, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (log_a, Bm, Cm, x)):
         return SSDScan.apply(log_a, Bm, Cm, x, chunk, intra_dtype)
@@ -115,6 +130,26 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32"):
 
 
 ssd_log.launches = 0
+
+
+def _on_shards(log_a, Bm, Cm, x, chunk, intra_dtype, batch_axes):
+    """`ssd_log` of DTensors through ``local_map`` -> (y, state) placed as
+    the local shards are."""
+    mesh = x.device_mesh
+    b, h = x.shape[0], x.shape[2]
+
+    def spec(ndim, head_dim=None):
+        return sharding.local_spec(mesh, batch_axes, b, ndim, head_dim, (h,))
+
+    pl = {name: sharding.placements(s, mesh) for name, s in
+          (("a", spec(3, 2)), ("bc", spec(3)), ("x", spec(4, 2)), ("state", spec(4, 1)))}
+    split = "model" in spec(3, 2)
+    bc_grad = sharding.partial_over(spec(3), mesh, ("model",) if split else ())
+    run = sharding.on_shards(ssd_log, mesh,
+                             (pl["a"], pl["bc"], pl["bc"], pl["x"], None, None),
+                             (pl["x"], pl["state"]),
+                             (pl["a"], bc_grad, bc_grad, pl["x"], None, None))
+    return run(log_a, Bm, Cm, x, chunk, intra_dtype)
 
 
 def _check_card(log_a, Bm, Cm, x, intra_dtype):

@@ -28,6 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels.attention import ops as flash_ops
 from repro_torch.models.layers import Init, apply_rope, cast, torch_dtype
 
@@ -87,8 +88,11 @@ def _gqa_out(p, v, b, s, hq, d):
 
 def attend_full(params, x, cfg: ModelConfig, positions=None, causal: bool = True,
                 use_rope: bool = True, return_kv: bool = False, use_kernel: bool = True):
-    """Self-attention over full sequences; x: (B, S, D) -> (B, S, D)."""
+    """Self-attention over full sequences; x: (B, S, D) -> (B, S, D).  A
+    sequence-split DTensor x (sequence-parallel activations) is gathered
+    first."""
     b, s, _ = x.shape
+    x = sharding.replicate_dim(x, 1)
     q, k, v = _project_qkv(params, x, cfg)
     pos = positions if positions is not None else torch.arange(s, device=x.device)[None, :]
     if use_rope and cfg.pos_embed == "rope":
@@ -99,7 +103,8 @@ def attend_full(params, x, cfg: ModelConfig, positions=None, causal: bool = True
             raise ValueError("the flash path masks by index: positions must be arange(S)")
         # (B, S, H, D) seen as (B, H, S, D); the output keeps q's layout.
         o = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                      causal, cfg.sliding_window, 1.0 / math.sqrt(cfg.head_dim))
+                                      causal, cfg.sliding_window, 1.0 / math.sqrt(cfg.head_dim),
+                                      batch_axes=cfg.act_shard_axes)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
     else:
         logits = _gqa_scores(q, k) * (1.0 / math.sqrt(cfg.head_dim))   # (B,Hkv,G,S,T)

@@ -21,6 +21,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -43,8 +44,11 @@ def attn_mlp_apply(params, x, cfg: ModelConfig, positions=None, causal=True,
                            positions=positions, causal=causal, return_kv=return_kv,
                            use_kernel=use_kernel)
     h, kv = res if return_kv else (res, None)
-    x = x + h
-    x = x + mlp_apply(params["mlp"], rmsnorm(params["ln_mlp"], x), cfg.mlp_type)
+    # On a mesh each block output takes the residual stream's placements
+    # before the add (a sequence-split stream: a reduce-scatter there).
+    x = x + sharding.match(h, x)
+    x = x + sharding.match(mlp_apply(params["mlp"], rmsnorm(params["ln_mlp"], x),
+                                     cfg.mlp_type), x)
     return (x, kv) if return_kv else x
 
 

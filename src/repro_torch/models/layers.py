@@ -13,6 +13,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed import sharding
 
 
 def torch_dtype(dtype) -> torch.dtype:
@@ -65,7 +68,9 @@ def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
 
 # ------------------------------------------------------------------- mlp ---
 def mlp_apply(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    """x: (B, S, D); a sequence-split DTensor x is gathered first."""
     dt = x.dtype
+    x = sharding.replicate_dim(x, 1)
     up = x @ cast(params["w_up"], dt)
     if mlp_type == "swiglu":
         h = F.silu(x @ cast(params["w_gate"], dt)) * up
@@ -80,11 +85,56 @@ def mlp_apply(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 
 # ------------------------------------------------------------ embeddings ---
 def embed_apply(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return cast(params["embedding"], dtype)[tokens]
+    table = cast(params["embedding"], dtype)
+    if isinstance(table, DTensor):
+        return _lookup_on_shards(tokens, table)
+    return table[tokens]
+
+
+def _masked_lookup(tokens, table, lo: int):
+    """Rows ``tokens - lo`` of a table holding vocabulary rows [lo, lo + V'),
+    zeros for tokens outside it."""
+    rel = tokens - lo
+    inside = (rel >= 0) & (rel < table.shape[0])
+    rows = F.embedding(rel.clamp(0, table.shape[0] - 1), table)
+    return rows * inside[..., None].to(rows.dtype)
+
+
+def _lookup_on_shards(tokens, table):
+    """The embedding lookup of DTensors.  A vocab-split table (tied
+    embeddings) looks up each rank's own rows through ``local_map`` and sums
+    the ranks' masked rows (one all-reduce of the activations), so the
+    table never moves; its gradient comes back as each rank's rows, a
+    partial sum over the tokens' batch axes.  (On the card's torch, 2.11,
+    DTensor's own masked-partial rows cannot take their gradient back, and
+    indexing's ``index_put`` backward mis-propagates.)  Otherwise
+    ``F.embedding`` under DTensor's rule."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    split = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    if not split or any(p.is_shard(1) for p in table.placements):
+        return F.embedding(tokens, table)
+    coord = mesh.get_coordinate()
+    index = 0
+    for i in split:
+        index = index * mesh.size(i) + coord[i]
+    rows = table.shape[0] // math.prod(mesh.size(i) for i in split)
+    tok = tokens.redistribute(mesh, [Replicate() if i in split else p
+                                     for i, p in enumerate(tokens.placements)])
+    out = [Partial() if i in split else Shard(0) if p.is_shard(0) else Replicate()
+           for i, p in enumerate(tok.placements)]
+    grad = [Shard(0) if i in split else Partial() if p.is_shard(0) else Replicate()
+            for i, p in enumerate(tok.placements)]
+    run = sharding.on_shards(_masked_lookup, mesh, (tok.placements, table.placements, None), out,
+                             (tok.placements, grad, None))
+    x = run(tok, table, index * rows)
+    return x.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x.placements])
 
 
 def unembed_apply(params, x: torch.Tensor, softcap: Optional[float] = None) -> torch.Tensor:
     table = params.get("unembed", params["embedding"])
+    x = sharding.replicate_dim(x, 1)   # a sequence-split DTensor x is gathered first
     logits = (x @ cast(table, x.dtype).T).float()
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap

@@ -47,9 +47,11 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import init_kv_cache
@@ -74,6 +76,31 @@ def _stack_init(init_fn, init: Init, n: int) -> Dict:
             layer = init_fn(init)
         _tree_map(lambda dst, src: dst[i].copy_(src), out, layer)
     return out
+
+
+def _shard_seq(x, cfg: ModelConfig):
+    """Sequence-parallel residual stream (Korthikanti et al.): on a mesh,
+    redistribute x (B,S,D) to (act axes, "model", None) between blocks, so
+    that norms and pointwise work also split over the model axis (a
+    dimension that does not divide stays whole)."""
+    if not (cfg.seq_shard_activations and cfg.act_shard_axes):
+        return x
+    return sharding.redistribute(x, (tuple(cfg.act_shard_axes), "model", None))
+
+
+def _nll(logits, labels, batch_axes=()):
+    """-log_softmax(logits)[label] (B, S) of float32 logits (B, S, V), a
+    label < 0 read as 0.  DTensor logits run on their local rows (split over
+    ``batch_axes`` where they divide, the vocabulary gathered) through
+    ``local_map``: gathering the labels' pick across ranks would gather the
+    whole batch's log-probabilities."""
+    if isinstance(logits, DTensor):
+        mesh = logits.device_mesh
+        rows, rows2 = (sharding.placements(sharding.local_spec(mesh, batch_axes, logits.shape[0],
+                                                               ndim), mesh) for ndim in (3, 2))
+        return sharding.on_shards(_nll, mesh, (rows, rows2), rows2)(logits, labels)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
 
 
 def _tree_map(fn, tree, *rest):
@@ -149,6 +176,10 @@ class LM:
             params["cross_blocks"] = _stack_init(
                 lambda i: B.cross_block_init(i, cfg, with_mlp=False), init, self.groups)
         return params
+
+    def init_shapes(self) -> Dict:
+        """The parameter tree of `init` on the ``meta`` device: shapes, no values."""
+        return LM(self.cfg, device="meta").init()
 
     def _encdec_block_init(self, init: Init) -> Dict:
         p = B.attn_mlp_init(init, self.cfg)
@@ -289,6 +320,8 @@ class LM:
         else:
             res = B.attn_mlp_apply(lp, x, cfg, return_kv=fill, use_kernel=self.use_kernels)
             x, kv = res if fill else (res, None)
+            if cfg.family == "dense" and not fill:
+                x = _shard_seq(x, cfg)
         if fill:
             slot = cache["shared"] if kind == "shared" else cache
             slot["k"][i, :, :s] = kv[0]
@@ -343,9 +376,8 @@ class LM:
         float32 logits), plus ``AUX_LOSS_WEIGHT`` times the MoE aux loss."""
         logits, aux = self.forward(params, batch)
         labels = batch["labels"].long()
-        logp = torch.log_softmax(logits, dim=-1)
+        nll = _nll(logits, labels, self.cfg.act_shard_axes)
         del logits
-        nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
         mask = (labels >= 0).float()
         loss = (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
         return loss + AUX_LOSS_WEIGHT * aux

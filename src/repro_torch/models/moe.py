@@ -8,8 +8,8 @@ its tokens into per-expert capacity buffers of ``cap`` slots.  Tokens
 beyond capacity are dropped (GShard semantics).  Two dispatches compute the
 same function: `moe_apply_onehot` (the one-hot einsum reference) and
 `moe_apply_scatter` (an index assignment into the buffers and a gather
-back), which ``moe_impl="shard_map"`` takes here, as the JAX package does
-with no mesh axes.  Each (expert, position) slot holds at most one token
+back), which ``moe_impl="shard_map"`` takes on plain tensors, as the JAX
+package does with no mesh axes.  Each (expert, position) slot holds at most one token
 and every dropped token goes to a sink row that is never read, so the
 scatter is a plain index assignment: no atomics, the same bits every run.
 
@@ -22,6 +22,16 @@ package's tie rule (``jax.lax.top_k``: of equal gates the lower expert
 index first), which a stable descending sort gives on every device.
 
 Aux loss: the Switch load-balancing loss, returned to the caller.
+
+On a device mesh (a DTensor x, the sharded train step) every dispatch runs
+token-local, `moe_apply_shardmap`: a ``local_map`` over the batch axes
+(``cfg.act_shard_axes``) with the expert weights replicated, each rank
+dispatching its own rows (the reference's ``shard_map`` and, for the other
+dispatches, what its batch-sharding constraints ask GSPMD for).  The
+``shard_map`` MoE averages the ranks' aux losses (the reference's
+``pmean``); the others compute the aux loss of the whole batch from the
+ranks' averaged token and gate shares.  The expert weights' gradients come
+back as partial sums over the batch axes.
 """
 
 from __future__ import annotations
@@ -31,8 +41,10 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import Init, cast
 
 
@@ -76,25 +88,87 @@ def _expert_ffn(params, h, dt):
     return torch.einsum("becf,efd->becd", F.silu(g) * u, cast(params["w_down"], dt))
 
 
+def _shares(gates, topi, e: int):
+    """(share of first choices, mean gate), each (E,), over the (B, S) tokens."""
+    return F.one_hot(topi[..., 0], e).float().mean(dim=(0, 1)), gates.mean(dim=(0, 1))
+
+
 def _aux_loss(gates, topi, e: int):
     """Switch load balancing: E * sum_e (share of first choices) * (mean gate)."""
-    frac_tokens = F.one_hot(topi[..., 0], e).float().mean(dim=(0, 1))
-    return e * torch.sum(frac_tokens * gates.mean(dim=(0, 1)))
+    frac_tokens, frac_probs = _shares(gates, topi, e)
+    return e * torch.sum(frac_tokens * frac_probs)
 
 
 def moe_apply(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (out, aux loss), by ``cfg.moe_impl``."""
+    """x: (B, S, D) -> (out, aux loss), by ``cfg.moe_impl``; a DTensor x
+    token-local (`moe_apply_shardmap`)."""
+    if isinstance(x, DTensor):
+        return moe_apply_shardmap(params, x, cfg)
     if cfg.moe_impl in ("shard_map", "scatter"):
-        if cfg.act_shard_axes:
-            raise NotImplementedError("sharded MoE waits for the LM sharding rules "
-                                      "(ROADMAP queue 1 item 2.5)")
         return moe_apply_scatter(params, x, cfg)
     return moe_apply_onehot(params, x, cfg)
+
+
+def _token_local(router, w_gate, w_up, w_down, x, cfg: ModelConfig, n: int):
+    """One rank's rows through its dispatch -> (out, then each over ``n``
+    ranks: the aux loss, the first-choice and gate shares)."""
+    params = {"router": router, "w_gate": w_gate, "w_up": w_up, "w_down": w_down}
+    out, gates, topi = (_onehot if cfg.moe_impl == "onehot" else _scatter)(params, x, cfg)
+    frac_tokens, frac_probs = _shares(gates, topi, cfg.n_experts)
+    aux = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    return out, aux / n, frac_tokens / n, frac_probs / n
+
+
+def moe_apply_shardmap(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The token-local MoE of a DTensor x (B, S, D): a ``local_map`` over the
+    batch axes, x redistributed to rows split over them (the reference's
+    ``_shard_batch``; replicated where they do not divide B), the expert
+    weights replicated (gathered for the call; their gradients, partial sums
+    over the row axes, go back to the weights' own placements at once).
+    -> (out placed as those rows, aux loss)."""
+    mesh = x.device_mesh
+    spec = sharding.local_spec(mesh, cfg.act_shard_axes, x.shape[0], 3)
+    sizes = sharding.axis_sizes(mesh)
+    split = sharding.axes_of(spec[0])
+    n = int(math.prod(sizes[a] for a in split))
+    rows = sharding.placements(spec, mesh)
+    whole = sharding.placements((), mesh)
+    part = sharding.row_grads(spec, mesh)
+    names = ("router", "w_gate", "w_up", "w_down")
+    run = sharding.on_shards(_token_local, mesh, (whole,) * 4 + (rows, None, None),
+                             (rows, part, part, part), (part,) * 4 + (rows, None, None))
+    weights = (sharding.gathered(params[k], ()) for k in names)
+    out, aux, frac_tokens, frac_probs = run(*weights, x, cfg, n)
+    if cfg.moe_impl != "shard_map":
+        aux = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    return out, aux
+
+
+def moe_apply_grouped(params, x, cfg: ModelConfig, groups: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The token-local MoE on one device: x's rows in ``groups`` equal
+    groups, each through its own dispatch, as `moe_apply_shardmap` runs
+    them on ``groups`` shards -> (out, aux), the aux loss combined as there.
+    The function the sharded step computes, which holds it."""
+    names = ("router", "w_gate", "w_up", "w_down")
+    parts = [_token_local(*(params[k] for k in names), xg, cfg, groups)
+             for xg in x.chunk(groups, 0)]
+    out = torch.cat([p[0] for p in parts])
+    aux, frac_tokens, frac_probs = (sum(p[i] for p in parts) for i in (1, 2, 3))
+    if cfg.moe_impl != "shard_map":
+        aux = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    return out, aux
 
 
 def moe_apply_onehot(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """GShard one-hot einsum dispatch, the reference formulation:
     O(T * E * C * D) dispatch work in (B, T, E, C) tensors."""
+    out, gates, topi = _onehot(params, x, cfg)
+    return out, _aux_loss(gates, topi, cfg.n_experts)
+
+
+def _onehot(params, x, cfg: ModelConfig):
+    """`moe_apply_onehot` -> (out, gates, top-k experts)."""
     dt = x.dtype
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -111,7 +185,7 @@ def moe_apply_onehot(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.T
     h = _expert_ffn(params, torch.einsum("btec,btd->becd", dispatch, x_slots), dt)
     combine = dispatch * topv.reshape(b, t)[..., None, None].to(dt)
     out = torch.einsum("btec,becd->btd", combine, h)
-    return out.reshape(b, s, k, d).sum(dim=2), _aux_loss(gates, topi, e)
+    return out.reshape(b, s, k, d).sum(dim=2), gates, topi
 
 
 def moe_apply_scatter(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -122,6 +196,12 @@ def moe_apply_scatter(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.
       buf[b, slot] = x                            (dropped tokens -> the sink row)
       out = expert_ffn(buf)[b, slot] * weight
     """
+    out, gates, topi = _scatter(params, x, cfg)
+    return out, _aux_loss(gates, topi, cfg.n_experts)
+
+
+def _scatter(params, x, cfg: ModelConfig):
+    """`moe_apply_scatter` -> (out, gates, top-k experts)."""
     dt = x.dtype
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -140,7 +220,7 @@ def moe_apply_scatter(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.
     y = torch.cat([h.reshape(b, e * cap, d), torch.zeros((b, 1, d), dtype=dt,
                                                           device=x.device)], dim=1)
     out = y[bidx, slot] * (topv.reshape(b, t).to(dt) * keep.to(dt))[..., None]
-    return out.reshape(b, s, k, d).sum(dim=2), _aux_loss(gates, topi, e)
+    return out.reshape(b, s, k, d).sum(dim=2), gates, topi
 
 
 def moe_apply_decode(params, x, cfg: ModelConfig) -> torch.Tensor:

@@ -20,8 +20,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.models.layers import Init, cast, rmsnorm, rmsnorm_init, torch_dtype
@@ -51,14 +53,30 @@ def _split_proj(proj, cfg: ModelConfig):
     return z, xbc, dt
 
 
-def _causal_conv(xbc, w, b):
-    """Depthwise causal conv, width W. xbc: (B,S,C); w: (W,C)."""
+def _causal_conv(xbc, w, b, batch_axes=()):
+    """Depthwise causal conv, width W. xbc: (B,S,C); w: (W,C).  A DTensor
+    xbc runs on its local rows (`_conv_on_shards`)."""
+    if isinstance(xbc, DTensor):
+        return _conv_on_shards(xbc, w, b, batch_axes)
     width = w.shape[0]
     pad = F.pad(xbc, (0, 0, width - 1, 0))
     out = torch.zeros_like(xbc)
     for i in range(width):
         out = out + pad[:, i:i + xbc.shape[1], :] * w[i]
     return out + b
+
+
+def _conv_on_shards(xbc, w, b, batch_axes):
+    """The causal conv of a DTensor through ``local_map``: rows split over
+    ``batch_axes`` (where they divide), channels and taps whole, so each
+    rank convolves its own rows; the taps' and bias's gradients come back
+    as partial sums over the rows' axes."""
+    mesh = xbc.device_mesh
+    spec = sharding.local_spec(mesh, batch_axes, xbc.shape[0], 3)
+    rows, whole = sharding.placements(spec, mesh), sharding.placements((), mesh)
+    part = sharding.row_grads(spec, mesh)
+    return sharding.on_shards(_causal_conv, mesh, (rows, whole, whole), rows,
+                              (rows, part, part))(xbc, w, b)
 
 
 def softplus(x):
@@ -89,9 +107,12 @@ def mamba2_apply(params, u, cfg: ModelConfig, return_state: bool = False,
     dt_ = u.dtype
     b, s, _ = u.shape
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    proj = u @ cast(params["in_proj"], dt_)
+    # On a mesh in_proj's columns are split over "model" across the z | x |
+    # B | C | dt boundaries: gather them before the split.
+    proj = sharding.replicate_dim(u @ cast(params["in_proj"], dt_), -1)
     z, xbc_raw, dtv = _split_proj(proj, cfg)
-    xbc = _causal_conv(xbc_raw, cast(params["conv_w"], dt_), cast(params["conv_b"], dt_))
+    xbc = _causal_conv(xbc_raw, cast(params["conv_w"], dt_), cast(params["conv_b"], dt_),
+                       cfg.act_shard_axes)
     xbc = F.silu(xbc)
     xh = xbc[..., :di].reshape(b, s, h, p)
     Bm = xbc[..., di:di + n]
@@ -100,7 +121,8 @@ def mamba2_apply(params, u, cfg: ModelConfig, return_state: bool = False,
     log_a = -torch.exp(params["A_log"]) * dt_act                        # (B,S,H), <= 0
     x_in = xh * dt_act[..., None].to(dt_)
     if use_kernel:
-        y, s_final = ssd_ops.ssd_log(log_a, Bm, Cm, x_in, cfg.ssm_chunk, cfg.ssd_intra_dtype)
+        y, s_final = ssd_ops.ssd_log(log_a, Bm, Cm, x_in, cfg.ssm_chunk, cfg.ssd_intra_dtype,
+                                     batch_axes=cfg.act_shard_axes)
     else:
         y, s_final = _ssd_chunked(log_a, Bm, Cm, x_in, cfg.ssm_chunk, return_state=True,
                                   intra_dtype=cfg.ssd_intra_dtype)

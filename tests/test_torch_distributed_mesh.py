@@ -36,6 +36,9 @@ CFG = dict(n_runs=2, n_fields=4, n_sources=60, height=16, width=16)
 QUERIES = (dict(band="r", ra_bounds=(37.2, 37.8), dec_bounds=(-0.5, 0.3), npix=32),
            dict(band="r", ra_bounds=(37.3, 37.7), dec_bounds=(-0.4, 0.2), npix=32))
 TIMEOUT_S = 120
+# The reference's subprocesses compile for 8 host devices; on a loaded
+# several-worker run that can outlast the ranks' limit, so their wait has its own.
+REFERENCE_TIMEOUT_S = 420
 # name -> (mesh shape, mesh axes, data axes, engine options); "stream4" and
 # "stream8" stream at a quarter and an eighth of the structured layout.
 JOBS = {
@@ -148,7 +151,8 @@ def runs(tmp_path_factory):
         stats = run_ranks(distributed_rank, 8, str(d), "gloo", args=(str(d),),
                           timeout_s=TIMEOUT_S)
         for ref in refs:
-            out, err = ref.communicate(timeout=max(TIMEOUT_S - (time.monotonic() - t0), 1))
+            out, err = ref.communicate(
+                timeout=max(REFERENCE_TIMEOUT_S - (time.monotonic() - t0), 1))
             assert ref.returncode == 0, out + err
     finally:
         for ref in refs:

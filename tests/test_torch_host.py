@@ -92,6 +92,23 @@ def test_survey_process_pool_is_bitwise_serial():
         assert np.array_equal(a.pixels, b.pixels)
 
 
+def test_survey_epochs_are_a_prefix():
+    """A survey with fewer epochs is the first frames of one with more
+    (chip_smoke.py takes its reduced survey from the main one so)."""
+    cfg = rt.SurveyConfig(n_runs=3, n_camcols=2, n_bands=2, n_fields=2, n_sources=30,
+                          height=12, width=16)
+    few = rt.make_survey(dataclasses.replace(cfg, n_runs=1))
+    many = rt.make_survey(cfg)
+    assert len(few) == len(many) // 3
+    for a, b in zip(few.images, many.images):
+        assert np.array_equal(a.pixels, b.pixels) and np.array_equal(a.psf_stamp, b.psf_stamp)
+        assert (a.image_id, a.run, a.camcol, a.band_id, a.field, a.t_obs, a.wcs, a.bounds,
+                a.psf_sigma) == (b.image_id, b.run, b.camcol, b.band_id, b.field, b.t_obs,
+                                 b.wcs, b.bounds, b.psf_sigma)
+    for name in ("catalog_ra", "catalog_dec", "catalog_flux"):
+        assert np.array_equal(getattr(few, name), getattr(many, name))
+
+
 @pytest.mark.parametrize("sigma,size,beta,e1,e2", [
     (1.3, 13, 3.5, 0.05, -0.02), (0.9, 7, None, 0.0, 0.1), (2.0, 9, 2.5, -0.2, 0.0)])
 def test_render_psf_stamp_bitwise(sigma, size, beta, e1, e2):
