@@ -7,6 +7,7 @@
     python3 chip_smoke.py --lm-only [--reps 5]
     python3 chip_smoke.py --train-only [--reps 5]
     python3 chip_smoke.py --sharded-only
+    python3 chip_smoke.py --dryrun-only
     python3 chip_smoke.py --drill-only [--n-runs 8]
 
 The second form only times the brick mosaic on random tiles at the brick
@@ -252,8 +253,9 @@ renders in a process pool while phase 3 runs):
    ``CoaddEngine.run_distributed``, in two forms, each through
    ``repro_torch.launch.mesh.run_ranks`` (spawned ranks meeting through a
    ``file://`` store under ``build/distributed``, the survey pickled there
-   for them): (a) one NCCL rank on the card, mesh (1, 1), the main survey:
-   the main query and the K = 4 batch as one job each, sparse and dense,
+   for them): (a) one NCCL rank on the card, mesh (1, 1), the main survey
+   cut to its first 2 of 8 epochs (720 frames) for the script's time: the
+   main query and the K = 4 batch as one job each, sparse and dense,
    eager and streamed at a quarter of the structured layout, unmatched,
    with the 13 x 13 bank and with the 15-tap fallback; (b) eight gloo
    ranks sharing the card (NCCL puts no two ranks on one device), meshes
@@ -352,14 +354,14 @@ renders in a process pool while phase 3 runs):
    step on a device mesh (``make_sharded_train_step``: parameters, m and v
    DTensors placed by the sharding rules, the flash and SSD kernels on each
    rank's local shards through ``local_map``).  Form (a): one NCCL rank on
-   a (1, 1) mesh, qwen2-1.5b at full width and depth, 2 x 4096, one float32
+   a (1, 1) mesh, qwen2-1.5b at full width, 4 of 28 layers, 2 x 4096, one float32
    and one bf16 step against the unsharded step (float32 within 1e-4 of each
    leaf's scale, bitwise or not printed; bf16 by the ratio rule), exactly
    `step_launches` a step, ms a step beside the unsharded step's.  Form
    (b): eight gloo ranks sharing the card on a (4, 2) mesh (qwen2-1.5b
    FSDP + TP, granite-moe-3b-a800m's token-local MoE over (data, model),
    mamba2-130m pure_dp, qwen2-1.5b with zero1 and sequence-parallel
-   activations; no remat, 2 layers, mamba2 8; 8 x 512), 2 float32 steps
+   activations; no remat, 1 layer, mamba2 8; 8 x 512), 2 float32 steps
    and one bf16 step each against the unsharded runs on the card (each
    step's loss within 1e-5 and grad norm within 1e-4 of its value, the
    first step's gradients within 1e-4 of their scale, the second step's
@@ -367,10 +369,30 @@ renders in a process pool while phase 3 runs):
    held in phase 3 at each rank's local shapes, `sharded_kernel_cases`),
    every rank's loss bitwise rank 0's, every
    placement its spec's after each step, the collectives of a step by kind
-   and bytes (CommDebugMode), each rank's ``max_memory_allocated``.
-   ``--sharded-only`` builds the kernels, holds them at the phase's local
-   shapes (phase "3 lm kernels"'s `sharded_kernel_cases`), runs this phase
-   and exits.
+   and bytes (``analysis.hlo.CollectiveRecorder``), each rank's
+   ``max_memory_allocated``.  ``--sharded-only`` builds the kernels, holds
+   them at the phase's local shapes (phase "3 lm kernels"'s
+   `sharded_kernel_cases`), runs this phase and exits.
+4. lm dry run ("4 lm dry run", after "4 lm sharded"; `dryrun_phase`):
+   (a) sharded serving on one NCCL rank, (1, 1) mesh, full width:
+   qwen2-1.5b and zamba2-1.2b at 4 x 2048 and mixtral-8x7b at 2 of its 32
+   layers and 2 x 8192, a prefill and 32 decode steps through
+   ``make_sharded_prefill_step`` / ``make_sharded_decode_step`` against
+   the unsharded steps on the same weights, float32 within 1e-4 of the
+   scale and bf16 by the ratio rule, exact launches (28, 6 + 38, 2 a
+   prefill; none a decode step), ms a prefill and a step beside the
+   unsharded ones; (b) the dry run's trace of qwen2-1.5b's train cell (2 x
+   4096, bf16, remat) on a fake (1, 1) "cuda" mesh against the same step
+   on the card (argument bytes exact, the predicted temporary bytes at
+   least 0.9 of the measured rise, FLOPs equal; that full-depth step's
+   loss and grad norm by the ratio rule against the unsharded float32 and
+   bf16 steps); (c) qwen2-72b and mixtral-8x7b ``train_4k`` and
+   zamba2-1.2b ``decode_32k`` traced on the fake (16, 16) "cuda" and
+   "cpu" meshes by ``python -m repro_torch.launch.dryrun --device cuda|cpu``
+   (this torch's DTensor rules; the CPU mesh for mixtral and zamba2), each
+   trace's seconds and collectives, the two meshes' collectives equal.
+   ``--dryrun-only`` builds the kernels, holds them at the phase's shapes
+   and runs this phase.
 5. measure: each kernel's time on the card (CUDA events, warm), its plain
    version's, the nearest PyTorch call's (``F.grid_sample`` bilinear over
    the same samples, plus a sum for the coadd; it covers only the
@@ -476,6 +498,11 @@ import warnings
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+# The H100's datasheet rates, shared with the dry run's roofline.
+from repro_torch.analysis.roofline import (BF16_TC_OPS_PER_S, FP32_OPS_PER_S,  # noqa: E402
+                                           HBM_BYTES_PER_S, TF32_TC_OPS_PER_S)
+from repro_torch.kernels.attention.ops import attention_pairs  # noqa: E402
+
 COADD_ATOL, COADD_RTOL = 2e-2, 1e-4     # kernel vs plain (tests/test_kernels.py:30)
 PATH_ATOL = 1e-3                        # across methods and paths (tests/test_coadd_engine.py:26)
 ROBUST = ("clipped", "median")
@@ -485,8 +512,6 @@ PSF_REPS = 2                            # warm repeats per PSF-matched query
 OUTLIER = 1e4                           # added to one frame of the outlier case
 DEVICE = "cuda"                         # the card the script drives
 FLAT_OFFSET_LIMIT = 2**31               # flat element offsets must pass the int32 range
-HBM_BYTES_PER_S = 3.35e12               # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12                  # H100 SXM fp32 outside the tensor cores
 
 # fp32 operations of one sample (one output pixel x one slot), counted from
 # the formula the kernels and their plain versions evaluate, each sin, cos,
@@ -626,8 +651,6 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # the largest readings on an H100 (PERF.md).
 FLASH_ROW_ULPS, FLASH_REL_L2 = 4.0, 5e-3
 SSD_TOL, SSD_P = 2e-4, 64
-BF16_TC_OPS_PER_S = 989e12              # H100 SXM bf16 tensor cores, dense
-TF32_TC_OPS_PER_S = 495e12              # H100 SXM TF32 tensor cores, dense
 FLASH_CASES = (
     ("zamba2_prefill", 4, 32, 32, 2048, 64, True, None, "bfloat16", True),
     ("zamba2_ragged", 1, 32, 32, 1000, 64, True, None, "bfloat16", True),
@@ -666,7 +689,15 @@ FLASH_CASES = (
     ("qwen2_shard_6_1_s512_f32", 2, 6, 1, 512, 128, True, None, "float32", True),
     ("granite_shard_24_8_s512", 1, 24, 8, 512, 64, True, None, "bfloat16", True),
     ("granite_shard_24_8_s512_f32", 1, 24, 8, 512, 64, True, None, "float32", True),
+    # mixtral-8x7b's prefill in phase "4 lm dry run": 2 x 8192, its 4096-key window.
+    ("mixtral_gqa32_8_s8192_w4096", 2, 32, 8, 8192, 128, True, 4096, "bfloat16", True),
+    ("mixtral_gqa32_8_s8192_w4096_f32", 2, 32, 8, 8192, 128, True, 4096, "float32", True),
 )
+# Cases whose dense plain version would hold a (B, Hq, S, S) float32 tensor
+# past this many elements are held kv-head group by group (each group's q
+# heads and its kv head: the same function, as the kernel computes each
+# head alone).
+FLASH_REF_ELEMENTS = 2**31
 # The flash backward kernels (flash_bwd_preprocess_kernel, flash_bwd_dkdv_kernel,
 # flash_bwd_dq_kernel) against flash_bwd_ref on the same operands (q, k, v and
 # dO in the model's strided (B, S, H, D) layout; O and the LSE from the
@@ -895,7 +926,9 @@ DRILL_TOL = 1e-6
 # v placed by the sharding rules (FSDP + TP, pure_dp, zero1, the token-local
 # MoE, sequence-parallel activations), the flash and SSD kernels on each
 # rank's local shards.  Form (a): one NCCL rank on a (1, 1) mesh, TRAIN_ARCH
-# at full width and depth on TRAIN_BATCH (LM.init(TRAIN_SEED), the first
+# at full width on TRAIN_BATCH, its depth cut to 4 of 28 layers for the
+# script's time (phase "4 lm dry run" steps the full depth on the same
+# mesh and holds that step's loss and grad norm) (LM.init(TRAIN_SEED), the first
 # TokenPipeline batch), one float32 and one bf16 step, each held against the
 # unsharded step of the same dtype (float32 within F32_REL of each leaf's
 # scale, bitwise or not printed; bf16 by the ratio rule of each leaf's
@@ -908,13 +941,13 @@ DRILL_TOL = 1e-6
 # bf16 by the ratio rule; the MoE's unsharded run dispatching over the same
 # token groups, `moe.moe_apply_grouped`); every rank's loss bitwise rank
 # 0's, every placement its spec's.  Form (b) runs each cell without remat
-# and cut in depth (qwen2 and granite to 2 layers, mamba2-130m to 8) so
+# and cut in depth (qwen2 and granite to 1 layer, mamba2-130m to 8) so
 # that the phase keeps to the script's time: gloo carries every collective
 # of CUDA tensors through the host, 10-20 s a step at 4 layers (PERF.md).
 # mamba2 keeps 8: at 4 its 96-value A_log gradient missed the bf16 ratio
 # rule's max criterion by 4 % in one run (PERF.md).
 SHARDED_MESH_A = ((1, 1), ("data", "model"))
-SHARDED_CELLS_A = ((TRAIN_ARCH, {}),)
+SHARDED_CELLS_A = ((TRAIN_ARCH, {"n_layers": 4}),)
 # What each step of a form holds, by dtype (one entry a step): "params",
 # the parameters after the step, and "m", AdamW's first moment, which
 # after the first step is (1 - b1) times the clipped gradient.
@@ -923,10 +956,10 @@ SHARDED_MESH_B = ((4, 2), ("data", "model"))
 SHARDED_BATCH_B = (8, 512)
 SHARDED_KEEP_B = {"float32": [("m",), ("params",)], "bfloat16": [("m",)]}
 SHARDED_CELLS_B = (
-    ("qwen2-1.5b", dict(n_layers=2, remat=False)),            # FSDP + TP, flash at 6:1 a shard
-    ("granite-moe-3b-a800m", dict(n_layers=2, remat=False)),  # token-local MoE, (data, model)
+    ("qwen2-1.5b", dict(n_layers=1, remat=False)),            # FSDP + TP, flash at 6:1 a shard
+    ("granite-moe-3b-a800m", dict(n_layers=1, remat=False)),  # token-local MoE, (data, model)
     ("mamba2-130m", dict(n_layers=8, remat=False)),           # pure_dp, SSD at 1 row a rank
-    ("qwen2-1.5b", dict(n_layers=2, remat=False, param_mode="zero1",  # qwen2-72b's zero1 and
+    ("qwen2-1.5b", dict(n_layers=1, remat=False, param_mode="zero1",  # qwen2-72b's zero1 and
                         seq_shard_activations=True)),                # sequence parallelism
 )
 # Form (b)'s float32 steps (tests/test_distributed.py:85-87): every parameter
@@ -935,6 +968,49 @@ SHARDED_CELLS_B = (
 # step's grad norm within F32_REL of the unsharded one's.
 SHARDED_PARAM_ATOL, SHARDED_LOSS_ATOL = 1e-4, 1e-5
 SHARDED_TIMEOUT_S = 900
+# The dry run held against the card (phase "4 lm dry run", after "4 lm
+# sharded"; `dryrun_phase`).  (a) Sharded serving, one NCCL rank on a (1, 1)
+# mesh at full width: make_sharded_prefill_step and
+# make_sharded_decode_step against the unsharded make_prefill_step and
+# make_decode_step on the same weights (LM.init(TRAIN_SEED)) and tokens (a
+# numpy seed), one prefill and DRYRUN_DECODE decode steps each, in float32
+# (the logits of the prefill and of every step and every cache leaf after
+# the last step within F32_REL of the unsharded one's scale) and bf16 (the
+# ratio rule against the unsharded float32 run); exactly (flash_attention,
+# ssd_log) launches a prefill, none a decode step.  mixtral-8x7b is cut to
+# 2 of its 32 layers (3.16 B parameters, 12.66 GB of float32 masters, of
+# the 46.7 B that one card cannot hold) and prefills 2 x 8192 tokens, so that
+# its 4096-token sliding window bites.  (b) qwen2-1.5b's train cell of phase
+# "4 lm training" (TRAIN_BATCH, bf16 compute, remat) traced by the dry run
+# on a fake (1, 1) "cuda" mesh against the same sharded step run on the
+# card: argument bytes equal to the real parameters', moments' and batch's,
+# the predicted temporary bytes at least DRYRUN_MEM_FLOOR of the measured
+# max_memory_allocated rise of a warm step, the FLOPs equal to the same
+# count over the real step; that step's loss and grad norm by the ratio
+# rule against the unsharded float32 and bf16 steps from the same weights
+# (the full-depth sharded step's numerics).  (c) Production cells traced on
+# this torch by `python -m repro_torch.launch.dryrun --device cuda|cpu` on
+# the fake (16, 16) mesh of each device type, production only, in
+# subprocesses started after the build (`start_traces`); at
+# DRYRUN_CPU_CELLS the CPU mesh's collectives (the sweep's) equal to the
+# CUDA mesh's.
+DRYRUN_SERVE = (("qwen2-1.5b", {}, (4, 2048), (28, 0)),
+                ("zamba2-1.2b", {}, (4, 2048), (6, 38)),
+                ("mixtral-8x7b", {"n_layers": 2}, (2, 8192), (2, 0)))
+DRYRUN_DECODE = 32
+DRYRUN_MEM_FLOOR = 0.9
+DRYRUN_CELLS = (("qwen2-72b", "train_4k"), ("mixtral-8x7b", "train_4k"),
+                ("zamba2-1.2b", "decode_32k"))
+# The cells of DRYRUN_CELLS also traced on a CPU mesh: the two with the most
+# shard-to-shard exchanges (261 and 118 all-to-alls on the card's torch).
+DRYRUN_CPU_CELLS = DRYRUN_CELLS[1:]
+DRYRUN_TIMEOUT_S = 300
+# The phase-3 cases at the shapes phase "4 lm dry run" gives the kernels
+# (``--dryrun-only`` holds these alone).
+DRYRUN_FLASH = ("zamba2_prefill", "qwen2_gqa12_2_d128", "mixtral_gqa32_8_s8192_w4096",
+                "mixtral_gqa32_8_s8192_w4096_f32", "qwen2_train_b2_s4096")
+DRYRUN_FLASH_BWD = ("qwen2_train",)
+DRYRUN_SSD = ("zamba2_prefill", "b4_h64_f32")
 
 
 class SmokeFailure(Exception):
@@ -1126,12 +1202,6 @@ def grid_sample_grid(torch, sky_to_pixel, wcs, grid_ra, grid_dec, h, w):
 
 
 # ------------------------------------------------ the Zamba2 serving path --
-def attention_pairs(s, causal, window):
-    """Unmasked (q, k) pairs of one (batch, head) attention slice."""
-    lo = (lambda q: max(q - window + 1, 0)) if window is not None else (lambda q: 0)
-    return sum((q if causal else s - 1) - lo(q) + 1 for q in range(s))
-
-
 def flash_bound(b, hq, hkv, s, d, causal, window, esize, tc_ops_per_s):
     """Bound of one flash_attention call: q, k, v read and o written once; per
     unmasked pair 4 D product flops at ``tc_ops_per_s`` and 5 float32 softmax
@@ -1149,14 +1219,11 @@ def ssd_bound(b, t, h, n, p, chunk, esize):
     of C B^T; per (head, chunk) the decay mask (3 a pair), the causal half of
     G X, C S (not for the first chunk, whose state is 0) with its decay and
     sum (2 P a step), the weights on B (N a step), B^T X and the state's decay
-    and sum; one add a step for the cumulative sum."""
-    lc = min(chunk, t)
-    sizes = [lc] * (t // lc) + ([t % lc] if t % lc else [])
-    pairs = sum(r * (r + 1) // 2 for r in sizes)
-    nc = len(sizes)
-    ops = b * 2 * n * pairs + b * h * (
-        3 * pairs + 2 * p * pairs + 2 * n * p * (t - sizes[0]) + 2 * p * t + n * t
-        + 2 * n * p * t + 2 * n * p * nc + t)
+    and sum; one add a step for the cumulative sum (``ssd_ops.fwd_flops``,
+    the operator's FLOP formula)."""
+    from repro_torch.kernels.ssd.ops import fwd_flops
+
+    ops = fwd_flops(b, t, h, n, p, chunk)
     nbytes = 4 * b * t * h + (2 * b * t * n + b * t * h * p) * esize + 4 * (b * t * h * p
                                                                            + b * h * n * p)
     return bound(nbytes, ops)
@@ -1196,7 +1263,13 @@ def flash_cases(torch, flash, flash_ref, dev, cases=FLASH_CASES):
             q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
                        for h in (hq, hkv, hkv))
         out = flash(q, k, v, causal, window)
-        plain = flash_ref(q, k, v, causal, window)
+        if b * hq * s * s <= FLASH_REF_ELEMENTS:
+            plain = flash_ref(q, k, v, causal, window)
+        else:
+            g_ = hq // hkv
+            plain = torch.cat([flash_ref(q[:, j * g_:(j + 1) * g_], k[:, j:j + 1],
+                                         v[:, j:j + 1], causal, window)
+                               for j in range(hkv)], 1)
         torch.cuda.synchronize()
         require(out.shape == plain.shape and out.dtype == plain.dtype,
                 f"flash {name}: shape or dtype")
@@ -2812,29 +2885,6 @@ def unsharded_steps(torch, cfg, params0, batch, keep, groups, sizes, host=False)
     return out
 
 
-def comm_bytes_mode():
-    """DTensor's CommDebugMode that also adds up, by collective, the bytes of
-    each call's input tensor on this rank."""
-    from torch.distributed.tensor.debug import CommDebugMode
-
-    class CommBytes(CommDebugMode):
-        def __init__(self):
-            super().__init__()
-            self.bytes = {}
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            before = sum(self.comm_counts.values())
-            out = super().__torch_dispatch__(func, types, args, kwargs)
-            if sum(self.comm_counts.values()) > before:
-                name = str(func._overloadpacket).split(".")[-1]
-                t = next((a for a in args if hasattr(a, "element_size")), None)
-                self.bytes[name] = self.bytes.get(name, 0) + (
-                    0 if t is None else t.numel() * t.element_size())
-            return out
-
-    return CommBytes()
-
-
 def tree_get(tree, path):
     for k in path.strip("/").split("/"):
         tree = tree[k]
@@ -2884,11 +2934,13 @@ def sharded_rank(rank, world, spec):
     runs them first: form (a)): the largest |diff| and, for the ratio rule,
     the sums of squares of the shards this rank owns (a replicated shard
     counts on coordinate 0 only).  The second float32 step's collectives
-    are counted by kind and bytes (`comm_bytes_mode`)."""
+    are counted by kind and bytes (``analysis.hlo.CollectiveRecorder``: the
+    reference's payloads, an all-gather's and a reduce-scatter's output)."""
     import warnings as _w
 
     import torch
 
+    from repro_torch.analysis.hlo import CollectiveRecorder
     from repro_torch.configs.registry import get_config
     from repro_torch.distributed import sharding
     from repro_torch.launch.mesh import make_mesh
@@ -2938,7 +2990,7 @@ def sharded_rank(rank, world, spec):
             for i, names in enumerate(kept):
                 zero_lm_counts()
                 counted = dtype == "float32" and i == 1 and world > 1
-                mode = comm_bytes_mode() if counted else contextlib.nullcontext()
+                mode = CollectiveRecorder() if counted else contextlib.nullcontext()
                 device_sync(torch, dev)
                 t0 = time.perf_counter()
                 with mode:
@@ -2948,9 +3000,7 @@ def sharded_rank(rank, world, spec):
                            loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
                            launches=lm_counts())
                 if counted:
-                    rec["collectives"] = {str(k).split(".")[-1]: v
-                                          for k, v in mode.comm_counts.items()}
-                    rec["collective_bytes"] = mode.bytes
+                    rec["collectives"] = mode.stats()
                 rec["placements_ok"] = all(
                     x.placements == tuple(sharding.placements(tree_get(st.pspecs, path), mesh))
                     for tree in (params, opt["m"], opt["v"]) for path, x in tree_leaves(tree)
@@ -3102,7 +3152,6 @@ def hold_sharded(torch, form, cell, sizes, b, s, rows, card):
             rec["loss"] == ref["loss"]
         if "collectives" in rec:
             step["collectives"] = rec["collectives"]
-            step["collective_bytes"] = rec["collective_bytes"]
         out["steps"].append(step)
         ms = step["ms"]
         print(f"  {what} {dtype} step {i + 1}: {statistics.median(ms):.1f} ms a step (median "
@@ -3111,9 +3160,11 @@ def hold_sharded(torch, form, cell, sizes, b, s, rows, card):
               f"{ref['grad_norm']:.6f}; {'; '.join(notes)}; bitwise {step['bitwise']}; every "
               f"rank's loss rank 0's; launches a rank {rec['launches']}", flush=True)
         if "collectives" in rec:
-            calls = {k: (rec["collectives"].get(k), v) for k, v in rec["collective_bytes"].items()}
-            print(f"    collectives a step on rank 0 (CommDebugMode; calls, bytes of each "
-                  f"call's input): {calls}", flush=True)
+            calls = {k: (v["count"], v["payload_bytes"], v["link_bytes"])
+                     for k, v in rec["collectives"].items()}
+            print(f"    collectives a step on rank 0 (calls, payload bytes: an all-gather's "
+                  f"and a reduce-scatter's output, the others' input; ring link bytes): "
+                  f"{calls}", flush=True)
     print(f"  {what}: max_memory_allocated by rank (GiB) "
           f"{[round(x / 2**30, 2) for x in out['max_memory_allocated']]}; {card}", flush=True)
     return out, launches
@@ -3209,6 +3260,359 @@ def sharded_phase(torch, card):
         shutil.rmtree(root, ignore_errors=True)
     for name in ("flash_attention_single", "ssd_chunked"):
         require(launches.get(name, 0) > 0, f"lm sharded: {name} never launched")
+    return record, launches
+
+
+def dryrun_serve(torch, np, dev, mesh, arch, cut, b, s, want):
+    """Form (a) of phase "4 lm dry run" for one configuration, in this rank
+    -> its record: the unsharded and the sharded prefill + DRYRUN_DECODE
+    steps, float32 and bf16, held and timed."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.specs import (make_decode_step, make_prefill_step,
+                                          make_sharded_decode_step, make_sharded_prefill_step)
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    max_len = s + DRYRUN_DECODE
+    rng = np.random.default_rng(TRAIN_SEED)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, max_len), dtype=np.int32))
+    batch = {"tokens": tokens[:, :s].to(dev)}
+    fed = [tokens[:, s + i:s + i + 1].to(dev) for i in range(DRYRUN_DECODE)]
+    n_attn, n_ssd = want
+    expect = dict(lm_counts(), flash_attention_single=n_attn, ssd_chunked=n_ssd)
+    expect = {k: (v if k in ("flash_attention_single", "ssd_chunked") else 0)
+              for k, v in expect.items()}
+    what = f"lm dry run (a) {arch}{' ' + str(cut) if cut else ''} {b} x {s}"
+    record, launches, truth = dict(arch=arch, cut=cut, batch=[b, s], runs=[]), {}, None
+
+    def full(x):
+        return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+    for dtype in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        model = build_model(c, device=dev)
+        params = model.init(TRAIN_SEED)
+        vals = {}
+        for form in ("unsharded", "sharded"):
+            if form == "unsharded":
+                prefill, decode = make_prefill_step(model, max_len), make_decode_step(model)
+                p, bt, toks = params, batch, fed
+            else:
+                prefill = make_sharded_prefill_step(c, mesh, b, max_len, device=dev)
+                decode = make_sharded_decode_step(c, mesh, b, device=dev)
+                p, bt = prefill.place(params, batch)
+                toks = [sharding.distribute(t, decode.batch_spec + (None,), mesh) for t in fed]
+            zero_lm_counts()
+            device_sync(torch, dev)
+            t0 = time.perf_counter()
+            logits, cache = prefill(p, bt)
+            device_sync(torch, dev)
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            got = lm_counts()
+            require(got == expect, f"{what} {dtype} {form} prefill: launched {got}, expected "
+                                   f"{expect}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            out = {"prefill logits": full(logits).float()}
+            dec = []
+            zero_lm_counts()
+            t0 = time.perf_counter()
+            for i in range(DRYRUN_DECODE):
+                lg, cache = decode(p, cache, toks[i], s + i)
+                dec.append(full(lg).float())
+            device_sync(torch, dev)
+            decode_ms = (time.perf_counter() - t0) * 1e3 / DRYRUN_DECODE
+            got = lm_counts()
+            require(not any(got.values()), f"{what} {dtype} {form}: decode launched {got}")
+            out["decode logits"] = torch.stack(dec)
+            out.update({f"cache {k}": full(x).float() for k, x in tree_leaves(cache)})
+            for k, x in out.items():
+                require(bool(torch.isfinite(x).all()), f"{what} {dtype} {form} {k}: non-finite")
+            vals[form] = out
+            record["runs"].append(dict(dtype=dtype, form=form, prefill_ms=prefill_ms,
+                                       decode_ms_per_step=decode_ms))
+            del p, bt, toks, cache, logits, prefill, decode
+        del params, model
+        sh, un = vals["sharded"], vals["unsharded"]
+        require(sh.keys() == un.keys(), f"{what} {dtype}: the caches' leaves differ")
+        if dtype == "float32":
+            rel = {k: max_rel(sh[k], un[k]) for k in un}
+            worst = max(rel, key=rel.get)
+            require(rel[worst] <= F32_REL, f"{what} float32: {worst} {rel[worst]:.3g} of its "
+                                           f"scale from the unsharded run")
+            record["float32"] = dict(worst=worst, max_rel=rel[worst],
+                                     bitwise=all(torch.equal(sh[k], un[k]) for k in un))
+            truth = un
+        else:
+            ratio, at = 0.0, ""
+            for k in un:
+                l2_s, l2_u = l2_rel(sh[k], truth[k]), l2_rel(un[k], truth[k])
+                mx_s, mx_u = max_rel(sh[k], truth[k]), max_rel(un[k], truth[k])
+                require(l2_s <= BF16_L2 * l2_u + BF16_ULP and mx_s <= BF16_MAX * mx_u + BF16_ULP,
+                        f"{what} bf16 {k}: from the float32 run, sharded L2 {l2_s:.3g} max "
+                        f"{mx_s:.3g}, unsharded L2 {l2_u:.3g} max {mx_u:.3g}")
+                if l2_s / max(l2_u, 1e-30) > ratio:
+                    ratio, at = l2_s / max(l2_u, 1e-30), k
+            record["bfloat16"] = dict(l2_ratio=ratio, at=at,
+                                      bitwise=all(torch.equal(sh[k], un[k]) for k in un))
+        del vals, sh, un
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return record, launches
+
+
+def dryrun_train(torch, dev, mesh):
+    """Form (b) of phase "4 lm dry run", in this rank: the sharded train step
+    of TRAIN_ARCH (bf16, remat) on TRAIN_BATCH, its first step's loss and
+    grad norm held by the ratio rule against the unsharded float32 and bf16
+    steps from the same weights, a warm step's argument bytes,
+    max_memory_allocated rise and time, then one step counted as the dry
+    run counts (``CellTrace``: FLOPs and live bytes)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import CellTrace
+    from repro_torch.launch.specs import make_sharded_train_step
+
+    cfg = get_config(TRAIN_ARCH)
+    b, s = TRAIN_BATCH
+    st = make_sharded_train_step(cfg, mesh, b, device=dev)
+    batch = {k: v.to(dev) for k, v in sharded_batch(torch, cfg, b, s).items()}
+    params0 = st.model.init(TRAIN_SEED)
+    base = unsharded_steps(torch, cfg, params0, batch, {"float32": [()], cfg.dtype: [()]}, 1,
+                           {"data": 1, "model": 1})
+    params, opt, bt = st.place(params0, batch)
+    del batch, params0
+    args = ([x.to_local() for tree in (params, opt["m"], opt["v"]) for _, x in tree_leaves(tree)]
+            + [opt["step"].to_local()] + [x.to_local() for x in bt.values()])
+    arg_bytes = sum(t.numel() * t.element_size() for t in args)
+    params, opt, met = st(params, opt, bt)   # warm: the libraries' workspaces
+    device_sync(torch, dev)
+    f32, un = base["float32"][0], base[cfg.dtype][0]
+    held = {}
+    for key in ("loss", "grad_norm"):
+        sh_err = abs(float(met[key]) - f32[key]) / abs(f32[key])
+        un_err = abs(un[key] - f32[key]) / abs(f32[key])
+        require(sh_err <= BF16_L2 * un_err + BF16_ULP,
+                f"lm dry run (b) {cfg.dtype} step 1 {key}: sharded {float(met[key])!r}, "
+                f"unsharded {un[key]!r}, float32 {f32[key]!r}")
+        held[key] = dict(sharded=float(met[key]), unsharded=un[key], float32=f32[key],
+                         sharded_rel=sh_err, unsharded_rel=un_err)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    zero_lm_counts()
+    t0 = time.perf_counter()
+    params, opt, _ = st(params, opt, bt)
+    device_sync(torch, dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    rise = torch.cuda.max_memory_allocated() - before
+    launches = lm_counts()
+    want = sharded_step_launches(torch, cfg, {"data": 1, "model": 1}, b, s, cfg.dtype)
+    require(launches == want, f"lm dry run (b): a step launched {launches}, expected {want}")
+    trace = CellTrace(args)
+    with trace.uncounted_propagation(), trace:
+        params, opt, _ = st(params, opt, bt)
+    device_sync(torch, dev)
+    for k, v in lm_counts().items():
+        launches[k] += v
+    return dict(argument_bytes=arg_bytes, memory_rise=rise, step_ms=ms, flops=trace.flops,
+                counted_peak=trace.peak, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                launches=launches, held=held)
+
+
+def dryrun_rank(rank, world, spec):
+    """The one NCCL rank of phase "4 lm dry run": form (a) for every
+    configuration of DRYRUN_SERVE, then form (b)'s real step -> their
+    records and the LM kernels' launches."""
+    import warnings as _w
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    _w.filterwarnings("ignore")
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(*SHARDED_MESH_A, dev.type, spec["backend"])
+    serve, launches = [], {}
+    for arch, cut, (b, s), want in DRYRUN_SERVE:
+        rec, got = dryrun_serve(torch, np, dev, mesh, arch, cut, b, s, want)
+        serve.append(rec)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"  rank 0: {arch} served, {rec['runs']}", flush=True)
+    train = dryrun_train(torch, dev, mesh)
+    for k, v in train["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    return dict(serve=serve, train=train, launches=launches)
+
+
+DRYRUN_ROOT = os.path.join(ROOT, "build", "dryrun")
+
+
+def start_traces():
+    """Form (c)'s production traces of phase "4 lm dry run", started in
+    subprocesses at the lowest priority right after the build: they need
+    only the host, and run beside the phases before theirs ->
+    {(arch, shape, device type): (output, log, process)}.  `stop_traces`
+    ends them, at the latest when the script exits."""
+    import atexit
+    import shutil
+
+    shutil.rmtree(DRYRUN_ROOT, ignore_errors=True)
+    os.makedirs(DRYRUN_ROOT)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    traces = {}
+    for arch, shape in DRYRUN_CELLS:
+        for kind in ("cuda", "cpu") if (arch, shape) in DRYRUN_CPU_CELLS else ("cuda",):
+            out = os.path.join(DRYRUN_ROOT, f"{arch}__{shape}__{kind}.json")
+            log = open(os.path.join(DRYRUN_ROOT, f"{arch}__{shape}__{kind}.log"), "w")
+            traces[(arch, shape, kind)] = (out, log, subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 shape, "--mesh", "single", "--no-probes", "--device", kind, "--out", out],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(19)))
+    atexit.register(stop_traces, traces)
+    return traces
+
+
+def stop_traces(traces):
+    import shutil
+
+    for _, log, proc in traces.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    shutil.rmtree(DRYRUN_ROOT, ignore_errors=True)
+
+
+def dryrun_phase(torch, card, traces):
+    """Phase "4 lm dry run" (the constants' comment): forms (a) and (b) on
+    one NCCL rank, form (b)'s trace here on a fake (1, 1) "cuda" mesh
+    meanwhile, then form (c)'s ``traces`` (`start_traces`) waited for and
+    read -> (record, the LM kernels' launches)."""
+    import concurrent.futures
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import DEFAULT_BACKEND, make_fake_mesh, run_ranks
+    from repro_torch.launch.specs import build_cell
+
+    b, s = TRAIN_BATCH
+
+    def trace_train():
+        """(b)'s train cell traced on a fake (1, 1) "cuda" mesh (this
+        process holds no other process group)."""
+        mesh = make_fake_mesh(*SHARDED_MESH_A, "cuda")
+        try:
+            cell = build_cell(get_config(TRAIN_ARCH), ShapeConfig("train_4k", "train", s, b),
+                              mesh)
+            return dryrun._trace_cell(cell, mesh)
+        finally:
+            dist.destroy_process_group()
+
+    try:
+        store = os.path.join(DRYRUN_ROOT, "store")
+        os.makedirs(store)
+        t0 = time.perf_counter()
+        # (b)'s trace runs here while the rank runs (a) and (b)'s step.
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            tracing = pool.submit(trace_train)
+            ranks = run_ranks(dryrun_rank, 1, store, DEFAULT_BACKEND["cuda"],
+                              args=(dict(backend=DEFAULT_BACKEND["cuda"]),),
+                              timeout_s=DRYRUN_TIMEOUT_S)
+            traced = tracing.result()
+        rank_s = time.perf_counter() - t0
+        rec = ranks[0]
+        for r in rec["serve"]:
+            times = {(x["dtype"], x["form"]): x for x in r["runs"]}
+            for dtype in ("float32", "bfloat16"):
+                sh, un = times[(dtype, "sharded")], times[(dtype, "unsharded")]
+                held = r[dtype]
+                note = (f"max {held['max_rel']:.3g} of the scale at {held['worst']}"
+                        if dtype == "float32" else
+                        f"bf16 ratio rule, largest L2 ratio {held['l2_ratio']:.3g} at {held['at']}")
+                print(f"  lm dry run (a) {r['arch']}{' ' + str(r['cut']) if r['cut'] else ''} "
+                      f"{r['batch'][0]} x {r['batch'][1]} {dtype}: prefill {sh['prefill_ms']:.1f} "
+                      f"ms sharded, {un['prefill_ms']:.1f} unsharded; decode "
+                      f"{sh['decode_ms_per_step']:.2f} ms a step sharded, "
+                      f"{un['decode_ms_per_step']:.2f} unsharded; {note}; bitwise "
+                      f"{held['bitwise']}; {card}", flush=True)
+        # (b): the same train cell as traced here, on a fake (1, 1) "cuda" mesh.
+        real = rec["train"]
+        mem = traced["memory"]
+        require(mem["argument_bytes"] == real["argument_bytes"],
+                f"lm dry run (b): traced argument bytes {mem['argument_bytes']}, the real step's "
+                f"{real['argument_bytes']}")
+        require(mem["temp_bytes"] >= DRYRUN_MEM_FLOOR * real["memory_rise"],
+                f"lm dry run (b): predicted temporary bytes {mem['temp_bytes']} below "
+                f"{DRYRUN_MEM_FLOOR} of the measured rise {real['memory_rise']}")
+        require(traced["cost"]["flops"] == real["flops"],
+                f"lm dry run (b): traced FLOPs {traced['cost']['flops']:.6g}, the real step's "
+                f"{real['flops']:.6g}")
+        print(f"  lm dry run (b) {TRAIN_ARCH} train {b} x {s} bf16 remat on (1, 1): argument "
+              f"bytes {real['argument_bytes']} traced and real; temp bytes predicted "
+              f"{mem['temp_bytes'] / 2**30:.3f} GiB, measured max_memory_allocated rise "
+              f"{real['memory_rise'] / 2**30:.3f} GiB (ratio "
+              f"{mem['temp_bytes'] / real['memory_rise']:.4f}), the real step's counted live "
+              f"peak {(real['counted_peak'] - real['argument_bytes']) / 2**30:.3f} GiB above "
+              f"its arguments; FLOPs {real['flops']:.6g} both; a warm step {real['step_ms']:.1f} "
+              f"ms; traced in {traced['trace_s']:.1f} s; {card}", flush=True)
+        print("  lm dry run (b) step 1 against the unsharded steps (bf16 ratio rule, of the "
+              "float32 value): " + "; ".join(
+                  f"{k} {h['sharded']:.6f} sharded, {h['unsharded']:.6f} unsharded, "
+                  f"{h['float32']:.6f} float32 ({h['sharded_rel']:.3g} vs {h['unsharded_rel']:.3g})"
+                  for k, h in real["held"].items()), flush=True)
+        record = dict(card=card, rank_s=rank_s, serve=rec["serve"],
+                      train=dict(real={k: v for k, v in real.items() if k != "launches"},
+                                 traced={k: traced[k] for k in ("trace_s", "memory", "cost")}))
+        # (c): the production traces, every one waited for before any fails.
+        record["production"], failed = {}, []
+        for (arch, shape, kind), (out, log, proc) in traces.items():
+            try:
+                rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                rc = "timeout"
+            log.close()
+            if rc != 0 or not os.path.exists(out):
+                with open(log.name) as fh:
+                    failed.append(f"lm dry run (c) {arch} {shape} {kind}: exit {rc}\n"
+                                  f"{fh.read()[-6000:]}")
+                print(failed[-1], flush=True)
+                continue
+            with open(out) as fh:
+                res = json.load(fh)
+            prod = res["production"]
+            record["production"][f"{arch}__{shape}__{kind}"] = res
+            calls = {k: (v["count"], v["payload_bytes"], v["link_bytes"])
+                     for k, v in sorted(prod["collectives"].items())}
+            print(f"  lm dry run (c) {arch} {shape} on the fake (16, 16) {kind} mesh: traced in "
+                  f"{prod['trace_s']:.1f} s ({res['wall_s']:.1f} s in all); per device: arguments "
+                  f"{prod['memory']['argument_bytes'] / 2**30:.3f} GiB, temp "
+                  f"{prod['memory']['temp_bytes'] / 2**30:.3f} GiB, {prod['cost']['flops']:.4g} "
+                  f"FLOPs, collectives (calls, payload bytes, ring link bytes) {calls}",
+                  flush=True)
+        require(not failed, "; ".join(f.split("\n")[0] for f in failed))
+        # A CPU mesh's trace (the sweep's) must see the card's collectives.
+        for arch, shape in DRYRUN_CPU_CELLS:
+            on = {kind: record["production"][f"{arch}__{shape}__{kind}"]["production"]
+                  for kind in ("cuda", "cpu")}
+            require(on["cpu"]["collectives"] == on["cuda"]["collectives"],
+                    f"lm dry run (c) {arch} {shape}: the cpu mesh's collectives "
+                    f"{on['cpu']['collectives']} differ from the cuda mesh's "
+                    f"{on['cuda']['collectives']}")
+    finally:
+        stop_traces(traces)
+    launches = rec["launches"]
+    for name in ("flash_attention_single", "ssd_chunked"):
+        require(launches.get(name, 0) > 0, f"lm dry run: {name} never launched")
     return record, launches
 
 
@@ -4616,14 +5020,13 @@ def dist_rank(rank, world, spec):
 
 def distributed_phase(torch, np, survey, query, bqueries, procs):
     """Phase "4 distributed": ``run_distributed`` in form (a), one NCCL rank
-    at full width, and form (b), eight gloo ranks sharing the card over the
-    cut survey (`dist_rank` on each, through ``run_ranks``) -> the rows.
+    at full width, and form (b), eight gloo ranks sharing the card, both over
+    the cut survey (`dist_rank` on each, through ``run_ranks``) -> the rows.
 
     Holds every job within `DIST_ATOL` of the single-host run with depth
     exactly, sparse within `DIST_SPARSE_ATOL` of dense with depth exactly,
     every rank's results bitwise rank 0's, sparse ``packs_scanned`` below
     dense, unequal per-shard budgets on form (b)'s band-gated jobs."""
-    import concurrent.futures
     import pickle
     import shutil
 
@@ -4650,15 +5053,13 @@ def distributed_phase(torch, np, survey, query, bqueries, procs):
 
     forms = {}
     dev_type = torch.device(DEVICE).type
-    # Form (b)'s cut survey (the main survey's first two epochs,
-    # `crash_survey`) is pickled while form (a)'s rank runs.
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        prepared = {"a": pool.submit(pickled, "a", survey),
-                    "b": pool.submit(lambda: pickled("b", crash_survey(survey, procs)))}
-        for form, world, backend in (("a", 1, DEFAULT_BACKEND[dev_type]),
-                                     ("b", DIST_WORLD_B, "gloo")):
-            forms[form] = distributed_form(form, world, backend, *prepared[form].result(),
-                                           queries, root)
+    # Both forms run on the cut survey (the main survey's first two epochs,
+    # `crash_survey`: its depth cut from 8 epochs to 2 for the script's
+    # time), pickled once.
+    cut = pickled("ab", crash_survey(survey, procs))
+    for form, world, backend in (("a", 1, DEFAULT_BACKEND[dev_type]),
+                                 ("b", DIST_WORLD_B, "gloo")):
+        forms[form] = distributed_form(form, world, backend, *cut, queries, root)
     shutil.rmtree(root, ignore_errors=True)
     return forms
 
@@ -4774,6 +5175,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="only hold the LM kernels at the shapes phase 4 lm sharded gives them, "
                          "run that phase (forms a and b) and exit")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="only hold the LM kernels at the shapes phase 4 lm dry run gives them, "
+                         "run that phase and exit")
     ap.add_argument("--drill-only", action="store_true",
                     help="only run phase 4 faults' SIGKILL drill over a survey of --n-runs "
                          "epochs and exit")
@@ -4846,6 +5250,32 @@ def main(argv=None) -> int:
         print(f"card: {smi}")
         return 0
 
+    if args.dryrun_only:
+        from repro_torch.kernels import build
+        from repro_torch.kernels.attention import ops as flash_ops
+        from repro_torch.kernels.attention.ref import flash_ref
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        from repro_torch.kernels.ssd import ref as ssd_ref
+
+        smi = card_line()
+        print(smi)
+        with phase("2 build"):
+            build.build_all()
+        traces = start_traces()
+        with phase("3 lm kernels"):   # at the shapes the phase gives them
+            dev = torch.device(DEVICE)
+            flash_cases(torch, flash_ops.flash_attention, flash_ref, dev,
+                        [c for c in FLASH_CASES if c[0] in DRYRUN_FLASH])
+            flash_bwd_cases(torch, dev, [c for c in FLASH_BWD_CASES if c[0] in DRYRUN_FLASH_BWD])
+            ssd_cases(torch, ssd_ops.ssd_log, ssd_ops.ssd, ssd_ref.ssd_chunked_ref,
+                      ssd_ref.ssd_batched_ref, ssd_ops.heads_per_block, dev,
+                      [c for c in SSD_CASES if c[0] in DRYRUN_SSD])
+        with phase("4 lm dry run"):
+            dry, dry_launches = dryrun_phase(torch, smi, traces)
+            print(json.dumps({"lm_dry_run": dry, "launches": dry_launches}))
+        print(f"card: {smi}")
+        return 0
+
     import torch.nn.functional as F
 
     if args.lm_only:
@@ -4913,6 +5343,8 @@ def main(argv=None) -> int:
 
     render_pool = concurrent.futures.ThreadPoolExecutor(1)
     rendering = render_pool.submit(render)
+    # Phase "4 lm dry run"'s production traces run on the host from here on.
+    traces = start_traces()
 
     # --------------------------------------------------------- 3 kernels --
     edge_flips = []       # (case, kernel, image or -1, row, col)
@@ -6602,6 +7034,15 @@ def main(argv=None) -> int:
         sharded, sharded_launches = sharded_phase(torch, smi)
         print(json.dumps({"lm_sharded": sharded}))
         for k, v in sharded_launches.items():
+            train_launches[k] = train_launches.get(k, 0) + v
+
+    # ------------------------------------------------ 4 lm dry run --
+    # Sharded serving on the card and the dry run held against a measured
+    # step; its kernel launches count in the kernels' rows with the others'.
+    with phase("4 lm dry run"):
+        dry, dry_launches = dryrun_phase(torch, smi, traces)
+        print(json.dumps({"lm_dry_run": dry}))
+        for k, v in dry_launches.items():
             train_launches[k] = train_launches.get(k, 0) + v
 
     # --------------------------------------------------------- 5 measure --

@@ -25,6 +25,7 @@ placements and `distribute_tree` places a parameter tree by them.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, Sequence, Tuple
 
 import numpy as np
@@ -327,6 +328,30 @@ def gathered(tensor, spec: Spec):
     return _Gathered.apply(tensor, tuple(placements(spec, tensor.device_mesh)))
 
 
+def reduced(tensor):
+    """A DTensor with its partial sums reduced (those mesh dimensions
+    replicated); anything else as it is.  Before a bias is added: DTensor's
+    rule for a partial sum plus a split bias may ask for a redistribution
+    it does not have (on the card's torch, 2.11: Shard to Partial)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(tensor, DTensor) or not any(p.is_partial() for p in tensor.placements):
+        return tensor
+    return tensor.redistribute(tensor.device_mesh, [Replicate() if p.is_partial() else p
+                                                    for p in tensor.placements])
+
+
+def pin_grad(tensor):
+    """``tensor`` as it is, its gradient redistributed to its placements in
+    the backward (where a view's backward would meet a split it cannot
+    take); a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(tensor, DTensor):
+        return tensor
+    return _Gathered.apply(tensor, tuple(tensor.placements))
+
+
 def replicate_dim(tensor, dim: int):
     """A DTensor with dimension ``dim`` gathered on every rank (each mesh
     dimension that splits it replicates instead, the others kept); a plain
@@ -339,6 +364,21 @@ def replicate_dim(tensor, dim: int):
     pl = [Replicate() if p.is_shard() and p.dim % tensor.ndim == dim else p
           for p in tensor.placements]
     return tensor.redistribute(tensor.device_mesh, pl)
+
+
+def split_last(tensor, parts: int):
+    """``tensor`` (..., parts * d) viewed as (..., parts, d).  A DTensor whose
+    last dimension is split over more shards than divide ``parts`` (12
+    heads over a 16-way model axis) has that dimension gathered first: a
+    shard may not end inside a part."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tensor, DTensor):
+        n = math.prod(tensor.device_mesh.size(i) for i, p in enumerate(tensor.placements)
+                      if p.is_shard() and p.dim % tensor.ndim == tensor.ndim - 1)
+        if parts % n:
+            tensor = replicate_dim(tensor, -1)
+    return tensor.reshape(*tensor.shape[:-1], parts, tensor.shape[-1] // parts)
 
 
 def match(tensor, like):
@@ -530,3 +570,155 @@ def carry_collectives(mesh) -> None:
 
     if mesh.device_type == "cuda" and dist.get_backend(mesh.get_group(0)) == "gloo":
         route_all_gather("cuda")
+
+
+# ------------------------------------------------------------ the cache ---
+
+def cache_pspecs(cache_shape, mesh, batch: int):
+    """Tree of specs of a stacked serving cache (the rule of the JAX
+    package's ``launch/specs.py::cache_shardings``): KV leaves (L, B, T, H,
+    Dh) split T over ``model`` and B over the data axes (`cache_pspec`: a
+    distributed KV cache, flash-decode style); a conv state (L, B, W-1, C)
+    its channels and an SSM state (L, B, H, N, P) its heads over ``model``
+    where they divide; B over the data axes where it divides."""
+    sizes = axis_sizes(mesh)
+    msize = sizes.get("model", 1)
+
+    def spec(path, leaf):
+        name, shape = path[-1], tuple(leaf.shape)
+        nd = len(shape)
+        if name in ("k", "v", "cross_k", "cross_v") and nd == 5:
+            return cache_pspec(sizes, batch, shape, seq_axis=2)
+        b_axes = _entry(_dp_if_divisible(sizes, batch))
+        if name == "conv" and nd == 4:
+            return (None, b_axes, None, "model" if shape[3] % msize == 0 else None)
+        if name == "ssm" and nd == 5:
+            return (None, b_axes, "model" if shape[2] % msize == 0 else None, None, None)
+        return tuple(b_axes if d == 1 else None for d in range(nd))
+
+    return _walk(cache_shape, spec)
+
+
+def shard_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The local shape of a tensor of ``shape`` placed by ``spec`` (each split
+    dimension divides: `_fit_to_shape`)."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        out[d] //= int(np.prod([sizes[a] for a in axes_of(entry)]))
+    return tuple(out)
+
+
+def zeros(shape, spec: Spec, mesh, dtype, device):
+    """A DTensor of zeros of global ``shape`` placed by ``spec``, made from
+    each rank's zero shard (the global tensor never exists)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    local = torch.zeros(shard_shape(shape, spec, mesh), dtype=dtype, device=device)
+    return DTensor.from_local(local, mesh, placements(spec, mesh), run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+def like_local(local, like):
+    """A DTensor of ``like``'s mesh, placements, shape and strides whose
+    shard on this rank is ``local``."""
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(local, like.device_mesh, like.placements, run_check=False,
+                              shape=like.shape, stride=like.stride())
+
+
+def layer(leaf, i: int):
+    """Layer ``i`` of a stacked leaf: ``leaf[i]``, for a DTensor (its layer
+    dimension whole) a DTensor whose shard is a view of the leaf's shard, so
+    that a write into it is a write into the leaf."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(leaf, DTensor):
+        return leaf[i]
+    if any(p.is_shard(0) for p in leaf.placements):
+        raise ValueError("a stacked leaf split over its layers has no local layer")
+    pl = [Shard(p.dim - 1) if p.is_shard() else p for p in leaf.placements]
+    return DTensor.from_local(leaf.to_local()[i], leaf.device_mesh, pl, run_check=False,
+                              shape=leaf.shape[1:], stride=leaf.stride()[1:])
+
+
+def slab(tensor, dim: int) -> Tuple[int, int]:
+    """[start, stop) of this rank's shard of a DTensor along ``dim`` (split
+    row-major over the mesh dimensions that split it, in mesh order)."""
+    mesh = tensor.device_mesh
+    coord = mesh.get_coordinate()
+    dim %= tensor.ndim
+    n, idx = 1, 0
+    for i, p in enumerate(tensor.placements):
+        if p.is_shard(dim):
+            idx = idx * mesh.size(i) + int(coord[i])
+            n *= mesh.size(i)
+    size = tensor.shape[dim] // n
+    return idx * size, (idx + 1) * size
+
+
+def split_group(tensor, dim: int):
+    """The process group of the ranks that hold the other shards of a
+    DTensor's dimension ``dim`` (None when it is whole); one mesh dimension
+    at most may split it."""
+    dim %= tensor.ndim
+    mesh = tensor.device_mesh
+    split = [i for i, p in enumerate(tensor.placements) if p.is_shard(dim) and mesh.size(i) > 1]
+    if not split:
+        return None
+    if len(split) > 1:
+        raise ValueError(f"dim {dim} is split over mesh dims {split}: one at most")
+    return mesh.get_group(split[0])
+
+
+def all_reduce(tensor, op: str, group):
+    """``tensor`` reduced (``"sum"``, ``"max"``) over ``group`` (a
+    functional collective, waited on)."""
+    out = torch.ops._c10d_functional.all_reduce(tensor.contiguous(), op, group.group_name)
+    return torch.ops._c10d_functional.wait_tensor(out)
+
+
+def all_gather_dim(tensor, dim: int, group):
+    """The shards of ``group``'s ranks concatenated along ``dim``, in rank
+    order (a functional collective, waited on)."""
+    n = group.size()
+    out = torch.ops._c10d_functional.all_gather_into_tensor(tensor.contiguous(), n,
+                                                            group.group_name)
+    out = torch.ops._c10d_functional.wait_tensor(out)
+    return out if dim % tensor.ndim == 0 else torch.cat(out.chunk(n, 0), dim)
+
+
+def write_layer(leaf, i: int, value, dim=None, start: int = 0) -> None:
+    """`write_slab` into layer ``i`` of a stacked leaf (`layer`)."""
+    write_slab(layer(leaf, i), value, dim, start)
+
+
+def write_slab(dst, value, dim=None, start: int = 0) -> None:
+    """``dst`` = ``value`` in place, or with ``dim`` its positions [start,
+    start + value.shape[dim]) along ``dim``.  A DTensor ``dst`` is written
+    on each rank's shard: ``value`` is redistributed to ``dst``'s
+    placements, ``dim`` whole, and each rank writes the part that falls in
+    its slab of ``dim`` (a KV cache split over T: a decode step's token goes
+    to the one rank that holds its position, no collective)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(dst, DTensor):
+        (dst if dim is None else dst.narrow(dim, start, value.shape[dim])).copy_(value)
+        return
+    pl = list(dst.placements)
+    if dim is not None:
+        dim %= dst.ndim
+        pl = [Replicate() if p.is_shard(dim) else p for p in pl]
+    if not isinstance(value, DTensor):
+        value = DTensor.from_local(value, dst.device_mesh, [Replicate()] * len(pl),
+                                   run_check=False)
+    local, out = value.redistribute(dst.device_mesh, pl).to_local(), dst.to_local()
+    if dim is None:
+        out.copy_(local)
+        return
+    lo, hi = slab(dst, dim)
+    a, b = max(lo, start), min(hi, start + value.shape[dim])
+    if a < b:
+        out.narrow(dim, a - lo, b - a).copy_(local.narrow(dim, a - start, b - a))

@@ -23,6 +23,12 @@ small batch x kv heads with a group larger than 1) a fourth,
 per-q-head partials.  Under ``torch.inference_mode`` (serving) the forward launches
 without the LSE, as before.
 
+The forward and the backward run as operators (``torch.library.custom_op``:
+``repro_torch::flash_fwd``, ``repro_torch::flash_bwd``), so that a step
+traces under ``FakeTensorMode`` (the dry run: their fake versions give the
+outputs' shapes, no launch) and ``torch.utils.flop_counter`` counts them
+(`fwd_flops`, `bwd_flops`); on real tensors they run as described here.
+
 Only a successful launch adds one to ``flash_attention.launches`` (forward)
 or to ``flash_attention_bwd.launches`` and its kernel's entry of
 ``flash_attention_bwd.kernel_launches`` (backward: three or four a call).
@@ -37,10 +43,11 @@ keeps the GQA ratio), the operands redistributed to that first.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.distributed import sharding
 from repro_torch.kernels import build
@@ -103,18 +110,72 @@ def _like(t: torch.Tensor) -> torch.Tensor:
 
 def _forward(q, k, v, causal, window, scale, with_lse):
     """o, or (o, lse) with ``with_lse``: the plain version on the CPU, the
-    kernel on a card."""
+    kernel on a card (through the `flash_fwd` operator)."""
+    o, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal, window, scale, with_lse)
+    return (o, lse) if with_lse else o
+
+
+@torch.library.custom_op("repro_torch::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+              window: Optional[int], scale: float, with_lse: bool
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as an operator -> (o, lse), lse empty without
+    ``with_lse``.  Its fake version gives the outputs' shapes under
+    ``FakeTensorMode`` (the dry run's trace) and its FLOP formula is
+    `fwd_flops`; a real call runs the plain version on the CPU or launches
+    the kernel on a card and counts the launch."""
     if q.device.type == "cpu":
-        return ref.flash_ref(q, k, v, causal=causal, window=window, scale=scale,
-                             return_lse=with_lse)
+        if with_lse:
+            return ref.flash_ref(q, k, v, causal=causal, window=window, scale=scale,
+                                 return_lse=True)
+        return (ref.flash_ref(q, k, v, causal=causal, window=window, scale=scale),
+                q.new_empty((0,), dtype=torch.float32))
     _check_card(q, k, v)
     b, hq, s, _ = q.shape
     o = _like(q)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device) if with_lse else None
+    lse = torch.empty((b, hq, s) if with_lse else (0,), dtype=torch.float32, device=q.device)
     _launch(q, k, v, o, causal, window, scale, q.device.index,
-            torch.cuda.current_stream(q.device).cuda_stream, lse=lse)
+            torch.cuda.current_stream(q.device).cuda_stream, lse=lse if with_lse else None)
     flash_attention.launches += 1
-    return (o, lse) if with_lse else o
+    return o, lse
+
+
+@flash_fwd.register_fake
+def _(q, k, v, causal, window, scale, with_lse):
+    if q.device.type == "cuda":
+        _check_card(q, k, v)
+    b, hq, s, _ = q.shape
+    return _like(q), q.new_empty((b, hq, s) if with_lse else (0,), dtype=torch.float32)
+
+
+def attention_pairs(s: int, causal: bool, window: Optional[int]) -> int:
+    """Unmasked (q, k) pairs of one (batch, head) slice of S queries and
+    keys: query i sees keys max(i - window + 1, 0) .. i causal (.. S - 1
+    not)."""
+    if not causal:
+        return s * s if window is None else sum(s - max(i - window + 1, 0) for i in range(s))
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def fwd_flops(b: int, hq: int, s: int, d: int, causal: bool, window: Optional[int]) -> int:
+    """FLOPs of one forward call: two D-deep products (Q K^T and P V), 2 D
+    flops each, per unmasked pair."""
+    return 4 * d * b * hq * attention_pairs(s, causal, window)
+
+
+def bwd_flops(b: int, hq: int, s: int, d: int, causal: bool, window: Optional[int]) -> int:
+    """FLOPs of one backward call as its kernels compute it: per unmasked
+    pair the dkdv kernel's four products (S and dP recomputed, P^T dO, dS^T
+    Q) and the dq kernel's three (S, dP, dS K), 2 D flops each."""
+    return 14 * d * b * hq * attention_pairs(s, causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_fwd)
+def _fwd_flop_formula(q, k, v, causal, window, scale, with_lse, *_, **__) -> int:
+    b, hq, s, d = q
+    return fwd_flops(b, hq, s, d, causal, window)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: Optional[int] = None,
@@ -211,7 +272,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
     three backward kernels, no fallback.
     """
     _check(q, k, v, window)
-    scale = _scale(q.shape[3], scale)
+    return torch.ops.repro_torch.flash_bwd(q, k, v, o, lse, do, causal, window,
+                                           _scale(q.shape[3], scale))
+
+
+@torch.library.custom_op("repro_torch::flash_bwd", mutates_args=())
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+              lse: torch.Tensor, do: torch.Tensor, causal: bool, window: Optional[int],
+              scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`flash_attention_bwd` as an operator (a fake version and `bwd_flops`
+    for the dry run's trace): the plain version on the CPU, the kernels on a
+    card, each launch counted."""
     if q.device.type == "cpu":
         return ref.flash_bwd_ref(q, k, v, o, lse, do, causal=causal, window=window, scale=scale)
     (dq, dk, dv, _, _), calls = bwd_launches(q, k, v, o, lse, do, causal, window, scale)
@@ -220,6 +291,19 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True,
         flash_attention_bwd.launches += 1
         flash_attention_bwd.kernel_launches[kernel] += 1
     return dq, dk, dv
+
+
+@flash_bwd.register_fake
+def _(q, k, v, o, lse, do, causal, window, scale):
+    if q.device.type == "cuda":
+        _check_card(q, k, v)
+    return _like(q), _like(k), _like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_bwd)
+def _bwd_flop_formula(q, k, v, o, lse, do, causal, window, scale, *_, **__) -> int:
+    b, hq, s, d = q
+    return bwd_flops(b, hq, s, d, causal, window)
 
 
 def bwd_launches(q, k, v, o, lse, do, causal, window, scale, split: Optional[bool] = None):

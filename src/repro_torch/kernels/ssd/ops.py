@@ -28,6 +28,12 @@ to ``ssd_log_bwd.launches`` and one to each kernel's entry of
 backward kernels' function in their own decomposition, which the tests
 and ``chip_smoke.py`` hold them against.
 
+The forward kernels and, on a card, the backward kernels run as operators
+(``torch.library.custom_op``: ``repro_torch::ssd_fwd``,
+``repro_torch::ssd_bwd``), so that a step traces under ``FakeTensorMode``
+(the dry run) and ``torch.utils.flop_counter`` counts them (`fwd_flops`,
+`bwd_flops`); on real tensors they run as described here.
+
 On a device mesh (DTensor operands, the sharded train step) the kernels
 never see a DTensor: `ssd_log` runs each rank's local shard through
 ``local_map``, the batch split over the given batch axes and the heads over
@@ -38,10 +44,12 @@ and their gradients come back as partial sums over it.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch.distributed.tensor import DTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.distributed import sharding
 from repro_torch.kernels import build
@@ -123,13 +131,75 @@ def ssd_log(log_a, Bm, Cm, x, chunk: int = 64, intra_dtype: str = "float32",
     _check(log_a, Bm, Cm, x, chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (log_a, Bm, Cm, x)):
         return SSDScan.apply(log_a, Bm, Cm, x, chunk, intra_dtype)
-    if x.device.type == "cpu":
-        return ref.ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
-    y, state, _ = _forward(log_a, Bm, Cm, x, chunk, intra_dtype)
+    y, state, _, _ = torch.ops.repro_torch.ssd_fwd(log_a, Bm, Cm, x, chunk, intra_dtype)
     return y, state
 
 
 ssd_log.launches = 0
+
+
+@torch.library.custom_op("repro_torch::ssd_fwd", mutates_args=())
+def ssd_fwd(log_a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, x: torch.Tensor, chunk: int,
+            intra_dtype: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward as an operator -> (y, final state, chunk states, decays):
+    on a card the kernels (the launch counted), whose scratch the backward
+    reads; on the CPU the plain version, with empty scratch.  Its fake
+    version gives the card's outputs and scratch whatever the device, so
+    that the dry run's trace on a CPU mesh counts the card's memory; its
+    FLOP formula is `fwd_flops`."""
+    if x.device.type == "cpu":
+        y, state = ref.ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
+        none = y.new_empty((0,))
+        return y, state, none, none.clone()
+    y, state, (dstate, cums) = _forward(log_a, Bm, Cm, x, chunk, intra_dtype)
+    return y, state, dstate, cums
+
+
+@ssd_fwd.register_fake
+def _(log_a, Bm, Cm, x, chunk, intra_dtype):
+    if x.device.type == "cuda":
+        _check_card(log_a, Bm, Cm, x, intra_dtype)
+    b, t, h = log_a.shape
+    n, p = Bm.shape[2], x.shape[3]
+    n_chunks = -(-t // min(chunk, MAX_TILE))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((b, t, h, p), **f32), torch.empty((b, h, n, p), **f32),
+            torch.empty((b, n_chunks, h, n, p), **f32),
+            torch.empty((b, n_chunks, h, MAX_TILE), **f32))
+
+
+def fwd_flops(b: int, t: int, h: int, n: int, p: int, chunk: int) -> int:
+    """Operations of one forward call in float32 (chip_smoke.py's
+    ``ssd_bound``): per (batch, chunk) the causal half of C B^T; per (head,
+    chunk) the decay mask (3 a pair), the causal half of G X, C S (not for
+    the first chunk, whose state is 0) with its decay and sum (2 P a step),
+    the weights on B (N a step), B^T X and the state's decay and sum; one
+    add a step for the cumulative sum."""
+    lc = min(chunk, t)
+    sizes = [lc] * (t // lc) + ([t % lc] if t % lc else [])
+    pairs = sum(r * (r + 1) // 2 for r in sizes)
+    return b * 2 * n * pairs + b * h * (
+        3 * pairs + 2 * p * pairs + 2 * n * p * (t - sizes[0]) + 2 * p * t + n * t
+        + 2 * n * p * t + 2 * n * p * len(sizes) + t)
+
+
+def bwd_flops(b: int, t: int, h: int, n: int, p: int, chunk: int) -> int:
+    """Operations of one backward call, every product counted once in
+    float32 (chip_smoke.py's ``ssd_bwd_bound``, its CUDA-core reckoning):
+    per (head, sub-chunk) D = dy x^T, A^T dy, W B and W^T C with the mask
+    and the products A, W and A o D (5 a pair), the three state products
+    and the chunk sums; per (batch, sub-chunk) C B^T; the carry."""
+    tile = min(chunk, MAX_TILE)
+    sizes = [tile] * (t // tile) + ([t % tile] if t % tile else [])
+    pairs = sum(r * (r + 1) // 2 for r in sizes)
+    scan = b * (2 * n * pairs + h * (pairs * (4 * p + 4 * n + 5) + 6 * n * p * t))
+    return scan + 2 * b * h * n * p * t + 2 * b * h * len(sizes) * n * p
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_fwd)
+def _fwd_flop_formula(log_a, Bm, Cm, x, chunk, intra_dtype, *_, **__) -> int:
+    b, t, h, p = x
+    return fwd_flops(b, t, h, Bm[2], p, chunk)
 
 
 def _on_shards(log_a, Bm, Cm, x, chunk, intra_dtype, batch_axes):
@@ -202,11 +272,8 @@ class SSDScan(torch.autograd.Function):
     def forward(ctx, log_a, Bm, Cm, x, chunk, intra_dtype):
         ctx.args = (chunk, intra_dtype)
         ctx.set_materialize_grads(False)
-        if x.device.type == "cpu":
-            ctx.save_for_backward(log_a, Bm, Cm, x)
-            return ref.ssd_chunked_ref(log_a, Bm, Cm, x, chunk, intra_dtype)
-        y, state, scratch = _forward(log_a, Bm, Cm, x, chunk, intra_dtype)
-        ctx.save_for_backward(log_a, Bm, Cm, x, *scratch)
+        y, state, *scratch = torch.ops.repro_torch.ssd_fwd(log_a, Bm, Cm, x, chunk, intra_dtype)
+        ctx.save_for_backward(log_a, Bm, Cm, x, *(scratch if scratch[0].numel() else ()))
         return y, state
 
     @staticmethod
@@ -236,18 +303,45 @@ def ssd_log_bwd(log_a, Bm, Cm, x, dy, dstate, chunk: int = 64, scratch=None,
     _check(log_a, Bm, Cm, x, chunk)
     if dy is None:
         dy = torch.zeros(x.shape, dtype=log_a.dtype, device=x.device)
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" and not is_fake(x):
         inputs = [t.detach().requires_grad_() for t in (log_a, Bm, Cm, x)]
         with torch.enable_grad():
             y, state = ref.ssd_chunked_ref(*inputs, chunk, intra_dtype)
         ys, gs = zip(*[(y, dy)] + ([] if dstate is None else [(state, dstate)]))
         return torch.autograd.grad(ys, inputs, gs)
+    s_in, cums = scratch or (None, None)
+    return torch.ops.repro_torch.ssd_bwd(log_a, Bm, Cm, x, dy, dstate, chunk, s_in, cums,
+                                         intra_dtype)
+
+
+@torch.library.custom_op("repro_torch::ssd_bwd", mutates_args=())
+def ssd_bwd(log_a: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, x: torch.Tensor,
+            dy: torch.Tensor, dstate: Optional[torch.Tensor], chunk: int,
+            s_in: Optional[torch.Tensor], cums: Optional[torch.Tensor], intra_dtype: str
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ssd_log_bwd`'s kernels as an operator (a fake version and
+    `bwd_flops` for the dry run's trace): each launch counted.  A CPU call
+    (autograd through the plain forward) stays in `ssd_log_bwd`: an
+    operator's body runs below autograd."""
+    scratch = None if s_in is None else (s_in, cums)
     outs, calls = bwd_launches(log_a, Bm, Cm, x, dy, dstate, chunk, scratch)
     for kernel, call in calls.items():
         call()
         ssd_log_bwd.kernel_launches[kernel] += 1
     ssd_log_bwd.launches += 1
     return outs[:4]
+
+
+@ssd_bwd.register_fake
+def _(log_a, Bm, Cm, x, dy, dstate, chunk, s_in, cums, intra_dtype):
+    return (torch.empty_like(log_a), torch.empty_like(Bm), torch.empty_like(Cm),
+            torch.empty_like(x))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd)
+def _bwd_flop_formula(log_a, Bm, Cm, x, dy, dstate, chunk, *_, **__) -> int:
+    b, t, h, p = x
+    return bwd_flops(b, t, h, Bm[2], p, chunk)
 
 
 ssd_log_bwd.launches = 0

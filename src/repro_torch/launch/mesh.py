@@ -1,6 +1,8 @@
-"""Device meshes for multi-device coadd jobs, on ``torch.distributed``.
+"""Device meshes for multi-device jobs, on ``torch.distributed``.
 
-Counterpart of ``repro.launch.mesh.make_smoke_mesh``.  A JAX mesh is one
+Counterpart of ``repro.launch.mesh``: ``make_smoke_mesh`` (`make_mesh`) and
+``make_production_mesh``, which the dry run traces on (`make_fake_mesh`: one
+process standing for every rank of a fake process group).  A JAX mesh is one
 controller's view of many devices; here every rank of a process group is
 one program (SPMD), and `make_mesh` gives each rank the same named
 `DeviceMesh` over the group: rank ``r`` sits at the row-major coordinate of
@@ -62,6 +64,49 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], device_type: str = "cud
     if n != world:
         raise ValueError(f"mesh {shape} needs {n} ranks, the group has {world}")
     return DeviceMesh(device_type, torch.arange(world).reshape(shape), mesh_dim_names=axes)
+
+
+def make_fake_mesh(shape: Sequence[int], axes: Sequence[str], device_type: str = "cpu"):
+    """A `DeviceMesh` of ``shape`` over a fake process group of that many
+    ranks, this process rank 0: collectives return tensors of the right
+    shape and move nothing, so that one process can trace a step as rank 0
+    of the whole mesh (under ``FakeTensorMode``: no device memory).
+
+    Joins the default group as ``"fake"`` (``torch.testing``'s
+    ``FakeStore``); a fake group of another size is left first, a real
+    group raises.  A ``"cuda"`` mesh needs a torch built with CUDA.
+    """
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    world = 1
+    for s in shape:
+        world *= s
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(f"a {dist.get_backend()} process group is initialized; a fake "
+                               "mesh needs its own")
+        if dist.get_world_size() != world:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    return DeviceMesh(device_type, torch.arange(world).reshape(shape), mesh_dim_names=axes)
+
+
+#: The production meshes (the reference's): one 16 x 16 pod, or two.
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cpu"):
+    """The reference's production mesh, (16, 16) ("data", "model") or (2,
+    16, 16) ("pod", "data", "model"), over a fake process group of 256 or
+    512 ranks (`make_fake_mesh`).  Only batch is split over ``pod``, so that
+    cross-pod traffic is the gradients' reduction."""
+    shape, axes = PRODUCTION_MESHES[multi_pod]
+    return make_fake_mesh(shape, axes, device_type)
 
 
 def _rank_main(rank: int, world: int, backend: str, init_method: str, timeout_s: float,

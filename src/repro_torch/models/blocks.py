@@ -18,14 +18,13 @@ from __future__ import annotations
 import math
 from typing import Dict
 
-import torch
-
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import Init, cast, mlp_apply, mlp_init, rmsnorm, rmsnorm_init
+from repro_torch.models.layers import (Init, cast, linear, mlp_apply, mlp_init, rmsnorm,
+                                       rmsnorm_init)
 
 
 # ------------------------------------------------------------- attn + mlp ---
@@ -55,8 +54,9 @@ def attn_mlp_apply(params, x, cfg: ModelConfig, positions=None, causal=True,
 def attn_mlp_decode(params, x, cache, pos, cfg: ModelConfig):
     h, cache = attn.attend_decode(params["attn"], rmsnorm(params["ln_attn"], x), cache, pos,
                                   cfg)
-    x = x + h
-    return x + mlp_apply(params["mlp"], rmsnorm(params["ln_mlp"], x), cfg.mlp_type), cache
+    x = x + sharding.match(h, x)
+    return x + sharding.match(mlp_apply(params["mlp"], rmsnorm(params["ln_mlp"], x),
+                                        cfg.mlp_type), x), cache
 
 
 # ------------------------------------------------------------------- moe ---
@@ -83,8 +83,10 @@ def moe_block_apply(params, x, cfg: ModelConfig, return_kv=False, use_kernel=Tru
 def moe_block_decode(params, x, cache, pos, cfg: ModelConfig):
     h, cache = attn.attend_decode(params["attn"], rmsnorm(params["ln_attn"], x), cache, pos,
                                   cfg)
-    x = x + h
-    return x + moe_mod.moe_apply_decode(params["moe"], rmsnorm(params["ln_mlp"], x), cfg), cache
+    x = x + sharding.match(h, x)
+    return x + sharding.match(moe_mod.moe_apply_decode(params["moe"],
+                                                       rmsnorm(params["ln_mlp"], x), cfg),
+                              x), cache
 
 
 # ------------------------------------------------- cross-attention blocks ---
@@ -98,7 +100,8 @@ def cross_block_init(init: Init, cfg: ModelConfig, with_mlp: bool = True) -> Dic
 
 def _cross_mlp(params, x, cfg: ModelConfig):
     if "mlp" in params:
-        x = x + mlp_apply(params["mlp"], rmsnorm(params["ln_mlp"], x), cfg.mlp_type)
+        x = x + sharding.match(mlp_apply(params["mlp"], rmsnorm(params["ln_mlp"], x),
+                                         cfg.mlp_type), x)
     return x
 
 
@@ -108,29 +111,27 @@ def cross_block_apply(params, x, context, cfg: ModelConfig):
 
 
 def cross_block_decode_cached(params, x, ck, cv, cfg: ModelConfig):
-    """Cross-attention against the context's cached K/V (B, T, Hkv, Dh)."""
+    """Cross-attention against the context's cached K/V (B, T, Hkv, Dh),
+    DTensors on each rank's shard (`attention.cached_attention`)."""
     dt = x.dtype
-    b, s, _ = x.shape
     dh = cfg.head_dim
     xq = rmsnorm(params["ln_x"], x)
-    q = (xq @ cast(params["cross"]["w_q"], dt)).reshape(b, s, cfg.n_heads, dh)
+    q = sharding.split_last(linear(xq, cast(params["cross"]["w_q"], dt)), cfg.n_heads)
     if cfg.qkv_bias:
         q = q + cast(params["cross"]["b_q"], dt).reshape(cfg.n_heads, dh)
     # A division, where attend_cross multiplies by the reciprocal: as the JAX
     # package rounds it.
-    logits = attn._gqa_scores(q, ck) / math.sqrt(dh)
-    o = attn._gqa_out(torch.softmax(logits, dim=-1), cv, b, s, cfg.n_heads, dh)
-    x = x + torch.matmul(*attn._promoted(o, cast(params["cross"]["w_o"], dt)))
+    o = attn.cached_attention(q, ck, cv, math.sqrt(dh), divide=True)
+    x = x + sharding.match(linear(*attn._promoted(o, cast(params["cross"]["w_o"], dt))), x)
     return _cross_mlp(params, x, cfg)
 
 
 def cross_context_kv(params, context, cfg: ModelConfig):
     """The cross-attention K/V of ``context`` (B, T, D), computed once at prefill."""
     dt = context.dtype
-    b, t, _ = context.shape
     dh = cfg.head_dim
-    k = (context @ cast(params["cross"]["w_k"], dt)).reshape(b, t, cfg.n_kv_heads, dh)
-    v = (context @ cast(params["cross"]["w_v"], dt)).reshape(b, t, cfg.n_kv_heads, dh)
+    k = sharding.split_last(linear(context, cast(params["cross"]["w_k"], dt)), cfg.n_kv_heads)
+    v = sharding.split_last(linear(context, cast(params["cross"]["w_v"], dt)), cfg.n_kv_heads)
     if cfg.qkv_bias:
         k = k + cast(params["cross"]["b_k"], dt).reshape(cfg.n_kv_heads, dh)
         v = v + cast(params["cross"]["b_v"], dt).reshape(cfg.n_kv_heads, dh)

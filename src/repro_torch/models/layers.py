@@ -66,21 +66,32 @@ def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) times w (K, N) as one (rows, K) x (K, N) ``mm``: the
+    product ``x @ w`` computes, the same bits.  DTensor's sharding
+    propagation caches ``mm``; on the card's torch (2.11) it propagates
+    ``matmul``'s decomposition anew on every call, which paces a sharded
+    decode step."""
+    if x.dim() == 2:
+        return torch.mm(x, w)
+    return torch.mm(x.reshape(-1, x.shape[-1]), w).reshape(*x.shape[:-1], w.shape[-1])
+
+
 # ------------------------------------------------------------------- mlp ---
 def mlp_apply(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
     """x: (B, S, D); a sequence-split DTensor x is gathered first."""
     dt = x.dtype
     x = sharding.replicate_dim(x, 1)
-    up = x @ cast(params["w_up"], dt)
+    up = linear(x, cast(params["w_up"], dt))
     if mlp_type == "swiglu":
-        h = F.silu(x @ cast(params["w_gate"], dt)) * up
+        h = F.silu(linear(x, cast(params["w_gate"], dt))) * up
     elif mlp_type == "geglu":
-        h = F.gelu(x @ cast(params["w_gate"], dt), approximate="tanh") * up
+        h = F.gelu(linear(x, cast(params["w_gate"], dt)), approximate="tanh") * up
     elif mlp_type == "gelu":
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(mlp_type)
-    return h @ cast(params["w_down"], dt)
+    return linear(h, cast(params["w_down"], dt))
 
 
 # ------------------------------------------------------------ embeddings ---
@@ -135,7 +146,7 @@ def _lookup_on_shards(tokens, table):
 def unembed_apply(params, x: torch.Tensor, softcap: Optional[float] = None) -> torch.Tensor:
     table = params.get("unembed", params["embedding"])
     x = sharding.replicate_dim(x, 1)   # a sequence-split DTensor x is gathered first
-    logits = (x @ cast(table, x.dtype).T).float()
+    logits = linear(x, cast(table, x.dtype).t()).float()
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits

@@ -19,8 +19,16 @@ layer stacks are tensors with a leading layer axis, walked by a Python loop
 summed Switch loss as ``aux`` (0 for the other families).
 
 The serving path runs under ``torch.inference_mode``; ``decode_step``
-updates the cache in place and returns it.  ``forward`` and ``loss`` are
-differentiable: the stacked layers are walked through one ``unbind`` a
+updates the cache in place and returns it.  On a device mesh (DTensor
+parameters, `launch.specs.make_sharded_prefill_step` and
+``make_sharded_decode_step``) the cache is made on the parameters' mesh,
+each leaf placed by `sharding.cache_pspecs` (a KV cache's T over
+``model``), and written and read on each rank's shard: a prefill writes
+each rank's slab of [0, S), a decode step's token goes to the rank that
+holds its position, attention combines the ranks' partial softmaxes, the
+SSM states advance head by head and channel by channel where they lie.
+``forward`` and ``loss`` are differentiable: the stacked layers are
+walked through one ``unbind`` a
 stack, and under grad with ``cfg.remat`` each of the JAX package's remat
 units (a block; a hybrid or vlm group) runs under
 ``torch.utils.checkpoint`` (`_units`).  Under grad the kernels' wrappers
@@ -110,8 +118,9 @@ def _tree_map(fn, tree, *rest):
 
 
 def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter or state tree (views, no copies)."""
-    return _tree_map(lambda x: x[i], tree)
+    """Layer ``i`` of a stacked parameter or state tree (views, no copies;
+    of a DTensor's shard too, `sharding.layer`)."""
+    return _tree_map(lambda x: sharding.layer(x, i), tree)
 
 
 def _unbind(tree):
@@ -123,6 +132,9 @@ def _unbind(tree):
         parts = {k: _unbind(v) for k, v in tree.items()}
         n = len(next(iter(parts.values())))
         return [{k: parts[k][i] for k in parts} for i in range(n)]
+    if isinstance(tree, DTensor) and not torch.is_grad_enabled():
+        # DTensor's unbind takes no inference-mode views: views of the shard.
+        return [sharding.layer(tree, i) for i in range(tree.shape[0])]
     return list(tree.unbind(0))
 
 
@@ -293,20 +305,19 @@ class LM:
         ``i`` of ``cache`` when given.  -> (x, the MoE aux loss or None)."""
         cfg = self.cfg
         fill = cache is not None
-        s = x.shape[1]
         if kind in ("mamba", "tail"):
             if not fill:
                 return B.mamba_block_apply(lp, x, cfg, use_kernel=self.use_kernels), None
             x, st = B.mamba_block_apply(lp, x, cfg, return_state=True,
                                         use_kernel=self.use_kernels)
             slot = self._states(cache, kind)
-            slot["conv"][i] = st["conv"]
-            slot["ssm"][i] = st["ssm"]
+            sharding.write_layer(slot["conv"], i, st["conv"])
+            sharding.write_layer(slot["ssm"], i, st["ssm"])
             return x, None
         if kind == "cross":
             x = B.cross_block_apply(lp, x, ctx, cfg)
             if fill:
-                cache["cross_k"][i], cache["cross_v"][i] = B.cross_context_kv(lp, ctx, cfg)
+                self._fill_cross(cache, i, B.cross_context_kv(lp, ctx, cfg))
             return x, None
         kv, aux = None, None
         if kind == "moe":
@@ -316,17 +327,22 @@ class LM:
         elif kind == "encdec":
             x, kv = self._encdec_block(lp, x, ctx, fill)
             if fill:
-                cache["cross_k"][i], cache["cross_v"][i] = B.cross_context_kv(lp, ctx, cfg)
+                self._fill_cross(cache, i, B.cross_context_kv(lp, ctx, cfg))
         else:
             res = B.attn_mlp_apply(lp, x, cfg, return_kv=fill, use_kernel=self.use_kernels)
             x, kv = res if fill else (res, None)
             if cfg.family == "dense" and not fill:
                 x = _shard_seq(x, cfg)
-        if fill:
+        if fill:   # positions [0, S) of layer i
             slot = cache["shared"] if kind == "shared" else cache
-            slot["k"][i, :, :s] = kv[0]
-            slot["v"][i, :, :s] = kv[1]
+            sharding.write_layer(slot["k"], i, kv[0], dim=1)
+            sharding.write_layer(slot["v"], i, kv[1], dim=1)
         return x, aux
+
+    @staticmethod
+    def _fill_cross(cache, i, kv):
+        sharding.write_layer(cache["cross_k"], i, kv[0])
+        sharding.write_layer(cache["cross_v"], i, kv[1])
 
     def _unit(self, blocks, layers, x, ctx, cache=None):
         """The blocks of one remat unit in order -> (x, their summed aux or None)."""
@@ -383,7 +399,14 @@ class LM:
         return loss + AUX_LOSS_WEIGHT * aux
 
     # ---------------------------------------------------------- serving ---
-    def init_cache(self, batch_size: int, max_len: int) -> Dict:
+    def init_cache(self, batch_size: int, max_len: int, mesh=None) -> Dict:
+        """The zeroed serving cache; on a ``mesh`` its leaves are DTensors
+        placed by `sharding.cache_pspecs`, each rank's shard made alone."""
+        if mesh is not None:
+            shapes = LM(self.cfg, device="meta").init_cache(batch_size, max_len)
+            specs = sharding.cache_pspecs(shapes, mesh, batch_size)
+            return _tree_map(lambda x, spec: sharding.zeros(x.shape, spec, mesh, x.dtype,
+                                                            self.device), shapes, specs)
         cfg = self.cfg
         fam = cfg.family
 
@@ -413,11 +436,14 @@ class LM:
 
     @torch.inference_mode()
     def prefill(self, params, batch, max_len: int) -> Tuple[torch.Tensor, Dict]:
-        """Teacher-forced pass that also fills the serving cache."""
+        """Teacher-forced pass that also fills the serving cache (on the
+        parameters' mesh when they are DTensors: `init_cache`)."""
         tokens = batch["tokens"]
         if tokens.shape[1] > max_len:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds max_len {max_len}")
-        cache = self.init_cache(tokens.shape[0], max_len)
+        leaf = params["ln_f"]["scale"]
+        cache = self.init_cache(tokens.shape[0], max_len,
+                                leaf.device_mesh if isinstance(leaf, DTensor) else None)
         x = self._embed(params, tokens, torch.arange(tokens.shape[1], device=tokens.device))
         x, _ = self._run(params, x, self._context(params, batch, x), cache)
         x = rmsnorm(params["ln_f"], x[:, -1:])
@@ -436,28 +462,32 @@ class LM:
                 slot = self._states(cache, kind)
                 lp = _layer(params["blocks" if kind == "mamba" else "tail"], i)
                 x, st = B.mamba_block_decode(lp, x, _layer(slot, i), cfg)
-                slot["conv"][i] = st["conv"]
-                slot["ssm"][i] = st["ssm"]
+                sharding.write_layer(slot["conv"], i, st["conv"])
+                sharding.write_layer(slot["ssm"], i, st["ssm"])
                 continue
             if kind == "cross":
                 x = B.cross_block_decode_cached(_layer(params["cross_blocks"], i), x,
-                                                cache["cross_k"][i], cache["cross_v"][i], cfg)
+                                                *self._cross(cache, i), cfg)
                 continue
             slot = cache["shared"] if kind == "shared" else cache
-            kv = {"k": slot["k"][i], "v": slot["v"][i]}
+            kv = {"k": sharding.layer(slot["k"], i), "v": sharding.layer(slot["v"], i)}
             lp = params["shared_attn"] if kind == "shared" else _layer(params["blocks"], i)
             if kind == "moe":
                 x, _ = B.moe_block_decode(lp, x, kv, pos, cfg)
             elif kind == "encdec":
                 h, _ = attn.attend_decode(lp["attn"], rmsnorm(lp["ln_attn"], x), kv, pos, cfg)
                 x = B.cross_block_decode_cached({"ln_x": lp["ln_cross"], "cross": lp["cross"]},
-                                                x + h, cache["cross_k"][i], cache["cross_v"][i],
+                                                x + sharding.match(h, x), *self._cross(cache, i),
                                                 cfg)
                 x = x + mlp_apply(lp["mlp"], rmsnorm(lp["ln_mlp"], x), cfg.mlp_type)
             else:
                 x, _ = B.attn_mlp_decode(lp, x, kv, pos, cfg)
         x = rmsnorm(params["ln_f"], x)
         return unembed_apply(params["embed"], x, cfg.logit_softcap)[:, 0], cache
+
+    @staticmethod
+    def _cross(cache, i):
+        return sharding.layer(cache["cross_k"], i), sharding.layer(cache["cross_v"], i)
 
 
 def build_model(cfg: ModelConfig, device="cuda", use_kernels: bool = True) -> LM:

@@ -45,7 +45,7 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
-from repro_torch.models.layers import Init, cast
+from repro_torch.models.layers import Init, cast, linear
 
 
 def moe_init(init: Init, cfg: ModelConfig) -> Dict:
@@ -74,7 +74,7 @@ def top_k(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 def route(params, x, cfg: ModelConfig):
     """x: (B, S, D) -> (gates (B,S,E) float32, renormalized top-k weights
     (B,S,k) float32, top-k experts (B,S,k))."""
-    logits = (x @ cast(params["router"], x.dtype)).float()
+    logits = linear(x, cast(params["router"], x.dtype)).float()
     gates = torch.softmax(logits, dim=-1)
     topv, topi = top_k(gates, cfg.top_k)
     topv = topv / torch.clamp_min(topv.sum(-1, keepdim=True), 1e-9)
@@ -224,7 +224,10 @@ def _scatter(params, x, cfg: ModelConfig):
 
 
 def moe_apply_decode(params, x, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, 1, D): a dense mixture over the top-k experts (every expert computed)."""
+    """x: (B, 1, D): a dense mixture over the top-k experts (every expert
+    computed).  A DTensor x runs tensor-parallel (`_decode_on_shards`)."""
+    if isinstance(x, DTensor):
+        return _decode_on_shards(params, x, cfg)
     dt = x.dtype
     gates, topv, topi = route(params, x, cfg)
     mix = torch.zeros_like(gates).scatter_(-1, topi, topv)         # (B,S,E)
@@ -232,3 +235,30 @@ def moe_apply_decode(params, x, cfg: ModelConfig) -> torch.Tensor:
     u = torch.einsum("bsd,edf->bsef", x, cast(params["w_up"], dt))
     o = torch.einsum("bsef,efd->bsed", F.silu(g) * u, cast(params["w_down"], dt))
     return torch.einsum("bse,bsed->bsd", mix.to(dt), o)
+
+
+def _decode_on_shards(params, x, cfg: ModelConfig):
+    """`moe_apply_decode` of a DTensor x through ``local_map``: x's rows over
+    the data axes (where they divide), the router whole, each expert's d_ff
+    as w_down splits it (over ``model``: a rank computes its slab of every
+    expert's FFN) -> the output as a partial sum over the axes that split
+    d_ff, placed as those rows.  The expert weights never move (the train
+    path's token-local MoE gathers them, which a decode step should not)."""
+    mesh = x.device_mesh
+    rows = sharding.local_spec(mesh, sharding.dp_axes(mesh), x.shape[0], 3)
+    names = tuple(mesh.mesh_dim_names)
+    f_axes = tuple(names[i] for i, p in enumerate(params["w_down"].placements) if p.is_shard(1))
+    f = sharding._entry(f_axes)
+    pl = sharding.placements
+    gate, down = pl((None, None, f), mesh), pl((None, f, None), mesh)
+    run = sharding.on_shards(_decode_local, mesh,
+                             (pl((), mesh), gate, gate, down, pl(rows, mesh), None),
+                             sharding.partial_over(rows, mesh, f_axes))
+    return run(*(params[k] for k in _EXPERT_NAMES), x, cfg)
+
+
+_EXPERT_NAMES = ("router", "w_gate", "w_up", "w_down")
+
+
+def _decode_local(router, w_gate, w_up, w_down, x, cfg: ModelConfig):
+    return moe_apply_decode(dict(zip(_EXPERT_NAMES, (router, w_gate, w_up, w_down))), x, cfg)

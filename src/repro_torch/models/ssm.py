@@ -26,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import sharding
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_chunked_ref
-from repro_torch.models.layers import Init, cast, rmsnorm, rmsnorm_init, torch_dtype
+from repro_torch.models.layers import Init, cast, linear, rmsnorm, rmsnorm_init, torch_dtype
 
 
 def mamba2_init(init: Init, cfg: ModelConfig) -> Dict:
@@ -109,7 +109,7 @@ def mamba2_apply(params, u, cfg: ModelConfig, return_state: bool = False,
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     # On a mesh in_proj's columns are split over "model" across the z | x |
     # B | C | dt boundaries: gather them before the split.
-    proj = sharding.replicate_dim(u @ cast(params["in_proj"], dt_), -1)
+    proj = sharding.replicate_dim(linear(u, cast(params["in_proj"], dt_)), -1)
     z, xbc_raw, dtv = _split_proj(proj, cfg)
     xbc = _causal_conv(xbc_raw, cast(params["conv_w"], dt_), cast(params["conv_b"], dt_),
                        cfg.act_shard_axes)
@@ -130,7 +130,7 @@ def mamba2_apply(params, u, cfg: ModelConfig, return_state: bool = False,
     y = y.reshape(b, s, di).to(dt_)
     y = y * F.silu(z)
     y = rmsnorm(params["norm"], y)
-    out = y @ cast(params["out_proj"], dt_)
+    out = linear(y, cast(params["out_proj"], dt_))
     if not return_state:
         return out
     w = cfg.conv_width
@@ -154,28 +154,84 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
 def mamba2_decode(params, u, state: Dict, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     """u: (B, 1, D); advances the conv buffer and SSM state one token.
 
-    Returns the output and new {"conv", "ssm"} tensors (the caller stores them).
+    Returns the output and new {"conv", "ssm"} tensors (the caller stores
+    them).  DTensor states run on each rank's shard (`_decode_on_shards`).
     """
+    if isinstance(state["ssm"], DTensor):
+        return _decode_on_shards(params, u, state, cfg)
     dt_ = u.dtype
-    b = u.shape[0]
+    proj = linear(u, cast(params["in_proj"], dt_))                      # (B,1,*)
+    local = dict(conv_w=cast(params["conv_w"], dt_), conv_b=cast(params["conv_b"], dt_),
+                 **{k: params[k] for k in ("A_log", "D", "dt_bias", "norm")})
+    y, conv, S = _decode_local(proj, state["conv"], state["ssm"], local, cfg)
+    return linear(y, cast(params["out_proj"], dt_)), {"conv": conv, "ssm": S}
+
+
+def _decode_local(proj, conv, ssm, params, cfg: ModelConfig, channels=slice(None),
+                  heads=slice(None), groups=(None, None)):
+    """The decode recurrence on plain tensors: ``proj`` the token's whole
+    in_proj row (B,1,*), ``conv`` the conv state's ``channels`` (its conv_w
+    and conv_b in ``params``), ``ssm`` the SSM state's ``heads``.  Where a
+    group of ``groups`` (the conv channels' ranks, the heads' ranks) is
+    given, the token's conv output and the heads' outputs are gathered over
+    it.  -> (the normed y (B,1,d_inner), new conv state, new SSM state)."""
+    dt_ = proj.dtype
+    b = proj.shape[0]
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
-    proj = u @ cast(params["in_proj"], dt_)                             # (B,1,*)
     z, xbc, dtv = _split_proj(proj, cfg)
-    hist = torch.cat([state["conv"], xbc], dim=1)                       # (B,W,C)
-    conv_out = torch.einsum("bwc,wc->bc", hist, cast(params["conv_w"], dt_))
-    conv_out = conv_out + cast(params["conv_b"], dt_)
-    new_conv = hist[:, 1:, :]
-    xbc1 = F.silu(conv_out)[:, None, :]                                 # (B,1,C)
-    xh = xbc1[..., :di].reshape(b, h, p)
+    hist = torch.cat([conv, xbc[..., channels]], dim=1)                 # (B,W,C')
+    conv_out = torch.einsum("bwc,wc->bc", hist, params["conv_w"])
+    conv_out = conv_out + params["conv_b"]
+    act = F.silu(conv_out)
+    if groups[0] is not None:
+        act = sharding.all_gather_dim(act, -1, groups[0])
+    xbc1 = act[:, None, :]                                              # (B,1,C)
+    xh = xbc1[..., :di].reshape(b, h, p)[:, heads]
     Bm = xbc1[..., di:di + n].reshape(b, n)
     Cm = xbc1[..., di + n:].reshape(b, n)
-    dt_act = softplus(dtv[:, 0].float() + params["dt_bias"])             # (B,H)
-    a = torch.exp(-torch.exp(params["A_log"]) * dt_act)                 # (B,H)
+    dt_act = softplus(dtv[:, 0].float() + params["dt_bias"])[:, heads]  # (B,H')
+    a = torch.exp(-torch.exp(params["A_log"][heads]) * dt_act)          # (B,H')
     xw = xh.float() * dt_act[..., None]
-    S = state["ssm"] * a[..., None, None] + torch.einsum("bn,bhp->bhnp", Bm.float(), xw)
+    S = ssm * a[..., None, None] + torch.einsum("bn,bhp->bhnp", Bm.float(), xw)
     y = torch.einsum("bn,bhnp->bhp", Cm.float(), S)
-    y = y + params["D"][None, :, None] * xh.float()
+    y = y + params["D"][heads][None, :, None] * xh.float()
+    if groups[1] is not None:
+        y = sharding.all_gather_dim(y, 1, groups[1])
     y = y.reshape(b, 1, di).to(dt_)
     y = y * F.silu(z)
-    y = rmsnorm(params["norm"], y)
-    return y @ cast(params["out_proj"], dt_), {"conv": new_conv, "ssm": S}
+    return rmsnorm(params["norm"], y), hist[:, 1:, :], S
+
+
+def _decode_on_shards(params, u, state: Dict, cfg: ModelConfig):
+    """`mamba2_decode` of DTensor states: the conv state split over its
+    channels and the SSM state over its heads (`sharding.cache_pspecs`),
+    each rank advancing its own slab.  The projection is taken whole (on the
+    states' batch rows); each rank convolves its channels, the token's conv
+    output is gathered over the channels' ranks (one (B, C) row), each rank
+    updates and reads its heads' states, and the heads' outputs are gathered
+    before the gate, the norm and out_proj (`_decode_local`).  The states
+    never move."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    conv, ssm_st = state["conv"], state["ssm"]
+    mesh = conv.device_mesh
+    dt_ = u.dtype
+    di = cfg.d_inner
+    rows = [Shard(0) if pl.is_shard(0) else Replicate() for pl in conv.placements]
+    proj = linear(u, cast(params["in_proj"], dt_)).redistribute(mesh, rows).to_local()
+    (c0, c1), (h0, h1) = sharding.slab(conv, 2), sharding.slab(ssm_st, 1)
+    ch = tuple(mesh.mesh_dim_names[i] for i, pl in enumerate(conv.placements) if pl.is_shard(2))
+    w = sharding.redistribute(cast(params["conv_w"], dt_), (None, sharding._entry(ch)))
+    bias = sharding.redistribute(cast(params["conv_b"], dt_), (sharding._entry(ch),))
+    whole = [Replicate()] * mesh.ndim
+    a_log, d_skip, dt_bias, norm = (t.redistribute(mesh, whole).to_local() for t in (
+        params["A_log"], params["D"], params["dt_bias"], params["norm"]["scale"]))
+    local = dict(conv_w=w.to_local(), conv_b=bias.to_local(), A_log=a_log, D=d_skip,
+                 dt_bias=dt_bias, norm={"scale": norm})
+    y, hist, S = _decode_local(proj, conv.to_local(), ssm_st.to_local(), local, cfg,
+                               slice(c0, c1), slice(h0, h1),
+                               (sharding.split_group(conv, 2), sharding.split_group(ssm_st, 1)))
+    y = DTensor.from_local(y, mesh, rows, run_check=False, shape=(u.shape[0], 1, di),
+                           stride=(di, di, 1))
+    return (linear(y, cast(params["out_proj"], dt_)),
+            {"conv": sharding.like_local(hist, conv), "ssm": sharding.like_local(S, ssm_st)})

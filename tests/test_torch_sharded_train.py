@@ -9,8 +9,9 @@ test's bounds).  The same for every branch of the rules: the reduced
 granite-moe-3b-a800m (the token-local MoE over (data, model), its aux loss
 equal to the unsharded one's), mamba2-130m (``pure_dp``), qwen2-72b (zero1
 and sequence-parallel activations) and zamba2-1.2b (the SSD and the shared
-attention under TP), and qwen2-1.5b on a (2, 2, 2) ("pod", "data",
-"model") mesh.  On every rank: the loss bitwise rank 0's, every parameter,
+attention under TP), mixtral-8x7b (the token-local ``shard_map`` MoE over
+(data, model) and the sliding window), and qwen2-1.5b on a (2, 2, 2)
+("pod", "data", "model") mesh.  On every rank: the loss bitwise rank 0's, every parameter,
 m and v in its spec's placements after each step (step replicated), every
 gradient reaching ``adamw_update`` in its parameter's placements (a spy),
 the kernels' wrappers run on local shards (their plain versions here, with
@@ -44,6 +45,7 @@ CASES = {
     "mamba2": ("mamba2-130m", {}),
     "qwen2-72b": ("qwen2-72b", {}),
     "zamba2": ("zamba2-1.2b", {}),
+    "mixtral": ("mixtral-8x7b", {}),
 }
 MESHES = {"4x2": ((4, 2), ("data", "model"), tuple(CASES)),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model"), ("qwen2",))}
